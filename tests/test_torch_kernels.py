@@ -1,0 +1,313 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+The CUDA kernels cannot run on the CPU; what runs here is each module's
+plain PyTorch version, held against the Pallas kernel in interpret mode on
+the same numpy inputs, and the Python around the kernels (dispatch by
+device, argument checks, the build's keying and its failure). The CUDA
+kernels are held against these plain versions on the card by
+chip_smoke.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.kernels import flash_attention as jfa
+from paddle_tpu.kernels import layer_norm as jln
+from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.kernels import layer_norm as tln
+
+# fp32 on both sides; the sums run in another order: a few ulps of the
+# O(1) values compared
+F32_TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _rand(shape, seed, scale=1.0, shift=0.0):
+    return (np.random.RandomState(seed).randn(*shape) * scale + shift
+            ).astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# layer norm
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-12])
+def test_layer_norm_reference_matches_pallas(eps):
+    x = _rand((16, 128), 0, scale=3.0, shift=1.0)
+    g, b = _rand((128,), 1), _rand((128,), 2)
+    y_j, res = jln._fwd(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), eps,
+                        interpret=True)
+    mean_j, rstd_j = np.asarray(res[2])[:, 0], np.asarray(res[3])[:, 0]
+    y_t, mean_t, rstd_t = tln.layer_norm_reference(
+        torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(b), eps)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **F32_TOL)
+    np.testing.assert_allclose(mean_t.numpy(), mean_j, **F32_TOL)
+    np.testing.assert_allclose(rstd_t.numpy(), rstd_j, **F32_TOL)
+
+
+def test_layer_norm_reference_bf16_matches_pallas():
+    # bf16 in and out, fp32 inside: the outputs may differ by one bf16
+    # rounding step (2^-8 relative) of values up to ~4
+    x = _rand((16, 128), 3, scale=2.0)
+    g, b = _rand((128,), 4), _rand((128,), 5)
+    y_j, _ = jln._fwd(jnp.asarray(x, jnp.bfloat16), jnp.asarray(g),
+                      jnp.asarray(b), 1e-5, interpret=True)
+    y_t, _, _ = tln.layer_norm_reference(
+        torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(g),
+        torch.from_numpy(b), 1e-5)
+    assert y_t.dtype == torch.bfloat16
+    np.testing.assert_allclose(y_t.float().numpy(),
+                               np.asarray(y_j.astype(jnp.float32)),
+                               atol=3e-2, rtol=1e-2)
+
+
+def test_layer_norm_wrappers_on_cpu_use_the_plain_version():
+    before = tln.launches
+    x = torch.from_numpy(_rand((2, 5, 96), 6))
+    g, b = torch.from_numpy(_rand((96,), 7)), torch.from_numpy(_rand((96,), 8))
+    y = tln.layer_norm(x, g, b, 1e-5)
+    y2, mean, var = tln.layer_norm_with_stats(x, g, b, 1e-5)
+    assert tln.launches == before
+    assert y.shape == x.shape and mean.shape == (10,) and var.shape == (10,)
+    torch.testing.assert_close(y, y2)
+    # the JAX with_stats contract: mean/var flattened over leading dims
+    y_j, mean_j, var_j = jln.layer_norm_with_stats(
+        jnp.asarray(x.numpy()), jnp.asarray(g.numpy()),
+        jnp.asarray(b.numpy()), 1e-5)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **F32_TOL)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(mean_j), **F32_TOL)
+    # var comes back through 1/rstd^2 - eps: relative error of a few ulps
+    np.testing.assert_allclose(var.numpy(), np.asarray(var_j), atol=1e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["dtype", "gamma_dtype", "too_wide",
+                                  "gamma_shape", "strided"])
+def test_layer_norm_kernel_checks_refuse_what_it_cannot_take(case):
+    x = torch.zeros(4, 64)
+    g, b = torch.ones(64), torch.zeros(64)
+    if case == "dtype":
+        x = x.half()
+    elif case == "gamma_dtype":
+        g, b = g.double(), b.double()
+    elif case == "too_wide":
+        x, g, b = torch.zeros(2, 4097), torch.ones(4097), torch.zeros(4097)
+    elif case == "gamma_shape":
+        g = torch.ones(32)
+    else:
+        x = torch.zeros(64, 4).t()
+    with pytest.raises((TypeError, ValueError)):
+        tln._check(x, g, b)
+
+
+def test_layer_norm_kernel_checks_accept_bert_shapes():
+    for dt in (torch.float32, torch.bfloat16):
+        tln._check(torch.zeros(8, 384, 768, dtype=dt), torch.ones(768),
+                   torch.zeros(768))
+    x = torch.zeros(3, 4096, dtype=torch.bfloat16)
+    tln._check(x, torch.ones(4096, dtype=torch.bfloat16),
+               torch.zeros(4096, dtype=torch.bfloat16))
+
+
+def test_layer_norm_on_a_device_without_kernel_raises():
+    x = torch.zeros(4, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tln.layer_norm(x, torch.ones(64, device="meta"),
+                       torch.zeros(64, device="meta"))
+
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+def _qkv(b, h, sq, sk, d, seed):
+    return (_rand((b, h, sq, d), seed), _rand((b, h, sk, d), seed + 1),
+            _rand((b, h, sk, d), seed + 2))
+
+
+def _padding_bias(b, s, seed):
+    lens = np.random.RandomState(seed).randint(s // 4, s + 1, size=b)
+    m = (np.arange(s)[None, :] < lens[:, None]).astype(np.float32)
+    return ((1.0 - m)[:, None, None, :] *
+            np.finfo(np.float32).min).astype(np.float32)
+
+
+FLASH_CASES = {
+    "plain": dict(sq=128, sk=128, bias=False, causal=False),
+    "padding_bias": dict(sq=128, sk=128, bias=True, causal=False),
+    "causal": dict(sq=128, sk=128, bias=False, causal=True),
+    "causal_sq_gt_sk": dict(sq=256, sk=128, bias=False, causal=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_attention_reference_matches_pallas(name):
+    c = FLASH_CASES[name]
+    b, h, d = 2, 2, 64
+    q, k, v = _qkv(b, h, c["sq"], c["sk"], d, 10)
+    bias = _padding_bias(b, c["sk"], 11) if c["bias"] else None
+    scale = 1.0 / np.sqrt(d)
+    o_j, lse_j = jfa._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          None if bias is None else jnp.asarray(bias),
+                          None, None, c["causal"], scale, 128, 128,
+                          True, 1.0)
+    o_t, lse_t = tfa.attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        None if bias is None else torch.from_numpy(bias), c["causal"], scale)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **F32_TOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), **F32_TOL)
+    if name == "causal_sq_gt_sk":
+        # the leading rows see no key: o = 0 and lse = 0 in both
+        empty = c["sq"] - c["sk"]
+        assert np.all(o_t.numpy()[:, :, :empty] == 0.0)
+        assert np.all(lse_t.numpy()[:, :, :empty] == 0.0)
+
+
+def test_fully_masked_row_follows_the_jax_reference():
+    # a row whose every key is bias-masked: the JAX attention_reference
+    # gives the uniform average of v (its Pallas kernel gives 0; BERT never
+    # builds such a row). The port's plain version follows the reference.
+    b, h, s, d = 2, 1, 128, 64
+    q, k, v = _qkv(b, h, s, s, d, 50)
+    bias = np.zeros((b, 1, 1, s), np.float32)
+    bias[1] = np.finfo(np.float32).min
+    o_j = jfa.attention_reference(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), jnp.asarray(bias))
+    o_t, _ = tfa.attention_reference(torch.from_numpy(q),
+                                     torch.from_numpy(k),
+                                     torch.from_numpy(v),
+                                     torch.from_numpy(bias))
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **F32_TOL)
+    np.testing.assert_allclose(o_t.numpy()[1, 0, 0], v[1, 0].mean(0),
+                               **F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_public_flash_attention_matches_jax(causal):
+    b, h, s, d = 2, 2, 128, 64
+    q, k, v = _qkv(b, h, s, s, d, 20)
+    bias = _padding_bias(b, s, 21)
+    o_j = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              bias=jnp.asarray(bias), causal=causal)
+    before = tfa.launches
+    o_t = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v),
+                              bias=torch.from_numpy(bias), causal=causal)
+    assert tfa.launches == before  # the CPU path launches nothing
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **F32_TOL)
+
+
+def test_attention_reference_keep_mask_matches_jax():
+    b, h, s, d = 1, 2, 64, 64
+    q, k, v = _qkv(b, h, s, s, d, 30)
+    keep = (np.random.RandomState(31).rand(b, h, s, s) >= 0.1
+            ).astype(np.float32)
+    o_j = jfa.attention_reference(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), keep_mask=jnp.asarray(keep),
+                                  keep_prob=0.9)
+    o_t, _ = tfa.attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        keep_mask=torch.from_numpy(keep), keep_prob=0.9)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **F32_TOL)
+
+
+def test_cpu_dropout_draws_its_keep_mask_from_the_generator():
+    b, h, s, d = 1, 2, 32, 64
+    q, k, v = (torch.from_numpy(t) for t in _qkv(b, h, s, s, d, 40))
+    o1 = tfa.flash_attention(q, k, v, dropout_rate=0.2,
+                             generator=torch.Generator().manual_seed(5))
+    o2 = tfa.flash_attention(q, k, v, dropout_rate=0.2,
+                             generator=torch.Generator().manual_seed(5))
+    keep = torch.rand((b, h, s, s),
+                      generator=torch.Generator().manual_seed(5)) < 0.8
+    o_ref, _ = tfa.attention_reference(q, k, v, keep_mask=keep,
+                                       keep_prob=0.8)
+    torch.testing.assert_close(o1, o2)
+    torch.testing.assert_close(o1, o_ref)
+
+
+def test_flash_attention_off_the_cpu_raises_for_dropout():
+    q = torch.zeros(1, 2, 16, 64, device="meta")
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tfa.flash_attention(q, q, q, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("case", ["head_dim", "dtype", "mixed_dtype",
+                                  "kv_shape", "strided_d"])
+def test_flash_kernel_checks_refuse_what_it_cannot_take(case):
+    q = k = v = torch.zeros(1, 2, 16, 64)
+    if case == "head_dim":
+        q = k = v = torch.zeros(1, 2, 16, 32)
+    elif case == "dtype":
+        q = k = v = q.half()
+    elif case == "mixed_dtype":
+        k = k.to(torch.bfloat16)
+    elif case == "kv_shape":
+        v = torch.zeros(1, 2, 15, 64)
+    else:
+        q = torch.zeros(1, 2, 64, 16).transpose(-1, -2)
+    with pytest.raises((TypeError, ValueError)):
+        tfa._check(q, k, v)
+
+
+def test_flash_kernel_checks_accept_strided_projection_views():
+    # the fused-QKV path hands the kernel transposed views of [B,S,3E]
+    b, s, h, d = 2, 77, 12, 64
+    qkv = torch.zeros(b, s, 3 * h * d, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in qkv.split(h * d, dim=-1))
+    tfa._check(q, k, v)
+    assert q.stride() == (s * 3 * h * d, d, 3 * h * d, 1)
+
+
+# --------------------------------------------------------------------------
+# the build
+# --------------------------------------------------------------------------
+
+def test_build_keys_the_library_on_the_source(tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", src)
+    first = _build.library_path("k")
+    assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
+    assert _build.library_path("k") == first
+    (src / "k.cu").write_text("// two\n")
+    assert _build.library_path("k") != first
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+def test_build_failure_raises_with_the_compiler_output(tmp_path,
+                                                       monkeypatch):
+    # a stand-in compiler that fails: no library, and an error that says why
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no such intrinsic' >&2\n"
+                    "exit 2\n")
+    fake.chmod(0o755)
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text("// k\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="no such intrinsic"):
+        _build.build(["k"])
+    assert not _build.library_path("k").exists()
+
+
+def test_every_kernel_source_is_in_the_package():
+    for name in _build.KERNEL_SOURCES:
+        text = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        assert "sm_90a" in text and 'extern "C"' in text
+        # the note names the TPU kernel it replaces
+        assert f"paddle_tpu/kernels/{name}.py:_fwd_kernel" in text
