@@ -1,4 +1,4 @@
-"""Forward-only AMP: the ``auto_cast`` context.
+"""AMP: the ``auto_cast`` context, for the forward and for training.
 
 Counterpart of ``paddle_tpu/amp.py:auto_cast``. Inside the context the
 matmul-class ops of the JAX package's white list
@@ -6,8 +6,11 @@ matmul-class ops of the JAX package's white list
 the AMP dtype; so does the fused-QKV attention core of
 ``nn/transformer.py``. Nothing else is cast: layer norm and elementwise
 ops keep their inputs' dtypes, and bf16 + fp32 promotes to fp32 as it does
-in JAX. This is not ``torch.autocast``, whose op lists differ.
-``GradScaler`` comes with the training slice.
+in JAX. The casts are ``Tensor.to``, which autograd differentiates, so in
+training the fp32 master parameters receive fp32 gradients (the JAX tape
+records the same cast node). This is not ``torch.autocast``, whose op
+lists differ. ``GradScaler`` (fp16 loss scaling) is not ported yet
+(``ROADMAP.md`` A1c).
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ def cast_inputs(op_type: str, *tensors: torch.Tensor):
 
 
 class auto_cast:
-    """paddle.amp.auto_cast (forward only)."""
+    """paddle.amp.auto_cast."""
 
     def __init__(self, enable: bool = True, dtype: str = "bfloat16"):
         self._dtype = to_torch_dtype(dtype) if enable else None

@@ -1,14 +1,21 @@
 // Flash-attention forward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel paddle_tpu/kernels/flash_attention.py:_fwd_kernel
-// (launcher _fwd, which reaches pl.pallas_call) without its dropout. For q
-// [B,H,Sq,D], k and v [B,H,Sk,D] and an optional additive fp32 bias that
-// broadcasts to [B,H,Sq,Sk]:
+// (launcher _fwd, which reaches pl.pallas_call), with its attention-probs
+// dropout (_drop_keep_tile; see flash_common.cuh). For q [B,H,Sq,D], k and
+// v [B,H,Sk,D] and an optional additive fp32 bias that broadcasts to
+// [B,H,Sq,Sk]:
 //   s = (q k^T) * scale + bias, causal mask bottom-right aligned (key j is
 //   visible to query i when i + Sk - Sq >= j, masked scores are -1e30),
-//   o = softmax(s) v in q's dtype, lse = logsumexp(s) in fp32.
-// A row that sees no key (causal with Sq > Sk) writes o = 0 and lse = 0,
-// as the TPU kernel does.
+//   p = softmax(s), o = (p * keep / keep_prob) v in q's dtype,
+//   lse = logsumexp(s) in fp32.
+// Dropout multiplies only the value accumulation: the softmax denominator
+// and lse stay undropped, as in the TPU kernel. The keep pattern comes
+// from an explicit [B,H,Sq,Sk] keep mask read through strides (the JAX
+// package's HBM-mask path) or from Philox run in the kernel (its seed
+// path), with no mask in memory. A row that sees no key (causal with
+// Sq > Sk, or every key masked by the bias) writes o = 0 and lse = 0, as
+// the TPU kernel does.
 //
 // What bounds it on the H100: at BERT-base (S = 512, D = 64) the work is
 // 4*S*D = 131k flops for every 4*D elements of q, k, v, o a row moves. In
@@ -32,26 +39,24 @@
 //   the accumulator each (the TPU kernel's fp32 numerics exactly).
 //
 // C interface, loaded with ctypes (paddle_tpu_torch/kernels/flash_attention.py):
-//   int pt_flash_attention_fwd(q, k, v, bias, o, lse, B, H, Sq, Sk, D,
-//                              strides, scale, causal, dtype, stream)
-// strides points to 16 int64 in host memory, in elements: q, k, v and o
-// (batch, head, row) then bias (batch, head, query, key). The last dim of
-// q, k, v and o is contiguous. dtype codes: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 on success).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+//   int pt_flash_attention_fwd(q, k, v, bias, keep, seed, o, lse, B, H, Sq,
+//                              Sk, D, strides, scale, causal, thresh, rinv,
+//                              dtype, stream)
+//   int pt_flash_dropout_keep_mask(seed, B, H, Sq, Sk, thresh, out, stream)
+// strides points to 20 int64 in host memory, in elements: q, k, v and o
+// (batch, head, row), then bias and keep (batch, head, query, key). The
+// last dim of q, k, v and o is contiguous. keep (uint8, 1 = keep) selects
+// mask mode, seed (one int64 in device memory) seed mode; with neither
+// there is no dropout. thresh and rinv = 1 / keep_prob define the dropout.
+// pt_flash_dropout_keep_mask writes the seed-mode pattern as a contiguous
+// uint8 [B,H,Sq,Sk] mask, for checking it against the plain version.
+// dtype codes: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
+// launch (0 on success).
+#include "flash_common.cuh"
+
+using namespace flash;
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kSimtThreads = 256;
-constexpr int kMmaThreads = 128;
-constexpr float kNegInf = -1e30f;
 
 struct Params {
   const void* q;
@@ -67,6 +72,7 @@ struct Params {
   float scale;
   int causal;
   int vec16;  // q, k, v rows start on 16-byte boundaries
+  Dropout drop;
 };
 
 // number of k tiles a q tile starting at q0 needs (causal: up to the last
@@ -127,6 +133,7 @@ flash_fwd_simt_kernel(const Params p) {
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* bias =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
+  const uint2 seed = read_seed(p.drop);
 
   // q is scaled before the product, as the TPU kernel does
   for (int i = tid; i < kBlockQ * D; i += kSimtThreads) {
@@ -202,9 +209,12 @@ flash_fwd_simt_kernel(const Params p) {
         if (a <= kNegInf / 2) pa = 0.f;
         if (c <= kNegInf / 2) pc = 0.f;
       }
-      srow[lane] = pa;
-      srow[lane + 32] = pc;
       float sum = pa + pc;
+      // dropout scales the value accumulation only: l sums undropped p
+      srow[lane] = pa * drop_factor(p.drop, seed, b, h, q0 + r, k0 + lane,
+                                    p.Sq, p.Sk);
+      srow[lane + 32] = pc * drop_factor(p.drop, seed, b, h, q0 + r,
+                                         k0 + lane + 32, p.Sq, p.Sk);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -266,58 +276,6 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * 3 * kBlockQ * (D + 8);
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 fp32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices, transposed: the B operands of two n8 tiles
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// rows [0, valid) of a 64-row tile into shared memory (row stride LD), the
-// rest zero
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int64_t row_stride, int valid,
-                                          bool vec16) {
-  if (vec16) {
-    constexpr int kChunks = D / 8;  // 16-byte chunks a row
-    for (int i = threadIdx.x; i < kBlockQ * kChunks; i += kMmaThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < kBlockQ * D; i += kMmaThreads) {
-      const int r = i / D, c = i % D;
-      dst[r * LD + c] = r < valid ? src[r * row_stride + c]
-                                  : __ushort_as_bfloat16(0);
-    }
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const Params p) {
@@ -339,9 +297,10 @@ flash_fwd_mma_kernel(const Params p) {
   const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* bias =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
+  const uint2 seed = read_seed(p.drop);
 
-  load_tile<D, LD>(Qs, q + q0 * p.q_ss, p.q_ss, min(kBlockQ, p.Sq - q0),
-                   p.vec16);
+  load_tile<D, LD, kMmaThreads>(Qs, q + q0 * p.q_ss, p.q_ss,
+                                min(kBlockQ, p.Sq - q0), p.vec16);
   __syncthreads();
   // this warp's 16 query rows as A fragments, kept in registers
   const int r0 = warp * 16 + g;
@@ -369,8 +328,10 @@ flash_fwd_mma_kernel(const Params p) {
     const int k0 = kt * kBlockK;
     const int valid = min(kBlockK, p.Sk - k0);
     __syncthreads();  // the last tile's K and V are consumed
-    load_tile<D, LD>(Ks, k + k0 * p.k_ss, p.k_ss, valid, p.vec16);
-    load_tile<D, LD>(Vs, v + k0 * p.v_ss, p.v_ss, valid, p.vec16);
+    load_tile<D, LD, kMmaThreads>(Ks, k + k0 * p.k_ss, p.k_ss, valid,
+                                  p.vec16);
+    load_tile<D, LD, kMmaThreads>(Vs, v + k0 * p.v_ss, p.v_ss, valid,
+                                  p.vec16);
     __syncthreads();
 
     // S = Q K^T: n-tile nt holds keys nt*8 .. nt*8+7; element e of a
@@ -424,6 +385,17 @@ flash_fwd_mma_kernel(const Params p) {
         acc[dt][2 * hr] *= alpha;
         acc[dt][2 * hr + 1] *= alpha;
       }
+      // dropout scales the value accumulation only: l summed undropped p
+      if (p.drop.mode != kNoDrop) {
+#pragma unroll
+        for (int nt = 0; nt < kTilesS; ++nt) {
+          float f0, f1;
+          drop_factor_keys(p.drop, seed, b, h, rows[hr], k0 + nt * 8 + 2 * t,
+                           p.Sq, p.Sk, f0, f1);
+          s[nt][2 * hr] *= f0;
+          s[nt][2 * hr + 1] *= f1;
+        }
+      }
     }
 
     // acc += P V: the score fragments of n-tiles 2j and 2j+1 are the A
@@ -475,20 +447,46 @@ int launch(Kernel kernel, int threads, size_t smem, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+// one thread a 2 x 2 group of the seed-mode pattern, each row of it through
+// drop_factor_keys, the word selection of the bf16 forward and dQ kernels
+// (d.rinv is 1, so a factor is 1 for keep and 0 for drop)
+__global__ void keep_mask_kernel(Dropout d, int B, int H, int Sq, int Sk,
+                                 uint8_t* out) {
+  const uint2 seed = read_seed(d);
+  const int gq = (Sq + 1) / 2, gk = (Sk + 1) / 2;
+  const int64_t n = static_cast<int64_t>(B) * H * gq * gk;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int k = 2 * static_cast<int>(i % gk);
+    const int q2 = static_cast<int>((i / gk) % gq);
+    const int h = static_cast<int>((i / gk / gq) % H);
+    const int b = static_cast<int>(i / gk / gq / H);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = 2 * q2 + e;
+      if (q >= Sq) continue;
+      float f0, f1;
+      drop_factor_keys(d, seed, b, h, q, k, Sq, Sk, f0, f1);
+      uint8_t* row = out + ((static_cast<int64_t>(b) * H + h) * Sq + q) * Sk;
+      row[k] = f0 != 0.f;
+      if (k + 1 < Sk) row[k + 1] = f1 != 0.f;
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, const void* bias,
+                                      const void* keep, const void* seed,
                                       void* o, void* lse, int B, int H,
                                       int Sq, int Sk, int D,
                                       const void* strides, float scale,
-                                      int causal, int dtype, void* stream) {
+                                      int causal, unsigned int thresh,
+                                      float rinv, int dtype, void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || H > 65535 || B > 65535)
     return cudaErrorInvalidValue;
+  if (keep != nullptr && seed != nullptr) return cudaErrorInvalidValue;
   const int64_t* st = static_cast<const int64_t*>(strides);
   Params p;
   p.q = q; p.k = k; p.v = v;
@@ -502,6 +500,13 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
   p.o_sb = st[9]; p.o_sh = st[10]; p.o_ss = st[11];
   p.bias_sb = st[12]; p.bias_sh = st[13]; p.bias_sq = st[14];
   p.bias_sk = st[15];
+  p.drop.keep = static_cast<const uint8_t*>(keep);
+  p.drop.sb = st[16]; p.drop.sh = st[17]; p.drop.sq = st[18];
+  p.drop.sk = st[19];
+  p.drop.seed = static_cast<const int64_t*>(seed);
+  p.drop.thresh = thresh;
+  p.drop.rinv = rinv;
+  p.drop.mode = keep ? kMaskDrop : seed ? kSeedDrop : kNoDrop;
   p.scale = scale;
   p.causal = causal;
   bool vec = aligned16(q) && aligned16(k) && aligned16(v);
@@ -525,4 +530,22 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
     return launch(flash_fwd_mma_kernel<128>, kMmaThreads,
                   mma_smem_bytes<128>(), p, s);
   return cudaErrorInvalidValue;
+}
+
+
+extern "C" int pt_flash_dropout_keep_mask(const void* seed, int B, int H,
+                                          int Sq, int Sk, unsigned int thresh,
+                                          void* out, void* stream) {
+  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || seed == nullptr)
+    return cudaErrorInvalidValue;
+  Dropout d;
+  d.keep = nullptr;
+  d.sb = d.sh = d.sq = d.sk = 0;
+  d.seed = static_cast<const int64_t*>(seed);
+  d.thresh = thresh;
+  d.rinv = 1.f;
+  d.mode = kSeedDrop;
+  keep_mask_kernel<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      d, B, H, Sq, Sk, static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

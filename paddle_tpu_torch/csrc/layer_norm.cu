@@ -1,24 +1,40 @@
-// Fused layer-norm forward for Hopper (sm_90a).
+// Fused layer norm, forward and backward, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel paddle_tpu/kernels/layer_norm.py:_fwd_kernel
+// Forward: replaces the TPU kernel paddle_tpu/kernels/layer_norm.py:_fwd_kernel
 // (launcher _fwd, which reaches pl.pallas_call). Per row of x [rows, F]:
 // fp32 mean, centred variance (two passes, never E[x^2] - mean^2),
 // rstd = rsqrt(var + eps), y = (x - mean) * rstd * gamma + beta in x's
 // dtype. mean and rstd are written in fp32 for the backward.
 //
-// What bounds it on the H100: bytes. A row of 768 fp32 values is 3 KB
-// and takes ~10 flops per value, far below the ~295 flop/byte ridge.
-// The design reads x from device memory exactly once: TPR threads own one
-// row (a warp for F <= 1024, a 128-thread block up to F = 4096), each
-// keeping up to 32 values of it in registers between the two passes, and
-// loads and stores 4 values at a time (16 bytes in fp32, 8 in bf16) where
-// F and the pointers allow. Rows run in parallel over the whole grid.
+// Backward: replaces paddle_tpu/kernels/layer_norm.py:_bwd_kernel
+// (launcher _layer_norm_bwd). With x^ = (x - mean) rstd and g = gamma dy:
+// dx = (g - mean(g) - x^ mean(g x^)) rstd in x's dtype, dgamma = sum dy x^
+// and dbeta = sum dy over the rows, in gamma's dtype. The TPU kernel sums
+// dgamma and dbeta into one output block across its sequential grid. Here
+// blocks run in parallel: pass 1 has each of G blocks walk rows
+// blockIdx.x, blockIdx.x + G, ... and write its fp32 partial sums to a
+// [2, G, F] scratch; pass 2 sums the G partials of each column in a fixed
+// order. No atomics, so the result is the same from run to run.
+//
+// What bounds both on the H100: bytes. A row of 768 fp32 values is 3 KB
+// and takes ~10 flops per value (forward) or ~12 (backward), far below the
+// ~295 flop/byte ridge. The design reads x (and dy) from device memory
+// exactly once: TPR threads own one row (a warp for F <= 1024, a
+// 128-thread block up to F = 4096), each keeping up to 32 values of it in
+// registers between the passes over the row, and loads and stores 4 values
+// at a time (16 bytes in fp32, 8 in bf16) where F and the pointers allow.
+// The backward's partials add 2 G F fp32 values written and read once,
+// about 4% of its traffic at [16384, 768].
 //
 // C interface, loaded with ctypes (paddle_tpu_torch/kernels/layer_norm.py):
 //   int pt_layer_norm_fwd(x, gamma, beta, y, mean, rstd, rows, features,
 //                         eps, x_dtype, w_dtype, stream)
-// dtype codes: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
-// launch (0 on success).
+//   int pt_layer_norm_bwd(x, gamma, mean, rstd, dy, dx, dgamma, dbeta,
+//                         partial, rows, features, blocks, x_dtype, w_dtype,
+//                         stream)
+// partial is fp32 scratch of 2 * blocks * features values. dtype codes:
+// 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launches (0 on
+// success).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -199,6 +215,192 @@ void launch(const void* x, const void* g, const void* b, void* y,
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+// The largest [rows a block, F] tile of partial sums: 4 x 1024 (a warp a
+// row) or 1 x 4096 (a block a row).
+constexpr int kMaxRed = 4096;
+
+template <typename T, typename W, int TPR, int VEC>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
+                      const float* __restrict__ mean_in,
+                      const float* __restrict__ rstd_in,
+                      const T* __restrict__ dy, T* __restrict__ dx,
+                      float* __restrict__ partial, int64_t rows, int F) {
+  constexpr int kRowsPerBlock = kThreads / TPR;
+  constexpr int kChunks = kMaxPerThread / VEC;
+  __shared__ float scratch[kThreads / 32];
+  __shared__ float red[2 * kMaxRed];
+  const int t = threadIdx.x % TPR;
+  const int group = threadIdx.x / TPR;
+
+  float g[kMaxPerThread], pg[kMaxPerThread], pb[kMaxPerThread];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int base = (c * TPR + t) * VEC;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      g[c * VEC + j] = 0.f;
+      pg[c * VEC + j] = 0.f;
+      pb[c * VEC + j] = 0.f;
+    }
+    if (base < F) load_vec<VEC>(gamma + base, g + c * VEC);
+  }
+
+  // the loop bound depends on the block alone: with TPR = 128 every thread
+  // of the block reaches row_sum's __syncthreads together
+  for (int64_t rb = blockIdx.x; rb * kRowsPerBlock < rows; rb += gridDim.x) {
+    const int64_t row = rb * kRowsPerBlock + group;
+    const bool live = row < rows;
+    const float mean = live ? mean_in[row] : 0.f;
+    const float rstd = live ? rstd_in[row] : 0.f;
+    float xh[kMaxPerThread], d[kMaxPerThread];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int base = (c * TPR + t) * VEC;
+      if (live && base < F) {
+        load_vec<VEC>(x + row * F + base, xh + c * VEC);
+        load_vec<VEC>(dy + row * F + base, d + c * VEC);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const int i = c * VEC + j;
+          xh[i] = (xh[i] - mean) * rstd;
+          const float w = d[i] * g[i];
+          s1 += w;
+          s2 += w * xh[i];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          xh[c * VEC + j] = 0.f;
+          d[c * VEC + j] = 0.f;
+        }
+      }
+    }
+    const float c1 = row_sum<TPR>(s1, scratch) / F;
+    const float c2 = row_sum<TPR>(s2, scratch) / F;
+    if (!live) continue;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int base = (c * TPR + t) * VEC;
+      if (base < F) {
+        float out[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const int i = c * VEC + j;
+          out[j] = (d[i] * g[i] - c1 - xh[i] * c2) * rstd;
+          pg[i] += d[i] * xh[i];
+          pb[i] += d[i];
+        }
+        store_vec<VEC>(dx + row * F + base, out);
+      }
+    }
+  }
+
+  // this block's partials: its row groups meet in shared memory and are
+  // summed in group order
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int base = (c * TPR + t) * VEC;
+    if (base < F) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        red[group * F + base + j] = pg[c * VEC + j];
+        red[kMaxRed + group * F + base + j] = pb[c * VEC + j];
+      }
+    }
+  }
+  __syncthreads();
+  for (int col = threadIdx.x; col < F; col += kThreads) {
+    float sg = 0.f, sb = 0.f;
+#pragma unroll
+    for (int r = 0; r < kRowsPerBlock; ++r) {
+      sg += red[r * F + col];
+      sb += red[kMaxRed + r * F + col];
+    }
+    partial[static_cast<int64_t>(blockIdx.x) * F + col] = sg;
+    partial[(static_cast<int64_t>(gridDim.x) + blockIdx.x) * F + col] = sb;
+  }
+}
+
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// pass 2: out[which][col] = sum over the G partial rows, in a fixed order.
+// A block owns 32 columns; its 8 slices of threads each sum every 8th
+// partial row, then the slices are added in slice order.
+constexpr int kRedCols = 32;
+constexpr int kRedSlices = 8;
+
+template <typename W>
+__global__ void __launch_bounds__(kRedCols * kRedSlices)
+layer_norm_bwd_reduce_kernel(const float* __restrict__ partial,
+                             W* __restrict__ dgamma, W* __restrict__ dbeta,
+                             int G, int F) {
+  __shared__ float sums[kRedSlices][kRedCols];
+  const int tx = threadIdx.x % kRedCols, ty = threadIdx.x / kRedCols;
+  const int col = blockIdx.x * kRedCols + tx;  // over 2F: dgamma, dbeta
+  const int which = col / F, c = col % F;
+  float s = 0.f;
+  if (col < 2 * F) {
+    const float* src = partial + static_cast<int64_t>(which) * G * F + c;
+#pragma unroll 8
+    for (int r = ty; r < G; r += kRedSlices) s += src[static_cast<int64_t>(r) * F];
+  }
+  sums[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && col < 2 * F) {
+    float total = 0.f;
+#pragma unroll
+    for (int k = 0; k < kRedSlices; ++k) total += sums[k][tx];
+    store_one((which == 0 ? dgamma : dbeta) + c, total);
+  }
+}
+
+template <typename T, typename W, int TPR>
+void launch_bwd_tpr(const void* x, const void* g, const float* mean,
+                    const float* rstd, const void* dy, void* dx,
+                    float* partial, int64_t rows, int F, int blocks,
+                    cudaStream_t stream) {
+  const bool vec = F % 4 == 0 && aligned(x, 4 * sizeof(T)) &&
+                   aligned(dy, 4 * sizeof(T)) && aligned(dx, 4 * sizeof(T)) &&
+                   aligned(g, 4 * sizeof(W));
+  const T* xt = static_cast<const T*>(x);
+  const W* gt = static_cast<const W*>(g);
+  const T* dyt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+  if (vec) {
+    layer_norm_bwd_kernel<T, W, TPR, 4><<<blocks, kThreads, 0, stream>>>(
+        xt, gt, mean, rstd, dyt, dxt, partial, rows, F);
+  } else {
+    layer_norm_bwd_kernel<T, W, TPR, 1><<<blocks, kThreads, 0, stream>>>(
+        xt, gt, mean, rstd, dyt, dxt, partial, rows, F);
+  }
+}
+
+template <typename T, typename W>
+void launch_bwd(const void* x, const void* g, const float* mean,
+                const float* rstd, const void* dy, void* dx, void* dgamma,
+                void* dbeta, float* partial, int64_t rows, int F, int blocks,
+                cudaStream_t stream) {
+  if (F <= 32 * kMaxPerThread) {
+    launch_bwd_tpr<T, W, 32>(x, g, mean, rstd, dy, dx, partial, rows, F,
+                             blocks, stream);
+  } else {
+    launch_bwd_tpr<T, W, 128>(x, g, mean, rstd, dy, dx, partial, rows, F,
+                              blocks, stream);
+  }
+  const int grid = (2 * F + kRedCols - 1) / kRedCols;
+  layer_norm_bwd_reduce_kernel<W><<<grid, kRedCols * kRedSlices, 0, stream>>>(
+      partial, static_cast<W*>(dgamma), static_cast<W*>(dbeta), blocks, F);
+}
+
 }  // namespace
 
 extern "C" int pt_layer_norm_fwd(const void* x, const void* gamma,
@@ -219,6 +421,36 @@ extern "C" int pt_layer_norm_fwd(const void* x, const void* gamma,
   } else if (x_dtype == 1 && w_dtype == 1) {
     launch<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, m, r, rows,
                                          features, eps, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+extern "C" int pt_layer_norm_bwd(const void* x, const void* gamma,
+                                 const void* mean, const void* rstd,
+                                 const void* dy, void* dx, void* dgamma,
+                                 void* dbeta, void* partial, long long rows,
+                                 int features, int blocks, int x_dtype,
+                                 int w_dtype, void* stream) {
+  if (rows < 1 || features < 1 || features > 128 * kMaxPerThread ||
+      blocks < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mean);
+  const float* r = static_cast<const float*>(rstd);
+  float* part = static_cast<float*>(partial);
+  if (x_dtype == 0 && w_dtype == 0) {
+    launch_bwd<float, float>(x, gamma, m, r, dy, dx, dgamma, dbeta, part,
+                             rows, features, blocks, s);
+  } else if (x_dtype == 1 && w_dtype == 0) {
+    launch_bwd<__nv_bfloat16, float>(x, gamma, m, r, dy, dx, dgamma, dbeta,
+                                     part, rows, features, blocks, s);
+  } else if (x_dtype == 1 && w_dtype == 1) {
+    launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, gamma, m, r, dy, dx, dgamma,
+                                             dbeta, part, rows, features,
+                                             blocks, s);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -1,3 +1,4 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions:
-``layer_norm`` (fused layer-norm forward) and ``flash_attention``
-(flash-attention forward). Sources are under ``paddle_tpu_torch/csrc``."""
+``layer_norm`` (fused layer norm, forward and backward) and
+``flash_attention`` (flash attention, forward with dropout, dQ and dK/dV).
+Sources are under ``paddle_tpu_torch/csrc``."""

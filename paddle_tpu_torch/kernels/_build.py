@@ -2,8 +2,8 @@
 
 Each ``paddle_tpu_torch/csrc/<name>.cu`` becomes one shared library with a
 plain C interface, ``paddle_tpu_torch/_build/<name>-<hash>.so``, loaded
-with ``ctypes``. The hash covers the source and the compiler flags, so an
-edit rebuilds. A failed build raises: there is no fallback to the plain
+with ``ctypes``. The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so an edit rebuilds. A failed build raises: there is no fallback to the plain
 PyTorch versions. Several sources build in parallel, one ``nvcc`` each.
 """
 from __future__ import annotations
@@ -23,7 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("layer_norm", "flash_attention")
+KERNEL_SOURCES = ("layer_norm", "flash_attention", "flash_attention_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
@@ -45,8 +45,11 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,4 +1,4 @@
-"""Parameter attributes, initializers and the port's random generator.
+"""Parameter attributes, initializers and the port's random generators.
 
 Counterpart of the parts of ``paddle_tpu/layers/helper.py`` that BERT
 uses: ``ParamAttr`` and the ``Constant``, ``Normal`` and ``Xavier``
@@ -6,25 +6,47 @@ initializers. Each initializer draws from an explicit ``torch.Generator``
 on the CPU, in float32. The distributions are the JAX package's; the bits
 cannot be (JAX uses threefry, torch Philox), so a test that compares the
 two packages copies parameters across rather than re-drawing them.
+
+The port keeps one explicit generator per device, and ``seed(s)`` seeds
+all of them: the CPU one (initializers, CPU dropout, and the seeds of
+attention-probs dropout, drawn on the host) and one per CUDA device
+(hidden dropout on that card). So one ``seed`` makes a training run
+reproducible on either device, the contract of the JAX package's
+``paddle_tpu.dygraph.seed`` (``paddle_tpu/jit.py`` TrainStep).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-_GENERATOR = torch.Generator().manual_seed(0)
+_SEED = 0
+_GENERATORS: Dict[str, torch.Generator] = {
+    "cpu": torch.Generator().manual_seed(_SEED)}
 
 
 def seed(s: int) -> None:
-    """Reseed the generator that parameter initializers and CPU dropout
-    draw from (the counterpart of ``paddle_tpu.dygraph.seed``)."""
-    _GENERATOR.manual_seed(s)
+    """Reseed every generator of the port (the counterpart of
+    ``paddle_tpu.dygraph.seed``); a CUDA generator made later starts from
+    ``s`` too."""
+    global _SEED
+    _SEED = int(s)
+    for g in _GENERATORS.values():
+        g.manual_seed(_SEED)
 
 
-def default_generator() -> torch.Generator:
-    return _GENERATOR
+def default_generator(device=None) -> torch.Generator:
+    """The port's generator for ``device`` (default the CPU)."""
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = str(dev)
+    g = _GENERATORS.get(key)
+    if g is None:
+        g = torch.Generator(device=dev).manual_seed(_SEED)
+        _GENERATORS[key] = g
+    return g
 
 
 class ParamAttr:

@@ -1,5 +1,5 @@
-"""BERT: BertModel, BertForPretraining (MLM + NSP heads) and
-BertForSequenceClassification.
+"""BERT: BertModel, BertForPretraining (MLM + NSP heads), its
+``pretraining_loss``, and BertForSequenceClassification.
 
 Counterpart of ``paddle_tpu/models/bert.py``, with the same parameter
 names, so ``jit.load_reference_state`` carries the JAX package's weights
@@ -163,6 +163,18 @@ class BertForPretraining(Layer):
         encoded, pooled = self.bert(input_ids, token_type_ids,
                                     attention_mask)
         return self.cls(encoded, masked_positions), self.nsp(pooled)
+
+
+def pretraining_loss(mlm_logits: torch.Tensor, nsp_logits: torch.Tensor,
+                     mlm_labels: torch.Tensor,
+                     nsp_labels: torch.Tensor) -> torch.Tensor:
+    """Masked-LM loss (ignore_index=-100 for unmasked positions) plus the
+    NSP loss, each the ``mean`` op over every position
+    (``paddle_tpu/models/bert.py:pretraining_loss``)."""
+    mlm = F.cross_entropy(mlm_logits, mlm_labels, ignore_index=-100,
+                          reduction="mean")
+    nsp = F.cross_entropy(nsp_logits, nsp_labels, reduction="mean")
+    return mlm + nsp
 
 
 class BertForSequenceClassification(Layer):

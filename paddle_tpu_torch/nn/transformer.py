@@ -3,8 +3,12 @@ TransformerEncoder.
 
 Counterpart of ``paddle_tpu/nn/transformer.py``. The attention core routes
 by device and by nothing else: a CUDA tensor always goes to the flash
-kernel (``kernels/flash_attention.py``) and logs ``"flash"``; a CPU tensor
-goes to the plain version and logs ``"reference"``. The JAX package's TPU
+kernels (``kernels/flash_attention.py``, forward and backward) and logs
+``"flash"``; a CPU tensor goes to the plain versions and logs
+``"reference"``. In training with ``dropout_p`` > 0 both run the
+attention-probs dropout in seed mode, with the seed drawn on the host from
+the port's CPU generator, so a CPU and a CUDA run from one seed drop the
+same probabilities. The JAX package's TPU
 routing (its sequence-length crossover, its backend gate, its fallback
 flag) does not carry over: a crossover on the H100 may come only from an
 H100 measurement. A kernel error propagates.
@@ -44,7 +48,9 @@ def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     training: bool, is_causal: bool = False) -> torch.Tensor:
     """q, k, v: [B, S, H, D] -> [B, S, H, D]. The [B, H, S, D] views handed
     to the kernel are transposes without copies: the kernel reads strides.
-    attn_mask is an additive padding/visibility bias, not differentiated."""
+    attn_mask is an additive padding/visibility bias, derived from the
+    input ids and so not differentiated (detached), which keeps seed-mode
+    dropout open with a mask, as in the JAX package."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     want_dropout = bool(dropout_p) and training
     if attn_mask is not None:
@@ -54,7 +60,7 @@ def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         bias=attn_mask, causal=is_causal, sm_scale=scale,
         dropout_rate=float(dropout_p) if want_dropout else 0.0,
-        generator=default_generator() if q.device.type == "cpu" else None)
+        generator=default_generator())
     return out.transpose(1, 2)
 
 

@@ -230,6 +230,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "             m.startswith('jax.') or m == 'paddle_tpu' or\n"
         "             m.startswith('paddle_tpu.'))\n"
         "assert len(names) >= 15, names\n"
+        "for n in ('paddle_tpu_torch.optimizer', 'paddle_tpu_torch.jit'):\n"
+        "    assert n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -214,14 +214,16 @@ def test_attention_reference_keep_mask_matches_jax():
 
 
 def test_cpu_dropout_draws_its_keep_mask_from_the_generator():
+    # the generator gives the seed; the keep mask is the seed-mode Philox
+    # pattern the CUDA kernels regenerate
     b, h, s, d = 1, 2, 32, 64
     q, k, v = (torch.from_numpy(t) for t in _qkv(b, h, s, s, d, 40))
     o1 = tfa.flash_attention(q, k, v, dropout_rate=0.2,
                              generator=torch.Generator().manual_seed(5))
     o2 = tfa.flash_attention(q, k, v, dropout_rate=0.2,
                              generator=torch.Generator().manual_seed(5))
-    keep = torch.rand((b, h, s, s),
-                      generator=torch.Generator().manual_seed(5)) < 0.8
+    seed = tfa.draw_seed(torch.Generator().manual_seed(5))
+    keep = tfa.philox_keep_mask(seed, b, h, s, s, 0.8)
     o_ref, _ = tfa.attention_reference(q, k, v, keep_mask=keep,
                                        keep_prob=0.8)
     torch.testing.assert_close(o1, o2)
@@ -229,8 +231,10 @@ def test_cpu_dropout_draws_its_keep_mask_from_the_generator():
 
 
 def test_flash_attention_off_the_cpu_raises_for_dropout():
+    # dropout runs in the CUDA kernels now; a device with no kernel raises
+    # for it as for everything else
     q = torch.zeros(1, 2, 16, 64, device="meta")
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="no kernel"):
         tfa.flash_attention(q, q, q, dropout_rate=0.1)
     with pytest.raises(ValueError, match="no kernel"):
         tfa.flash_attention(q, q, q)
@@ -306,8 +310,249 @@ def test_build_failure_raises_with_the_compiler_output(tmp_path,
 
 
 def test_every_kernel_source_is_in_the_package():
+    replaces = {"layer_norm": ("paddle_tpu/kernels/layer_norm.py:_fwd_kernel",
+                               "paddle_tpu/kernels/layer_norm.py:_bwd_kernel"),
+                "flash_attention": (
+                    "paddle_tpu/kernels/flash_attention.py:_fwd_kernel",
+                    "_drop_keep_tile"),
+                "flash_attention_bwd": (
+                    "paddle_tpu/kernels/flash_attention.py:",
+                    "_bwd_dq_kernel", "_bwd_dkv_kernel")}
+    assert set(replaces) == set(_build.KERNEL_SOURCES)
     for name in _build.KERNEL_SOURCES:
         text = (_build.CSRC_DIR / f"{name}.cu").read_text()
         assert "sm_90a" in text and 'extern "C"' in text
-        # the note names the TPU kernel it replaces
-        assert f"paddle_tpu/kernels/{name}.py:_fwd_kernel" in text
+        # the note names the TPU kernels it replaces
+        for what in replaces[name]:
+            assert what in text, (name, what)
+
+
+# --------------------------------------------------------------------------
+# layer-norm backward
+# --------------------------------------------------------------------------
+
+def _ln_vjp_jax(x, g, b, dy, eps):
+    """dx, dgamma, dbeta of the Pallas kernel (interpret mode) by jax.vjp."""
+    import jax
+    y, vjp = jax.vjp(lambda x_, g_, b_: jln._layer_norm(x_, g_, b_, eps, True),
+                     x, g, b)
+    return vjp(dy.astype(y.dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_backward_matches_pallas(dtype):
+    # fp32: the same formula summed in another order, a few ulps of O(1)
+    # values (dgamma/dbeta sum 16 rows). bf16 dx: both sides compute in fp32
+    # from identical bf16 inputs and round to bf16, so they may differ by
+    # one bf16 step (2^-8 relative) of values up to ~4; dgamma and dbeta
+    # stay fp32 (gamma's dtype) from identical bf16 products.
+    eps = 1e-5
+    x = _rand((16, 128), 60, scale=2.0, shift=0.5)
+    g, b = _rand((128,), 61, 0.1, 1.0), _rand((128,), 62, 0.1)
+    dy = _rand((16, 128), 63)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    dx_j, dg_j, db_j = _ln_vjp_jax(jnp.asarray(x, jdt), jnp.asarray(g),
+                                   jnp.asarray(b), jnp.asarray(dy, jdt), eps)
+    xt = torch.from_numpy(x).to(tdt)
+    dyt = torch.from_numpy(dy).to(tdt)
+    gt, bt = torch.from_numpy(g), torch.from_numpy(b)
+    tol_dx = F32_TOL if dtype == "float32" else dict(atol=3e-2, rtol=1e-2)
+    tol_w = F32_TOL if dtype == "float32" else dict(atol=1e-4, rtol=1e-4)
+
+    _, mean, rstd = tln.layer_norm_reference(xt, gt, bt, eps)
+    plain = tln.layer_norm_backward_reference(dyt, xt, gt, mean, rstd)
+    xr = xt.clone().requires_grad_(True)
+    gr, br = gt.clone().requires_grad_(True), bt.clone().requires_grad_(True)
+    tln.layer_norm(xr, gr, br, eps).backward(dyt)
+    for dx, dg, db in (plain, (xr.grad, gr.grad, br.grad)):
+        assert dx.dtype == tdt and dg.dtype == db.dtype == torch.float32
+        np.testing.assert_allclose(dx.float().numpy(),
+                                   np.asarray(dx_j.astype(jnp.float32)),
+                                   **tol_dx)
+        np.testing.assert_allclose(dg.numpy(), np.asarray(dg_j), **tol_w)
+        np.testing.assert_allclose(db.numpy(), np.asarray(db_j), **tol_w)
+
+
+def test_layer_norm_with_stats_gradient_flows_through_y_only():
+    x = torch.from_numpy(_rand((4, 96), 64)).requires_grad_(True)
+    g = torch.ones(96, requires_grad=True)
+    b = torch.zeros(96, requires_grad=True)
+    y, mean, var = tln.layer_norm_with_stats(x, g, b)
+    assert not mean.requires_grad and not var.requires_grad
+    y.sum().backward()
+    torch.testing.assert_close(b.grad, torch.full((96,), 4.0))
+
+
+def test_layer_norm_backward_blocks_are_capped():
+    assert tln.bwd_blocks(16384, 768) == tln.MAX_BWD_BLOCKS
+    assert tln.bwd_blocks(7, 130) == 2
+    assert tln.bwd_blocks(5, 4096) == 5
+
+
+# --------------------------------------------------------------------------
+# flash-attention backward and dropout
+# --------------------------------------------------------------------------
+
+def _flash_vjp_jax(q, k, v, bias, keep, causal, scale, keep_prob, do):
+    """(o, dq, dk, dv, dbias) of the Pallas kernels in interpret mode,
+    through the JAX package's custom VJP (_flash), bias_grad=True."""
+    import jax
+    drop = None if keep is None else jnp.asarray(keep)
+    args = [jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)]
+    if bias is not None:
+        args.append(jnp.asarray(bias))
+
+    def f(q_, k_, v_, *b_):
+        return jfa._flash(q_, k_, v_, b_[0] if b_ else None, drop, None,
+                          causal, scale, 128, 128, True, keep_prob, True)
+    o, vjp = jax.vjp(f, *args)
+    grads = vjp(jnp.asarray(do))
+    dbias = np.asarray(grads[3]) if bias is not None else None
+    return (np.asarray(o), *(np.asarray(g) for g in grads[:3]), dbias)
+
+
+FLASH_BWD_CASES = {
+    "full_bias": dict(sq=128, sk=128, bias="full", causal=False, keep=False),
+    "padding_bias": dict(sq=128, sk=128, bias="pad", causal=False,
+                         keep=False),
+    "causal": dict(sq=128, sk=128, bias=None, causal=True, keep=False),
+    "causal_sq_gt_sk": dict(sq=256, sk=128, bias=None, causal=True,
+                            keep=False),
+    "keep_mask_bias": dict(sq=128, sk=128, bias="full", causal=False,
+                           keep=True),
+    "keep_mask_causal": dict(sq=128, sk=128, bias=None, causal=True,
+                             keep=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_BWD_CASES))
+def test_flash_backward_matches_pallas(name):
+    # fp32 on both sides; sums of 128 terms in another order: 1e-5 of the
+    # O(1) gradients. The bias gradient sums ds over the broadcast dims.
+    c = FLASH_BWD_CASES[name]
+    b, h, d = 2, 2, 64
+    q, k, v = _qkv(b, h, c["sq"], c["sk"], d, 70)
+    do = _rand((b, h, c["sq"], d), 71)
+    bias = None
+    if c["bias"] == "full":
+        bias = _rand((b, 1, c["sq"], c["sk"]), 72)
+    elif c["bias"] == "pad":
+        bias = _padding_bias(b, c["sk"], 73)
+    keep_prob = 0.9 if c["keep"] else 1.0
+    keep = (np.random.RandomState(74).rand(b, h, c["sq"], c["sk"]) <
+            keep_prob).astype(np.float32) if c["keep"] else None
+    scale = 1.0 / np.sqrt(d)
+    o_j, dq_j, dk_j, dv_j, db_j = _flash_vjp_jax(q, k, v, bias, keep,
+                                                 c["causal"], scale,
+                                                 keep_prob, do)
+    tol = dict(atol=1e-5, rtol=1e-5)
+
+    qt, kt, vt = (torch.from_numpy(t).requires_grad_(True) for t in (q, k, v))
+    bt = None if bias is None else torch.from_numpy(bias).requires_grad_(True)
+    kmt = None if keep is None else torch.from_numpy(keep).bool()
+    o_t, lse_t = tfa.flash_attention_fwd(qt, kt, vt, bt, c["causal"], scale,
+                                         keep_mask=kmt, keep_prob=keep_prob)
+    o_t.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(o_t.detach().numpy(), o_j, **tol)
+    for got, want in ((qt.grad, dq_j), (kt.grad, dk_j), (vt.grad, dv_j)):
+        np.testing.assert_allclose(got.numpy(), want, **tol)
+    if bias is not None:
+        np.testing.assert_allclose(bt.grad.numpy(), db_j, **tol)
+    # the plain functions directly, on the same o and lse
+    plain = tfa.attention_backward_reference(
+        torch.from_numpy(do), *(torch.from_numpy(t) for t in (q, k, v)),
+        o_t.detach(), lse_t, None if bias is None else torch.from_numpy(bias),
+        c["causal"], scale, kmt, keep_prob)
+    for got, want in zip(plain, (dq_j, dk_j, dv_j)):
+        np.testing.assert_allclose(got.numpy(), want, **tol)
+    if name == "causal_sq_gt_sk":
+        # rows that see no key: o = 0, lse = 0 and no gradient
+        empty = c["sq"] - c["sk"]
+        assert np.all(qt.grad.numpy()[:, :, :empty] == 0.0)
+
+
+def test_flash_bias_without_grad_gets_none_and_with_seed_raises():
+    b, h, s, d = 1, 2, 32, 64
+    q, k, v = (torch.from_numpy(t).requires_grad_(True)
+               for t in _qkv(b, h, s, s, d, 80))
+    bias = torch.from_numpy(_rand((b, 1, 1, s), 81)).requires_grad_(True)
+    o, _ = tfa.flash_attention_fwd(q, k, v, bias.detach())
+    o.sum().backward()
+    assert bias.grad is None and q.grad is not None
+    # the JAX package's rule: seed dropout cannot serve a bias gradient
+    with pytest.raises(NotImplementedError, match="bias"):
+        tfa.flash_attention_fwd(q, k, v, bias, seed=3, keep_prob=0.9)
+    # a padding mask (detached) keeps seed mode
+    tfa.flash_attention_fwd(q, k, v, bias.detach(), seed=3, keep_prob=0.9)
+
+
+def test_philox_known_answers():
+    # Random123's known-answer vectors for Philox4x32-10
+    def run(ctr, key):
+        words = tfa.philox4x32_10(
+            tuple(torch.tensor([c], dtype=torch.int64) for c in ctr), key)
+        return [int(w) for w in words]
+    assert run((0, 0, 0, 0), (0, 0)) == [0x6627e8d5, 0xe169c58d, 0xbc57ac4c,
+                                         0x9b00dbd8]
+    m = 0xFFFFFFFF
+    assert run((m, m, m, m), (m, m)) == [0x408f276d, 0x41c83b0e, 0xa20bc7c6,
+                                         0x6d5451fd]
+    assert run((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+               (0xa4093822, 0x299f31d0)) == [0xd16cfe09, 0x94fdcceb,
+                                            0x5001e420, 0x24126ea1]
+
+
+def test_philox_keep_mask_rate_and_element_definition():
+    seed, shape = 0x1234_5678_9ABC, (2, 3, 130, 129)
+    keep = tfa.philox_keep_mask(seed, *shape, 0.9)
+    assert keep.shape == shape and keep.dtype == torch.bool
+    # 100k Bernoulli(0.1) draws: sd 1e-3; 0.005 is five of them
+    assert abs(1.0 - keep.float().mean().item() - 0.1) < 0.005
+    # every element is its own Philox word: a function of (seed, b, h, q, k)
+    thresh = tfa.keep_threshold(0.9)
+    rng = np.random.RandomState(90)
+    for _ in range(50):
+        b_, h_, q_, k_ = (int(rng.randint(n)) for n in shape)
+        words = tfa.philox4x32_10(
+            tuple(torch.tensor([c], dtype=torch.int64)
+                  for c in (k_ >> 1, q_ >> 1, h_, b_)),
+            (seed & 0xFFFFFFFF, seed >> 32))
+        bit = int(words[(q_ & 1) * 2 + (k_ & 1)]) >= thresh
+        assert bool(keep[b_, h_, q_, k_]) == bit
+
+
+def test_philox_keep_mask_does_not_depend_on_tiling():
+    # a block of the pattern drawn alone equals that block of a larger
+    # draw: no tile or array size enters the pattern
+    seed = 99
+    full = tfa.philox_keep_mask(seed, 2, 2, 256, 192, 0.8)
+    assert torch.equal(tfa.philox_keep_mask(seed, 2, 2, 64, 77, 0.8),
+                       full[:, :, :64, :77])
+    assert torch.equal(tfa.philox_keep_mask(seed, 1, 1, 256, 192, 0.8)[0],
+                       full[0, :1])
+    assert not torch.equal(tfa.philox_keep_mask(seed + 1, 2, 2, 256, 192,
+                                                0.8), full)
+
+
+def test_keep_threshold_follows_the_tpu_rule():
+    assert tfa.keep_threshold(0.9) == int((1.0 - 0.9) * 2 ** 32)
+    assert tfa.keep_threshold(1.0) == 0
+    assert tfa.keep_threshold(0.0) == 2 ** 32 - 1
+
+
+def test_seed_dropout_forward_and_backward_use_one_pattern():
+    # seed mode on the CPU: the forward and the backward both regenerate
+    # philox_keep_mask(seed); equal to mask mode with that mask
+    b, h, s, d = 1, 2, 64, 64
+    q, k, v = _qkv(b, h, s, s, d, 91)
+    do = torch.from_numpy(_rand((b, h, s, d), 92))
+    keep = tfa.philox_keep_mask(5, b, h, s, s, 0.85)
+    grads = []
+    for kw in (dict(seed=5), dict(keep_mask=keep)):
+        ts = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+        o, _ = tfa.flash_attention_fwd(*ts, keep_prob=0.85, **kw)
+        o.backward(do)
+        grads.append([o.detach()] + [t.grad for t in ts])
+    for a, b_ in zip(*grads):
+        torch.testing.assert_close(a, b_, rtol=0, atol=0)
