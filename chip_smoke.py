@@ -43,7 +43,25 @@ Phases, each printing its lines; any failure exits nonzero:
    (iv) times: each new kernel against its bound, its plain version and
    the library call; the train step's eager ms, tokens/s, MFU and device
    idle share, with a profiler breakdown;
-6. one JSON line of kernel records, the card line, and last the result
+6. generation, the third main path: the decoder of docs/generation.md
+   at full width and depth (vocab 32000, hidden 1024, 16 layers, 16
+   heads; weights from ``init_params`` through ``load_reference_params``):
+   (i) both paged-attention kernels (fp32, int8 and fp8 pools; Cq 1 and
+   4; bs 16 and 32; D 16, 64 and 128) against the plain version, with
+   ragged lengths, trash-block rows and garbage in every row no query
+   sees; (ii) the main path: 32 requests (prompts 16-448 tokens, half
+   greedy, four sharing a 256-token prefix) through ``GenerationPool``
+   over an engine of 1024 blocks of 16 tokens, 16 lanes and 64-token
+   chunks, once with fp32 and once with int8 KV; counts set to 0 before
+   and read after: 16 paged launches and 33 layer-norm launches a mixed
+   step, an all-"cuda" path log; a rerun gives the same streams; (iii)
+   paged logits against ``forward_full`` recompute (fp32 within 1e-3;
+   int8 within tests/test_quantized_serving.py's budget), greedy tokens
+   against the recompute's argmax, one mixed step against the CPU port;
+   (iv) times: the paged kernels against their bound, plain version and
+   gather + SDPA; tokens/s, mixed-step, TTFT and TPOT quantiles, and the
+   device idle share over profiled mixed steps;
+7. one JSON line of kernel records, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -123,9 +141,13 @@ def ptxas_summary(log: str):
                               mangled)
             kernel = mangled
             if short:
-                args = [{"f": "f32", "14__nv_bfloat16": "bf16"}.get(
-                    a.group(0), a.group(1)) for a in re.finditer(
-                        r"14__nv_bfloat16|Li(\d+)E|f", short.group(2) or "")]
+                names = {"f": "f32", "a": "int8", "14__nv_bfloat16": "bf16",
+                         "13__nv_fp8_e4m3": "fp8"}
+                args = [names.get(a.group(0), a.group(1)) for a in
+                        re.finditer(r"14__nv_bfloat16|13__nv_fp8_e4m3|"
+                                    r"Li(\d+)E|Lb\dE|f|a",
+                                    short.group(2) or "")]
+                args = [a for a in args if a is not None]
                 kernel = short.group(1) + \
                     (f"<{','.join(args)}>" if args else "")
             spill = None
@@ -1369,6 +1391,678 @@ def time_train_step(step, batch, cfg, card, reps=10):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: generation
+# ---------------------------------------------------------------------------
+
+# the decoder of docs/generation.md at full width and depth: 267.5 M
+# parameters, 1.07 GB in fp32
+GEN_CFG = dict(vocab_size=32000, hidden=1024, layers=16, heads=16)
+# engine geometry chosen for the card: a 2 GiB fp32 pool (1 MiB of K and
+# 1 MiB of V a block), 16 lanes, 64-token prefill chunks, 80 slots a step
+GEN_GEO = dict(num_blocks=1024, block_size=16, decode_width=16,
+               prefill_chunk=64, prefix_cache=True)
+GEN_REQUESTS = 32
+GEN_SEED = 4321
+# paged kernel against its plain version: the same fp32 arithmetic summed
+# in another order (and q scaled before the dot, as the TPU kernel does)
+PAGED_TOL = (1e-5, 1e-5)
+# paged step against full recompute, and the card against the CPU port:
+# 16 layers of fp32 in other orders, logits O(1)
+GEN_TOL = dict(atol=1e-3, rtol=1e-3)
+# int8 KV against fp32: tests/test_quantized_serving.py's budget
+INT8_MAX_ABS, INT8_MSE = 0.25, 5e-3
+# pool rows no real query may see hold this (finite: 0 * NaN would
+# poison the plain version too)
+GARBAGE = 1e4
+# (kv dtype, Cq, bs, D) of the parity cases
+PAGED_CASES = tuple((kv, cq, bs, d) for kv in ("fp32", "int8", "fp8")
+                    for cq in (1, 4) for bs in (16, 32)
+                    for d in (16, 64, 128))
+
+
+def paged_case(kv, cq, bs, d, device, seed, heads=4, max_blocks=8,
+               num_blocks=80):
+    """Inputs of one parity case: rows of ragged q_lens and ctx_lens (a
+    decode single, a full chunk crossing a block boundary, a short chunk
+    at ctx 0, a row with no query, an idle row on the trash block at
+    position 0), private block tables, and pools whose every row that no
+    real query sees holds GARBAGE. Returns (args, kwargs, q_lens)."""
+    from paddle_tpu_torch import quant
+    rng = np.random.default_rng(seed)
+    span = max_blocks * bs
+    if cq == 1:
+        q_lens = [1, 1, 1, 1, 1, 1]
+        ctx = [span - 1, bs - 1, bs, 0, 3 * bs + 5, 0]
+    else:
+        q_lens = [cq, 1, cq - 1, 0, cq, 1]
+        ctx = [bs - 2, span - 1, 0, 7, 2 * bs - 1, 0]
+    b = len(q_lens)
+    free = rng.permutation(np.arange(1, num_blocks))
+    tables = free[:b * max_blocks].reshape(b, max_blocks).astype(np.int32)
+    tables[-1] = 0                           # the idle row: all trash
+    seen = np.zeros((num_blocks, bs), bool)
+    for r in range(b):
+        for p in range(ctx[r] + q_lens[r]):
+            seen[tables[r, p // bs], p % bs] = True
+    shape = (num_blocks, bs, heads, d)
+    q = rng.standard_normal((b, cq, heads, d)).astype(np.float32)
+    pools, scales = [], []
+    for _ in range(2):
+        x = rng.standard_normal(shape).astype(np.float32)
+        x[~seen] = GARBAGE
+        t = torch.from_numpy(x)
+        if kv == "fp32":
+            pools.append(t.to(device))
+            continue
+        stored, s = quant.quantize_kv_rows(t, quant.storage_dtype(kv))
+        s[~torch.from_numpy(seen)] = GARBAGE
+        pools.append(stored.to(device))
+        scales.append(s.to(device))
+    args = (torch.from_numpy(q).to(device), pools[0], pools[1],
+            torch.from_numpy(tables).to(device),
+            torch.tensor(q_lens, dtype=torch.int32, device=device),
+            torch.tensor(ctx, dtype=torch.int32, device=device))
+    kwargs = {} if kv == "fp32" else dict(k_scales=scales[0],
+                                          v_scales=scales[1])
+    return args, kwargs, q_lens
+
+
+def check_paged(device):
+    """Both paged kernels against the plain version on the card, every
+    PAGED_CASES shape: real query rows within PAGED_TOL, rows with no
+    query exactly 0. Returns the worst error per pool dtype."""
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.kernels import paged_attention as PA
+    worst = {}
+    for i, (kv, cq, bs, d) in enumerate(PAGED_CASES):
+        if kv == "fp8" and not quant.supports_fp8():
+            fail("fp8 KV: torch.float8_e4m3fn does not convert exactly")
+        args, kwargs, q_lens = paged_case(kv, cq, bs, d, device, 700 + i)
+        scale = 1.0 / math.sqrt(d)
+        got = PA._launch(*args, scale, **kwargs)
+        torch.cuda.synchronize()
+        want = PA.ragged_paged_attention_reference(*args, scale, **kwargs)
+        errs = []
+        for r, n in enumerate(q_lens):
+            if n:
+                err, ok = max_err(got[r, :n], want[r, :n], *PAGED_TOL)
+                errs.append(err)
+                if not ok:
+                    fail(f"paged {kv} Cq={cq} bs={bs} D={d} row {r}: max "
+                         f"error {err} beyond {PAGED_TOL}")
+            if n < cq and got[r, n:].abs().max().item() != 0.0:
+                fail(f"paged {kv} Cq={cq} bs={bs} D={d} row {r}: rows with "
+                     "no query must give 0")
+        worst[kv] = max(worst.get(kv, 0.0), max(errs))
+        say("parity", f"paged_attention {kv} Cq={cq} bs={bs} D={d} "
+            f"q_lens={q_lens}: max error {max(errs):.3e} (tol "
+            f"{PAGED_TOL[0]:g} + {PAGED_TOL[1]:g}|ref|), unused rows 0; ok")
+    say("parity", "paged_attention worst error by pool: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def gen_requests(cfg, n=GEN_REQUESTS, seed=GEN_SEED, prefix=256,
+                 lo=16, hi=448, new_lo=32, new_hi=64):
+    """The main path's requests: prompts of lo..hi tokens from a numpy
+    seed, max_new_tokens new_lo..new_hi capped at max_seq_len; even ones
+    greedy, odd ones temperature 0.8 with top_k 40 or top_p 0.95 and their
+    own seeds; requests 0, n/2, 3n/4 and n-1 share a ``prefix``-token
+    prefix (the later three are admitted after the first has published
+    it: prefix-cache hits)."""
+    from paddle_tpu_torch.generation import GenerationRequest, SamplingParams
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab_size, prefix).tolist()
+    sharers = {0, n // 2, 3 * n // 4, n - 1}
+    reqs = []
+    for i in range(n):
+        length = int(rng.integers(lo, hi + 1))
+        if i in sharers:
+            length = max(length, prefix + 8)
+            prompt = shared + rng.integers(0, cfg.vocab_size,
+                                           length - prefix).tolist()
+        else:
+            prompt = rng.integers(0, cfg.vocab_size, length).tolist()
+        new = min(int(rng.integers(new_lo, new_hi + 1)),
+                  cfg.max_seq_len - length)
+        if i % 2 == 0:
+            sp = SamplingParams()
+        elif i % 4 == 1:
+            sp = SamplingParams(temperature=0.8, top_k=40, seed=1000 + i)
+        else:
+            sp = SamplingParams(temperature=0.8, top_p=0.95, seed=1000 + i)
+        reqs.append(GenerationRequest(prompt=prompt, max_new_tokens=new,
+                                      sampling=sp, request_id=i))
+    return reqs
+
+
+def gen_counts():
+    from paddle_tpu_torch.kernels import layer_norm as LN
+    from paddle_tpu_torch.kernels import paged_attention as PA
+    return dict(paged=PA.launches, paged_quant=PA.launches_quant,
+                layer_norm=LN.launches)
+
+
+def serve_generation(engine, reqs, label):
+    """The main path: ``reqs`` through a GenerationPool over ``engine``.
+    Launch counts, the path log and the monitor are set to 0 just before
+    and read just after. Returns (streams, record)."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.generation import GenerationPool
+    from paddle_tpu_torch.kernels import layer_norm as LN
+    from paddle_tpu_torch.kernels import paged_attention as PA
+    torch.cuda.synchronize()
+    PA.launches = PA.launches_quant = LN.launches = 0
+    PA.reset_path_log()
+    monitor.reset_all()
+    t0 = time.perf_counter()
+    with GenerationPool(engine) as pool:
+        futs = [pool.submit(r) for r in reqs]
+        results = [f.result(timeout=900) for f in futs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = dict(counts=gen_counts(), paths=PA.paths_taken(), wall=wall,
+               steps=int(monitor.timer_get(
+                   "TIMER_generation_mixed_step_us")["count"]),
+               step_us=monitor.timer_get("TIMER_generation_mixed_step_us"),
+               ttft_us=monitor.timer_get("TIMER_generation_ttft_us"),
+               tpot_us=monitor.timer_get("TIMER_generation_tpot_us"),
+               stats={k: monitor.stat_get(f"STAT_generation_{k}") for k in
+                      ("tokens", "prefills", "prefix_hits",
+                       "prefix_hit_tokens", "prefix_cow_copies",
+                       "evictions", "pad_tokens")})
+    streams = {r.request_id: r.tokens for r in results}
+    say("generate", f"{label}: {len(reqs)} requests through GenerationPool "
+        f"in {wall:.2f} s, {rec['steps']} mixed steps; " + ", ".join(
+            f"{k} {v:g}" for k, v in rec["stats"].items()))
+    return streams, rec
+
+
+def check_gen_launches(rec, cfg, kv, label):
+    """Paged-kernel launches = layers x mixed steps (the kernel of the
+    pool's dtype, none of the other), layer-norm launches = (2 layers + 1)
+    x steps, an all-"cuda" path log of one entry a launch."""
+    c, steps = rec["counts"], rec["steps"]
+    which, other = ("paged", "paged_quant") if kv == "fp32" else \
+        ("paged_quant", "paged")
+    want = cfg.layers * steps
+    if steps == 0 or c[which] != want or c[other] != 0:
+        fail(f"{label}: paged launches {c} after {steps} mixed steps, want "
+             f"{which} = {want}")
+    if c["layer_norm"] != (2 * cfg.layers + 1) * steps:
+        fail(f"{label}: layer_norm launches {c['layer_norm']}, want "
+             f"{2 * cfg.layers + 1} x {steps}")
+    if set(rec["paths"]) != {"cuda"} or len(rec["paths"]) != want:
+        fail(f"{label}: paged path log {sorted(set(rec['paths']))} x "
+             f"{len(rec['paths'])}, want 'cuda' x {want}")
+    say("generate", f"{label}: {c[which]} {which} launches = {cfg.layers} "
+        f"x {steps} mixed steps, {c['layer_norm']} layer_norm launches = "
+        f"{2 * cfg.layers + 1} x {steps}, path log {len(rec['paths'])} x "
+        "'cuda'")
+
+
+def check_gen_outputs(streams, reqs, cfg, label):
+    for r in reqs:
+        toks = streams.get(r.request_id)
+        if toks is None or len(toks) != r.max_new_tokens or \
+                not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{label}: request {r.request_id} gave {toks!r}")
+    say("generate", f"{label}: every request gave max_new_tokens tokens "
+        "inside the vocabulary")
+
+
+def capture_steps(engine):
+    """Wrap the engine's forward_paged to keep, for every sampled slot of
+    every step, (request id, position, logits row): a decode slot, or the
+    last slot of a prompt's final chunk. Returns (records, undo)."""
+    import paddle_tpu_torch.generation.engine as E
+    real = E.forward_paged
+    records = []
+
+    def wrapped(cfg, params, kp, vp, tables, positions, tokens, **kw):
+        logits = real(cfg, params, kp, vp, tables, positions, tokens, **kw)
+        owner = {int(engine._tables[ln][0]): s for ln, s in
+                 enumerate(engine._lane_seq) if s is not None}
+        first = tables[:, 0].cpu().tolist()
+        pos = positions.cpu().tolist()
+        for slot, (blk, p) in enumerate(zip(first, pos)):
+            seq = owner.get(blk)
+            if seq is not None and p + 1 >= len(seq.req.prompt):
+                records.append((seq.req.request_id, p, logits[slot].clone()))
+        return logits
+    E.forward_paged = wrapped
+
+    def undo():
+        E.forward_paged = real
+    return records, undo
+
+
+def check_recompute(cfg, params, device, kv, reqs):
+    """Paged against full recompute on the card: ``reqs`` through a
+    fresh engine (prefix cache off, so a table's first block names its
+    request), every sampled slot's logits against forward_full over the
+    same context. fp32 pools: within GEN_TOL, and every greedy token the
+    recompute's argmax or within 1e-3 of its maximum. int8 pools: within
+    the reference's int8 budget against the fp32 recompute."""
+    from paddle_tpu_torch.generation import GenerationEngine, forward_full
+    eng = GenerationEngine(cfg, params, kv_dtype=kv, device=device,
+                           **dict(GEN_GEO, prefix_cache=False))
+    records, undo = capture_steps(eng)
+    try:
+        res = {r.request_id: r for r in eng.generate(reqs)}
+    finally:
+        undo()
+    seqs = {r.request_id: list(r.prompt) + res[r.request_id].tokens
+            for r in reqs}
+    greedy = {r.request_id for r in reqs if r.sampling.temperature <= 0}
+    worst, sq, n, exact, ties = 0.0, 0.0, 0, 0, 0
+    for rid, p, row in records:
+        ctx = seqs[rid][:p + 1]
+        full = forward_full(cfg, eng.params, torch.tensor([ctx],
+                                                          device=device),
+                            torch.tensor([len(ctx)], device=device),
+                            attn_lanes=eng.attn_lanes)[0][0]
+        diff = (row - full).abs()
+        worst = max(worst, float(diff.max()))
+        sq += float((diff.double() ** 2).sum())
+        n += diff.numel()
+        if kv == "fp32":
+            err, ok = max_err(row, full, **GEN_TOL)
+            if not ok:
+                fail(f"recompute: request {rid} position {p}: paged logits "
+                     f"differ from forward_full by {err}")
+            if rid in greedy and p + 1 < len(seqs[rid]):
+                tok = seqs[rid][p + 1]
+                top = float(full.max())
+                if tok == int(full.argmax()):
+                    exact += 1
+                elif top - float(full[tok]) <= 1e-3:
+                    ties += 1
+                else:
+                    fail(f"recompute: greedy token {tok} of request {rid} "
+                         f"at {p + 1} is {top - float(full[tok])} below the "
+                         "recompute's maximum")
+    mse = sq / max(n, 1)
+    if kv == "fp32":
+        say("generate", f"paged vs full recompute, fp32 KV, {len(records)} "
+            f"sampled slots of {len(reqs)} requests: max |diff| {worst:.3e} "
+            f"(tol {GEN_TOL['atol']:g} + {GEN_TOL['rtol']:g}|ref|); greedy "
+            f"tokens {exact} exact argmax, {ties} near ties (share exact "
+            f"{exact / max(exact + ties, 1):.4f})")
+    else:
+        if worst >= INT8_MAX_ABS or mse >= INT8_MSE:
+            fail(f"int8 KV: logits max |diff| {worst}, MSE {mse} against "
+                 f"fp32 recompute (budget {INT8_MAX_ABS}, {INT8_MSE})")
+        say("generate", f"int8 KV vs fp32 recompute, {len(records)} sampled "
+            f"slots: max |diff| {worst:.4f} (budget {INT8_MAX_ABS}), MSE "
+            f"{mse:.3e} (budget {INT8_MSE:g})")
+    del eng
+    torch.cuda.empty_cache()
+    return worst
+
+
+def step_case(cfg, num_blocks, seed, decode=16, chunk=64, chunk_start=128,
+              decode_ctx=(20, 200)):
+    """One mixed step of ``decode`` + ``chunk`` slots (the main path's 80)
+    over pools of random content: decode rows with private tables at
+    positions drawn from ``decode_ctx``, a chunk of one prompt at
+    ``chunk_start``. Every written row is distinct. Returns numpy
+    (tables, positions, tokens), the pools' shape and the written (block,
+    offset) pairs."""
+    rng = np.random.default_rng(seed)
+    bs = GEN_GEO["block_size"]
+    m = -(-cfg.max_seq_len // bs)
+    blocks = iter(rng.permutation(np.arange(1, num_blocks)).tolist())
+    t = decode + chunk
+    tables = np.zeros((t, m), np.int32)
+    positions = np.zeros(t, np.int32)
+    for r in range(decode):
+        p = int(rng.integers(*decode_ctx))
+        tables[r, :p // bs + 1] = [next(blocks) for _ in range(p // bs + 1)]
+        positions[r] = p
+    last = chunk_start + chunk - 1
+    row = [next(blocks) for _ in range(last // bs + 1)]
+    for j in range(chunk):
+        tables[decode + j, :len(row)] = row
+        positions[decode + j] = chunk_start + j
+    tokens = rng.integers(0, cfg.vocab_size, t).astype(np.int32)
+    written = [(int(tables[i, positions[i] // bs]), int(positions[i] % bs))
+               for i in range(t)]
+    shape = (cfg.layers, num_blocks, bs, cfg.heads, cfg.head_dim)
+    return (tables, positions, tokens), shape, written
+
+
+def check_step_vs_cpu(cfg, params_np, device, kv="fp32", num_blocks=256):
+    """One mixed step at full width on the card (kernels) against the same
+    step on the CPU port (plain versions), from the same pools: logits and
+    every written pool row within GEN_TOL.
+
+    With ``kv`` int8/fp8 the pools hold quantized random rows beside their
+    scale pools and the step runs the quantized kernel. An fp32 difference
+    of 1e-6 in K or V can carry a value across a rounding boundary, and
+    one code step then moves the logits by ~1e-3. So the CPU step stores
+    the card's quantized rows in place of its own: both sides attend over
+    the same payloads, the written rows must agree exactly, and the CPU's
+    own codes must lie within one step of the card's (their count is
+    printed)."""
+    import paddle_tpu_torch.generation.model as M
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.jit import load_reference_params
+    inputs, shape, written = step_case(cfg, num_blocks, GEN_SEED + 7)
+    rng = np.random.default_rng(GEN_SEED + 8)
+    pools = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+             for _ in range(2)]
+    scales = []
+    if kv != "fp32":
+        pools, scales = zip(*(quant.quantize_kv_rows(
+            p, quant.storage_dtype(kv)) for p in pools))
+    blk = torch.tensor([w[0] for w in written])
+    off = torch.tensor([w[1] for w in written])
+    real_q = M.quantize_kv_rows
+    card_rows, own_rows = [], []
+
+    def on_card(x, dtype):
+        q, sc = real_q(x, dtype)
+        card_rows.append((q.cpu(), sc.cpu()))
+        return q, sc
+
+    def on_cpu(x, dtype):
+        own_rows.append(real_q(x, dtype))
+        return card_rows[len(own_rows) - 1]
+    out = []
+    try:
+        for where, hook in ((device, on_card),
+                            (torch.device("cpu"), on_cpu)):
+            M.quantize_kv_rows = hook
+            params = load_reference_params(cfg, params_np, where)
+            kp, vp = (p.to(where, copy=True) for p in pools)
+            sc = [s.to(where, copy=True) for s in scales]
+            logits = M.forward_paged(cfg, params, kp, vp,
+                                     *(torch.from_numpy(a).to(where)
+                                       for a in inputs), *sc)
+            idx = (slice(None), blk.to(where), off.to(where))
+            out.append([logits.cpu()] + [t[idx].cpu()
+                                         for t in (kp, vp, *sc)])
+            del params, kp, vp, sc
+    finally:
+        M.quantize_kv_rows = real_q
+    parts = []
+    names = ("logits", "written K", "written V", "written K scales",
+             "written V scales")
+    for what, g, c in zip(names, *out):
+        if g.dtype != torch.float32:
+            ok, err = torch.equal(g.view(torch.int8), c.view(torch.int8)), \
+                float((g.float() - c.float()).abs().max())
+        elif what.endswith("scales"):
+            ok, err = torch.equal(g, c), float((g - c).abs().max())
+        else:
+            err, ok = max_err(g, c, **GEN_TOL)
+        parts.append(f"{what} {err:.3e}")
+        if not ok:
+            fail(f"mixed step {kv} KV, card vs CPU port: {what} differ by "
+                 f"{err}")
+    if kv != "fp32":
+        diffs = [(q.float() - cq.float()).abs()
+                 for (q, _), (cq, _) in zip(own_rows, card_rows)]
+        flips = sum(int((d > 0).sum()) for d in diffs)
+        worst = max(float(d.max()) for d in diffs)
+        if kv == "int8" and worst > 1:
+            fail(f"mixed step int8 KV: the CPU's own codes lie {worst} "
+                 "steps from the card's")
+        parts.append(f"the CPU's own codes differ from the card's at {flips}"
+                     f" of {sum(d.numel() for d in diffs)} (by at most "
+                     f"{worst:g})")
+    say("generate", f"one mixed step of {len(written)} slots at full width, "
+        f"{kv} KV, card (kernels) vs CPU port (plain versions): " +
+        ", ".join(parts) + f" (tol {GEN_TOL['atol']:g} + "
+        f"{GEN_TOL['rtol']:g}|ref|" +
+        ("" if kv == "fp32" else "; written rows exact") + ")")
+
+
+def paged_bench_case(device, kv, seed, decode=16, chunk=64, ctx=256,
+                     heads=16, d=64, bs=16, num_blocks=1024, max_blocks=32):
+    """The main path's representative paged call: ``decode`` rows each at
+    position ``ctx`` of its own sequence, and ``chunk`` rows of one prompt
+    at positions ctx - chunk .. ctx - 1 (sharing one table). Returns
+    (args, kwargs, unique bytes, bytes with re-reads)."""
+    from paddle_tpu_torch import quant
+    rng = np.random.default_rng(seed)
+    blocks = iter(rng.permutation(np.arange(1, num_blocks)).tolist())
+    b = decode + chunk
+    tables = np.zeros((b, max_blocks), np.int32)
+    positions = np.zeros(b, np.int32)
+    per = ctx // bs + 1
+    for r in range(decode):
+        tables[r, :per] = [next(blocks) for _ in range(per)]
+        positions[r] = ctx
+    prompt = [next(blocks) for _ in range(ctx // bs)]
+    for j in range(chunk):
+        tables[decode + j, :len(prompt)] = prompt
+        positions[decode + j] = ctx - chunk + j
+    shape = (num_blocks, bs, heads, d)
+    esz = {"fp32": 4, "int8": 1, "fp8": 1}[kv]
+    # bytes a visible position costs: its K and V rows, and their scales
+    row = 2 * heads * d * esz + (0 if kv == "fp32" else 2 * heads * 4)
+    seen = {(int(tables[r, p // bs]), p % bs) for r in range(b)
+            for p in range(positions[r] + 1)}
+    reread = int((positions + 1).sum())
+    qo = 2 * b * heads * d * 4
+    pools, scales = [], []
+    for i in range(2):
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(
+            seed + 7 * i))
+        if kv == "fp32":
+            pools.append(x.to(device))
+        else:
+            stored, s = quant.quantize_kv_rows(x, quant.storage_dtype(kv))
+            pools.append(stored.to(device))
+            scales.append(s.to(device))
+    q = torch.randn(b, 1, heads, d, generator=torch.Generator()
+                    .manual_seed(seed + 1)).to(device)
+    args = (q, pools[0], pools[1], torch.from_numpy(tables).to(device),
+            torch.ones(b, dtype=torch.int32, device=device),
+            torch.from_numpy(positions).to(device))
+    kwargs = {} if kv == "fp32" else dict(k_scales=scales[0],
+                                          v_scales=scales[1])
+    return args, kwargs, len(seen) * row + qo, reread * row + qo
+
+
+def sdpa_paged(q, k_pool, v_pool, tables, q_lens, ctx, k_scales=None,
+               v_scales=None):
+    """The library yardstick: gather K/V through the table (dequantized
+    for int8/fp8 pools) and F.scaled_dot_product_attention with the
+    boolean mask. Timed only; the port never calls it."""
+    from paddle_tpu_torch.kernels.paged_attention import _gather
+    tbl = tables.long()
+    k = _gather(k_pool, k_scales, tbl).float()
+    v = _gather(v_pool, v_scales, tbl).float()
+    pos = torch.arange(k.shape[2], device=q.device)
+    mask = (pos[None, :] <= ctx.long()[:, None])[:, None, None, :]
+    o = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=mask)
+    return o.transpose(1, 2)
+
+
+def time_paged(device, card):
+    """Each pool dtype at the representative shape: the kernel held
+    against its plain version on every input set (PAGED_TOL; every row is
+    real), then kernel, plain version and the SDPA yardstick timed, device
+    ms per call from a CUDA graph over enough input sets to pass the L2
+    cache; the bound from the unique visible bytes at 3.35 TB/s (the
+    re-read bytes beside it)."""
+    from paddle_tpu_torch.kernels import paged_attention as PA
+    records = {}
+    for kv in ("fp32", "int8", "fp8"):
+        first = paged_bench_case(device, kv, 900)
+        sets = copies(lambda i: first if i == 0 else
+                      paged_bench_case(device, kv, 900 + i), first[2])
+        scale = 1.0 / math.sqrt(64)
+        worst = 0.0
+        for s in sets:
+            got = PA._launch(*s[0], scale, **s[1])
+            want = PA.ragged_paged_attention_reference(*s[0], scale, **s[1])
+            err, ok = max_err(got, want, *PAGED_TOL)
+            worst = max(worst, err)
+            if not ok:
+                fail(f"paged {kv} at the main path's shape: max error {err} "
+                     f"beyond {PAGED_TOL}")
+        say("parity", f"paged_attention {kv} pools at the main path's shape "
+            f"(80 slots, H 16, D 64, bs 16, M 32, N 1024), {len(sets)} input "
+            f"sets: max error {worst:.3e} (tol {PAGED_TOL[0]:g} + "
+            f"{PAGED_TOL[1]:g}|ref|); ok")
+        kern = [lambda s=s: PA._launch(*s[0], scale, **s[1]) for s in sets]
+        plain = [lambda s=s: PA.ragged_paged_attention_reference(
+            *s[0], scale, **s[1]) for s in sets]
+        lib = [lambda s=s: sdpa_paged(*s[0], **s[1]) for s in sets]
+        ms = device_ms(kern)
+        plain_ms = device_ms(plain, reps=2)
+        lib_ms = device_ms(lib, reps=2)
+        # the kernel does 4 D flops a visible key and head: far below the
+        # bytes' time at 67 TFLOP/s
+        nbytes, reread = first[2], first[3]
+        flops = 4 * 64 * 16 * int((first[0][5].long() + 1).sum())
+        bms, by = bound_ms(nbytes, flops, torch.float32)
+        records[kv] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bms, bound_by=by, bytes=nbytes,
+                           reread_bytes=reread, max_abs_err=worst)
+        say("times", f"paged_attention {kv} pools, 80 slots (16 decode at "
+            f"ctx 256, a 64-token chunk at 192..255), H 16, D 64, bs 16, "
+            f"{len(sets)} input sets: "
+            f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f}"
+            f" MB unique; {reread / 1e6:.1f} MB with the chunk's re-reads, "
+            f"{reread / HBM_BYTES_PER_S * 1e3:.4f} ms), plain {plain_ms:.4f} "
+            f"ms, gather + SDPA {lib_ms:.4f} ms  [{card}]")
+        del first, sets, kern, plain, lib
+        torch.cuda.empty_cache()
+    return records
+
+
+KERNEL_TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+GEN_GROUPS = (("paged attention", ("ragged_paged",)),
+              ("layer norm", ("layer_norm_fwd",)),
+              ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")))
+
+
+def profile_generation(engine, reqs, card, warm=6, window=12):
+    """Device busy time and idle share over a window of mixed steps in
+    steady state (decode lanes and prefill chunks together): requests go
+    straight into the engine, ``warm`` steps run, then ``window`` steps
+    under torch.profiler; busy is the summed kernel durations, the wall
+    time is the host clock around the window. The engine is left
+    mid-run: the caller drops it."""
+    from torch.profiler import ProfilerActivity, profile
+    for r in reqs:
+        engine.submit(r)
+    for _ in range(warm):
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(window):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = {g: 0.0 for g, _ in GEN_GROUPS}
+    groups["other"] = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        g = next((g for g, keys in GEN_GROUPS if any(k in e.name
+                                                     for k in keys)),
+                 "other")
+        groups[g] += e.time_range.elapsed_us() / 1e3
+    busy = sum(groups.values())
+    idle = max(0.0, 1.0 - busy / wall) if busy > 0 else float("nan")
+    say("times", f"{window} mixed steps in steady state: wall {wall:.2f} ms "
+        f"({wall / window:.2f} ms a step), device busy {busy:.2f} ms, idle "
+        f"share {idle:.3f}; " + ", ".join(
+            f"{g} {t:.2f} ms" for g, t in groups.items()) + f"  [{card}]")
+    return dict(wall_ms=wall, busy_ms=busy, idle=idle)
+
+
+def gen_times(rec, label, card):
+    tokens = rec["stats"]["tokens"]
+    us = {k: rec[k] for k in ("step_us", "ttft_us", "tpot_us")}
+    say("times", f"generation {label}: {tokens:g} tokens in "
+        f"{rec['wall']:.2f} s, {tokens / rec['wall']:.1f} generated "
+        f"tokens/s; mixed step p50 {us['step_us']['p50'] / 1e3:.2f} ms, p95 "
+        f"{us['step_us']['p95'] / 1e3:.2f} ms ({rec['steps']} steps); TTFT "
+        f"p50 {us['ttft_us']['p50'] / 1e3:.1f} ms, p95 "
+        f"{us['ttft_us']['p95'] / 1e3:.1f} ms; TPOT p50 "
+        f"{us['tpot_us']['p50'] / 1e3:.2f} ms, p95 "
+        f"{us['tpot_us']['p95'] / 1e3:.2f} ms  [{card}]")
+
+
+def run_generation(device, card, cfg_kw=GEN_CFG, n_requests=GEN_REQUESTS,
+                   check_reqs=4):
+    """Phase 6: the generation engine's main path at full width, its
+    checks and its times. Returns (paged parity errors, the main path's
+    records, paged kernel times)."""
+    from paddle_tpu_torch.generation import (DecoderConfig, GenerationEngine,
+                                             init_params)
+    from paddle_tpu_torch.jit import load_reference_params
+    paged_err = check_paged(device)
+    cfg = DecoderConfig(**cfg_kw)
+    t0 = time.perf_counter()
+    params_np = init_params(cfg, GEN_SEED)
+    params = load_reference_params(cfg, params_np, device)
+    n_params = sum(p.numel() for p in params.values())
+    say("generate", f"decoder {cfg} ({n_params / 1e6:.1f} M parameters) "
+        f"from init_params(seed {GEN_SEED}) via load_reference_params in "
+        f"{time.perf_counter() - t0:.1f} s; engine {GEN_GEO}")
+    reqs = gen_requests(cfg, n_requests)
+    recs, streams = {}, {}
+    for kv in ("fp32", "int8"):
+        eng = GenerationEngine(cfg, params, kv_dtype=kv, device=device,
+                               **GEN_GEO)
+        eng.warmup()
+        say("generate", f"{kv} engine: token budget {eng.token_budget}, "
+            f"pool {eng.kv_pool_bytes() / 2 ** 30:.3f} GiB, "
+            f"{eng.kv_capacity_seqs()} max-length sequences")
+        label = f"main path, {kv} KV"
+        streams[kv], recs[kv] = serve_generation(eng, reqs, label)
+        check_gen_launches(recs[kv], cfg, kv, label)
+        check_gen_outputs(streams[kv], reqs, cfg, label)
+        if kv == "fp32":
+            if recs[kv]["stats"]["prefix_hits"] == 0 or \
+                    recs[kv]["stats"]["prefix_cow_copies"] == 0:
+                fail(f"{label}: no prefix hit or copy-on-write")
+            profile_generation(eng, gen_requests(cfg, 2 * GEN_GEO[
+                "decode_width"], seed=GEN_SEED + 1), card)
+        del eng
+        torch.cuda.empty_cache()
+    # a rerun of the same requests from the same seeds
+    eng = GenerationEngine(cfg, params, kv_dtype="fp32", device=device,
+                           **GEN_GEO)
+    again, _ = serve_generation(eng, reqs, "rerun, fp32 KV")
+    if again != streams["fp32"]:
+        bad = [i for i in again if again[i] != streams["fp32"][i]]
+        fail(f"rerun: requests {bad} gave other token streams")
+    say("generate", f"rerun: all {len(reqs)} token streams identical")
+    del eng
+    torch.cuda.empty_cache()
+    agree = np.mean([a == b for r in reqs for a, b in zip(
+        streams["fp32"][r.request_id], streams["int8"][r.request_id])
+        if r.sampling.temperature <= 0])
+    say("generate", f"int8 KV vs fp32 KV: greedy token agreement {agree:.4f}"
+        " position by position")
+    # correctness against full recompute and against the CPU port
+    few = [r for r in gen_requests(cfg, 8, seed=GEN_SEED + 2, new_lo=24,
+                                   new_hi=32, hi=320)][:check_reqs]
+    for kv in ("fp32", "int8"):
+        check_recompute(cfg, params, device, kv, few)
+    for kv in ("fp32", "int8"):
+        check_step_vs_cpu(cfg, params_np, device, kv)
+    del params
+    torch.cuda.empty_cache()
+    paged_times = time_paged(device, card)
+    for kv in ("fp32", "int8"):
+        gen_times(recs[kv], f"{kv} KV", card)
+    return paged_err, recs, paged_times
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1499,8 +2193,14 @@ def main() -> int:
                                device, 0)
     time_train_step(tstep, train_batch_, cfg, card)
     del tmodel, tstep
+    torch.cuda.empty_cache()
 
-    # -- 6. records: launches are the serving run's plus the training run's
+    # -- 6. generation: counts set to 0 just before each pool run, read
+    # just after
+    paged_err, gen_recs, paged_times = run_generation(device, card)
+
+    # -- 7. records: launches are the serving, training and generation
+    # runs
     ln_rec = ln_times[torch.float32]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]
@@ -1509,7 +2209,8 @@ def main() -> int:
         dict(name="layer_norm_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/layer_norm.cu",
              replaces="paddle_tpu/kernels/layer_norm.py:33",
-             launches=ln_total + train_counts["layer_norm_fwd"],
+             launches=ln_total + train_counts["layer_norm_fwd"] + sum(
+                 r["counts"]["layer_norm"] for r in gen_recs.values()),
              max_abs_err=ln_err[(4096, 768, torch.float32, 1e-12)],
              **ln_rec),
         dict(name="layer_norm_bwd", route="cuda",
@@ -1535,6 +2236,21 @@ def main() -> int:
              launches=train_counts["flash_attention_bwd_dkv"],
              max_abs_err=max(fa_bwd_err[(0, "dk")], fa_bwd_err[(0, "dv")]),
              **fa_bwd_times[(*bwd_key, "dkv")]),
+        dict(name="paged_attention", route="cuda",
+             source="paddle_tpu_torch/csrc/paged_attention.cu",
+             replaces="paddle_tpu/kernels/paged_attention.py:215",
+             launches=gen_recs["fp32"]["counts"]["paged"],
+             max_abs_err=max(paged_err["fp32"],
+                             paged_times["fp32"]["max_abs_err"]), **{
+                 k: paged_times["fp32"][k] for k in KERNEL_TIME_KEYS}),
+        dict(name="paged_attention_quant", route="cuda",
+             source="paddle_tpu_torch/csrc/paged_attention.cu",
+             replaces="paddle_tpu/kernels/paged_attention.py:274",
+             launches=gen_recs["int8"]["counts"]["paged_quant"],
+             max_abs_err=max(paged_err["int8"], paged_err["fp8"],
+                             paged_times["int8"]["max_abs_err"],
+                             paged_times["fp8"]["max_abs_err"]), **{
+                 k: paged_times["int8"][k] for k in KERNEL_TIME_KEYS}),
     ]
     say("train", f"seed-mode drop rate {drop_rate:.5f} over "
         f"[{TRAIN_B},12,{TRAIN_S},{TRAIN_S}]")

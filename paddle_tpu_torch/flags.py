@@ -1,0 +1,48 @@
+"""Flags of the port: the ones its slices read, with the JAX package's
+defaults.
+
+Counterpart of ``paddle_tpu/flags.py`` (``set_flags``, ``get_flag``).
+Only the flags that a ported path reads live here; a later slice adds its
+own. An unknown name raises in ``set_flags``, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+_DEFS: Dict[str, Any] = {
+    # the generation engine (generation/engine.py): a fixed pool of
+    # kv_blocks blocks of block_size tokens a layer (block 0 is the trash
+    # block), decode_width lanes, prefill_chunk prompt tokens per lane and
+    # step (chunked mode; 0 is the two-phase mode, not ported yet), a
+    # mixed step of token_budget slots (0: decode_width + prefill_chunk)
+    "FLAGS_generation_kv_blocks": 128,
+    "FLAGS_generation_block_size": 16,
+    "FLAGS_generation_decode_width": 8,
+    "FLAGS_generation_prefill_chunk": 8,
+    "FLAGS_generation_token_budget": 0,
+    "FLAGS_generation_prefix_cache": True,
+    "FLAGS_generation_queue_depth": 256,
+    # KV pool dtype: "auto" follows the weight quantization mode, which
+    # the port does not have yet, so it resolves to "fp32"
+    "FLAGS_generation_kv_quant": "auto",
+}
+
+_values: Dict[str, Any] = dict(_DEFS)
+
+
+def _canon(name: str) -> str:
+    return name if name.startswith("FLAGS_") else "FLAGS_" + name
+
+
+def set_flags(flags: Dict[str, Any]) -> None:
+    """Set flags by name; an unknown flag raises."""
+    for k, v in flags.items():
+        k = _canon(k)
+        if k not in _values:
+            raise ValueError(f"unknown flag {k!r} (the port knows "
+                             f"{len(_values)} flags)")
+        _values[k] = v
+
+
+def get_flag(name: str, default: Any = None) -> Any:
+    return _values.get(_canon(name), default)

@@ -1,0 +1,386 @@
+"""Paged KV cache: the refcounted block pool ledger and the prefix cache.
+
+Counterpart of ``paddle_tpu/generation/kv_cache.py``, with the same
+semantics: every layer owns one preallocated pool ``[num_blocks,
+block_size, heads, head_dim]`` and a sequence holds an ordered table of
+pool block indices. Block 0 is the TRASH block: idle lanes and the right
+padding of short tables point at it, so every table is a dense
+``[max_blocks_per_seq]`` row. Blocks are refcounted so that the
+:class:`PrefixCache` and many tables can share immutable prefix blocks;
+``free`` drops references and recycles a block at refcount 0 (a double
+free decrements once), and ``cow`` swaps a private block in for a shared
+one (the caller copies the device rows).
+
+Host-side bookkeeping only; the pools live in the engine. Instruments go
+through the port's ``monitor``: GAUGE_generation_blocks_free / _used,
+GAUGE_kv_shared_blocks, GAUGE_kv_blocks_saved,
+STAT_generation_blocks_allocated / _freed / _evictions; the prefix cache
+adds GAUGE_generation_prefix_entries / _blocks and
+STAT_generation_prefix_evictions. Failpoints are not ported yet
+(``ROADMAP.md`` A7).
+"""
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict, deque
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..monitor import gauge_set, stat_add
+
+__all__ = ["KVCacheManager", "PrefixCache", "BlockPoolExhausted",
+           "TRASH_BLOCK"]
+
+TRASH_BLOCK = 0
+
+
+class BlockPoolExhausted(RuntimeError):
+    """The free list is empty. The scheduler handles this by evicting
+    cold prefix-cache entries, then preempting its youngest sequence —
+    callers of the raw manager see the exception."""
+
+
+class KVCacheManager:
+    """Host-side ledger of the paged pool.
+
+    `alloc(seq_id, n)` claims n private blocks for a new sequence,
+    `attach(seq_id, shared, n)` builds a table from shared prefix
+    blocks plus n private ones, `extend` appends one, `free` drops the
+    sequence's references (blocks recycle at refcount 0).
+    `table(seq_id, width)` gives the dense int32 block table
+    (trash-padded) the device step wants.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 2:
+            raise ValueError("need >= 2 blocks (block 0 is reserved)")
+        if block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        # block 0 reserved; allocation order is FIFO-recycled so a
+        # freed block rests as long as possible before reuse (helps
+        # debugging: stale data survives longer, masked anyway)
+        self._free: deque = deque(range(1, self.num_blocks))
+        self._tables: Dict[object, List[int]] = {}
+        # block -> reference count; every non-free block has an entry
+        self._ref: Dict[int, int] = {}
+        self._publish()
+
+    # --- queries -------------------------------------------------------
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return (self.num_blocks - 1) - len(self._free)
+
+    @property
+    def shared_blocks(self) -> int:
+        """Blocks referenced by more than one owner (tables + cache)."""
+        return sum(1 for r in self._ref.values() if r > 1)
+
+    @property
+    def blocks_saved(self) -> int:
+        """Allocations sharing avoided: sum of (refcount - 1)."""
+        return sum(r - 1 for r in self._ref.values() if r > 1)
+
+    def blocks_for_tokens(self, tokens: int) -> int:
+        """ceil(tokens / block_size) — blocks needed to hold a context
+        of `tokens` positions."""
+        return -(-int(tokens) // self.block_size)
+
+    def refcount(self, block: int) -> int:
+        return self._ref.get(block, 0)
+
+    def owned(self, seq_id) -> List[int]:
+        return list(self._tables[seq_id])
+
+    def table(self, seq_id, width: int) -> List[int]:
+        """Dense block table of length `width`, right-padded with the
+        trash block — exactly what the fixed-shape decode step feeds."""
+        blocks = self._tables[seq_id]
+        if len(blocks) > width:
+            raise ValueError("sequence %r holds %d blocks > table width %d"
+                             % (seq_id, len(blocks), width))
+        return blocks + [TRASH_BLOCK] * (width - len(blocks))
+
+    # --- mutation ------------------------------------------------------
+
+    def alloc(self, seq_id, n_blocks: int) -> List[int]:
+        """Claim `n_blocks` private blocks for a new sequence — all or
+        nothing (a partially provisioned prefill is useless)."""
+        if n_blocks < 1:
+            raise ValueError("n_blocks must be >= 1")
+        return self.attach(seq_id, (), n_blocks)
+
+    def attach(self, seq_id, shared_blocks: Sequence[int],
+               n_private: int) -> List[int]:
+        """Build a new sequence's table: reference `shared_blocks` (a
+        cached prefix, refcounts bumped) and claim `n_private` fresh
+        blocks all-or-nothing."""
+        if seq_id in self._tables:
+            raise ValueError("sequence %r already has blocks" % (seq_id,))
+        if n_private < 0:
+            raise ValueError("n_private must be >= 0")
+        if n_private > len(self._free):
+            raise BlockPoolExhausted(
+                "need %d blocks, %d free (pool %d x %d tokens)"
+                % (n_private, len(self._free), self.num_blocks,
+                   self.block_size))
+        for b in shared_blocks:
+            if self._ref.get(b, 0) < 1:
+                raise ValueError("cannot share free block %d" % b)
+        priv = [self._free.popleft() for _ in range(n_private)]
+        for b in shared_blocks:
+            self._ref[b] += 1
+        for b in priv:
+            self._ref[b] = 1
+        self._tables[seq_id] = list(shared_blocks) + priv
+        if n_private:
+            stat_add("STAT_generation_blocks_allocated", n_private)
+        self._publish()
+        return self.owned(seq_id)
+
+    def extend(self, seq_id) -> int:
+        """Append one private block to a live sequence (its context is
+        about to cross a block boundary)."""
+        if seq_id not in self._tables:
+            raise KeyError("unknown sequence %r" % (seq_id,))
+        if not self._free:
+            raise BlockPoolExhausted(
+                "no free block to extend sequence %r" % (seq_id,))
+        b = self._free.popleft()
+        self._ref[b] = 1
+        self._tables[seq_id].append(b)
+        stat_add("STAT_generation_blocks_allocated")
+        self._publish()
+        return b
+
+    def cow(self, seq_id, index: int) -> Tuple[int, int]:
+        """Copy-on-write: replace the (shared) block at table position
+        `index` with a fresh private block, dropping one reference on
+        the original. Returns (old_block, new_block); the CALLER copies
+        the device pool rows old -> new before the next step writes."""
+        blocks = self._tables[seq_id]
+        old = blocks[index]
+        if self._ref.get(old, 0) <= 1:
+            raise ValueError(
+                "block %d is private (refcount %d) — no copy needed"
+                % (old, self._ref.get(old, 0)))
+        if not self._free:
+            raise BlockPoolExhausted(
+                "no free block for copy-on-write of %r" % (seq_id,))
+        new = self._free.popleft()
+        self._ref[new] = 1
+        self._ref[old] -= 1
+        blocks[index] = new
+        stat_add("STAT_generation_blocks_allocated")
+        self._publish()
+        return old, new
+
+    def incref(self, blocks: Sequence[int]) -> None:
+        """Add one reference to each block (PrefixCache persistence)."""
+        for b in blocks:
+            if self._ref.get(b, 0) < 1:
+                raise ValueError("cannot reference free block %d" % b)
+        for b in blocks:
+            self._ref[b] += 1
+        self._publish()
+
+    def decref(self, blocks: Sequence[int]) -> int:
+        """Drop one reference from each block; blocks reaching zero
+        return to the free list. Returns the number recycled."""
+        released = 0
+        for b in blocks:
+            r = self._ref.get(b, 0)
+            if r < 1:
+                raise ValueError("refcount underflow on block %d" % b)
+            if r == 1:
+                del self._ref[b]
+                self._free.append(b)
+                released += 1
+            else:
+                self._ref[b] = r - 1
+        if released:
+            stat_add("STAT_generation_blocks_freed", released)
+        self._publish()
+        return released
+
+    def free(self, seq_id) -> int:
+        """Drop the sequence's references (EOS/max-len/error). Returns
+        the number of blocks actually recycled — a block still
+        referenced by the PrefixCache or another table stays out of
+        the free list. Unknown ids are a no-op: the double-free of an
+        already-evicted sequence must not corrupt the ledger (and with
+        sharing, must decrement each reference exactly once — the
+        table is gone after the first call)."""
+        blocks = self._tables.pop(seq_id, None)
+        if not blocks:
+            return 0
+        return self.decref(blocks)
+
+    def evict(self, seq_id) -> int:
+        """free() counted as an eviction (scheduler preemption under
+        pool pressure — the sequence will be replayed from scratch).
+        Only the sequence's PRIVATE references are released to the
+        pool; blocks a cached prefix still holds survive."""
+        existed = seq_id in self._tables
+        n = self.free(seq_id)
+        if existed:
+            stat_add("STAT_generation_evictions")
+        return n
+
+    # --- internals -----------------------------------------------------
+
+    def _publish(self) -> None:
+        gauge_set("GAUGE_generation_blocks_free", len(self._free))
+        gauge_set("GAUGE_generation_blocks_used", self.used_blocks)
+        gauge_set("GAUGE_kv_shared_blocks", self.shared_blocks)
+        gauge_set("GAUGE_kv_blocks_saved", self.blocks_saved)
+
+
+class _PrefixEntry:
+    """One cached chunk-aligned prefix: `tokens` prompt tokens whose
+    K/V lives in `blocks` (the last block may be partial — a consumer
+    that writes into it copy-on-writes first)."""
+
+    __slots__ = ("key", "tokens", "blocks")
+
+    def __init__(self, key: str, tokens: int, blocks: List[int]):
+        self.key = key
+        self.tokens = tokens
+        self.blocks = blocks
+
+
+class PrefixCache:
+    """Cross-request prefix reuse over the paged pool.
+
+    Prompts are hashed CHUNK-ALIGNED — `FLAGS_generation_prefill_chunk`
+    is the unit, matching how the mixed step streams them in — with a
+    RUNNING hash over the token ids, so only identical prefixes ever
+    collide: key_i = sha256(tokens[0 : i * chunk]), computed
+    incrementally. An entry per boundary (plus one for the full
+    prompt) references the blocks covering that many tokens; admission
+    walks the chain upward and stops at the first uncached boundary,
+    so the new request starts prefill at the first uncached chunk.
+
+    Entries hold real refcounts on their blocks (KVCacheManager), so a
+    producing sequence may retire — or be preempted — while its prefix
+    lives on, and LRU eviction under pool pressure (`evict_for`) only
+    recycles blocks nothing else references. `match` touches every
+    entry on the chain it walks, keeping live chains MRU.
+
+    The cache never mutates device state: consumers attach the shared
+    blocks read-only, and any write into a still-shared block goes
+    through the engine's copy-on-write step first.
+    """
+
+    def __init__(self, kv: KVCacheManager, chunk: int):
+        self.kv = kv
+        self.chunk = max(1, int(chunk))
+        self._entries: "OrderedDict[str, _PrefixEntry]" = OrderedDict()
+        self._publish()
+
+    # --- hashing -------------------------------------------------------
+
+    def keys_for(self, prompt: Sequence[int]) -> List[Tuple[int, str]]:
+        """[(boundary_tokens, key)] for every chunk boundary of the
+        prompt, ending with the full prompt length. The running hash
+        makes key_i a pure function of tokens[:boundary_i]."""
+        n = len(prompt)
+        toks = np.asarray(prompt, np.int64)
+        h = hashlib.sha256()
+        out: List[Tuple[int, str]] = []
+        prev = 0
+        bounds = list(range(self.chunk, n + 1, self.chunk))
+        if not bounds or bounds[-1] != n:
+            bounds.append(n)
+        for b in bounds:
+            h.update(toks[prev:b].tobytes())
+            prev = b
+            out.append((b, h.hexdigest()))
+        return out
+
+    # --- lookup / publish ----------------------------------------------
+
+    @property
+    def entries(self) -> int:
+        return len(self._entries)
+
+    @property
+    def held_blocks(self) -> int:
+        """Distinct blocks the cache holds references on."""
+        blocks = set()
+        for e in self._entries.values():
+            blocks.update(e.blocks)
+        return len(blocks)
+
+    def match(self, prompt: Sequence[int]
+              ) -> Optional[Tuple[int, List[int]]]:
+        """Longest cached chunk chain covering a prefix of `prompt`:
+        returns (cached_tokens, blocks) or None. Walks the chain
+        upward, touching every hit (LRU order stays chain-monotone),
+        and stops at the first miss — insertion always publishes
+        boundaries in order, so nothing longer can exist."""
+        hits: List[str] = []
+        best: Optional[_PrefixEntry] = None
+        for tokens_b, key in self.keys_for(prompt):
+            e = self._entries.get(key)
+            if e is None:
+                break
+            hits.append(key)
+            best = e
+        # touch DEEPEST boundary first: the chain head ends up MRU, so
+        # LRU eviction drops extensions before prefixes and a surviving
+        # entry is always reachable through its full chain
+        for key in reversed(hits):
+            self._entries.move_to_end(key)
+        if best is None:
+            return None
+        return best.tokens, list(best.blocks)
+
+    def insert(self, key: str, tokens: int,
+               blocks: Sequence[int]) -> None:
+        """Publish a prefix: the cache takes one reference per block.
+        Re-inserting an existing key only refreshes its LRU position
+        (the original immutable blocks stay authoritative)."""
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return
+        self.kv.incref(blocks)
+        self._entries[key] = _PrefixEntry(key, int(tokens), list(blocks))
+        self._publish()
+
+    # --- eviction ------------------------------------------------------
+
+    def evict_for(self, n_free: int) -> bool:
+        """Pool pressure: drop least-recently-used entries until
+        `n_free` blocks are free (or the cache is empty). Only blocks
+        nothing else references actually recycle — a prefix a live
+        sequence still shares is 'cold' for the cache but its blocks
+        survive via the sequence's own references. Returns True when
+        the pool now has the headroom."""
+        while self.kv.free_blocks < n_free and self._entries:
+            _, e = self._entries.popitem(last=False)
+            self.kv.decref(e.blocks)
+            stat_add("STAT_generation_prefix_evictions")
+        self._publish()
+        return self.kv.free_blocks >= n_free
+
+    def clear(self) -> None:
+        """Drop every entry (engine reset after a batch-level fault:
+        a possibly poisoned cache must not survive the restart)."""
+        while self._entries:
+            _, e = self._entries.popitem(last=False)
+            self.kv.decref(e.blocks)
+        self._publish()
+
+    # --- internals -----------------------------------------------------
+
+    def _publish(self) -> None:
+        gauge_set("GAUGE_generation_prefix_entries", len(self._entries))
+        gauge_set("GAUGE_generation_prefix_blocks", self.held_blocks)

@@ -10,6 +10,8 @@ state. Names are deduplicated by object identity as
 ``paddle_tpu/jit.py:_named_state`` does, so a tied weight (BERT's MLM
 decoder is the word embedding) is one tensor under its first name. Linear
 weights are ``[in, out]`` in both packages, so nothing is transposed.
+``load_reference_params`` does the same for the generation decoder's flat
+parameter dict (``generation/model.py``).
 ``functional_call`` and ``to_static`` are not ported yet (``ROADMAP.md``
 A1c).
 """
@@ -106,6 +108,39 @@ def load_reference_opt_state(optimizer, opt_state: Mapping[str, Mapping[
         optimizer.set_accumulators(p, {
             k: torch.from_numpy(np.array(v, dtype=np.float32)).to(p.device)
             for k, v in arrays[name].items()})
+
+
+def load_reference_params(cfg, params: Mapping[str, np.ndarray],
+                          device=None) -> Dict[str, torch.Tensor]:
+    """The generation decoder's flat parameter dict (the JAX package's
+    ``generation.init_params`` or a checkpoint of it, as numpy arrays) as
+    fp32 tensors on ``device`` (the default device when None). Raises on a
+    missing, extra or shape-mismatched name against ``cfg``, a
+    ``generation.DecoderConfig``; nothing is built unless every name and
+    shape agrees. Tensors already on the device are used as they are."""
+    from .device import resolve
+    from .generation.model import param_shapes
+    want = param_shapes(cfg)
+    missing = sorted(set(want) - set(params))
+    extra = sorted(set(params) - set(want))
+    if missing or extra:
+        raise KeyError(f"load_reference_params: names differ; missing "
+                       f"{missing}, unexpected {extra}")
+    bad = [f"{n}: {tuple(params[n].shape)} vs {shape}"
+           for n, shape in want.items() if tuple(params[n].shape) != shape]
+    if bad:
+        raise ValueError("load_reference_params: shapes differ (given vs "
+                         "config): " + "; ".join(bad))
+    dev = resolve(device)
+    out = {}
+    for n in want:
+        a = params[n]
+        if isinstance(a, torch.Tensor):
+            out[n] = a.to(device=dev, dtype=torch.float32)
+        else:
+            # np.array copies: a JAX array's numpy view is read-only
+            out[n] = torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+    return out
 
 
 def _as_tensors(values, device) -> tuple:

@@ -23,7 +23,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("layer_norm", "flash_attention", "flash_attention_bwd")
+KERNEL_SOURCES = ("layer_norm", "flash_attention", "flash_attention_bwd",
+                  "paged_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}

@@ -230,7 +230,17 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "             m.startswith('jax.') or m == 'paddle_tpu' or\n"
         "             m.startswith('paddle_tpu.'))\n"
         "assert len(names) >= 15, names\n"
-        "for n in ('paddle_tpu_torch.optimizer', 'paddle_tpu_torch.jit'):\n"
+        "for n in ('paddle_tpu_torch.optimizer', 'paddle_tpu_torch.jit',\n"
+        "          'paddle_tpu_torch.generation',\n"
+        "          'paddle_tpu_torch.generation.model',\n"
+        "          'paddle_tpu_torch.generation.sampling',\n"
+        "          'paddle_tpu_torch.generation.kv_cache',\n"
+        "          'paddle_tpu_torch.generation.engine',\n"
+        "          'paddle_tpu_torch.generation.scheduler',\n"
+        "          'paddle_tpu_torch.kernels.paged_attention',\n"
+        "          'paddle_tpu_torch.quant', 'paddle_tpu_torch.flags',\n"
+        "          'paddle_tpu_torch.monitor', 'paddle_tpu_torch.tracing',\n"
+        "          'paddle_tpu_torch.serving'):\n"
         "    assert n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

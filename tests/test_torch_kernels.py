@@ -317,7 +317,10 @@ def test_every_kernel_source_is_in_the_package():
                     "_drop_keep_tile"),
                 "flash_attention_bwd": (
                     "paddle_tpu/kernels/flash_attention.py:",
-                    "_bwd_dq_kernel", "_bwd_dkv_kernel")}
+                    "_bwd_dq_kernel", "_bwd_dkv_kernel"),
+                "paged_attention": (
+                    "paddle_tpu/kernels/paged_attention.py",
+                    "_ragged_kernel", "_ragged_kernel_quant")}
     assert set(replaces) == set(_build.KERNEL_SOURCES)
     for name in _build.KERNEL_SOURCES:
         text = (_build.CSRC_DIR / f"{name}.cu").read_text()
