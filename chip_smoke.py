@@ -29,7 +29,9 @@ Phases, each printing its lines; any failure exits nonzero:
    Philox, whose pattern is held bit for bit against
    ``philox_keep_mask``, with its drop rate; each kernel in seed mode is
    bitwise equal to itself in mask mode with ``philox_keep_mask``, and
-   the tolerances are shown to fail two wrong dropouts);
+   the tolerances are shown to fail two wrong dropouts; the bf16 backward
+   at the train shape with seed dropout gives the same bits twice, and
+   copies only the misaligned inputs before its launch);
    (ii) one fp32 ``TrainStep`` with Adam on the card against the CPU
    port: loss, every gradient, every parameter after the update;
    (iii) the main path: BERT-base at full width with dropout on, B=32,
@@ -41,8 +43,10 @@ Phases, each printing its lines; any failure exits nonzero:
    from the same seed draws the same dropout; one fp32 step at B=8 S=512
    with the padding mask;
    (iv) times: each new kernel against its bound, its plain version and
-   the library call; the train step's eager ms, tokens/s, MFU and device
-   idle share, with a profiler breakdown;
+   the library call (the flash backward pair also at the main path's call,
+   seed dropout 0.1, against SDPA's backward with dropout_p=0.1, with its
+   tiling); the train step's eager ms, tokens/s, MFU and device idle
+   share, with a profiler breakdown;
 6. generation, the third main path: the decoder of docs/generation.md
    at full width and depth (vocab 32000, hidden 1024, 16 layers, 16
    heads; weights from ``init_params`` through ``load_reference_params``):
@@ -70,6 +74,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -131,7 +136,6 @@ def ptxas_summary(log: str):
     """'kernel<D>: N regs, spill S bytes' for each kernel of a ptxas -v
     log (mangled names shortened to the kernel's name and first template
     argument)."""
-    import re
     out, kernel = [], None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -143,10 +147,11 @@ def ptxas_summary(log: str):
             if short:
                 names = {"f": "f32", "a": "int8", "14__nv_bfloat16": "bf16",
                          "13__nv_fp8_e4m3": "fp8"}
-                args = [names.get(a.group(0), a.group(1)) for a in
-                        re.finditer(r"14__nv_bfloat16|13__nv_fp8_e4m3|"
-                                    r"Li(\d+)E|Lb\dE|f|a",
-                                    short.group(2) or "")]
+                args = [names.get(a.group(0)) or a.group(1) or a.group(2)
+                        for a in re.finditer(r"14__nv_bfloat16|"
+                                             r"13__nv_fp8_e4m3|Li(\d+)E|"
+                                             r"Lb(\d)E|f|a",
+                                             short.group(2) or "")]
                 args = [a for a in args if a is not None]
                 kernel = short.group(1) + \
                     (f"<{','.join(args)}>" if args else "")
@@ -532,6 +537,15 @@ FLASH_BWD_CASES = (
     (2, 12, 77, 77, 64, "full", False, torch.float32, "qkv_views", "seed"),
     (1, 4, 100, 100, 64, None, True, torch.bfloat16, "unaligned", "seed"),
     (1, 4, 100, 100, 128, None, True, torch.bfloat16, "unaligned", None),
+    # the rest of the bf16 kernels' instances (D x dropout x full bias)
+    (2, 4, 200, 130, 64, "full", False, torch.bfloat16, "contiguous", None),
+    (2, 12, 77, 77, 64, "full", True, torch.bfloat16, "contiguous", "mask"),
+    (2, 12, 77, 77, 64, "full", False, torch.bfloat16, "qkv_views", "seed"),
+    (2, 4, 200, 130, 128, None, False, torch.bfloat16, "contiguous", "seed"),
+    (2, 4, 200, 130, 128, "pad", True, torch.bfloat16, "contiguous", "mask"),
+    (2, 4, 200, 130, 128, "full", False, torch.bfloat16, "contiguous",
+     "mask"),
+    (2, 4, 200, 130, 128, "full", True, torch.bfloat16, "contiguous", "seed"),
 )
 KEEP_PROB = 0.9
 
@@ -596,13 +610,31 @@ def check_flash_bwd(device):
         scale = 1.0 / math.sqrt(d)
         o, lse = FA._launch_fwd(q, k, v, bias, causal, scale, keep, seed_t,
                                 kp)
+        copies = FA.bwd_copies
         dq, dk, dv = FA._launch_bwd(do, q, k, v, o, lse, bias, causal, scale,
                                     keep, seed_t, kp)
         torch.cuda.synchronize()
+        copies = FA.bwd_copies - copies
         plain_keep = keep if drop != "seed" else FA.philox_keep_mask(
             seed, b, h, sq, sk, kp, device=device)
         label = (f"flash bwd [{b},{h},{sq},{d}] sk={sk} {dtype} bias="
                  f"{bias_kind} causal={causal} {layout} dropout={drop}")
+        # the bf16 kernels read 16-byte chunks: only the misaligned q, k, v
+        # views are copied first, the fused projection's views are not
+        want = 3 if layout == "unaligned" and dtype == torch.bfloat16 else 0
+        if copies != want:
+            fail(f"{label}: {copies} inputs copied before the launch, want "
+                 f"{want}")
+        if drop == "seed" and b == TRAIN_B and dtype == torch.bfloat16:
+            # no atomics: a second run gives the same bits
+            again = FA._launch_bwd(do, q, k, v, o, lse, bias, causal, scale,
+                                   None, seed_t, kp)
+            for what, a, b_ in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+                if not torch.equal(a, b_):
+                    fail(f"{label}: a second run differs in {what}")
+            say("parity", f"{label}: a second run gives dq, dk and dv bit "
+                "for bit")
+            del again
         if drop == "seed":
             o2, lse2 = FA._launch_fwd(q, k, v, bias, causal, scale,
                                       plain_keep, None, kp)
@@ -1246,53 +1278,76 @@ def bwd_work(q, k, bias, which):
     return nbytes, flops
 
 
-TIME_BWD_CASES = ((32, 12, 512, 64, False, torch.bfloat16),
-                  (32, 12, 512, 64, True, torch.bfloat16),
-                  (8, 12, 512, 64, False, torch.float32))
+# (b, h, s, d, padding bias, dtype, keep_prob): keep_prob < 1 is seed-mode
+# dropout, the main path's call
+TIME_BWD_CASES = ((32, 12, 512, 64, False, torch.bfloat16, 1.0),
+                  (32, 12, 512, 64, True, torch.bfloat16, 1.0),
+                  (32, 12, 512, 64, False, torch.bfloat16, KEEP_PROB),
+                  (8, 12, 512, 64, False, torch.float32, 1.0))
 
 
 def time_flash_bwd(device, card):
     """The dQ and the dK/dV kernels each alone (the dK/dV kernel reads the
-    delta a dQ launch wrote before), the plain backward, and SDPA's
-    backward (one autograd call for dq, dk and dv: the library's time for
-    both rows, its kernels' time from the profiler). Also the forward with
-    seed-mode dropout against without, the plain pattern
+    delta a dQ launch wrote before), their sum, the plain backward, and
+    SDPA's backward (one autograd call for dq, dk and dv, with
+    dropout_p = 1 - keep_prob where the kernels drop: the library's time
+    for both rows, its kernels' time from the profiler). Also the forward
+    with seed-mode dropout against without, the plain pattern
     (philox_keep_mask) and SDPA's forward with dropout."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as FA
     records = {}
-    for b, h, s, d, with_bias, dtype in TIME_BWD_CASES:
+    src = (_build.CSRC_DIR / "flash_attention_bwd.cu").read_text()
+    tiles = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                 src).group(1))
+             for name in ("kThreads", "kTile", "kStages")}
+    say("times", "flash backward bf16 tiling: a CTA of "
+        f"{tiles['kThreads']} threads owns {tiles['kTile']} rows, "
+        f"{tiles['kStages']} stages of {tiles['kTile']}-row tiles")
+    for b, h, s, d, with_bias, dtype, kp in TIME_BWD_CASES:
         q, k, v, do = attn_grad_inputs(b, h, s, s, d, dtype, device,
                                        "contiguous", 500)
         bias = padding_bias(b, s, device, 501) if with_bias else None
+        seed_t = FA.seed_tensor(502, device) if kp < 1.0 else None
         scale = 1.0 / math.sqrt(d)
-        o, lse = FA._launch_fwd(q, k, v, bias, False, scale, None, None, 1.0)
-        args, _, held = FA.bwd_args(do, q, k, v, o, lse, bias, False, scale,
-                                    None, None, 1.0)
+        o, lse = FA._launch_fwd(q, k, v, bias, False, scale, None, seed_t,
+                                kp)
+        args, grads, held = FA.bwd_args(do, q, k, v, o, lse, bias, False,
+                                        scale, None, seed_t, kp)
         fns = {w: FA.bwd_kernel(w) for w in ("dq", "dkv")}
         fns["dq"](*args, _build.stream_ptr(device))
         ms = {w: device_ms([lambda f=f: f(*args, _build.stream_ptr(device))])
               for w, f in fns.items()}
+        keep = None if seed_t is None else FA.philox_keep_mask(
+            502, b, h, s, s, kp, device=device)
         plain_ms = device_ms([lambda: FA.attention_backward_reference(
-            do, q, k, v, o, lse, bias, False, scale)], reps=3)
+            do, q, k, v, o, lse, bias, False, scale, keep, kp)], reps=3)
         ql, kl, vl = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
         mask = None if bias is None else bias > -1.0
         out = torch.nn.functional.scaled_dot_product_attention(
-            ql, kl, vl, attn_mask=mask, scale=scale)
+            ql, kl, vl, attn_mask=mask, scale=scale, dropout_p=1.0 - kp)
         lib_ms = profiled_ms(lambda: torch.autograd.grad(
             out, (ql, kl, vl), do, retain_graph=True))
+        what = (f"[{b},{h},{s},{d}] {dtype} bias="
+                f"{'[B,1,1,S]' if with_bias else 'none'}" +
+                (f" seed dropout keep {kp}" if kp < 1.0 else ""))
         for w in ("dq", "dkv"):
             nbytes, flops = bwd_work(q, k, bias, w)
             bms, by = bound_ms(nbytes, flops, dtype)
-            records[(b, h, s, d, with_bias, dtype, w)] = dict(
+            records[(b, h, s, d, with_bias, dtype, kp, w)] = dict(
                 ms=ms[w], plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                 bound_by=by)
-            say("times", f"flash_bwd_{w} [{b},{h},{s},{d}] {dtype} bias="
-                f"{'[B,1,1,S]' if with_bias else 'none'}: kernel "
-                f"{ms[w]:.4f} ms, bound {bms:.4f} ms ({by}), plain backward "
-                f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms  [{card}]")
-        del held, out, ql, kl, vl
+            say("times", f"flash_bwd_{w} {what}: kernel {ms[w]:.4f} ms, "
+                f"bound {bms:.4f} ms ({by}), plain backward {plain_ms:.4f} "
+                f"ms, SDPA backward {lib_ms:.4f} ms  [{card}]")
+        pair = ms["dq"] + ms["dkv"]
+        lib = "SDPA's whole backward" + (
+            f" with dropout_p={1.0 - kp:g}" if kp < 1.0 else "")
+        say("times", f"flash backward pair {what}: dQ + dK/dV {pair:.4f} ms "
+            f"against {lib} {lib_ms:.4f} ms ({pair / lib_ms:.2f}x)  [{card}]")
+        del held, grads, out, ql, kl, vl, keep
+    torch.cuda.empty_cache()
 
     # dropout: the forward with and without the in-kernel pattern
     b, h, s, d = TRAIN_B, 12, TRAIN_S, 64
@@ -2204,7 +2259,7 @@ def main() -> int:
     ln_rec = ln_times[torch.float32]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]
-    bwd_key = (TRAIN_B, 12, TRAIN_S, 64, False, torch.bfloat16)
+    bwd_key = (TRAIN_B, 12, TRAIN_S, 64, False, torch.bfloat16, 1.0)
     kernels = [
         dict(name="layer_norm_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/layer_norm.cu",

@@ -448,7 +448,7 @@ int launch(Kernel kernel, int threads, size_t smem, const Params& p,
 }
 
 // one thread a 2 x 2 group of the seed-mode pattern, each row of it through
-// drop_factor_keys, the word selection of the bf16 forward and dQ kernels
+// drop_factor_keys, the word selection of the bf16 forward kernel
 // (d.rinv is 1, so a factor is 1 for keep and 0 for drop)
 __global__ void keep_mask_kernel(Dropout d, int B, int H, int Sq, int Sk,
                                  uint8_t* out) {

@@ -16,29 +16,49 @@
 // that the forward left empty with lse = 0) give p = 0 and no gradient.
 //
 // Blocks run in parallel on Hopper, so, as in the TPU kernels, one block
-// owns a 64-row q tile and walks the k tiles for dQ (up to the last key its
-// rows can see), and another owns a 64-key k tile and walks the q tiles
+// owns a tile of queries and walks the k tiles for dQ (up to the last key
+// its rows can see), and another owns a tile of keys and walks the q tiles
 // from the first one that can see it for dK and dV. Every sum stays in one
 // block: no atomics, and the result is the same from run to run. The dQ
 // kernel also computes delta for its rows and writes it to device memory;
 // the dK/dV kernel, launched after it on the same stream, reads it. The
 // dK/dV kernel works on transposed scores s^T = k q^T, so that its rows are
-// its keys and every product keeps the forward kernel's operand layouts;
-// there the bias and the keep mask are read with query and key swapped,
-// and a [B,1,1,S] padding bias (stride 0 along q) is read per column.
+// its keys; there the bias and the keep mask are read with query and key
+// swapped, and a [B,1,1,S] padding bias (stride 0 along q) is read per row.
 //
-// What bounds it on the H100: per (b, h) the backward does 2.5 times the
-// forward's matrix work (s, dp, dQ, dK, dV: 10 S^2 D flops) on the same
-// bytes plus dO and three gradients, so at S = 512, D = 64 it sits at the
-// ridge in bf16 and is bound by operations in fp32. Nothing of size
-// [Sq, Sk] reaches device memory.
+// What bounds it on the H100 (chip_smoke.py bwd_work, [32,12,512,64]
+// bf16): each kernel moves 0.153 GB; the dQ kernel does 38.7 GFLOP (s,
+// dp, ds k) and the dK/dV kernel 51.5 (s, dp, dV, dK), so the dQ kernel
+// is bound by bytes (0.0455 ms) and the dK/dV kernel by tensor-core
+// operations (0.0521 ms). Both sit
+// near the ridge, so the design keeps the tensor cores fed and moves each
+// tile once:
 //
-// - bfloat16: tensor cores through mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate), 4 warps each owning 16 rows (queries in the dQ kernel,
-//   keys in the dK/dV kernel). p and ds are recomputed in fp32 and rounded
-//   to bf16 as A operands of the next products. Loads are plain 16-byte
-//   copies, neither asynchronous nor overlapped, and the MMAs are not yet
-//   wgmma: later work.
+// - bfloat16: every product is a wgmma (bf16 in, fp32 accumulate) on
+//   64-row tiles, a CTA one warpgroup. In the dQ kernel
+//   s = q k^T and dp = dO v^T read both operands from shared memory, and
+//   dQ += ds k takes ds from registers with k as an MN-major operand. In
+//   the dK/dV kernel the accumulators of s^T = k q^T and dp^T = v dO^T turn
+//   in registers into the A operands of dV += (p keep)^T dO and
+//   dK += ds^T q, so p and ds never pass through shared memory. The fixed
+//   operand (q and dO in the dQ kernel, k and v in the dK/dV kernel) is
+//   loaded once; the moving one streams through a ring of kStages tiles by
+//   cp.async, the next tile in flight while the tensor cores work on this
+//   one, in the 128-byte-swizzled layout that the wgmma descriptors read
+//   (a D = 64 bf16 row is one 128-byte line). A [B,1,1,S] bias, lse and
+//   delta arrive per tile in the same ring; a full bias is read per score.
+//   p = exp2(s * scale * log2(e) + (bias - lse) * log2(e)): one FMA and
+//   one exp2 a score. Seed-mode dropout runs Philox once per 2 x 2 group
+//   and uses all four words: a lane computes one group and trades its
+//   four bits with lane ^ 4, which holds the other query (dQ) or key
+//   (dK/dV) of each pair; mask mode reads a row's two keys as one 2-byte
+//   load. One warpgroup a CTA, owning 64 rows, and a ring of two stages
+//   beat, on the H100, two warpgroups a CTA (an SM then holds one CTA,
+//   against three, and the two warpgroups run in lockstep between the
+//   tile barriers) and a third stage (loads are not the limit). What is
+//   left bounds the kernels by the issue of the per-score arithmetic, so
+//   each kernel is compiled per dropout mode and bias layout: no score
+//   pays for a branch it does not take.
 // - float32: the CUDA cores, fp32 FMA, 256 threads with 4 x 4 score and
 //   4 x D/16 accumulator slices each, as in the forward.
 //
@@ -53,9 +73,12 @@
 // host memory, in elements: q, k, v, o, dout, dq, dk, dv (batch, head,
 // row), then bias and keep (batch, head, query, key). The last dim of every
 // tensor but the bias and keep is contiguous; lse and delta are contiguous
-// [B,H,Sq] fp32. keep (uint8, 1 = keep) selects mask mode, seed (one int64
-// in device memory) seed mode. dtype codes: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 on success).
+// [B,H,Sq] fp32. In bf16, q, k, v, o and dout must start on 16 bytes and
+// have strides that are multiples of 8 elements (cp.async moves 16-byte
+// chunks); the wrapper copies an input that does not. keep (uint8, 1 =
+// keep) selects mask mode, seed (one int64 in device memory) seed mode.
+// dtype codes: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
+// launch (0 on success).
 #include "flash_common.cuh"
 
 using namespace flash;
@@ -81,7 +104,6 @@ struct BwdParams {
   int64_t bias_sb, bias_sh, bias_sq, bias_sk;
   float scale;
   int causal;
-  int vec16;  // q, k, v, dout rows start on 16-byte boundaries
   Dropout drop;
 };
 
@@ -97,11 +119,13 @@ __device__ __forceinline__ float score(const BwdParams& p, const float* bias,
   return val;
 }
 
-// k tiles a q tile starting at q0 needs (causal: up to its last visible key)
-__device__ __forceinline__ int k_tiles(const BwdParams& p, int q0) {
+// k tiles a block of `rows` queries from q0 needs (causal: up to the last
+// key its last row can see)
+__device__ __forceinline__ int visible_k_tiles(const BwdParams& p, int q0,
+                                               int rows) {
   int n = (p.Sk + kBlockK - 1) / kBlockK;
   if (p.causal) {
-    const int last = min(q0 + kBlockQ, p.Sq) - 1 + (p.Sk - p.Sq);
+    const int last = min(q0 + rows, p.Sq) - 1 + (p.Sk - p.Sq);
     n = last < 0 ? 0 : min(n, last / kBlockK + 1);
   }
   return n;
@@ -112,28 +136,24 @@ __device__ __forceinline__ int first_q_tile(const BwdParams& p, int k0) {
   return p.causal ? max(k0 - (p.Sk - p.Sq), 0) / kBlockQ : 0;
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-// delta = rowsum(dO * o) of rows [q0, q0 + valid) of this (b, h), TPR
-// threads a row (blockDim.x / TPR rows at a time); into delta_s and device
+// delta = rowsum(dO * o) of fp32 rows [q0, q0 + valid) of this (b, h), 4
+// threads a row (blockDim.x / 4 rows at a time); into delta_s and device
 // memory
-template <typename T, int D, int TPR>
-__device__ __forceinline__ void row_delta(const BwdParams& p, const T* o,
-                                          const T* dout, int b, int h,
+template <int D>
+__device__ __forceinline__ void row_delta(const BwdParams& p, const float* o,
+                                          const float* dout, int b, int h,
                                           int q0, int valid,
                                           float* delta_s) {
-  static_assert(TPR == 2 || TPR == 4, "row_delta: 2 or 4 threads a row");
-  for (int base = 0; base < kBlockQ; base += blockDim.x / TPR) {
-    const int r = base + threadIdx.x / TPR, part = threadIdx.x % TPR;
+  for (int base = 0; base < kBlockQ; base += blockDim.x / 4) {
+    const int r = base + threadIdx.x / 4, part = threadIdx.x % 4;
     float s = 0.f;
     if (r < valid) {
-      const T* orow = o + (q0 + r) * p.o_ss;
-      const T* drow = dout + (q0 + r) * p.do_ss;
-      for (int c = part; c < D; c += TPR) s += to_f32(orow[c]) * to_f32(drow[c]);
+      const float* orow = o + (q0 + r) * p.o_ss;
+      const float* drow = dout + (q0 + r) * p.do_ss;
+      for (int c = part; c < D; c += 4) s += orow[c] * drow[c];
     }
     s += __shfl_xor_sync(0xffffffffu, s, 1);
-    if (TPR == 4) s += __shfl_xor_sync(0xffffffffu, s, 2);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
     if (part == 0 && r < kBlockQ) {
       delta_s[r] = s;
       if (r < valid)
@@ -185,7 +205,7 @@ flash_bwd_dq_simt_kernel(const BwdParams p) {
   load_tile_f32<D, LD, kSimtThreads>(Qs, q + q0 * p.q_ss, p.q_ss, valid_q);
   load_tile_f32<D, LD, kSimtThreads>(dOs, dout + q0 * p.do_ss, p.do_ss,
                                      valid_q);
-  row_delta<float, D, 4>(p, o, dout, b, h, q0, valid_q, delta_s);
+  row_delta<D>(p, o, dout, b, h, q0, valid_q, delta_s);
   if (tid < kBlockQ)
     lse_s[tid] = tid < valid_q
                      ? p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + q0 + tid]
@@ -197,7 +217,7 @@ flash_bwd_dq_simt_kernel(const BwdParams p) {
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
-  const int n_tiles = k_tiles(p, q0);
+  const int n_tiles = visible_k_tiles(p, q0, kBlockQ);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // Q, dO, lse, delta staged; last tile's K, ds consumed
@@ -408,80 +428,316 @@ flash_bwd_dkv_simt_kernel(const BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core kernels (mma.sync m16n8k16)
+// bfloat16: wgmma kernels fed by a cp.async ring
 // ---------------------------------------------------------------------------
 
-template <int D>
-constexpr size_t mma_bwd_smem_bytes() {
-  return sizeof(bf16) * 4 * kBlockQ * (D + 8) + sizeof(float) * 2 * kBlockQ;
+constexpr int kThreads = 128;  // one warpgroup a CTA
+constexpr int kTile = 64;      // rows a CTA owns, and of a streamed tile
+constexpr int kStages = 2;     // ring of streamed tiles
+constexpr int kLine = 128;     // bytes of a swizzled row
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kTile == kBlockQ && kTile == kBlockK, "first_q_tile's tiles");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-// acc[2i], acc[2i+1] += A B, where A is the k-step of 16 columns packed
-// from score fragments and B the rows [16 j, 16 j + 16) of a row-major
-// [64][LD] bf16 tile (k = its rows, n = its D columns), transposed by
-// ldmatrix
-template <int D, int LD, int kTilesO>
-__device__ __forceinline__ void mma_rows(float (&acc)[kTilesO][4],
-                                         const uint32_t (&a)[4],
-                                         const bf16* tile, int j) {
-  const int lane = threadIdx.x % 32;
-  const int row = j * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
+// 16 (4) bytes from device to shared memory; zeros when !full
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// this thread's landed copies, visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// rows [0, valid) of a kTile x D bf16 tile into shared memory at dst
+// (1024-byte aligned), the rest zero, in the layout the SW128 descriptors
+// read: D / 64 column blocks of kTile lines of 128 bytes, 16-byte chunk c
+// of row r at chunk c ^ (r & 7)
+template <int D>
+__device__ __forceinline__ void tile_async(uint32_t dst, const bf16* src,
+                                           int64_t row_stride, int valid) {
+  constexpr int kChunks = D / 8;                 // of a row
+  constexpr int kRowsPass = kThreads / kChunks;  // rows a pass
+  static_assert(kTile % kRowsPass == 0 && kRowsPass % 8 == 0,
+                "tile_async: whole passes");
+  // a thread's chunk column, and its swizzled place, are the same in
+  // every pass
+  const int c = threadIdx.x % kChunks, r0 = threadIdx.x / kChunks;
+  const uint32_t col = (c / 8) * kTile * kLine + (((c % 8) ^ (r0 & 7)) * 16);
+  const bf16* from = src + c * 8;
 #pragma unroll
-  for (int i = 0; i < D / 16; ++i) {
-    uint32_t bv[4];
-    ldmatrix_x4_trans(bv, tile + row * LD + i * 16 + (lane / 16) * 8);
-    mma_bf16(acc[2 * i], a, bv[0], bv[1]);
-    mma_bf16(acc[2 * i + 1], a, bv[2], bv[3]);
+  for (int i = 0; i < kTile / kRowsPass; ++i) {
+    const int r = r0 + i * kRowsPass;
+    const bool in = r < valid;
+    cp_async16(dst + col + r * kLine, in ? from + r * row_stride : src, in);
   }
 }
 
-// the A fragment of k-step j from score fragments s[2j], s[2j+1]
-template <int kTilesS>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4],
-                                       const float (&s)[kTilesS][4], int j) {
-  a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-  a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-  a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-  a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-}
-
-// c[nt] = A B^T over kSteps k-steps, A from registers, B^T the rows
-// nt*8 .. nt*8+7 of a row-major [64][LD] bf16 tile
-template <int kSteps, int kTiles, int LD>
-__device__ __forceinline__ void mma_abt(float (&c)[kTiles][4],
-                                        const uint32_t (&a)[kSteps][4],
-                                        const bf16* tile) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < kTiles; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
-    const bf16* row = tile + (nt * 8 + g) * LD + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk)
-      mma_bf16(c[nt], a[kk], lds32(row + kk * 16), lds32(row + kk * 16 + 8));
+// kTile fp32 values src[i * stride], i < valid, into shared memory; the
+// rest 0
+__device__ __forceinline__ void vec_async(uint32_t dst, const float* src,
+                                          int64_t stride, int valid) {
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    const bool in = i < valid;
+    cp_async4(dst + 4 * i, in ? src + i * stride : src, in);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const BwdParams p) {
-  constexpr int LD = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kTilesS = kBlockK / 8;
-  constexpr int kTilesO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kBlockQ * LD;
-  bf16* Ks = dOs + kBlockQ * LD;
-  bf16* Vs = Ks + kBlockK * LD;
-  float* delta_s = reinterpret_cast<float*>(Vs + kBlockK * LD);
-  float* lse_s = delta_s + kBlockQ;
+// wgmma shared-memory descriptor, 128-byte swizzle; lbo and sbo in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+// K-major operand (its k dimension along the 128-byte lines): k-step kk of
+// the 64-row tile at addr
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, int kk) {
+  return sw128_desc(addr + (kk / 4) * kTile * kLine + (kk % 4) * 32, 16,
+                    8 * kLine);
+}
+
+// MN-major operand (its k dimension across the rows of a streamed tile, its
+// n dimension along the lines): k-step kk covers rows 16 kk .. 16 kk + 15
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, int kk) {
+  return sw128_desc(addr + kk * 16 * kLine, kTile * kLine, 8 * kLine);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x in one MUFU.EX2; results below 2^-126 flush to 0, which a softmax
+// probability that small may
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keeps the compiler from moving reads or writes of an accumulator across
+// the wgmma issue and wait around it
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define PT_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define PT_F16(i) PT_F4(i), PT_F4(i + 4), PT_F4(i + 8), PT_F4(i + 12)
+#define PT_F32(i) PT_F16(i), PT_F16(i + 16)
+
+// d (+)= A B^T, 64 x 64, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : PT_F32(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B, 64 x N: A from registers (the m16n8k16 A fragment of each
+// warp's 16 rows), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : PT_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, 1, "
+      "1, 1;\n"
+      : PT_F32(0), PT_F32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+#undef PT_F32
+#undef PT_F16
+#undef PT_F4
+
+// A fragments of the four 16-column k-steps of a 64 x 64 accumulator
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
+                                           const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+}
+
+// s = A B^T over D / 16 k-steps, A and B 64-row K-major tiles
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[32], uint32_t a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(s, kmajor_desc(a, kk), kmajor_desc(b, kk), kk > 0);
+}
+
+// a bias value in the base-2 exponent, floored so that a finfo.min mask
+// stays finite
+__device__ __forceinline__ float bias_log2(float x) {
+  return fmaxf(x, kNegInf) * kLog2e;
+}
+
+// the keep bits a lane needs of a pair of 2 x 2 groups: this lane's rows of
+// its own half's group and of its partner's (lane ^ 4) half's group. The
+// lane computes the group of half (g & 1), trades it for the other, and
+// returns them as (half 0, half 1).
+template <int MODE>
+__device__ __forceinline__ uint2 paired_bits(const Dropout& d, uint2 seed,
+                                             int b, int h, int q, int k,
+                                             int Sq, int Sk, int g) {
+  const uint32_t mine = group_bits<MODE>(d, seed, b, h, q, k, Sq, Sk);
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 4);
+  return (g & 1) ? make_uint2(other, mine) : make_uint2(mine, other);
+}
+
+template <int D>
+struct DqSmem {  // byte offsets from a 1024-byte-aligned base
+  static constexpr int kTileBytes = kTile * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int dO = Q + kTileBytes;
+  static constexpr int K = dO + kTileBytes;  // kStages tiles
+  static constexpr int V = K + kStages * kTileBytes;
+  static constexpr int bias = V + kStages * kTileBytes;  // kStages x kTile
+  static constexpr int delta = bias + kStages * kTile * 4;
+  static constexpr int bytes = delta + kTile * 4 + 1024;  // + alignment
+};
+
+template <int D>
+struct DkvSmem {
+  static constexpr int kTileBytes = kTile * D * 2;
+  static constexpr int K = 0;
+  static constexpr int V = K + kTileBytes;
+  static constexpr int Q = V + kTileBytes;  // kStages tiles
+  static constexpr int dO = Q + kStages * kTileBytes;
+  static constexpr int lse = dO + kStages * kTileBytes;  // kStages x kTile
+  static constexpr int delta = lse + kStages * kTile * 4;
+  static constexpr int bias = delta + kStages * kTile * 4;  // kTile
+  static constexpr int bytes = bias + kTile * 4 + 1024;
+};
+
+// the 1024-byte-aligned start of dynamic shared memory
+__device__ __forceinline__ uint32_t aligned_smem(unsigned char* raw,
+                                                 unsigned char*& base) {
+  const uint32_t addr = smem_u32(raw);
+  const uint32_t aligned = (addr + 1023u) & ~1023u;
+  base = raw + (aligned - addr);
+  return aligned;
+}
+
+// delta = rowsum(dO * o) of rows [q0, q0 + valid) of this (b, h), D / 8
+// threads a row, each one 16-byte chunk, every load issued before the
+// first sum; into delta_s[0, kTile) and device memory
+template <int D>
+__device__ __forceinline__ void rows_delta(const BwdParams& p, const bf16* o,
+                                           const bf16* dout, int b, int h,
+                                           int q0, int valid,
+                                           float* delta_s) {
+  constexpr int TPR = D / 8;
+  constexpr int kPasses = kTile * TPR / kThreads;
+  const int part = threadIdx.x % TPR, r0 = threadIdx.x / TPR;
+  uint4 ov[kPasses], dv[kPasses];
+#pragma unroll
+  for (int i = 0; i < kPasses; ++i) {
+    const int r = r0 + i * (kThreads / TPR);
+    ov[i] = dv[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) {
+      ov[i] = *reinterpret_cast<const uint4*>(o + (q0 + r) * p.o_ss +
+                                              part * 8);
+      dv[i] = *reinterpret_cast<const uint4*>(dout + (q0 + r) * p.do_ss +
+                                              part * 8);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPasses; ++i) {
+    const int r = r0 + i * (kThreads / TPR);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov[i]);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv[i]);
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 of = __bfloat1622float2(o2[k]);
+      const float2 df = __bfloat1622float2(d2[k]);
+      s = fmaf(of.x, df.x, fmaf(of.y, df.y, s));
+    }
+#pragma unroll
+    for (int m = TPR / 2; m > 0; m /= 2)
+      s += __shfl_xor_sync(0xffffffffu, s, m);
+    if (part == 0) {
+      delta_s[r] = s;
+      if (r < valid)
+        p.delta[(static_cast<int64_t>(b) * p.H + h) * p.Sq + q0 + r] = s;
+    }
+  }
+}
+
+// The dQ kernel: one CTA (a warpgroup) owns 64 queries and walks the key
+// tiles they can see. DROP is the dropout mode and
+// FULL_BIAS says the bias has a stride along the queries (read per score);
+// a [B,1,1,S] bias is staged per key tile.
+template <int D, int DROP, bool FULL_BIAS>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wgmma_kernel(const BwdParams p) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm;
+  const uint32_t base = aligned_smem(smem_raw, sm);
+  const float* bias_s = reinterpret_cast<const float*>(sm + L::bias);
+  float* delta_s = reinterpret_cast<float*>(sm + L::delta);
+
+  const int lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
   const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -490,103 +746,164 @@ flash_bwd_dq_mma_kernel(const BwdParams p) {
   const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* bias =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
+  const bool row_bias = !FULL_BIAS && bias != nullptr;
   const uint2 seed = read_seed(p.drop);
-  const int valid_q = min(kBlockQ, p.Sq - q0);
+  const int valid_q = min(kTile, p.Sq - q0);
+  const int n_tiles = visible_k_tiles(p, q0, kTile);
 
-  load_tile<D, LD, kMmaThreads>(Qs, q + q0 * p.q_ss, p.q_ss, valid_q, p.vec16);
-  load_tile<D, LD, kMmaThreads>(dOs, dout + q0 * p.do_ss, p.do_ss, valid_q,
-                                p.vec16);
-  row_delta<bf16, D, 2>(p, o, dout, b, h, q0, valid_q, delta_s);
-  if (threadIdx.x < kBlockQ)
-    lse_s[threadIdx.x] =
-        static_cast<int>(threadIdx.x) < valid_q
-            ? p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + q0 + threadIdx.x]
-            : 0.f;
-  __syncthreads();
-
-  const int r0 = warp * 16;
-  uint32_t qf[kSteps][4], df[kSteps][4];
-  load_a_frags<kSteps, LD>(qf, Qs, r0);
-  load_a_frags<kSteps, LD>(df, dOs, r0);
-  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  const float lse_r[2] = {lse_s[r0 + g], lse_s[r0 + g + 8]};
-  const float delta_r[2] = {delta_s[r0 + g], delta_s[r0 + g + 8]};
-
-  float acc[kTilesO][4];
+  // the fixed tiles, then the first kStages - 1 streamed ones, one group
+  // each
+  tile_async<D>(base + L::Q, q + q0 * p.q_ss, p.q_ss, valid_q);
+  tile_async<D>(base + L::dO, dout + q0 * p.do_ss, p.do_ss, valid_q);
+  auto issue = [&](int kt) {
+    const int st = kt % kStages, k0 = kt * kTile;
+    const int valid = min(kTile, p.Sk - k0);
+    tile_async<D>(base + L::K + st * L::kTileBytes, k + k0 * p.k_ss, p.k_ss,
+                  valid);
+    tile_async<D>(base + L::V + st * L::kTileBytes, v + k0 * p.v_ss, p.v_ss,
+                  valid);
+    if (row_bias)
+      vec_async(base + L::bias + st * kTile * 4, bias + k0 * p.bias_sk,
+                p.bias_sk, valid);
+  };
 #pragma unroll
-  for (int i = 0; i < kTilesO; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int n_tiles = k_tiles(p, q0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    const int valid = min(kBlockK, p.Sk - k0);
-    __syncthreads();  // the last tile's K and V are consumed
-    load_tile<D, LD, kMmaThreads>(Ks, k + k0 * p.k_ss, p.k_ss, valid, p.vec16);
-    load_tile<D, LD, kMmaThreads>(Vs, v + k0 * p.v_ss, p.v_ss, valid, p.vec16);
-    __syncthreads();
-
-    // element e of fragment nt: query rows[e/2], key k0 + nt*8 + 2t + e%2
-    float s[kTilesS][4], dp[kTilesS][4];
-    mma_abt<kSteps, kTilesS, LD>(s, qf, Ks);
-    mma_abt<kSteps, kTilesS, LD>(dp, df, Vs);
-#pragma unroll
-    for (int nt = 0; nt < kTilesS; ++nt)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int kc = k0 + nt * 8 + 2 * t;
-        float f0, f1;
-        drop_factor_keys(p.drop, seed, b, h, rows[hr], kc, p.Sq, p.Sk, f0, f1);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int e = 2 * hr + j;
-          const float pv = expf(
-              score(p, bias, s[nt][e] * p.scale, rows[hr], kc + j) - lse_r[hr]);
-          s[nt][e] =
-              pv * (dp[nt][e] * (j ? f1 : f0) - delta_r[hr]) * p.scale;  // ds
-        }
-      }
-
-    // dQ += ds k
-#pragma unroll
-    for (int j = 0; j < kBlockK / 16; ++j) {
-      uint32_t a[4];
-      pack_a<kTilesS>(a, s, j);
-      mma_rows<D, LD, kTilesO>(acc, a, Ks, j);
-    }
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) issue(i);
+    cp_async_commit();
   }
 
+  // this thread's rows: g and g + 8 of its warp's 16
+  const int r_loc = threadIdx.x / 32 * 16 + g;
+  int rows[2], kmax[2];
+  float lse2[2];
+  const float* brow[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    rows[hr] = q0 + r_loc + 8 * hr;
+    const bool in = rows[hr] < p.Sq;
+    lse2[hr] = in ? p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq +
+                          rows[hr]] * kLog2e
+                  : 0.f;
+    // keys [0, kmax) are visible to the row
+    kmax[hr] = !in ? 0
+               : p.causal ? max(0, min(p.Sk, rows[hr] + (p.Sk - p.Sq) + 1))
+                          : p.Sk;
+    brow[hr] = FULL_BIAS ? bias + rows[hr] * p.bias_sq : nullptr;
+  }
+  rows_delta<D>(p, o, dout, b, h, q0, valid_q, delta_s);
+  __syncthreads();  // delta_s
+  // delta * scale: ds = p (dp keep scale - delta scale)
+  const float dsc[2] = {delta_s[r_loc] * p.scale,
+                        delta_s[r_loc + 8] * p.scale};
+  const float scale_log2 = p.scale * kLog2e;
+  const float kept = (DROP == kNoDrop ? 1.f : p.drop.rinv) * p.scale;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    if (kt + kStages - 1 < n_tiles) issue(kt + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // tile kt (and Q, dO) landed
+    fence_proxy_async();
+    __syncthreads();
+    const int st = kt % kStages, k0 = kt * kTile;
+    const uint32_t kb = base + L::K + st * L::kTileBytes;
+    const uint32_t vb = base + L::V + st * L::kTileBytes;
+
+    // element 4j + 2hr + e: query rows[hr], key k0 + 8j + 2t + e
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    pin(s);
+    pin(dp);
+    wgmma_fence();
+    scores<D>(s, base + L::Q, kb);
+    wgmma_commit();
+    scores<D>(dp, base + L::dO, vb);
+    wgmma_commit();
+    // while the tensor cores work: the keep bits, bit i for element i
+    uint32_t keep = 0xFFFFFFFFu;
+    if (DROP != kNoDrop) {
+      keep = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint2 bits = paired_bits<DROP>(
+            p.drop, seed, b, h, rows[0] + 8 * (g & 1), k0 + 8 * j + 2 * t,
+            p.Sq, p.Sk, g);
+        // this lane's rows have the query parity of g: bits 2(g & 1) + e
+        keep |= ((bits.x >> (2 * (g & 1))) & 3u) << (4 * j) |
+                ((bits.y >> (2 * (g & 1))) & 3u) << (4 * j + 2);
+      }
+    }
+    wgmma_wait<1>();
+    pin(s);
+    // p = exp2(s scale log2(e) + (bias - lse) log2(e)), 0 where masked
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kc = k0 + 8 * j + 2 * t + e;
+        const float bl = row_bias
+                             ? bias_log2(bias_s[st * kTile + 8 * j + 2 * t + e])
+                             : 0.f;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = 4 * j + 2 * hr + e;
+          const bool vis = kc < kmax[hr];
+          float x = bl - lse2[hr];
+          if (FULL_BIAS && vis) x += bias_log2(brow[hr][kc * p.bias_sk]);
+          s[i] = vis ? fast_exp2(fmaf(s[i], scale_log2, x)) : 0.f;
+        }
+      }
+    wgmma_wait<0>();
+    pin(dp);
+    // ds = p (dp keep - delta) scale, into s
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float fs = (keep >> i) & 1u ? kept : 0.f;
+      s[i] *= fmaf(dp[i], fs, -dsc[(i / 2) % 2]);
+    }
+    uint32_t a[4][4];
+    to_a_frags(a, s);
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], mnmajor_desc(kb, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();
+
+  // element 4n + 2hr + e of acc: row rows[hr], column 8n + 2t + e
   bf16* dq = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     if (rows[hr] >= p.Sq) continue;
 #pragma unroll
-    for (int dt = 0; dt < kTilesO; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(dq + rows[hr] * p.dq_ss + dt * 8 +
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dq + rows[hr] * p.dq_ss + 8 * n +
                                          2 * t) =
-          __floats2bfloat162_rn(acc[dt][2 * hr], acc[dt][2 * hr + 1]);
+          __floats2bfloat162_rn(acc[4 * n + 2 * hr], acc[4 * n + 2 * hr + 1]);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma_kernel(const BwdParams p) {
-  constexpr int LD = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kTilesS = kBlockQ / 8;  // n-tiles over a q tile's queries
-  constexpr int kTilesO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kBlockK * LD;
-  bf16* Qs = Vs + kBlockK * LD;
-  bf16* dOs = Qs + kBlockQ * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + kBlockQ * LD);
-  float* delta_s = lse_s + kBlockQ;
+// The dK/dV kernel: one CTA (a warpgroup) owns 64 keys and walks the
+// query tiles that can see them, on transposed scores (rows are keys).
+template <int D, int DROP, bool FULL_BIAS>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
+  using L = DkvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm;
+  const uint32_t base = aligned_smem(smem_raw, sm);
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kBlockK;
+  const int k0 = blockIdx.x * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
   const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -594,77 +911,149 @@ flash_bwd_dkv_mma_kernel(const BwdParams p) {
   const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* bias =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
+  const bool row_bias = !FULL_BIAS && bias != nullptr;
   const float* lse = p.lse + (static_cast<int64_t>(b) * p.H + h) * p.Sq;
   const float* delta = p.delta + (static_cast<int64_t>(b) * p.H + h) * p.Sq;
   const uint2 seed = read_seed(p.drop);
-  const int valid_k = min(kBlockK, p.Sk - k0);
+  const int valid_k = min(kTile, p.Sk - k0);
+  const int qt0 = first_q_tile(p, k0);
+  const int n_tiles = (p.Sq + kTile - 1) / kTile - qt0;
 
-  load_tile<D, LD, kMmaThreads>(Ks, k + k0 * p.k_ss, p.k_ss, valid_k, p.vec16);
-  load_tile<D, LD, kMmaThreads>(Vs, v + k0 * p.v_ss, p.v_ss, valid_k, p.vec16);
-  __syncthreads();
-  const int r0 = warp * 16;
-  uint32_t kf[kSteps][4], vf[kSteps][4];
-  load_a_frags<kSteps, LD>(kf, Ks, r0);
-  load_a_frags<kSteps, LD>(vf, Vs, r0);
-  const int keys[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-
-  float dk[kTilesO][4], dv[kTilesO][4];
+  tile_async<D>(base + L::K, k + k0 * p.k_ss, p.k_ss, valid_k);
+  tile_async<D>(base + L::V, v + k0 * p.v_ss, p.v_ss, valid_k);
+  if (row_bias)
+    vec_async(base + L::bias, bias + k0 * p.bias_sk, p.bias_sk, valid_k);
+  auto issue = [&](int i) {
+    const int st = i % kStages, q0 = (qt0 + i) * kTile;
+    const int valid = min(kTile, p.Sq - q0);
+    tile_async<D>(base + L::Q + st * L::kTileBytes, q + q0 * p.q_ss, p.q_ss,
+                  valid);
+    tile_async<D>(base + L::dO + st * L::kTileBytes, dout + q0 * p.do_ss,
+                  p.do_ss, valid);
+    vec_async(base + L::lse + st * kTile * 4, lse + q0, 1, valid);
+    vec_async(base + L::delta + st * kTile * 4, delta + q0, 1, valid);
+  };
 #pragma unroll
-  for (int i = 0; i < kTilesO; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) issue(i);
+    cp_async_commit();
+  }
 
-  const int n_q = (p.Sq + kBlockQ - 1) / kBlockQ;
-  for (int qt = first_q_tile(p, k0); qt < n_q; ++qt) {
-    const int q0 = qt * kBlockQ;
-    const int valid_q = min(kBlockQ, p.Sq - q0);
-    __syncthreads();  // the last tile's Q, dO, lse, delta are consumed
-    load_tile<D, LD, kMmaThreads>(Qs, q + q0 * p.q_ss, p.q_ss, valid_q,
-                                  p.vec16);
-    load_tile<D, LD, kMmaThreads>(dOs, dout + q0 * p.do_ss, p.do_ss, valid_q,
-                                  p.vec16);
-    if (threadIdx.x < kBlockQ) {
-      const int r = threadIdx.x;
-      lse_s[r] = r < valid_q ? lse[q0 + r] : 0.f;
-      delta_s[r] = r < valid_q ? delta[q0 + r] : 0.f;
-    }
+  // this thread's keys: g and g + 8 of its warp's 16
+  const int r_loc = threadIdx.x / 32 * 16 + g;
+  int keys[2], qmin[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    keys[hr] = k0 + r_loc + 8 * hr;
+    // queries [qmin, Sq) see the key; none when it is past Sk
+    qmin[hr] = keys[hr] >= p.Sk ? p.Sq
+               : p.causal       ? keys[hr] - (p.Sk - p.Sq)
+                                : 0;
+  }
+  const float scale_log2 = p.scale * kLog2e;
+  const float rinv = DROP == kNoDrop ? 1.f : p.drop.rinv;
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + kStages - 1 < n_tiles) issue(it + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // tile it (and K, V, the bias) landed
+    fence_proxy_async();
     __syncthreads();
+    const int st = it % kStages, q0 = (qt0 + it) * kTile;
+    const uint32_t qb = base + L::Q + st * L::kTileBytes;
+    const uint32_t ob = base + L::dO + st * L::kTileBytes;
+    const float* lse_s = reinterpret_cast<const float*>(sm + L::lse) +
+                         st * kTile;
+    const float* delta_s = reinterpret_cast<const float*>(sm + L::delta) +
+                           st * kTile;
 
-    // element e of fragment nt: key keys[e/2], query q0 + nt*8 + 2t + e%2
-    float st[kTilesS][4], dpt[kTilesS][4];
-    mma_abt<kSteps, kTilesS, LD>(st, kf, Qs);
-    mma_abt<kSteps, kTilesS, LD>(dpt, vf, dOs);
-    // in place: st becomes p * keep (the A operand of dV), dpt becomes ds
+    // element 4j + 2hr + e: key keys[hr], query q0 + 8j + 2t + e
+    float s[32], dp[32];
 #pragma unroll
-    for (int nt = 0; nt < kTilesS; ++nt)
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    pin(s);
+    pin(dp);
+    wgmma_fence();
+    scores<D>(s, base + L::K, qb);
+    wgmma_commit();
+    scores<D>(dp, base + L::V, ob);
+    wgmma_commit();
+    // while the tensor cores work: the keep bits, bit i for element i
+    uint32_t keep = 0xFFFFFFFFu;
+    if (DROP != kNoDrop) {
+      keep = 0u;
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int lq = nt * 8 + 2 * t;
-        float f0, f1;
-        drop_factor_queries(p.drop, seed, b, h, q0 + lq, keys[hr], p.Sq, p.Sk,
-                            f0, f1);
+      for (int j = 0; j < 8; ++j) {
+        const uint2 bits = paired_bits<DROP>(
+            p.drop, seed, b, h, q0 + 8 * j + 2 * t, keys[0] + 8 * (g & 1),
+            p.Sq, p.Sk, g);
+        // this lane's keys have the parity of g: bits 2e + (g & 1)
+        const uint32_t w0 = bits.x >> (g & 1), w1 = bits.y >> (g & 1);
+        keep |= ((w0 & 1u) | (w0 >> 1 & 2u)) << (4 * j) |
+                ((w1 & 1u) | (w1 >> 1 & 2u)) << (4 * j + 2);
+      }
+    }
+    wgmma_wait<1>();
+    pin(s);
+    float bl[2];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int e = 2 * hr + j;
-          const float f = j ? f1 : f0;
-          const float pv =
-              expf(score(p, bias, st[nt][e] * p.scale, q0 + lq + j, keys[hr]) -
-                   lse_s[lq + j]);
-          st[nt][e] = pv * f;
-          dpt[nt][e] = pv * (dpt[nt][e] * f - delta_s[lq + j]) * p.scale;
+    for (int hr = 0; hr < 2; ++hr)
+      bl[hr] = row_bias ? bias_log2(reinterpret_cast<const float*>(
+                              sm + L::bias)[r_loc + 8 * hr])
+                        : 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e, qq = q0 + c;
+        const float l2 = lse_s[c] * kLog2e;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = 4 * j + 2 * hr + e;
+          const bool vis = qq >= qmin[hr] && qq < p.Sq;
+          float x = bl[hr] - l2;
+          if (FULL_BIAS && vis)
+            x += bias_log2(bias[qq * p.bias_sq + keys[hr] * p.bias_sk]);
+          s[i] = vis ? fast_exp2(fmaf(s[i], scale_log2, x)) : 0.f;
         }
       }
-
-    // dV += (p keep)^T dO, dK += ds^T q
+    wgmma_wait<0>();
+    pin(dp);
+    // dp becomes ds = p (dp keep - delta) scale, s becomes p keep
 #pragma unroll
-    for (int j = 0; j < kBlockQ / 16; ++j) {
-      uint32_t a[4];
-      pack_a<kTilesS>(a, st, j);
-      mma_rows<D, LD, kTilesO>(dv, a, dOs, j);
-      pack_a<kTilesS>(a, dpt, j);
-      mma_rows<D, LD, kTilesO>(dk, a, Qs, j);
-    }
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dsc = delta_s[8 * j + 2 * t + e] * p.scale;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = 4 * j + 2 * hr + e;
+          const float f = (keep >> i) & 1u ? rinv : 0.f;
+          dp[i] = s[i] * fmaf(dp[i], f * p.scale, -dsc);
+          s[i] *= f;
+        }
+      }
+    uint32_t ap[4][4], ads[4][4];
+    to_a_frags(ap, s);
+    to_a_frags(ads, dp);
+    pin(dv);
+    pin(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv, ap[kk], mnmajor_desc(ob, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, ads[kk], mnmajor_desc(qb, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dv);
+    pin(dk);
+    __syncthreads();  // every warp is done with this stage
   }
+  cp_async_wait<0>();
 
   bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
   bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
@@ -672,23 +1061,35 @@ flash_bwd_dkv_mma_kernel(const BwdParams p) {
   for (int hr = 0; hr < 2; ++hr) {
     if (keys[hr] >= p.Sk) continue;
 #pragma unroll
-    for (int dt = 0; dt < kTilesO; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + keys[hr] * p.dk_ss + dt * 8 +
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dkp + keys[hr] * p.dk_ss + 8 * n +
                                          2 * t) =
-          __floats2bfloat162_rn(dk[dt][2 * hr], dk[dt][2 * hr + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + keys[hr] * p.dv_ss + dt * 8 +
+          __floats2bfloat162_rn(dk[4 * n + 2 * hr], dk[4 * n + 2 * hr + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + keys[hr] * p.dv_ss + 8 * n +
                                          2 * t) =
-          __floats2bfloat162_rn(dv[dt][2 * hr], dv[dt][2 * hr + 1]);
+          __floats2bfloat162_rn(dv[4 * n + 2 * hr], dv[4 * n + 2 * hr + 1]);
     }
   }
+}
+
+// lets the kernel take smem bytes of dynamic shared memory, with the
+// carveout at its largest so that as many blocks fit on an SM as the
+// registers allow
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 template <typename Kernel>
 int launch(Kernel kernel, int threads, size_t smem, int tiles,
            const BwdParams& p, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(tiles, p.H, p.B);
   kernel<<<grid, threads, smem, stream>>>(p);
@@ -731,12 +1132,14 @@ bool make_params(BwdParams& p, const void* q, const void* k, const void* v,
   p.drop.mode = keep ? kMaskDrop : seed ? kSeedDrop : kNoDrop;
   p.scale = scale;
   p.causal = causal;
-  bool vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout);
-  for (int i = 0; i < 9; ++i) vec = vec && st[i] % 8 == 0;
-  for (int i = 12; i < 15; ++i) vec = vec && st[i] % 8 == 0;
-  p.vec16 = vec;
   if (dtype == 1) {
-    // the bf16 epilogues store bf16 pairs: gradient rows 4-byte aligned
+    // cp.async and the delta pass move 16-byte chunks of q, k, v, o, dout
+    const void* ins[5] = {q, k, v, o, dout};
+    for (const void* ptr : ins)
+      if (!aligned16(ptr)) return false;
+    for (int i = 0; i < 15; ++i)
+      if (st[i] % 8 != 0) return false;
+    // the epilogues store bf16 pairs: gradient rows 4-byte aligned
     const void* outs[3] = {dq, dk, dv};
     for (const void* ptr : outs)
       if (ptr != nullptr && reinterpret_cast<uintptr_t>(ptr) % 4 != 0)
@@ -745,6 +1148,31 @@ bool make_params(BwdParams& p, const void* q, const void* k, const void* v,
       if (st[i] % 2 != 0) return false;
   }
   return true;
+}
+
+// the dQ (dq) or the dK/dV kernel in its instance for this dropout mode
+// and bias layout
+template <int D, int DROP, bool FULL_BIAS>
+int launch_wgmma(bool dq, const BwdParams& p, cudaStream_t stream) {
+  if (dq)
+    return launch(flash_bwd_dq_wgmma_kernel<D, DROP, FULL_BIAS>, kThreads,
+                  DqSmem<D>::bytes, (p.Sq + kTile - 1) / kTile, p, stream);
+  return launch(flash_bwd_dkv_wgmma_kernel<D, DROP, FULL_BIAS>, kThreads,
+                DkvSmem<D>::bytes, (p.Sk + kTile - 1) / kTile, p, stream);
+}
+
+template <int D>
+int launch_wgmma(bool dq, const BwdParams& p, cudaStream_t stream) {
+  const bool full = p.bias != nullptr && p.bias_sq != 0;
+  switch (p.drop.mode * 2 + full) {
+    case 0: return launch_wgmma<D, kNoDrop, false>(dq, p, stream);
+    case 1: return launch_wgmma<D, kNoDrop, true>(dq, p, stream);
+    case 2: return launch_wgmma<D, kMaskDrop, false>(dq, p, stream);
+    case 3: return launch_wgmma<D, kMaskDrop, true>(dq, p, stream);
+    case 4: return launch_wgmma<D, kSeedDrop, false>(dq, p, stream);
+    case 5: return launch_wgmma<D, kSeedDrop, true>(dq, p, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -770,12 +1198,8 @@ extern "C" int pt_flash_attention_bwd_dq(PT_FLASH_BWD_ARGS) {
   if (dtype == 0 && D == 128)
     return launch(flash_bwd_dq_simt_kernel<128>, kSimtThreads,
                   simt_bwd_smem_bytes<128>(), tiles, p, s);
-  if (dtype == 1 && D == 64)
-    return launch(flash_bwd_dq_mma_kernel<64>, kMmaThreads,
-                  mma_bwd_smem_bytes<64>(), tiles, p, s);
-  if (dtype == 1 && D == 128)
-    return launch(flash_bwd_dq_mma_kernel<128>, kMmaThreads,
-                  mma_bwd_smem_bytes<128>(), tiles, p, s);
+  if (dtype == 1 && D == 64) return launch_wgmma<64>(true, p, s);
+  if (dtype == 1 && D == 128) return launch_wgmma<128>(true, p, s);
   return cudaErrorInvalidValue;
 }
 
@@ -793,11 +1217,7 @@ extern "C" int pt_flash_attention_bwd_dkv(PT_FLASH_BWD_ARGS) {
   if (dtype == 0 && D == 128)
     return launch(flash_bwd_dkv_simt_kernel<128>, kSimtThreads,
                   simt_bwd_smem_bytes<128>(), tiles, p, s);
-  if (dtype == 1 && D == 64)
-    return launch(flash_bwd_dkv_mma_kernel<64>, kMmaThreads,
-                  mma_bwd_smem_bytes<64>(), tiles, p, s);
-  if (dtype == 1 && D == 128)
-    return launch(flash_bwd_dkv_mma_kernel<128>, kMmaThreads,
-                  mma_bwd_smem_bytes<128>(), tiles, p, s);
+  if (dtype == 1 && D == 64) return launch_wgmma<64>(false, p, s);
+  if (dtype == 1 && D == 128) return launch_wgmma<128>(false, p, s);
   return cudaErrorInvalidValue;
 }

@@ -2,8 +2,8 @@
 // flash_attention.cu (forward) and flash_attention_bwd.cu (dQ, dK/dV).
 //
 // - tile sizes and the mask value, as the forward has always used them;
-// - the bf16 tensor-core helpers (mma.sync m16n8k16, ldmatrix, fragment
-//   loads) and the tile loader;
+// - the forward's bf16 tensor-core helpers (mma.sync m16n8k16, ldmatrix)
+//   and its tile loader;
 // - attention-probs dropout: the keep pattern, from an explicit keep mask
 //   or from Philox4x32-10 run inside the kernel.
 //
@@ -17,10 +17,10 @@
 // TPU kernel's threshold rule. The forward, the dQ kernel and the dK/dV
 // kernel each regenerate it bit for bit whatever their tiles, and
 // paddle_tpu_torch/kernels/flash_attention.py:philox_keep_mask gives the
-// same bits on any device. A thread whose two elements share a 2 x 2
-// group (adjacent keys in the forward and dQ kernels, adjacent queries in
-// the dK/dV kernel) runs Philox once for both. The constants and the round
-// are those of at::philox_engine (ATen/core/PhiloxRNGEngine.h).
+// same bits on any device. The forward runs Philox once for a thread's two
+// adjacent keys; the backward kernels run it once per 2 x 2 group and use
+// all four words (group_bits). The constants and the round are those of
+// at::philox_engine (ATen/core/PhiloxRNGEngine.h).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -128,22 +128,42 @@ __device__ __forceinline__ void drop_factor_keys(const Dropout& d, uint2 seed,
   }
 }
 
-// factors of (q, k) and (q + 1, k), q even: one Philox call for both
-__device__ __forceinline__ void drop_factor_queries(const Dropout& d,
-                                                    uint2 seed, int b, int h,
-                                                    int q, int k, int Sq,
-                                                    int Sk, float& f0,
-                                                    float& f1) {
-  if (d.mode == kNoDrop) {
-    f0 = f1 = 1.f;
-  } else if (d.mode == kMaskDrop) {
-    f0 = mask_factor(d, b, h, q, k, Sq, Sk);
-    f1 = mask_factor(d, b, h, q + 1, k, Sq, Sk);
-  } else {
+// keep bits of the 2 x 2 group holding (q, k) of head (b, h): bit
+// (q' & 1) * 2 + (k' & 1) for its element (q', k'), 1 = keep. Seed mode:
+// the group's four Philox words from one call. Mask mode: the mask's bytes,
+// a row's two keys in one 2-byte load where they are adjacent and aligned;
+// elements outside [Sq, Sk) read as dropped. All kept without dropout.
+// MODE is d.mode, known where the kernel is compiled.
+template <int MODE>
+__device__ __forceinline__ uint32_t group_bits(const Dropout& d, uint2 seed,
+                                               int b, int h, int q, int k,
+                                               int Sq, int Sk) {
+  q &= ~1;
+  k &= ~1;
+  if (MODE == kSeedDrop) {
     const uint4 r = keep_group(seed, b, h, q, k);
-    f0 = philox_word(r, k & 1) >= d.thresh ? d.rinv : 0.f;
-    f1 = philox_word(r, 2 + (k & 1)) >= d.thresh ? d.rinv : 0.f;
+    return static_cast<uint32_t>(r.x >= d.thresh) |
+           static_cast<uint32_t>(r.y >= d.thresh) << 1 |
+           static_cast<uint32_t>(r.z >= d.thresh) << 2 |
+           static_cast<uint32_t>(r.w >= d.thresh) << 3;
   }
+  if (MODE == kNoDrop) return 0xFu;
+  uint32_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (q + i >= Sq) break;
+    const uint8_t* row = d.keep + b * d.sb + h * d.sh + (q + i) * d.sq;
+    if (k + 1 < Sk && d.sk == 1 &&
+        reinterpret_cast<uintptr_t>(row + k) % 2 == 0) {
+      const uchar2 m = *reinterpret_cast<const uchar2*>(row + k);
+      bits |= static_cast<uint32_t>(m.x != 0) << (2 * i) |
+              static_cast<uint32_t>(m.y != 0) << (2 * i + 1);
+    } else {
+      if (k < Sk && row[k * d.sk]) bits |= 1u << (2 * i);
+      if (k + 1 < Sk && row[(k + 1) * d.sk]) bits |= 2u << (2 * i);
+    }
+  }
+  return bits;
 }
 
 // ---------------------------------------------------------------------------
@@ -177,23 +197,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-// The A fragments (kSteps k-steps of 16) of the 16 rows r0 .. r0+15 of a
-// row-major bf16 tile in shared memory with row stride LD
-template <int kSteps, int LD>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[kSteps][4],
-                                             const bf16* tile, int r0) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    const bf16* base = tile + kk * 16 + 2 * t;
-    f[kk][0] = lds32(base + (r0 + g) * LD);
-    f[kk][1] = lds32(base + (r0 + g + 8) * LD);
-    f[kk][2] = lds32(base + (r0 + g) * LD + 8);
-    f[kk][3] = lds32(base + (r0 + g + 8) * LD + 8);
-  }
 }
 
 // rows [0, valid) of a 64-row tile into shared memory (row stride LD), the

@@ -10,9 +10,9 @@ Replaces the TPU kernels of ``paddle_tpu/kernels/flash_attention.py``:
 ``csrc/flash_common.cuh`` (MMA helpers, Philox); their headers say what
 bounds each kernel on the H100 and what the design keeps (the score matrix
 never reaches device memory; strided q/k/v/o/dO and bias, so no transposes
-and no materialised padding mask). bf16 inputs run on the tensor cores
-(``mma.sync``, fp32 accumulation); fp32 inputs run in fp32 on the CUDA
-cores.
+and no materialised padding mask). bf16 inputs run on the tensor cores with
+fp32 accumulation (the forward through ``mma.sync``, the backward through
+``wgmma`` fed by ``cp.async``); fp32 inputs run in fp32 on the CUDA cores.
 
 Dropout comes in the TPU kernel's two modes. Mask mode reads an explicit
 [B, H, Sq, Sk] keep mask (the JAX package's HBM-mask path). Seed mode
@@ -48,6 +48,10 @@ HEAD_DIMS = (64, 128)
 launches = 0
 launches_dq = 0
 launches_dkv = 0
+# bf16 inputs of the backward that were copied before its launch because
+# they did not start on 16 bytes or had a stride that is not a multiple of
+# 8 elements (cp.async moves 16-byte chunks)
+bwd_copies = 0
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_uint,
@@ -324,12 +328,23 @@ def _launch_fwd(q, k, v, bias, causal, sm_scale, keep_mask, seed_t,
     return o, lse
 
 
+def _chunk_aligned(t: torch.Tensor) -> bool:
+    """True when t starts on 16 bytes and its batch, head and row strides
+    are multiples of 8 elements: every row a whole number of 16-byte
+    chunks."""
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                          for st in t.stride()[:3])
+
+
 def bwd_args(do, q, k, v, o, lse, bias, causal, sm_scale, keep_mask, seed_t,
              keep_prob):
     """(args, (dq, dk, dv), held): the C arguments of the dQ and the dK/dV
     entries but the stream, the gradients they write (each laid out
     [B, S, H, D] in memory and returned as a [B, H, S, D] view), and the
-    tensors the arguments point into, to be kept alive until the launch."""
+    tensors the arguments point into, to be kept alive until the launch.
+    A bf16 input the kernels' 16-byte copies cannot read is made
+    contiguous first, and counted in ``bwd_copies``."""
+    global bwd_copies
     _check(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -339,6 +354,13 @@ def bwd_args(do, q, k, v, o, lse, bias, causal, sm_scale, keep_mask, seed_t,
                          f"{tuple(o.shape)}")
     if do.stride(-1) != 1:
         do = do.contiguous()
+    if q.dtype == torch.bfloat16:
+        ins = [q, k, v, o, do]
+        for i, t in enumerate(ins):
+            if not _chunk_aligned(t):
+                ins[i] = t.contiguous()
+                bwd_copies += 1
+        q, k, v, o, do = ins
     lse = lse.contiguous()
     bias, bias_strides = _bias_view(bias, q, sk)
     keep, keep_strides = _keep_view(keep_mask, q, sk)
@@ -362,7 +384,7 @@ def bwd_args(do, q, k, v, o, lse, bias, causal, sm_scale, keep_mask, seed_t,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
             ctypes.addressof(strides), float(sm_scale), int(bool(causal)),
             thresh, rinv, _build.dtype_code(q.dtype))
-    held = (do, lse, bias, keep, delta, strides, seed_t)
+    held = (q, k, v, o, do, lse, bias, keep, delta, strides, seed_t)
     return args, (dq, dk, dv), held
 
 
@@ -394,7 +416,7 @@ def kernel_keep_mask(seed_t: torch.Tensor, batch: int, heads: int, sq: int,
                      sk: int, keep_prob: float) -> torch.Tensor:
     """The seed-mode pattern as bool [B, H, Sq, Sk], generated on the card
     by Philox, ``keep_group`` and ``drop_factor_keys``, the word selection
-    of the bf16 forward and dQ kernels: for holding it bit for bit against
+    of the bf16 forward kernel: for holding it bit for bit against
     ``philox_keep_mask``. The other kernels' selections are held by
     running them in seed mode and in mask mode with this mask. Not on any
     model path; counts no launch."""

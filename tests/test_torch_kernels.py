@@ -268,6 +268,80 @@ def test_flash_kernel_checks_accept_strided_projection_views():
     assert q.stride() == (s * 3 * h * d, d, 3 * h * d, 1)
 
 
+def _record_bwd_launches(monkeypatch):
+    """Route _launch_bwd's CPU tensors to stand-in launches that record
+    their C arguments (the kernels cannot run here)."""
+    calls = []
+
+    def kernel(which):
+        def launch(*args):
+            calls.append((which, args))
+            return 0
+        return launch
+    monkeypatch.setattr(tfa, "bwd_kernel", kernel)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    return calls
+
+
+def _bwd_inputs(q, k, v):
+    o, lse = tfa.attention_reference(q, k, v)
+    do = torch.from_numpy(_rand(tuple(o.shape), 9)).to(q.dtype)
+    return do, o, lse
+
+
+def test_flash_backward_launches_aligned_projection_views_uncopied(
+        monkeypatch):
+    # the main path's layout: q, k, v strided views of one fused [B,S,3E]
+    # projection, every row on 16 bytes
+    calls = _record_bwd_launches(monkeypatch)
+    b, s, h, d = 2, 77, 2, 64
+    qkv = torch.from_numpy(_rand((b, s, 3 * h * d), 8)).to(torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in qkv.split(h * d, dim=-1))
+    do, o, lse = _bwd_inputs(q, k, v)
+    before = tfa.bwd_copies
+    dq, dk, dv = tfa._launch_bwd(do, q, k, v, o, lse, None, False, 0.125,
+                                 None, None, 1.0)
+    assert tfa.bwd_copies == before
+    assert [w for w, _ in calls] == ["dq", "dkv"]
+    for _, args in calls:
+        assert args[:5] == tuple(t.data_ptr() for t in (q, k, v, o, do))
+        assert args[10:13] == tuple(t.data_ptr() for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("dtype,copied", [(torch.bfloat16, 3),
+                                          (torch.float32, 0)])
+def test_flash_backward_copies_misaligned_bf16_inputs_and_counts_them(
+        monkeypatch, dtype, copied):
+    # rows that start 2 (4) bytes past 16 and have an odd stride: the bf16
+    # kernels' 16-byte copies cannot read them, the fp32 kernels can
+    calls = _record_bwd_launches(monkeypatch)
+    base = torch.from_numpy(_rand((3, 1, 2, 40, 65), 10)).to(dtype)
+    q, k, v = (base[i, ..., 1:] for i in range(3))
+    do, o, lse = _bwd_inputs(q, k, v)
+    before = tfa.bwd_copies
+    tfa._launch_bwd(do, q, k, v, o, lse, None, True, 0.125, None, None, 1.0)
+    assert tfa.bwd_copies - before == copied
+    assert [w for w, _ in calls] == ["dq", "dkv"]
+    ptrs = calls[0][1][:3]
+    if copied:
+        assert all(p % 16 == 0 for p in ptrs)
+        assert ptrs != tuple(t.data_ptr() for t in (q, k, v))
+    else:
+        assert ptrs == tuple(t.data_ptr() for t in (q, k, v))
+
+
+def test_flash_backward_refuses_head_dim_96_without_a_launch(monkeypatch):
+    calls = _record_bwd_launches(monkeypatch)
+    q = k = v = torch.zeros(1, 2, 16, 96, dtype=torch.bfloat16)
+    do = o = torch.zeros_like(q)
+    lse = torch.zeros(1, 2, 16)
+    with pytest.raises(ValueError, match="head dim 96"):
+        tfa._launch_bwd(do, q, k, v, o, lse, None, False, 0.1, None, None,
+                        1.0)
+    assert calls == []
+
+
 # --------------------------------------------------------------------------
 # the build
 # --------------------------------------------------------------------------
