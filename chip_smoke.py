@@ -10,17 +10,22 @@ Phases, each printing its lines; any failure exits nonzero:
 1. setup: the card's name and power limit, TF32 off, the CUDA kernels
    built from ``paddle_tpu_torch/csrc`` with nvcc for sm_90a;
 2. kernel parity: each CUDA kernel against its plain PyTorch version on
-   the card, at BERT-base shapes, with stated tolerances;
+   the card, at BERT-base shapes, with stated tolerances; every compiled
+   instance of the flash forward (dtype x D x dropout mode x bias layout),
+   seed mode bitwise equal to mask mode with ``philox_keep_mask`` and two
+   wrong dropouts shown to fail the tolerance;
 3. serving, the main path: BERT-base at full width (``BertConfig()``),
    weights from a numpy seed carried in by ``load_reference_state``,
    answers requests in eval mode in fp32 and under bf16 ``auto_cast``.
    Launch counts are set to 0 before and read after; every forward must
    launch the flash kernel 12 times and the layer-norm kernel 26 times,
-   and the attention path log must read "flash" only. The fp32 logits are
-   held against the same model on the CPU (plain versions), and the bf16
-   MLM argmax against fp32;
+   and the attention path log must read "flash" only; the forward copies
+   none of its inputs (the projection's views are aligned). The fp32
+   logits are held against the same model on the CPU (plain versions),
+   and the bf16 MLM argmax against fp32;
 4. times, printed only: each kernel against its bound, its plain version
-   and the one PyTorch call that computes the same function; the
+   and the one PyTorch call that computes the same function (the flash
+   forward also at the train shape, with and without seed dropout); the
    end-to-end forward per request shape, with its device time from a CUDA
    graph and a torch.profiler breakdown of device time by kernel group;
 5. training, the second main path:
@@ -38,8 +43,9 @@ Phases, each printing its lines; any failure exits nonzero:
    S=512, 80 masked positions, ``Adam(1e-4)``, bf16 ``auto_cast``, 10
    steps on one batch (the JAX package's bench.py configuration), counts
    set to 0 before and read after: 26 layer-norm forward and backward,
-   12 flash forward, dQ and dK/dV launches a step, an all-"flash" path
-   log, finite gradients for every parameter, a falling loss; a rerun
+   12 flash forward, dQ and dK/dV launches a step and no forward input
+   copied, an all-"flash" path log, finite gradients for every
+   parameter, a falling loss; a rerun
    from the same seed draws the same dropout; one fp32 step at B=8 S=512
    with the padding mask;
    (iv) times: each new kernel against its bound, its plain version and
@@ -424,6 +430,137 @@ def check_flash(device):
     return worst
 
 
+def source_constants(names, *files):
+    """{name: value} of ``constexpr int name = value;`` lines in the
+    kernel sources (csrc/<file>)."""
+    from paddle_tpu_torch.kernels import _build
+    src = "".join((_build.CSRC_DIR / f).read_text() for f in files)
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                src).group(1)) for name in names}
+
+
+# every compiled instance of the forward, (D, dropout, bias) in each dtype,
+# at a ragged shape with Sq > Sk (causal where there is no bias, so rows
+# without a key and the masked tiles run): (b, h, sq, sk, d, bias, causal,
+# dtype, dropout). Then rows whose every key the bias masks: "pad_empty"
+# is the padding mask with the last batch row all padding, "full_empty" a
+# full bias with every third query of batch 0 masked.
+FLASH_INSTANCE_CASES = tuple(
+    (2, 4, 200, 130, d, bias, bias is None, dtype, drop)
+    for dtype in (torch.bfloat16, torch.float32) for d in (64, 128)
+    for drop in (None, "mask", "seed") for bias in (None, "pad", "full")) + \
+    tuple((2, 4, 200, 130, 64, bias, False, dtype, drop)
+          for dtype in (torch.bfloat16, torch.float32)
+          for drop in (None, "seed") for bias in ("pad_empty", "full_empty"))
+
+
+def masked_rows(bias, b, h, sq, sk):
+    """[B,H,Sq] rows whose every key the bias puts below -1e30, the TPU
+    kernel's starting max: _fwd_kernel keeps l = 0 there and writes o = 0
+    and lse = 0, where attention_reference (like the JAX package's) gives
+    the row a uniform softmax."""
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    if bias is None:
+        return None
+    return (bias.expand(b, h, sq, sk) < FA.NEG_INF).all(-1)
+
+
+def check_flash_instances(device):
+    """Each case of FLASH_INSTANCE_CASES through _launch_fwd against
+    attention_reference with the keep mask the kernel used, within
+    FLASH_TOL. Seed mode must equal mask mode with philox_keep_mask bit
+    for bit, and for both dropout modes the two wrong dropouts of
+    check_flash_bwd (the neighbouring key's bit, 1/keep_prob left out) must
+    fail the tolerance. A row with no visible key, by causality or by the
+    bias, must give o = 0 and lse = 0 exactly. Returns the largest o error
+    per dtype."""
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    worst, wrong = {}, {}
+    for i, (b, h, sq, sk, d, bias_kind, causal, dtype, drop) in \
+            enumerate(FLASH_INSTANCE_CASES):
+        q, k, v = attn_inputs(b, h, sq, sk, d, dtype, device, 70 + i)
+        bias = None
+        if bias_kind in ("pad", "pad_empty"):
+            bias = padding_bias(b, sk, device, 80 + i, lo=sk // 2)
+        elif bias_kind in ("full", "full_empty"):
+            bias = full_bias(b, sq, sk, device, 80 + i)
+        if bias_kind == "pad_empty":
+            bias[-1] = torch.finfo(torch.float32).min
+        elif bias_kind == "full_empty":
+            bias[0, :, ::3] = torch.finfo(torch.float32).min
+        empty = masked_rows(bias, b, h, sq, sk)
+        keep, seed, seed_t = None, None, None
+        kp = KEEP_PROB if drop else 1.0
+        if drop == "mask":
+            g = torch.Generator().manual_seed(90 + i)
+            keep = (torch.rand(b, h, sq, sk, generator=g) < kp).to(device)
+        elif drop == "seed":
+            seed = 7000003 * (i + 1)
+            seed_t = FA.seed_tensor(seed, device)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = FA._launch_fwd(q, k, v, bias, causal, scale, keep, seed_t,
+                                kp)
+        plain_keep = keep if drop != "seed" else FA.philox_keep_mask(
+            seed, b, h, sq, sk, kp, device=device)
+        label = (f"flash fwd instance [{b},{h},{sq},{d}] sk={sk} "
+                 f"{str(dtype)[6:]} bias={bias_kind} causal={causal} "
+                 f"dropout={drop}")
+        if drop == "seed":
+            again = FA._launch_fwd(q, k, v, bias, causal, scale, plain_keep,
+                                   None, kp)
+            if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+                fail(f"{label}: seed mode and mask mode with "
+                     "philox_keep_mask differ")
+        torch.cuda.synchronize()
+        ro, rlse = FA.attention_reference(q, k, v, bias, causal, scale,
+                                          plain_keep, kp)
+        if empty is not None:
+            ro, rlse = ro.masked_fill(empty[..., None], 0.0), \
+                rlse.masked_fill(empty, 0.0)
+        tol = FLASH_TOL[dtype]
+        err_o, ok_o = max_err(o, ro, *tol["o"])
+        err_l, ok_l = max_err(lse, rlse, *tol["lse"])
+        if not (ok_o and ok_l):
+            fail(f"{label}: o error {err_o} (tol {tol['o']}), lse error "
+                 f"{err_l} (tol {tol['lse']})")
+        if causal and sq > sk and (o[:, :, :sq - sk].abs().max().item() != 0
+                                   or lse[:, :, :sq - sk].abs().max().item()
+                                   != 0):
+            fail(f"{label}: rows with no visible key must give o = 0 and "
+                 "lse = 0")
+        parts = [f"o {err_o:.3e}, lse {err_l:.3e}"]
+        if empty is not None and bool(empty.any()):
+            if o[empty].abs().max().item() != 0 or \
+                    lse[empty].abs().max().item() != 0:
+                fail(f"{label}: rows whose every key the bias masks must "
+                     "give o = 0 and lse = 0, as _fwd_kernel does")
+            parts.append(f"{int(empty.sum())} rows masked by the bias give "
+                         "o = 0, lse = 0")
+        if drop:
+            for bug, keep_, kp_ in (("neighbouring key",
+                                     swapped_keys(plain_keep), kp),
+                                    ("no 1/keep_prob", plain_keep, 1.0)):
+                bad = FA.attention_reference(q, k, v, bias, causal, scale,
+                                             keep_, kp_)[0]
+                if empty is not None:
+                    bad = bad.masked_fill(empty[..., None], 0.0)
+                berr, bok = max_err(o, bad, *tol["o"])
+                if bok:
+                    fail(f"{label}: a dropout with the {bug} would pass "
+                         f"(o error {berr}, tol {tol['o']})")
+                wrong[dtype] = min(wrong.get(dtype, math.inf), berr)
+                parts.append(f"{bug} {berr:.3e}")
+        worst[dtype] = max(worst.get(dtype, 0.0), err_o)
+        say("parity", f"{label}: " + ", ".join(parts) +
+            ("; seed == mask mode bit for bit" if drop == "seed" else "") +
+            f"; tol o {tol['o']}, lse {tol['lse']}; ok")
+    for dtype in worst:
+        say("parity", f"flash fwd instances {dtype}: sound kernels o error "
+            f"<= {worst[dtype]:.3e}, wrong dropouts >= "
+            f"{wrong.get(dtype, math.inf):.3e}; tol o {FLASH_TOL[dtype]['o']}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 5 (i): kernel parity of the training path's kernels
 # ---------------------------------------------------------------------------
@@ -793,8 +930,17 @@ def time_layer_norm(device, card, rows=4096, f=768, eps=1e-12):
 
 
 def time_flash(device, card):
+    """The forward at FLASH_CASES in both dtypes, and at the train shape in
+    bf16 with and without seed dropout: kernel, bound, plain version and
+    SDPA."""
     from paddle_tpu_torch.kernels import flash_attention as FA
     records = {}
+    tiles = source_constants(("kFwdWarpgroups", "kFwdStages"),
+                             "flash_attention.cu")
+    say("times", f"flash forward tiling: bf16 {tiles['kFwdWarpgroups']} "
+        f"warpgroup(s) a CTA, {64 * tiles['kFwdWarpgroups']} queries, "
+        f"{tiles['kFwdStages']} stages of 64-key tiles; fp32 64 queries a "
+        "CTA, 2 stages")
     for (b, h, sq, sk, d, with_bias, causal) in FLASH_CASES + (
             FLASH_CAUSAL_CASE,):
         for dtype in (torch.float32, torch.bfloat16):
@@ -829,10 +975,54 @@ def time_flash(device, card):
             records[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                 bound_ms=bms, bound_by=by)
             lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-            say("times", f"flash [{b},{h},{sq},{d}] sk={sk} {dtype} "
-                f"bias={'[B,1,1,S]' if with_bias else 'none'} "
-                f"causal={causal}: kernel {ms:.4f} ms, bound {bms:.4f} ms "
-                f"({by}), plain {plain_ms:.4f} ms, SDPA {lib_txt}  [{card}]")
+            say("times", f"flash fwd {str(dtype)[6:]} [{b},{h},{sq},{d}] "
+                f"sk={sk} bias={'[B,1,1,S]' if with_bias else 'none'} "
+                f"causal={causal}: kernel {ms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by}), plain {plain_ms:.4f} ms, SDPA "
+                f"{lib_txt}  [{card}]")
+
+    # the train shape in bf16, without and with the main path's seed
+    # dropout; SDPA with dropout_p draws random numbers, which a CUDA graph
+    # cannot hold, so it is timed by the profiler
+    b, h, s, d = TRAIN_B, 12, TRAIN_S, 64
+    scale = 1.0 / math.sqrt(d)
+    sets = copies(lambda i: attn_inputs(b, h, s, s, d, torch.bfloat16,
+                                        device, 510 + i),
+                  3 * b * h * s * d * 2)
+    seed_t = FA.seed_tensor(77, device)
+    for kp in (1.0, KEEP_PROB):
+        st = seed_t if kp < 1.0 else None
+        ms = device_ms([lambda x=x: FA._launch_fwd(*x, None, False, scale,
+                                                   None, st, kp)
+                        for x in sets])
+
+        def plain(x=sets[0]):
+            keep = None if kp == 1.0 else FA.philox_keep_mask(
+                77, b, h, s, s, kp, device)
+            return FA.attention_reference(*x, None, False, scale, keep, kp)
+        plain_ms = device_ms([plain], reps=2)
+        if kp == 1.0:
+            lib_ms = device_ms([lambda x=x: torch.nn.functional
+                                .scaled_dot_product_attention(*x, scale=scale)
+                                for x in sets])
+        else:
+            lib_ms = profiled_ms(lambda: torch.nn.functional
+                                 .scaled_dot_product_attention(
+                                     *sets[0], dropout_p=1.0 - kp,
+                                     scale=scale))
+        nbytes, flops = attn_work(sets[0][0], sets[0][1], None, False)
+        bms, by = bound_ms(nbytes, flops, torch.bfloat16)
+        records[("train", kp)] = dict(ms=ms, plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound_ms=bms,
+                                      bound_by=by)
+        drop = "no dropout" if kp == 1.0 else \
+            f"seed dropout {1.0 - kp:g}"
+        lib = "SDPA" + ("" if kp == 1.0 else f" dropout_p={1.0 - kp:g}")
+        say("times", f"flash fwd bf16 [{b},{h},{s},{d}] (train shape) "
+            f"{drop}: kernel {ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s), "
+            f"bound {bms:.4f} ms ({by}), plain {plain_ms:.4f} ms "
+            f"(attention_reference{'' if kp == 1.0 else ' + philox_keep_mask'}"
+            f"), {lib} {lib_ms:.4f} ms  [{card}]")
     return records
 
 
@@ -1066,7 +1256,8 @@ KERNEL_COUNTS = (("layer_norm_fwd", "LN", "launches"),
                  ("layer_norm_bwd", "LN", "launches_bwd"),
                  ("flash_attention_fwd", "FA", "launches"),
                  ("flash_attention_bwd_dq", "FA", "launches_dq"),
-                 ("flash_attention_bwd_dkv", "FA", "launches_dkv"))
+                 ("flash_attention_bwd_dkv", "FA", "launches_dkv"),
+                 ("flash_attention_fwd_copies", "FA", "fwd_copies"))
 
 
 def reset_counts():
@@ -1143,10 +1334,13 @@ def check_main_path(device, state, cfg):
         fail(f"main path: losses not finite or not lower at the end: "
              f"{losses}")
     n_ln = 2 * cfg.num_hidden_layers + 2
+    # the q, k, v the forward gets are aligned views of the fused
+    # projection: it copies none of them
     per_step = {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
                 "flash_attention_fwd": cfg.num_hidden_layers,
                 "flash_attention_bwd_dq": cfg.num_hidden_layers,
-                "flash_attention_bwd_dkv": cfg.num_hidden_layers}
+                "flash_attention_bwd_dkv": cfg.num_hidden_layers,
+                "flash_attention_fwd_copies": 0}
     for name, n in per_step.items():
         if counts[name] != n * TRAIN_STEPS:
             fail(f"main path: {name} launched {counts[name]} times in "
@@ -1291,16 +1485,13 @@ def time_flash_bwd(device, card):
     delta a dQ launch wrote before), their sum, the plain backward, and
     SDPA's backward (one autograd call for dq, dk and dv, with
     dropout_p = 1 - keep_prob where the kernels drop: the library's time
-    for both rows, its kernels' time from the profiler). Also the forward
-    with seed-mode dropout against without, the plain pattern
-    (philox_keep_mask) and SDPA's forward with dropout."""
+    for both rows, its kernels' time from the profiler). The forward with
+    seed dropout is time_flash's."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as FA
     records = {}
-    src = (_build.CSRC_DIR / "flash_attention_bwd.cu").read_text()
-    tiles = {name: int(re.search(rf"constexpr int {name} = (\d+);",
-                                 src).group(1))
-             for name in ("kThreads", "kTile", "kStages")}
+    tiles = source_constants(("kThreads", "kTile", "kStages"),
+                             "flash_attention_bwd.cu", "flash_wgmma.cuh")
     say("times", "flash backward bf16 tiling: a CTA of "
         f"{tiles['kThreads']} threads owns {tiles['kTile']} rows, "
         f"{tiles['kStages']} stages of {tiles['kTile']}-row tiles")
@@ -1348,32 +1539,6 @@ def time_flash_bwd(device, card):
             f"against {lib} {lib_ms:.4f} ms ({pair / lib_ms:.2f}x)  [{card}]")
         del held, grads, out, ql, kl, vl, keep
     torch.cuda.empty_cache()
-
-    # dropout: the forward with and without the in-kernel pattern
-    b, h, s, d = TRAIN_B, 12, TRAIN_S, 64
-    q, k, v = attn_inputs(b, h, s, s, d, torch.bfloat16, device, 510)
-    seed_t = FA.seed_tensor(77, device)
-    scale = 1.0 / math.sqrt(d)
-    fwd_ms = device_ms([lambda: FA._launch_fwd(q, k, v, None, False, scale,
-                                               None, None, 1.0)])
-    drop_ms = device_ms([lambda: FA._launch_fwd(q, k, v, None, False, scale,
-                                                None, seed_t, KEEP_PROB)])
-    plain_ms = device_ms([lambda: FA.philox_keep_mask(77, b, h, s, s,
-                                                      KEEP_PROB, device)],
-                         reps=2)
-    lib_ms = profiled_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(q, k, v, dropout_p=0.1,
-                                                       scale=scale))
-    nbytes, flops = attn_work(q, k, None, False)
-    bms, by = bound_ms(nbytes, flops, torch.bfloat16)
-    records["dropout"] = dict(ms=drop_ms, no_dropout_ms=fwd_ms,
-                              plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=bms, bound_by=by)
-    say("times", f"flash forward [{b},{h},{s},{d}] bf16 with seed-mode "
-        f"dropout {drop_ms:.4f} ms, without {fwd_ms:.4f} ms (dropout "
-        f"{drop_ms - fwd_ms:+.4f} ms), bound {bms:.4f} ms ({by}); plain "
-        f"pattern philox_keep_mask {plain_ms:.4f} ms; SDPA forward with "
-        f"dropout_p=0.1 {lib_ms:.4f} ms  [{card}]")
     return records
 
 
@@ -2155,6 +2320,7 @@ def main() -> int:
     # -- 2. kernel parity against the plain versions
     ln_err = check_layer_norm(device)
     fa_err = check_flash(device)
+    check_flash_instances(device)
 
     # -- 3. serving: the main path
     cfg = BertConfig()
@@ -2171,10 +2337,14 @@ def main() -> int:
 
     LN.launches = 0
     FA.launches = 0
+    FA.fwd_copies = 0
     reset_attention_path_log()
     outputs, per_forward = serve(model, requests)
     ln_total, fa_total = LN.launches, FA.launches
     paths = attention_paths_taken()
+    if FA.fwd_copies != 0:
+        fail(f"serving copied {FA.fwd_copies} flash inputs before the "
+             "launch; the projection's views are aligned")
 
     n_fwd = len(per_forward)
     n_ln = 2 * cfg.num_hidden_layers + 2
@@ -2191,7 +2361,8 @@ def main() -> int:
     if set(paths) != {"flash"} or len(paths) != cfg.num_hidden_layers * n_fwd:
         fail(f"attention path log is not all 'flash': {sorted(set(paths))}")
     say("serve", f"{n_fwd} forwards: layer_norm launches {ln_total}, flash "
-        f"launches {fa_total}, path log {len(paths)} x 'flash'")
+        f"launches {fa_total} with no input copied, path log {len(paths)} x "
+        "'flash'")
     check_outputs(outputs, requests, cfg.vocab_size)
     say("serve", "all logits finite, shapes as expected")
 

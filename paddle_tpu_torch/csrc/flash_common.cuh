@@ -1,11 +1,10 @@
 // Pieces shared by the flash-attention kernels for Hopper (sm_90a):
 // flash_attention.cu (forward) and flash_attention_bwd.cu (dQ, dK/dV).
 //
-// - tile sizes and the mask value, as the forward has always used them;
-// - the forward's bf16 tensor-core helpers (mma.sync m16n8k16, ldmatrix)
-//   and its tile loader;
+// - tile sizes and the mask value;
 // - attention-probs dropout: the keep pattern, from an explicit keep mask
 //   or from Philox4x32-10 run inside the kernel.
+// The bf16 kernels' wgmma and cp.async pieces are in flash_wgmma.cuh.
 //
 // The dropout pattern replaces paddle_tpu/kernels/flash_attention.py:
 // _drop_keep_tile. The TPU kernel seeds its hardware PRNG per tile, so its
@@ -17,10 +16,11 @@
 // TPU kernel's threshold rule. The forward, the dQ kernel and the dK/dV
 // kernel each regenerate it bit for bit whatever their tiles, and
 // paddle_tpu_torch/kernels/flash_attention.py:philox_keep_mask gives the
-// same bits on any device. The forward runs Philox once for a thread's two
-// adjacent keys; the backward kernels run it once per 2 x 2 group and use
-// all four words (group_bits). The constants and the round are those of
-// at::philox_engine (ATen/core/PhiloxRNGEngine.h).
+// same bits on any device. The forward and the bf16 backward kernels run
+// Philox once per 2 x 2 group and use all four words (group_bits); the
+// fp32 backward kernels take one word an element (drop_factor). The
+// constants and the round are those of at::philox_engine
+// (ATen/core/PhiloxRNGEngine.h).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,8 +34,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kMmaThreads = 128;
-constexpr int kSimtThreads = 256;
 constexpr float kNegInf = -1e30f;
 
 // ---------------------------------------------------------------------------
@@ -111,23 +109,6 @@ __device__ __forceinline__ float drop_factor(const Dropout& d, uint2 seed,
   return philox_word(r, (q & 1) * 2 + (k & 1)) >= d.thresh ? d.rinv : 0.f;
 }
 
-// factors of (q, k) and (q, k + 1), k even: one Philox call for both
-__device__ __forceinline__ void drop_factor_keys(const Dropout& d, uint2 seed,
-                                                 int b, int h, int q, int k,
-                                                 int Sq, int Sk, float& f0,
-                                                 float& f1) {
-  if (d.mode == kNoDrop) {
-    f0 = f1 = 1.f;
-  } else if (d.mode == kMaskDrop) {
-    f0 = mask_factor(d, b, h, q, k, Sq, Sk);
-    f1 = mask_factor(d, b, h, q, k + 1, Sq, Sk);
-  } else {
-    const uint4 r = keep_group(seed, b, h, q, k);
-    f0 = philox_word(r, (q & 1) * 2) >= d.thresh ? d.rinv : 0.f;
-    f1 = philox_word(r, (q & 1) * 2 + 1) >= d.thresh ? d.rinv : 0.f;
-  }
-}
-
 // keep bits of the 2 x 2 group holding (q, k) of head (b, h): bit
 // (q' & 1) * 2 + (k' & 1) for its element (q', k'), 1 = keep. Seed mode:
 // the group's four Philox words from one call. Mask mode: the mask's bytes,
@@ -164,73 +145,6 @@ __device__ __forceinline__ uint32_t group_bits(const Dropout& d, uint2 seed,
     }
   }
   return bits;
-}
-
-// ---------------------------------------------------------------------------
-// bf16 tensor-core helpers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 fp32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices, transposed: the B operands of two n8 tiles
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// rows [0, valid) of a 64-row tile into shared memory (row stride LD), the
-// rest zero; THREADS threads take part
-template <int D, int LD, int THREADS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int64_t row_stride, int valid,
-                                          bool vec16) {
-  if (vec16) {
-    constexpr int kChunks = D / 8;  // 16-byte chunks a row
-    for (int i = threadIdx.x; i < kBlockQ * kChunks; i += THREADS) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < kBlockQ * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      dst[r * LD + c] = r < valid ? src[r * row_stride + c]
-                                  : __ushort_as_bfloat16(0);
-    }
-  }
-}
-
-// rows [0, valid) of a 64-row fp32 tile into shared memory (row stride
-// LD), the rest zero
-template <int D, int LD, int THREADS>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int64_t row_stride, int valid) {
-  for (int i = threadIdx.x; i < kBlockQ * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    dst[r * LD + c] = r < valid ? src[r * row_stride + c] : 0.f;
-  }
 }
 
 inline bool aligned16(const void* ptr) {

@@ -7,12 +7,13 @@ Replaces the TPU kernels of ``paddle_tpu/kernels/flash_attention.py``:
 ``_bwd_dkv_kernel`` (launcher ``_bwd``), and the dropout pattern of
 ``_drop_keep_tile``. The CUDA sources are ``csrc/flash_attention.cu``
 (forward), ``csrc/flash_attention_bwd.cu`` (dQ, dK/dV) and
-``csrc/flash_common.cuh`` (MMA helpers, Philox); their headers say what
+``csrc/flash_common.cuh`` (Philox) with ``csrc/flash_wgmma.cuh`` (the
+wgmma and cp.async pieces of the bf16 kernels); their headers say what
 bounds each kernel on the H100 and what the design keeps (the score matrix
 never reaches device memory; strided q/k/v/o/dO and bias, so no transposes
-and no materialised padding mask). bf16 inputs run on the tensor cores with
-fp32 accumulation (the forward through ``mma.sync``, the backward through
-``wgmma`` fed by ``cp.async``); fp32 inputs run in fp32 on the CUDA cores.
+and no materialised padding mask). bf16 inputs run on the tensor cores
+through ``wgmma`` fed by ``cp.async``, with fp32 accumulation; fp32 inputs
+run in fp32 on the CUDA cores.
 
 Dropout comes in the TPU kernel's two modes. Mask mode reads an explicit
 [B, H, Sq, Sk] keep mask (the JAX package's HBM-mask path). Seed mode
@@ -48,9 +49,12 @@ HEAD_DIMS = (64, 128)
 launches = 0
 launches_dq = 0
 launches_dkv = 0
-# bf16 inputs of the backward that were copied before its launch because
-# they did not start on 16 bytes or had a stride that is not a multiple of
-# 8 elements (cp.async moves 16-byte chunks)
+# Inputs copied before a launch because they did not start on 16 bytes or
+# had a stride that is not a whole number of 16-byte chunks (cp.async moves
+# 16-byte chunks): q, k, v of the forward in either dtype, and the bf16
+# q, k, v, o, dO of the backward. The main path's strided projection views
+# are aligned and copy nothing.
+fwd_copies = 0
 bwd_copies = 0
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
@@ -296,10 +300,20 @@ def _dropout_args(keep_prob: float) -> Tuple[int, float]:
     return keep_threshold(keep_prob), float(1.0 / keep_prob)
 
 
+def fwd_kernel():
+    """The C entry of the forward kernels."""
+    return _build.function("flash_attention", "pt_flash_attention_fwd",
+                           _FWD_ARGTYPES)
+
+
 def _launch_fwd(q, k, v, bias, causal, sm_scale, keep_mask, seed_t,
                 keep_prob) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launches
+    """(o, lse) from the forward kernel; q, k or v that its 16-byte
+    copies cannot read is copied first and counted in ``fwd_copies``."""
+    global launches, fwd_copies
     _check(q, k, v)
+    (q, k, v), copied = _chunk_aligned_inputs((q, k, v))
+    fwd_copies += copied
     b, h, sq, d = q.shape
     sk = k.shape[2]
     bias, bias_strides = _bias_view(bias, q, sk)
@@ -313,8 +327,7 @@ def _launch_fwd(q, k, v, bias, causal, sm_scale, keep_mask, seed_t,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *bias_strides, *keep_strides)
     thresh, rinv = _dropout_args(keep_prob)
-    fn = _build.function("flash_attention", "pt_flash_attention_fwd",
-                         _FWD_ARGTYPES)
+    fn = fwd_kernel()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if keep is None else keep.data_ptr(),
@@ -330,10 +343,18 @@ def _launch_fwd(q, k, v, bias, causal, sm_scale, keep_mask, seed_t,
 
 def _chunk_aligned(t: torch.Tensor) -> bool:
     """True when t starts on 16 bytes and its batch, head and row strides
-    are multiples of 8 elements: every row a whole number of 16-byte
-    chunks."""
-    return t.data_ptr() % 16 == 0 and all(st % 8 == 0
+    are whole 16-byte chunks: every row a whole number of chunks."""
+    per = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(st % per == 0
                                           for st in t.stride()[:3])
+
+
+def _chunk_aligned_inputs(ts):
+    """(ts with every tensor that fails _chunk_aligned replaced by a
+    contiguous copy, the number copied)."""
+    out = [t if _chunk_aligned(t) else
+           t.clone(memory_format=torch.contiguous_format) for t in ts]
+    return out, sum(a is not b for a, b in zip(out, ts))
 
 
 def bwd_args(do, q, k, v, o, lse, bias, causal, sm_scale, keep_mask, seed_t,
@@ -355,12 +376,8 @@ def bwd_args(do, q, k, v, o, lse, bias, causal, sm_scale, keep_mask, seed_t,
     if do.stride(-1) != 1:
         do = do.contiguous()
     if q.dtype == torch.bfloat16:
-        ins = [q, k, v, o, do]
-        for i, t in enumerate(ins):
-            if not _chunk_aligned(t):
-                ins[i] = t.contiguous()
-                bwd_copies += 1
-        q, k, v, o, do = ins
+        (q, k, v, o, do), copied = _chunk_aligned_inputs((q, k, v, o, do))
+        bwd_copies += copied
     lse = lse.contiguous()
     bias, bias_strides = _bias_view(bias, q, sk)
     keep, keep_strides = _keep_view(keep_mask, q, sk)
@@ -415,11 +432,11 @@ def _launch_bwd(do, q, k, v, o, lse, bias, causal, sm_scale, keep_mask,
 def kernel_keep_mask(seed_t: torch.Tensor, batch: int, heads: int, sq: int,
                      sk: int, keep_prob: float) -> torch.Tensor:
     """The seed-mode pattern as bool [B, H, Sq, Sk], generated on the card
-    by Philox, ``keep_group`` and ``drop_factor_keys``, the word selection
-    of the bf16 forward kernel: for holding it bit for bit against
-    ``philox_keep_mask``. The other kernels' selections are held by
-    running them in seed mode and in mask mode with this mask. Not on any
-    model path; counts no launch."""
+    by Philox and ``group_bits``, the word selection of the forward and
+    the bf16 backward kernels: for holding it bit for bit against
+    ``philox_keep_mask``. The kernels themselves are held by running them
+    in seed mode and in mask mode with this mask. Not on any model path;
+    counts no launch."""
     if seed_t.device.type != "cuda" or seed_t.dtype != torch.int64:
         raise ValueError("kernel_keep_mask: seed must be an int64 CUDA "
                          "tensor")

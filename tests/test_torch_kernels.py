@@ -7,6 +7,9 @@ device, argument checks, the build's keying and its failure). The CUDA
 kernels are held against these plain versions on the card by
 chip_smoke.py.
 """
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -342,6 +345,81 @@ def test_flash_backward_refuses_head_dim_96_without_a_launch(monkeypatch):
     assert calls == []
 
 
+def _record_fwd_launches(monkeypatch):
+    """Route _launch_fwd's CPU tensors to a stand-in launch that records
+    its C arguments and the 20 strides they point to."""
+    calls = []
+
+    def launch(*args):
+        strides = tuple((ctypes.c_longlong * 20).from_address(args[13]))
+        calls.append((args, strides))
+        return 0
+    monkeypatch.setattr(tfa, "fwd_kernel", lambda: launch)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    return calls
+
+
+def test_flash_forward_launches_aligned_projection_views_uncopied(
+        monkeypatch):
+    # the main path's layout: q, k, v strided views of one fused [B,S,3E]
+    # projection, every row on 16 bytes, in either dtype
+    calls = _record_fwd_launches(monkeypatch)
+    b, s, h, d = 2, 77, 2, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = torch.from_numpy(_rand((b, s, 3 * h * d), 8)).to(dtype)
+        q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+                   for t in qkv.split(h * d, dim=-1))
+        before = tfa.fwd_copies
+        o, lse = tfa._launch_fwd(q, k, v, None, False, 0.125, None, None,
+                                 1.0)
+        assert tfa.fwd_copies == before
+        args, strides = calls[-1]
+        assert args[:3] == tuple(t.data_ptr() for t in (q, k, v))
+        assert args[6:8] == (o.data_ptr(), lse.data_ptr())
+        assert args[8:13] == (b, h, s, s, d)
+        assert strides[:9] == q.stride()[:3] + k.stride()[:3] + \
+            v.stride()[:3]
+        # o is laid out [B, S, H, D]: the caller's transpose back is free
+        assert strides[9:12] == (s * h * d, d, h * d) == o.stride()[:3]
+    assert len(calls) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["odd_row_stride", "offset_contiguous"])
+def test_flash_forward_copies_misaligned_inputs_and_counts_them(
+        monkeypatch, dtype, layout):
+    # rows that start 2 (bf16) or 4 (fp32) bytes past 16 bytes, with an odd
+    # row stride or packed contiguously: the kernels' 16-byte copies cannot
+    # read them in either dtype, so each of q, k, v is copied to 16-byte
+    # rows first and counted
+    calls = _record_fwd_launches(monkeypatch)
+    if layout == "odd_row_stride":
+        base = torch.from_numpy(_rand((3, 1, 2, 40, 65), 10)).to(dtype)
+        q, k, v = (base[i, ..., 1:] for i in range(3))
+    else:
+        flat = torch.from_numpy(_rand((3 * 2 * 40 * 64 + 1,), 10)).to(dtype)
+        q, k, v = flat[1:].reshape(3, 1, 2, 40, 64).unbind(0)
+        assert q.is_contiguous()
+    assert all(t.data_ptr() % 16 != 0 for t in (q, k, v))
+    before = tfa.fwd_copies
+    tfa._launch_fwd(q, k, v, None, True, 0.125, None, None, 1.0)
+    assert tfa.fwd_copies - before == 3
+    args, strides = calls[0]
+    per = 16 // q.element_size()
+    assert all(p % 16 == 0 for p in args[:3])
+    assert all(st % per == 0 for st in strides[:9])
+    assert set(args[:3]).isdisjoint(t.data_ptr() for t in (q, k, v))
+
+
+def test_flash_forward_refuses_head_dim_96_without_a_launch(monkeypatch):
+    calls = _record_fwd_launches(monkeypatch)
+    q = k = v = torch.zeros(1, 2, 16, 96, dtype=torch.bfloat16)
+    before = tfa.fwd_copies
+    with pytest.raises(ValueError, match="head dim 96"):
+        tfa._launch_fwd(q, k, v, None, False, 0.1, None, None, 1.0)
+    assert calls == [] and tfa.fwd_copies == before
+
+
 # --------------------------------------------------------------------------
 # the build
 # --------------------------------------------------------------------------
@@ -402,6 +480,19 @@ def test_every_kernel_source_is_in_the_package():
         # the note names the TPU kernels it replaces
         for what in replaces[name]:
             assert what in text, (name, what)
+    # the bf16 kernels' wgmma and cp.async pieces exist once, in a header
+    # that the forward and the backward both include
+    header = "flash_wgmma.cuh"
+    assert (_build.CSRC_DIR / header).exists()
+    sources = {p.name: p.read_text() for p in _build.CSRC_DIR.iterdir()
+               if p.suffix in (".cu", ".cuh")}
+    for name in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        assert f'#include "{header}"' in sources[name], name
+    for helper in ("cp_async16", "tile_async", "mnmajor_desc", "wgmma_rs",
+                   "wgmma_ss_n64", "to_a_frags", "fast_exp2", "paired_bits"):
+        defined = [n for n, text in sources.items()
+                   if re.search(rf"__forceinline__ \w+ {helper}\(", text)]
+        assert defined == [header], (helper, defined)
 
 
 # --------------------------------------------------------------------------
