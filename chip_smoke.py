@@ -13,14 +13,24 @@ Phases, each printing its lines; any failure exits nonzero:
    the card, at BERT-base shapes, with stated tolerances; every compiled
    instance of the flash forward (dtype x D x dropout mode x bias layout),
    seed mode bitwise equal to mask mode with ``philox_keep_mask`` and two
-   wrong dropouts shown to fail the tolerance;
+   wrong dropouts shown to fail the tolerance; then the routes, through
+   the port's entry points on the card, with the path logs read back:
+   ``MultiHeadAttention(256, 8)`` (head dim 32, "composed", as the JAX
+   router composes it) with and without seed dropout, forward and every
+   gradient against the CPU port; head dim 256 ("flash", refused by the
+   wrapper with no launch and no plain version run: no instance yet); a
+   2-layer BERT forward under ``auto_cast(dtype="float16")`` ("flash",
+   the fp16 instances) against the fp32 CPU port; and layer norms over
+   8192 features and in fp16 ("kernel", one launch each way), forward and
+   backward against the CPU port;
 3. serving, the main path: BERT-base at full width (``BertConfig()``),
    weights from a numpy seed carried in by ``load_reference_state``,
    answers requests in eval mode in fp32 and under bf16 ``auto_cast``.
    Launch counts are set to 0 before and read after; every forward must
    launch the flash kernel 12 times and the layer-norm kernel 26 times,
-   and the attention path log must read "flash" only; the forward copies
-   none of its inputs (the projection's views are aligned). The fp32
+   and the attention and layer-norm path logs must read "flash" and
+   "kernel" only; the forward copies none of its inputs (the
+   projection's views are aligned). The fp32
    logits are held against the same model on the CPU (plain versions),
    and the bf16 MLM argmax against fp32;
 4. times, printed only: each kernel against its bound, its plain version
@@ -44,8 +54,8 @@ Phases, each printing its lines; any failure exits nonzero:
    steps on one batch (the JAX package's bench.py configuration), counts
    set to 0 before and read after: 26 layer-norm forward and backward,
    12 flash forward, dQ and dK/dV launches a step and no forward input
-   copied, an all-"flash" path log, finite gradients for every
-   parameter, a falling loss; a rerun
+   copied, all-"flash" and all-"kernel" path logs, finite gradients for
+   every parameter, a falling loss; a rerun
    from the same seed draws the same dropout; one fp32 step at B=8 S=512
    with the padding mask;
    (iv) times: each new kernel against its bound, its plain version and
@@ -57,10 +67,11 @@ Phases, each printing its lines; any failure exits nonzero:
    at full width and depth (vocab 32000, hidden 1024, 16 layers, 16
    heads; weights from ``init_params`` through ``load_reference_params``):
    (i) both paged-attention kernels (fp32, int8 and fp8 pools; Cq 1 and
-   4; bs 16 and 32; D 16, 64 and 128) against the plain version, with
-   ragged lengths, trash-block rows and garbage in every row no query
-   sees; (ii) the main path: 32 requests (prompts 16-448 tokens, half
-   greedy, four sharing a 256-token prefix) through ``GenerationPool``
+   4; bs 16 and 32; D 16, 64, 128 and 256; and rows of 640 positions)
+   against the plain version, with ragged lengths, trash-block rows and
+   garbage in every row no query sees; (ii) the main path: 32 requests
+   (prompts 16-448 tokens, half greedy, four sharing a 256-token prefix)
+   through ``GenerationPool``
    over an engine of 1024 blocks of 16 tokens, 16 lanes and 64-token
    chunks, once with fp32 and once with int8 KV; counts set to 0 before
    and read after: 16 paged launches and 33 layer-norm launches a mixed
@@ -70,7 +81,8 @@ Phases, each printing its lines; any failure exits nonzero:
    against the recompute's argmax, one mixed step against the CPU port;
    (iv) times: the paged kernels against their bound, plain version and
    gather + SDPA; tokens/s, mixed-step, TTFT and TPOT quantiles, and the
-   device idle share over profiled mixed steps;
+   device idle share and the paged-attention group's device ms a mixed
+   step over profiled mixed steps, in fp32 and int8 KV;
 7. one JSON line of kernel records, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -91,6 +103,7 @@ import torch
 # H100 SXM published peaks at a 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # tensor cores, dense
+              torch.float16: 989e12,
               torch.float32: 67e12}     # CUDA cores, no TF32
 
 SEED = 1234
@@ -107,13 +120,21 @@ REQUESTS = (("b8_s128_full", 8, 128, False),
 # bf16 outputs: both sides round nearly the same fp32 value to bf16 (the
 # tensor-core flash kernel also rounds p to bf16 before p v), so they may
 # differ by a rounding step, up to 2^-7 relative; two steps are allowed.
+# fp16 layer-norm outputs: the same rule at fp16's 2^-10 step (two steps,
+# 2^-9). The fp16 flash kernel rounds each p to fp16 (at most 2^-11 of p)
+# before p v and o once: |o - ref| <= 2^-11 (max|v| / keep_prob + |o|),
+# with |v| < 6 for these normal inputs and keep_prob 0.9: A 2^-8, R 2^-10.
 LN_TOL = {torch.float32: dict(y=(2e-5, 2e-5), mean=(1e-5, 1e-5),
                               rstd=(0.0, 1e-5)),
           torch.bfloat16: dict(y=(2.0 ** -9, 2.0 ** -6), mean=(1e-5, 1e-5),
-                               rstd=(0.0, 1e-5))}
+                               rstd=(0.0, 1e-5)),
+          torch.float16: dict(y=(2.0 ** -12, 2.0 ** -9), mean=(1e-5, 1e-5),
+                              rstd=(0.0, 1e-5))}
 FLASH_TOL = {torch.float32: dict(o=(1e-5, 1e-5), lse=(1e-5, 1e-5)),
              torch.bfloat16: dict(o=(2.0 ** -9, 2.0 ** -6),
-                                  lse=(1e-4, 1e-5))}
+                                  lse=(1e-4, 1e-5)),
+             torch.float16: dict(o=(2.0 ** -8, 2.0 ** -10),
+                                 lse=(1e-4, 1e-5))}
 # fp32 GPU logits against the CPU port: 12 layers summed in other orders;
 # logits are O(1), so 1e-3 leaves two orders of magnitude over fp32 noise
 CPU_TOL = dict(atol=1e-3, rtol=1e-3)
@@ -151,11 +172,12 @@ def ptxas_summary(log: str):
                               mangled)
             kernel = mangled
             if short:
-                names = {"f": "f32", "a": "int8", "14__nv_bfloat16": "bf16",
-                         "13__nv_fp8_e4m3": "fp8"}
-                args = [names.get(a.group(0)) or a.group(1) or a.group(2)
-                        for a in re.finditer(r"14__nv_bfloat16|"
-                                             r"13__nv_fp8_e4m3|Li(\d+)E|"
+                names = {"f": "f32", "a": "int8", "__nv_bfloat16": "bf16",
+                         "__half": "fp16", "__nv_fp8_e4m3": "fp8"}
+                args = [names.get(a.group(1) or a.group(0)) or a.group(2)
+                        or a.group(3)
+                        for a in re.finditer(r"\d+(__nv_bfloat16|__half|"
+                                             r"__nv_fp8_e4m3)|Li(\d+)E|"
                                              r"Lb(\d)E|f|a",
                                              short.group(2) or "")]
                 args = [a for a in args if a is not None]
@@ -326,9 +348,17 @@ def copies(make, per_copy_bytes):
 
 # other code paths of the kernels, beyond BERT-base's shapes: (rows, F)
 # with F not a multiple of 4 (scalar loads), F > 1024 (a block per row),
-# and bf16 gamma/beta
+# bf16 and fp16 gamma/beta, fp16 x, and rows past 4096 values (the wide
+# kernels: more rows than the backward's 512 blocks, scalar loads, the
+# widest row)
 LN_EDGE_CASES = ((7, 130, torch.float32, False), (7, 130, torch.bfloat16, False),
-                 (5, 4096, torch.bfloat16, True), (3, 2050, torch.float32, False))
+                 (5, 4096, torch.bfloat16, True), (3, 2050, torch.float32, False),
+                 (7, 130, torch.float16, False),
+                 (64, 768, torch.float16, False),
+                 (5, 4096, torch.float16, True),
+                 (1030, 8192, torch.float32, False),
+                 (5, 8194, torch.bfloat16, True),
+                 (3, 65536, torch.float16, True))
 
 
 def check_layer_norm(device, rows=4096, f=768):
@@ -447,10 +477,11 @@ def source_constants(names, *files):
 # full bias with every third query of batch 0 masked.
 FLASH_INSTANCE_CASES = tuple(
     (2, 4, 200, 130, d, bias, bias is None, dtype, drop)
-    for dtype in (torch.bfloat16, torch.float32) for d in (64, 128)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32)
+    for d in (64, 128)
     for drop in (None, "mask", "seed") for bias in (None, "pad", "full")) + \
     tuple((2, 4, 200, 130, 64, bias, False, dtype, drop)
-          for dtype in (torch.bfloat16, torch.float32)
+          for dtype in (torch.bfloat16, torch.float16, torch.float32)
           for drop in (None, "seed") for bias in ("pad_empty", "full_empty"))
 
 
@@ -574,19 +605,27 @@ def check_flash_instances(device):
 LN_BWD_TOL = {torch.float32: dict(dx=(1e-5, 1e-5), dgamma=(1e-3, 1e-5),
                                   dbeta=(1e-3, 1e-5)),
               torch.bfloat16: dict(dx=(2.0 ** -9, 2.0 ** -6),
-                                   dgamma=(1e-3, 1e-5), dbeta=(1e-3, 1e-5))}
+                                   dgamma=(1e-3, 1e-5), dbeta=(1e-3, 1e-5)),
+              # fp16 dx as bf16's at fp16's step; fp16 dgamma and dbeta
+              # (x and gamma fp16) round fp32 sums of up to ~5: two steps
+              torch.float16: dict(dx=(2.0 ** -12, 2.0 ** -9),
+                                  dgamma=(1e-3, 2.0 ** -9),
+                                  dbeta=(1e-3, 2.0 ** -9))}
 # Flash backward (and the forward's o with dropout), (A, R): an element
 # passes when |got - want| <= A + R |want|, with A taken as a fraction of
-# the output's max |ref| in bf16. fp32: the same fp32 arithmetic in
+# the output's max |ref| in bf16 and fp16. fp32: the same fp32 arithmetic in
 # another order; dk and dv sum over 512 queries and dq over 512 keys,
 # gradients of size ~1, so a few 1e-6. bf16: the kernels round p and ds to
 # bf16 (2^-8 relative) before the tensor-core products and round the
 # results to bf16; the plain version rounds once, at the end. The limit
 # lies between what the sound kernels need and what a wrong dropout (the
 # keep pattern of the neighbouring key, or 1/keep_prob left out) needs,
-# both read by this script (check_flash_bwd; readings in PERF.md).
+# both read by this script (check_flash_bwd; readings in PERF.md). fp16:
+# the same roundings at fp16's step, three bits finer, so A and R are an
+# eighth of bf16's.
 FLASH_BWD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -8,
-                                                               2.0 ** -6)}
+                                                               2.0 ** -6),
+                 torch.float16: (2.0 ** -11, 2.0 ** -9)}
 # the seed-mode drop rate over a [32, 12, 512, 512] pattern: 100M Bernoulli
 # draws with p = 0.1 have a standard deviation of 3e-5, so 0.002 is ~60 sd
 DROP_RATE_TOL = 0.002
@@ -683,7 +722,11 @@ FLASH_BWD_CASES = (
     (2, 4, 200, 130, 128, "full", False, torch.bfloat16, "contiguous",
      "mask"),
     (2, 4, 200, 130, 128, "full", True, torch.bfloat16, "contiguous", "seed"),
-)
+) + tuple(  # every fp16 instance, and misaligned fp16 inputs
+    (2, 4, 200, 130, d, bias, bias == "pad", torch.float16, "contiguous",
+     drop) for d in (64, 128) for drop in (None, "mask", "seed")
+    for bias in ("pad", "full")) + (
+    (1, 4, 100, 100, 64, None, True, torch.float16, "unaligned", "seed"),)
 KEEP_PROB = 0.9
 
 
@@ -710,7 +753,7 @@ def flash_bwd_need(outs, dtype):
     need = {}
     for what, got, want in outs:
         scale = float(want.float().abs().max()) \
-            if dtype == torch.bfloat16 else 1.0
+            if dtype != torch.float32 else 1.0
         need[what] = needed_atol(got, want, rtol, scale)
     return need
 
@@ -756,9 +799,10 @@ def check_flash_bwd(device):
             seed, b, h, sq, sk, kp, device=device)
         label = (f"flash bwd [{b},{h},{sq},{d}] sk={sk} {dtype} bias="
                  f"{bias_kind} causal={causal} {layout} dropout={drop}")
-        # the bf16 kernels read 16-byte chunks: only the misaligned q, k, v
-        # views are copied first, the fused projection's views are not
-        want = 3 if layout == "unaligned" and dtype == torch.bfloat16 else 0
+        # the tensor-core kernels read 16-byte chunks: only the misaligned
+        # q, k, v views are copied first, the fused projection's views are
+        # not
+        want = 3 if layout == "unaligned" and dtype != torch.float32 else 0
         if copies != want:
             fail(f"{label}: {copies} inputs copied before the launch, want "
                  f"{want}")
@@ -864,6 +908,210 @@ def check_dropout_pattern(device):
 
 
 # ---------------------------------------------------------------------------
+# routes: the path each shape and dtype takes on the card
+# ---------------------------------------------------------------------------
+
+# the routed cases against the CPU port, both fp32 (the card's matmuls in
+# full fp32, TF32 off) summed in other orders: each tensor held to 1e-4 of
+# its own largest element plus 1e-4 relative, the rule of the port's CPU
+# tests for gradients
+ROUTE_TOL = 1e-4
+# an fp16 forward of a 2-layer BERT against the fp32 CPU port: fp16 rounds
+# every product's inputs at 2^-11, some ten roundings deep, and cuBLAS may
+# reduce fp16 products in fp16; 1% of the largest logit
+FP16_TOL = 1e-2
+
+
+def close_to(got, want, rel):
+    """max_err with atol = rel max|want| and rtol = rel, on the CPU."""
+    w = want.detach().float().cpu()
+    return max_err(got.detach().cpu(), w, rel * float(w.abs().max()), rel)
+
+
+def route_mha(device, embed, heads, dropout, seed):
+    """MultiHeadAttention(embed, heads) on the card and on the CPU from one
+    state, in training with a padding mask, forward and backward from one
+    port seed. Returns ((out, grads) on the card, on the CPU, the card's
+    path log)."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.jit import load_reference_state
+    from paddle_tpu_torch.nn import MultiHeadAttention
+    from paddle_tpu_torch.nn.transformer import (attention_paths_taken,
+                                                 reset_attention_path_log)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, 96, embed), dtype=np.float32)
+    w = rng.standard_normal((2, 96, embed), dtype=np.float32)
+    mask = np.zeros((2, 1, 1, 96), np.float32)
+    mask[1, ..., 60:] = np.finfo(np.float32).min
+    results, logs = [], []
+    for dev in (device, torch.device("cpu")):
+        layer = MultiHeadAttention(embed, heads, dropout, device=dev)
+        if not results:
+            state = random_state(layer, seed)
+        load_reference_state(layer, state)
+        layer.train()
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        paddle_tpu_torch.seed(seed)
+        reset_attention_path_log()
+        out = layer(xt, attn_mask=torch.from_numpy(mask).to(dev))
+        (out * torch.from_numpy(w).to(dev)).sum().backward()
+        logs.append(attention_paths_taken())
+        grads = {n: p.grad for n, p in layer.named_parameters()}
+        grads["input"] = xt.grad
+        results.append((out, grads))
+    if logs[1] != ["reference"]:
+        fail(f"routes: the CPU port's attention path log is {logs[1]}")
+    return results[0], results[1], logs[0]
+
+
+def refused(what, run):
+    """run() on the card must raise the flash wrapper's refusal
+    (TypeError or ValueError) before any flash launch."""
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.nn.transformer import (attention_paths_taken,
+                                                 reset_attention_path_log)
+    launched = (FA.launches, FA.launches_dq, FA.launches_dkv)
+    reset_attention_path_log()
+    try:
+        run()
+    except (TypeError, ValueError) as e:
+        err = e
+    else:
+        fail(f"routes: {what} ran on the card; the flash kernels have no "
+             "instance for it and must refuse it")
+    log = attention_paths_taken()
+    if (FA.launches, FA.launches_dq, FA.launches_dkv) != launched or \
+            log[-1:] != ["flash"]:
+        fail(f"routes: {what}: path log {log}, flash launches "
+             f"{(FA.launches, FA.launches_dq, FA.launches_dkv)} from "
+             f"{launched}")
+    say("routes", f"{what}: path log {log[-1:]}, refused with no launch: "
+        f"{type(err).__name__}: {str(err)[:90]}")
+
+
+def check_routes(device):
+    """The port's routes through its entry points on the card, each with
+    its path log read back: head dim 32 (MultiHeadAttention(256, 8), which
+    the JAX router composes) with and without seed dropout against the CPU
+    port; head dim 256, which reaches the flash wrapper and its refusal (no
+    instance yet); a 2-layer BERT forward under auto_cast(dtype="float16")
+    on the fp16 flash and layer-norm instances against the fp32 CPU port;
+    layer norms over 8192 features and in fp16, one kernel launch each
+    way, against the CPU port."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import load_reference_state
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.kernels import layer_norm as LN
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.nn import MultiHeadAttention
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.transformer import (attention_paths_taken,
+                                                 reset_attention_path_log)
+    for embed, heads, dropout in ((256, 8, 0.0), (256, 8, 0.1)):
+        (out, grads), (out_c, grads_c), log = route_mha(
+            device, embed, heads, dropout, 40 + embed + heads)
+        what = (f"MultiHeadAttention({embed}, {heads}) head dim "
+                f"{embed // heads} dropout {dropout:g}")
+        if log != ["composed"]:
+            fail(f"routes: {what}: path log {log}, want ['composed']")
+        # the key bias's gradient is 0 in exact arithmetic (it shifts a
+        # row's scores by one constant): both sides hold rounding noise
+        errs = {"out": close_to(out, out_c, ROUTE_TOL)}
+        errs.update({n: close_to(g, grads_c[n], ROUTE_TOL)
+                     for n, g in grads.items() if n != "k_proj.bias"})
+        bad = [n for n, (_, ok) in errs.items() if not ok]
+        if bad:
+            fail(f"routes: {what}: {bad} beyond {ROUTE_TOL:g} of the CPU "
+                 f"port: {[errs[n][0] for n in bad]}")
+        say("routes", f"{what}: path log ['composed'] (CPU port "
+            f"['reference']); output and {len(errs) - 1} gradients against "
+            f"the CPU port, max error {max(e for e, _ in errs.values()):.3e}"
+            f" (tol {ROUTE_TOL:g} of each tensor's largest + {ROUTE_TOL:g}"
+            "|ref|); ok")
+
+    # head dim 256: the flash route, refused
+    mha = MultiHeadAttention(512, 2, device=device)
+    x = torch.randn(2, 96, 512, device=device)
+    refused("MultiHeadAttention(512, 2) head dim 256", lambda: mha(x))
+    del mha
+
+    # a small BERT under fp16 auto_cast: every attention on the fp16
+    # flash instance
+    cfg = BertConfig(vocab_size=1000, hidden_size=128, num_hidden_layers=2,
+                     num_attention_heads=2, intermediate_size=512)
+    models = [BertForPretraining(cfg, device=d) for d in (device, "cpu")]
+    state = random_state(models[0], SEED + 5)
+    for m in models:
+        load_reference_state(m, state)
+        m.eval()
+    req = make_request(4, 128, True, cfg.vocab_size, device,
+                       np.random.default_rng(SEED + 6))
+    reset_attention_path_log()
+    F.reset_layer_norm_path_log()
+    launched = FA.launches
+    with torch.no_grad(), amp.auto_cast(dtype="float16"):
+        mlm, nsp = models[0](**req)
+    n_flash = FA.launches - launched
+    paths, ln_paths = attention_paths_taken(), F.layer_norm_paths_taken()
+    with torch.no_grad():
+        mlm_c, nsp_c = models[1](**{k: v.cpu() for k, v in req.items()})
+    if paths != ["flash"] * cfg.num_hidden_layers or \
+            n_flash != cfg.num_hidden_layers:
+        fail(f"routes: fp16 BERT attention path log {paths}, {n_flash} "
+             "flash launches")
+    for what, g, c in (("mlm", mlm, mlm_c), ("nsp", nsp, nsp_c)):
+        err, ok = close_to(g, c, FP16_TOL)
+        if not ok or not torch.isfinite(g).all():
+            fail(f"routes: fp16 BERT {what} logits against the fp32 CPU "
+                 f"port: {err} beyond {FP16_TOL:g}")
+        say("routes", f"BERT 2 layers, hidden 128, head dim 64, B=4 S=128 "
+            f"padded, auto_cast(dtype='float16'), {what} logits "
+            f"{str(g.dtype)[6:]}: max error {err:.3e} against the fp32 CPU "
+            f"port (tol {FP16_TOL:g} of the largest + {FP16_TOL:g}|ref|); "
+            f"attention path log {len(paths)} x 'flash' ({n_flash} "
+            f"launches), layer-norm path log {sorted(set(ln_paths))} x "
+            f"{len(ln_paths)}; ok")
+    del models
+
+    # layer norms on the wide-row and fp16 instances
+    for rows, f, dtype in ((64, 8192, torch.float32),
+                           (64, 768, torch.float16)):
+        x, gamma, beta = ln_inputs(rows, f, torch.float32, "cpu", 60 + f)
+        dy = torch.from_numpy(np.random.default_rng(61 + f).standard_normal(
+            (rows, f), dtype=np.float32))
+        outs = []
+        for dev in (device, torch.device("cpu")):
+            xt = x.to(dev, dtype).requires_grad_(True)
+            gt, bt = (t.to(dev).requires_grad_(True) for t in (gamma, beta))
+            F.reset_layer_norm_path_log()
+            launched = (LN.launches, LN.launches_bwd)
+            y = F.layer_norm(xt, f, gt, bt, 1e-5)
+            y.backward(dy.to(dev, dtype))
+            outs.append((y, xt.grad, gt.grad, bt.grad,
+                         F.layer_norm_paths_taken(),
+                         (LN.launches - launched[0],
+                          LN.launches_bwd - launched[1])))
+        (y, dx, dg, db, log, n), (y_c, dx_c, dg_c, db_c, _, _) = outs
+        what = f"layer_norm [{rows}, {f}] {str(dtype)[6:]}"
+        if log != ["kernel"] or n != (1, 1):
+            fail(f"routes: {what}: path log {log}, {n} kernel launches "
+                 "(forward, backward)")
+        # fp32: ROUTE_TOL; fp16: both sides round one fp32 value to fp16
+        rel = ROUTE_TOL if dtype == torch.float32 else 2.0 ** -10
+        errs = {k: close_to(a, b, rel) for k, a, b in (
+            ("y", y, y_c), ("dx", dx, dx_c), ("dgamma", dg, dg_c),
+            ("dbeta", db, db_c))}
+        bad = [k for k, (_, ok) in errs.items() if not ok]
+        if bad:
+            fail(f"routes: {what}: {bad} beyond {rel:g}: "
+                 f"{[errs[k][0] for k in bad]}")
+        say("routes", f"{what}: path log ['kernel'], one launch forward "
+            "and one backward; y, dx, dgamma, dbeta against the CPU port, "
+            f"max error {max(e for e, _ in errs.values()):.3e} (tol {rel:g}"
+            f" of each tensor's largest + {rel:g}|ref|); ok")
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serving, the main path
 # ---------------------------------------------------------------------------
 
@@ -907,10 +1155,15 @@ def check_outputs(outputs, requests, vocab):
 # phase 4: times
 # ---------------------------------------------------------------------------
 
-def time_layer_norm(device, card, rows=4096, f=768, eps=1e-12):
+# (rows, F, x dtype) timed: BERT-base's norm in each dtype, and a wide row
+LN_TIME_CASES = ((4096, 768, torch.float32), (4096, 768, torch.bfloat16),
+                 (4096, 768, torch.float16), (1024, 8192, torch.float32))
+
+
+def time_layer_norm(device, card, eps=1e-12):
     from paddle_tpu_torch.kernels import layer_norm as LN
     records = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for rows, f, dtype in LN_TIME_CASES:
         per = rows * f * (4 if dtype == torch.float32 else 2)
         sets = copies(lambda i: ln_inputs(rows, f, dtype, device, 100 + i),
                       per)
@@ -921,12 +1174,20 @@ def time_layer_norm(device, card, rows=4096, f=768, eps=1e-12):
         ms, plain_ms, lib_ms = (device_ms(fns) for fns in (kern, plain, lib))
         nbytes, flops = ln_work(sets[0][0], sets[0][1])
         bms, by = bound_ms(nbytes, flops, dtype)
-        records[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=bms, bound_by=by)
+        records[(rows, f, dtype)] = dict(ms=ms, plain_ms=plain_ms,
+                                         library_ms=lib_ms, bound_ms=bms,
+                                         bound_by=by)
         say("times", f"layer_norm [{rows}x{f}] {dtype}: kernel {ms:.4f} ms, "
             f"bound {bms:.4f} ms ({by}), plain {plain_ms:.4f} ms, "
             f"F.layer_norm {lib_ms:.4f} ms  [{card}]")
     return records
+
+
+def causal_mask(sq, sk, device):
+    """Boolean [Sq, Sk] mask, True where query i sees key j: the kernels'
+    causal rule, aligned bottom-right (i + sk - sq >= j)."""
+    return torch.ones(sq, sk, dtype=torch.bool, device=device).tril(
+        diagonal=sk - sq)
 
 
 def time_flash(device, card):
@@ -958,39 +1219,39 @@ def time_flash(device, card):
             plain = [lambda s=s: FA.attention_reference(*s, causal)
                      for s in sets]
             ms, plain_ms = device_ms(kern), device_ms(plain)
-            lib_ms = None
-            if not causal:
-                masks = [None if s[3] is None else s[3] > -1.0
-                         for s in sets]
-                lib = [lambda s=s, m=m: torch.nn.functional
-                       .scaled_dot_product_attention(
-                           s[0], s[1], s[2], attn_mask=m,
-                           scale=1.0 / math.sqrt(d))
-                       for s, m in zip(sets, masks)]
-                lib_ms = device_ms(lib)
+            # SDPA's is_causal aligns top-left; the kernels' causal mask is
+            # aligned bottom-right, so SDPA gets it as a boolean mask
+            masks = [causal_mask(sq, sk, device) if causal else
+                     None if s[3] is None else s[3] > -1.0 for s in sets]
+            lib = [lambda s=s, m=m: torch.nn.functional
+                   .scaled_dot_product_attention(
+                       s[0], s[1], s[2], attn_mask=m,
+                       scale=1.0 / math.sqrt(d))
+                   for s, m in zip(sets, masks)]
+            lib_ms = device_ms(lib)
             nbytes, flops = attn_work(sets[0][0], sets[0][1], sets[0][3],
                                       causal)
             bms, by = bound_ms(nbytes, flops, dtype)
             key = (b, h, sq, sk, d, with_bias, causal, dtype)
             records[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                 bound_ms=bms, bound_by=by)
-            lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
             say("times", f"flash fwd {str(dtype)[6:]} [{b},{h},{sq},{d}] "
                 f"sk={sk} bias={'[B,1,1,S]' if with_bias else 'none'} "
                 f"causal={causal}: kernel {ms:.4f} ms, bound "
                 f"{bms:.4f} ms ({by}), plain {plain_ms:.4f} ms, SDPA "
-                f"{lib_txt}  [{card}]")
+                f"{lib_ms:.4f} ms  [{card}]")
 
     # the train shape in bf16, without and with the main path's seed
     # dropout; SDPA with dropout_p draws random numbers, which a CUDA graph
     # cannot hold, so it is timed by the profiler
     b, h, s, d = TRAIN_B, 12, TRAIN_S, 64
     scale = 1.0 / math.sqrt(d)
-    sets = copies(lambda i: attn_inputs(b, h, s, s, d, torch.bfloat16,
-                                        device, 510 + i),
-                  3 * b * h * s * d * 2)
     seed_t = FA.seed_tensor(77, device)
-    for kp in (1.0, KEEP_PROB):
+    for dtype, kp in ((torch.bfloat16, 1.0), (torch.bfloat16, KEEP_PROB),
+                      (torch.float16, 1.0)):
+        sets = copies(lambda i: attn_inputs(b, h, s, s, d, dtype, device,
+                                            510 + i),
+                      3 * b * h * s * d * 2)
         st = seed_t if kp < 1.0 else None
         ms = device_ms([lambda x=x: FA._launch_fwd(*x, None, False, scale,
                                                    None, st, kp)
@@ -1011,14 +1272,15 @@ def time_flash(device, card):
                                      *sets[0], dropout_p=1.0 - kp,
                                      scale=scale))
         nbytes, flops = attn_work(sets[0][0], sets[0][1], None, False)
-        bms, by = bound_ms(nbytes, flops, torch.bfloat16)
-        records[("train", kp)] = dict(ms=ms, plain_ms=plain_ms,
-                                      library_ms=lib_ms, bound_ms=bms,
-                                      bound_by=by)
+        bms, by = bound_ms(nbytes, flops, dtype)
+        records[("train", dtype, kp)] = dict(ms=ms, plain_ms=plain_ms,
+                                             library_ms=lib_ms, bound_ms=bms,
+                                             bound_by=by)
         drop = "no dropout" if kp == 1.0 else \
             f"seed dropout {1.0 - kp:g}"
         lib = "SDPA" + ("" if kp == 1.0 else f" dropout_p={1.0 - kp:g}")
-        say("times", f"flash fwd bf16 [{b},{h},{s},{d}] (train shape) "
+        say("times", f"flash fwd {str(dtype)[6:]} [{b},{h},{s},{d}] "
+            f"(train shape) "
             f"{drop}: kernel {ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s), "
             f"bound {bms:.4f} ms ({by}), plain {plain_ms:.4f} ms "
             f"(attention_reference{'' if kp == 1.0 else ' + philox_keep_mask'}"
@@ -1279,11 +1541,14 @@ def read_counts():
 def train_run(device, state, batch, steps, record):
     """BERT-base (BertConfig(), dropout on) from ``state`` under seed SEED,
     TrainStep(Adam, bf16 auto_cast), ``steps`` steps on one batch. Returns
-    (losses, counts, paths, recorder, model)."""
+    (losses, counts, (attention paths, layer-norm paths), recorder,
+    model)."""
     import paddle_tpu_torch
     from paddle_tpu_torch.jit import TrainStep, load_reference_state
     from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
                                               pretraining_loss)
+    from paddle_tpu_torch.nn.functional import (layer_norm_paths_taken,
+                                                reset_layer_norm_path_log)
     from paddle_tpu_torch.nn.transformer import (attention_paths_taken,
                                                  reset_attention_path_log)
     from paddle_tpu_torch.optimizer import Adam
@@ -1306,10 +1571,11 @@ def train_run(device, state, batch, steps, record):
         torch.cuda.synchronize()
         reset_counts()
         reset_attention_path_log()
+        reset_layer_norm_path_log()
         losses = [float(step(*batch)) for _ in range(steps)]
         torch.cuda.synchronize()
         counts = read_counts()
-        paths = attention_paths_taken()
+        paths = (attention_paths_taken(), layer_norm_paths_taken())
     for missing, finite in bad:
         if missing or not finite:
             fail(f"main path: gradients missing {missing[:5]} or not "
@@ -1323,8 +1589,8 @@ def check_main_path(device, state, cfg):
     its model, optimizer and step."""
     batch = train_batch(TRAIN_B, TRAIN_S, TRAIN_M, cfg.vocab_size, device, 0)
     t0 = time.perf_counter()
-    losses, counts, paths, rec, keep = train_run(device, state, batch,
-                                                 TRAIN_STEPS, record=True)
+    losses, counts, (paths, ln_paths), rec, keep = train_run(
+        device, state, batch, TRAIN_STEPS, record=True)
     say("train", f"main path: BERT-base dropout 0.1/0.1, B={TRAIN_B} "
         f"S={TRAIN_S} M={TRAIN_M}, Adam({TRAIN_LR:g}), bf16 auto_cast, "
         f"{TRAIN_STEPS} steps in {time.perf_counter() - t0:.1f} s; losses "
@@ -1349,12 +1615,15 @@ def check_main_path(device, state, cfg):
             len(paths) != cfg.num_hidden_layers * TRAIN_STEPS:
         fail(f"main path: attention path log is not all 'flash': "
              f"{sorted(set(paths))} x {len(paths)}")
+    if set(ln_paths) != {"kernel"} or len(ln_paths) != n_ln * TRAIN_STEPS:
+        fail(f"main path: layer-norm path log is not all 'kernel': "
+             f"{sorted(set(ln_paths))} x {len(ln_paths)}")
     say("train", "main path launches in "
         f"{TRAIN_STEPS} steps: " + ", ".join(f"{k} {v}" for k, v in
                                              counts.items()) +
         f" ({', '.join(f'{v} a step' for v in per_step.values())}); path "
-        f"log {len(paths)} x 'flash'; every parameter's gradient present "
-        "and finite at every step")
+        f"logs {len(paths)} x 'flash', {len(ln_paths)} x 'kernel'; every "
+        "parameter's gradient present and finite at every step")
     del keep
     torch.cuda.empty_cache()
 
@@ -1418,10 +1687,18 @@ def profiled_ms(fn, reps=5):
     return busy / 1e3 / reps
 
 
-def time_layer_norm_bwd(device, card, rows=16384, f=768):
+# (rows, F, x dtype) timed: the train step's norm in each dtype, and a
+# wide row
+LN_BWD_TIME_CASES = ((16384, 768, torch.float32),
+                     (16384, 768, torch.bfloat16),
+                     (16384, 768, torch.float16),
+                     (2048, 8192, torch.float32))
+
+
+def time_layer_norm_bwd(device, card):
     from paddle_tpu_torch.kernels import layer_norm as LN
     records = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for rows, f, dtype in LN_BWD_TIME_CASES:
         per = 3 * rows * f * (4 if dtype == torch.float32 else 2)
         sets = copies(lambda i: ln_bwd_case(rows, f, dtype, False, device,
                                             400 + i), per)
@@ -1445,8 +1722,9 @@ def time_layer_norm_bwd(device, card, rows=16384, f=768):
         nbytes = 3 * x.numel() * esz + 2 * rows * 4 + \
             3 * f * gamma.element_size()
         bms, by = bound_ms(nbytes, 13 * x.numel(), dtype)
-        records[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=bms, bound_by=by)
+        records[(rows, f, dtype)] = dict(ms=ms, plain_ms=plain_ms,
+                                         library_ms=lib_ms, bound_ms=bms,
+                                         bound_by=by)
         say("times", f"layer_norm_bwd [{rows}x{f}] {dtype}: kernel "
             f"{ms:.4f} ms, bound {bms:.4f} ms ({by}), plain {plain_ms:.4f} "
             f"ms, aten.native_layer_norm_backward {lib_ms:.4f} ms  [{card}]")
@@ -1477,6 +1755,7 @@ def bwd_work(q, k, bias, which):
 TIME_BWD_CASES = ((32, 12, 512, 64, False, torch.bfloat16, 1.0),
                   (32, 12, 512, 64, True, torch.bfloat16, 1.0),
                   (32, 12, 512, 64, False, torch.bfloat16, KEEP_PROB),
+                  (32, 12, 512, 64, False, torch.float16, 1.0),
                   (8, 12, 512, 64, False, torch.float32, 1.0))
 
 
@@ -1637,7 +1916,12 @@ GARBAGE = 1e4
 # (kv dtype, Cq, bs, D) of the parity cases
 PAGED_CASES = tuple((kv, cq, bs, d) for kv in ("fp32", "int8", "fp8")
                     for cq in (1, 4) for bs in (16, 32)
-                    for d in (16, 64, 128))
+                    for d in (16, 64, 128, 256))
+# rows of up to 40 blocks of 16 (640 positions): past the kernel's staged
+# chunk of positions (kChunk), so a CTA stages more than once
+PAGED_LONG_CASES = tuple((kv, cq, 16, 64) for kv in ("fp32", "int8", "fp8")
+                         for cq in (1, 4))
+PAGED_LONG_BLOCKS = 40
 
 
 def paged_case(kv, cq, bs, d, device, seed, heads=4, max_blocks=8,
@@ -1689,34 +1973,40 @@ def paged_case(kv, cq, bs, d, device, seed, heads=4, max_blocks=8,
 
 def check_paged(device):
     """Both paged kernels against the plain version on the card, every
-    PAGED_CASES shape: real query rows within PAGED_TOL, rows with no
-    query exactly 0. Returns the worst error per pool dtype."""
+    PAGED_CASES shape and the long rows of PAGED_LONG_CASES: real query
+    rows within PAGED_TOL, rows with no query exactly 0. Returns the
+    worst error per pool dtype."""
     from paddle_tpu_torch import quant
     from paddle_tpu_torch.kernels import paged_attention as PA
     worst = {}
-    for i, (kv, cq, bs, d) in enumerate(PAGED_CASES):
+    cases = [(c, 8, 80) for c in PAGED_CASES] + [
+        (c, PAGED_LONG_BLOCKS, 6 * PAGED_LONG_BLOCKS + 1)
+        for c in PAGED_LONG_CASES]
+    for i, ((kv, cq, bs, d), max_blocks, num_blocks) in enumerate(cases):
         if kv == "fp8" and not quant.supports_fp8():
             fail("fp8 KV: torch.float8_e4m3fn does not convert exactly")
-        args, kwargs, q_lens = paged_case(kv, cq, bs, d, device, 700 + i)
+        args, kwargs, q_lens = paged_case(kv, cq, bs, d, device, 700 + i,
+                                          max_blocks=max_blocks,
+                                          num_blocks=num_blocks)
         scale = 1.0 / math.sqrt(d)
         got = PA._launch(*args, scale, **kwargs)
         torch.cuda.synchronize()
         want = PA.ragged_paged_attention_reference(*args, scale, **kwargs)
+        what = f"paged {kv} Cq={cq} bs={bs} D={d} M={max_blocks}"
         errs = []
         for r, n in enumerate(q_lens):
             if n:
                 err, ok = max_err(got[r, :n], want[r, :n], *PAGED_TOL)
                 errs.append(err)
                 if not ok:
-                    fail(f"paged {kv} Cq={cq} bs={bs} D={d} row {r}: max "
-                         f"error {err} beyond {PAGED_TOL}")
+                    fail(f"{what} row {r}: max error {err} beyond "
+                         f"{PAGED_TOL}")
             if n < cq and got[r, n:].abs().max().item() != 0.0:
-                fail(f"paged {kv} Cq={cq} bs={bs} D={d} row {r}: rows with "
-                     "no query must give 0")
+                fail(f"{what} row {r}: rows with no query must give 0")
         worst[kv] = max(worst.get(kv, 0.0), max(errs))
-        say("parity", f"paged_attention {kv} Cq={cq} bs={bs} D={d} "
-            f"q_lens={q_lens}: max error {max(errs):.3e} (tol "
-            f"{PAGED_TOL[0]:g} + {PAGED_TOL[1]:g}|ref|), unused rows 0; ok")
+        say("parity", f"{what} q_lens={q_lens}: max error {max(errs):.3e} "
+            f"(tol {PAGED_TOL[0]:g} + {PAGED_TOL[1]:g}|ref|), unused rows 0;"
+            " ok")
     say("parity", "paged_attention worst error by pool: " + ", ".join(
         f"{k} {v:.3e}" for k, v in worst.items()))
     return worst
@@ -2163,7 +2453,7 @@ GEN_GROUPS = (("paged attention", ("ragged_paged",)),
               ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")))
 
 
-def profile_generation(engine, reqs, card, warm=6, window=12):
+def profile_generation(engine, reqs, kv, card, warm=6, window=12):
     """Device busy time and idle share over a window of mixed steps in
     steady state (decode lanes and prefill chunks together): requests go
     straight into the engine, ``warm`` steps run, then ``window`` steps
@@ -2194,11 +2484,14 @@ def profile_generation(engine, reqs, card, warm=6, window=12):
         groups[g] += e.time_range.elapsed_us() / 1e3
     busy = sum(groups.values())
     idle = max(0.0, 1.0 - busy / wall) if busy > 0 else float("nan")
-    say("times", f"{window} mixed steps in steady state: wall {wall:.2f} ms "
-        f"({wall / window:.2f} ms a step), device busy {busy:.2f} ms, idle "
-        f"share {idle:.3f}; " + ", ".join(
-            f"{g} {t:.2f} ms" for g, t in groups.items()) + f"  [{card}]")
-    return dict(wall_ms=wall, busy_ms=busy, idle=idle)
+    say("times", f"{kv} KV, {window} mixed steps in steady state: wall "
+        f"{wall:.2f} ms ({wall / window:.2f} ms a step), device busy "
+        f"{busy:.2f} ms, idle share {idle:.3f}; " + ", ".join(
+            f"{g} {t:.2f} ms" for g, t in groups.items()) + "; paged "
+        f"attention {groups['paged attention'] / window:.4f} ms a mixed "
+        f"step  [{card}]")
+    return dict(wall_ms=wall, busy_ms=busy, idle=idle,
+                paged_ms_per_step=groups["paged attention"] / window)
 
 
 def gen_times(rec, label, card):
@@ -2244,12 +2537,12 @@ def run_generation(device, card, cfg_kw=GEN_CFG, n_requests=GEN_REQUESTS,
         streams[kv], recs[kv] = serve_generation(eng, reqs, label)
         check_gen_launches(recs[kv], cfg, kv, label)
         check_gen_outputs(streams[kv], reqs, cfg, label)
-        if kv == "fp32":
-            if recs[kv]["stats"]["prefix_hits"] == 0 or \
-                    recs[kv]["stats"]["prefix_cow_copies"] == 0:
-                fail(f"{label}: no prefix hit or copy-on-write")
-            profile_generation(eng, gen_requests(cfg, 2 * GEN_GEO[
-                "decode_width"], seed=GEN_SEED + 1), card)
+        if kv == "fp32" and (recs[kv]["stats"]["prefix_hits"] == 0 or
+                             recs[kv]["stats"]["prefix_cow_copies"] == 0):
+            fail(f"{label}: no prefix hit or copy-on-write")
+        recs[kv]["profile"] = profile_generation(
+            eng, gen_requests(cfg, 2 * GEN_GEO["decode_width"],
+                              seed=GEN_SEED + 1), kv, card)
         del eng
         torch.cuda.empty_cache()
     # a rerun of the same requests from the same seeds
@@ -2294,6 +2587,8 @@ def main() -> int:
     from paddle_tpu_torch.kernels import layer_norm as LN
     from paddle_tpu_torch.jit import load_reference_state
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.nn.functional import (layer_norm_paths_taken,
+                                                reset_layer_norm_path_log)
     from paddle_tpu_torch.nn.transformer import (attention_paths_taken,
                                                  reset_attention_path_log)
 
@@ -2321,6 +2616,7 @@ def main() -> int:
     ln_err = check_layer_norm(device)
     fa_err = check_flash(device)
     check_flash_instances(device)
+    check_routes(device)
 
     # -- 3. serving: the main path
     cfg = BertConfig()
@@ -2339,9 +2635,11 @@ def main() -> int:
     FA.launches = 0
     FA.fwd_copies = 0
     reset_attention_path_log()
+    reset_layer_norm_path_log()
     outputs, per_forward = serve(model, requests)
     ln_total, fa_total = LN.launches, FA.launches
     paths = attention_paths_taken()
+    ln_paths = layer_norm_paths_taken()
     if FA.fwd_copies != 0:
         fail(f"serving copied {FA.fwd_copies} flash inputs before the "
              "launch; the projection's views are aligned")
@@ -2360,9 +2658,12 @@ def main() -> int:
         fail("a kernel of the main path was never launched")
     if set(paths) != {"flash"} or len(paths) != cfg.num_hidden_layers * n_fwd:
         fail(f"attention path log is not all 'flash': {sorted(set(paths))}")
+    if set(ln_paths) != {"kernel"} or len(ln_paths) != ln_total:
+        fail(f"layer-norm path log is not all 'kernel': "
+             f"{sorted(set(ln_paths))} x {len(ln_paths)}")
     say("serve", f"{n_fwd} forwards: layer_norm launches {ln_total}, flash "
-        f"launches {fa_total} with no input copied, path log {len(paths)} x "
-        "'flash'")
+        f"launches {fa_total} with no input copied, path logs {len(paths)} "
+        f"x 'flash', {len(ln_paths)} x 'kernel'")
     check_outputs(outputs, requests, cfg.vocab_size)
     say("serve", "all logits finite, shapes as expected")
 
@@ -2427,7 +2728,7 @@ def main() -> int:
 
     # -- 7. records: launches are the serving, training and generation
     # runs
-    ln_rec = ln_times[torch.float32]
+    ln_rec = ln_times[(4096, 768, torch.float32)]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]
     bwd_key = (TRAIN_B, 12, TRAIN_S, 64, False, torch.bfloat16, 1.0)
@@ -2444,7 +2745,7 @@ def main() -> int:
              replaces="paddle_tpu/kernels/layer_norm.py:46",
              launches=train_counts["layer_norm_bwd"],
              max_abs_err=ln_bwd_err[(16384, 768, torch.float32)],
-             **ln_bwd_times[torch.float32]),
+             **ln_bwd_times[(16384, 768, torch.float32)]),
         dict(name="flash_attention_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:207",

@@ -40,8 +40,9 @@
 // Philox once per 2 x 2 group and uses all four words; l sums p before
 // the dropout, and 1 / keep_prob is applied once, with 1 / l.
 //
-// - bfloat16: the dQ kernel's loop without dP (flash_attention_bwd.cu),
-//   built from flash_wgmma.cuh. One warpgroup a CTA owns 64 queries; Q is
+// - bfloat16 and float16: the dQ kernel's loop without dP
+//   (flash_attention_bwd.cu), one template for both input types, built
+//   from flash_wgmma.cuh. One warpgroup a CTA owns 64 queries; Q is
 //   loaded once, K and V tiles stream through kFwdStages stages in the
 //   128-byte swizzle. S = Q K^T is a wgmma with both operands K-major in
 //   shared memory; the online softmax runs on the accumulator registers (a
@@ -50,8 +51,9 @@
 //   tile, never transposed. While the tensor cores compute S a lane runs
 //   Philox for its half of a pair of 2 x 2 groups and trades the bits with
 //   lane ^ 4. Compiled per dropout mode (none, mask, seed), bias layout
-//   (none, [B,1,1,S], full) and D (64, 128): no score pays for a branch it
-//   does not take. Tiling measured on the H100: see kFwdWarpgroups.
+//   (none, [B,1,1,S], full), D (64, 128) and input type (bf16, fp16): no
+//   score pays for a branch it does not take. Tiling measured on the H100
+//   (bf16): see kFwdWarpgroups.
 // - float32: the CUDA cores, fp32 FMA (the TPU kernel's fp32 numerics; no
 //   TF32). A warp owns 16 queries; a lane the scores of 4 rows x 8 keys
 //   and the accumulator of those rows at D / 8 columns. Q and K sit in
@@ -70,15 +72,16 @@
 // (batch, head, row), then bias and keep (batch, head, query, key). The
 // last dim of q, k, v and o is contiguous; q, k, v and o start on 16 bytes
 // and have strides of whole 16-byte chunks (cp.async and the fp32
-// epilogue move 16 bytes), the bf16 o at least on 4 bytes; the wrapper
-// copies an input that does not. scale must be positive. keep (uint8,
-// 1 = keep) selects mask mode, seed (one int64 in device memory) seed mode;
-// with neither there is no dropout. thresh and rinv = 1 / keep_prob define
-// the dropout. pt_flash_dropout_keep_mask writes the seed-mode pattern as a
-// contiguous uint8 [B,H,Sq,Sk] mask through group_bits, the kernels' own
-// word selection, for checking it against the plain version.
-// dtype codes: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
-// launch (0 on success).
+// epilogue move 16 bytes), a bf16 or fp16 o at least on 4 bytes; the
+// wrapper copies an input that does not. scale must be positive. keep
+// (uint8, 1 = keep) selects mask mode, seed (one int64 in device memory)
+// seed mode; with neither there is no dropout. thresh and
+// rinv = 1 / keep_prob define the dropout. pt_flash_dropout_keep_mask
+// writes the seed-mode pattern as a contiguous uint8 [B,H,Sq,Sk] mask
+// through group_bits, the kernels' own word selection, for checking it
+// against the plain version.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16. Returns the
+// cudaError_t of the launch (0 on success).
 #include "flash_wgmma.cuh"
 
 using namespace flash;
@@ -174,8 +177,9 @@ __device__ __forceinline__ void exponents(float (&s)[32], float scale_log2,
 }
 
 // One CTA (kFwdWarpgroups warpgroups) owns kFwdRows queries and walks the
-// key tiles they can see. DROP is the dropout mode, BIAS the bias layout.
-template <int D, int DROP, int BIAS>
+// key tiles they can see. E is the input type (bf16 or fp16), DROP the
+// dropout mode, BIAS the bias layout.
+template <typename E, int D, int DROP, int BIAS>
 __global__ void __launch_bounds__(kFwdThreads)
 flash_fwd_wgmma_kernel(const Params p) {
   using L = FwdSmem<D>;
@@ -189,9 +193,9 @@ flash_fwd_wgmma_kernel(const Params p) {
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kFwdRows;
   const int h = blockIdx.y, b = blockIdx.z;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const E* q = static_cast<const E*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const E* k = static_cast<const E*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const E* v = static_cast<const E*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* bias =
       BIAS == kNoBias ? nullptr : p.bias + b * p.bias_sb + h * p.bias_sh;
   const uint2 seed = read_seed(p.drop);
@@ -258,7 +262,7 @@ flash_fwd_wgmma_kernel(const Params p) {
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     pin(s);
     wgmma_fence();
-    scores<D>(s, base + L::Q + wg * L::kTileBytes, kb);
+    scores<D, E>(s, base + L::Q + wg * L::kTileBytes, kb);
     wgmma_commit();
     // while the tensor cores work: the keep bits, bit i for element i
     uint32_t keep = 0xFFFFFFFFu;
@@ -317,11 +321,12 @@ flash_fwd_wgmma_kernel(const Params p) {
 
     // O += P V: P from registers, V MN-major from the same stage
     uint32_t a[4][4];
-    to_a_frags(a, s);
+    to_a_frags<E>(a, s);
     pin(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], mnmajor_desc(vb, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<E>(acc, a[kk], mnmajor_desc(vb, kk));
     wgmma_commit();
     wgmma_wait<0>();
     pin(acc);
@@ -331,7 +336,7 @@ flash_fwd_wgmma_kernel(const Params p) {
 
   // element 4n + 2hr + e of acc: row rows[hr], column 8n + 2t + e
   const float rinv = DROP == kNoDrop ? 1.f : p.drop.rinv;
-  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  E* o = static_cast<E*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float lt = l[hr];
@@ -342,10 +347,8 @@ flash_fwd_wgmma_kernel(const Params p) {
     const float f = empty ? 0.f : rinv / lt;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(o + rows[hr] * p.o_ss + 8 * n +
-                                         2 * t) =
-          __floats2bfloat162_rn(acc[4 * n + 2 * hr] * f,
-                                acc[4 * n + 2 * hr + 1] * f);
+      *reinterpret_cast<uint32_t*>(o + rows[hr] * p.o_ss + 8 * n + 2 * t) =
+          pack2<E>(acc[4 * n + 2 * hr] * f, acc[4 * n + 2 * hr + 1] * f);
     if (t == 0)
       p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + rows[hr]] =
           empty ? 0.f : (m[hr] + log2f(lt)) * kLn2;
@@ -644,28 +647,29 @@ int launch(Kernel kernel, int threads, size_t smem, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int DROP, int BIAS>
+template <typename E, int D, int DROP, int BIAS>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
-  return launch(flash_fwd_wgmma_kernel<D, DROP, BIAS>, kFwdThreads,
+  return launch(flash_fwd_wgmma_kernel<E, D, DROP, BIAS>, kFwdThreads,
                 FwdSmem<D>::bytes, kFwdRows, p, stream);
 }
 
-// the bf16 kernel in its instance for this dropout mode and bias layout
-template <int D>
+// the tensor-core kernel in its instance for this dropout mode and bias
+// layout
+template <typename E, int D>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
   const int bias = p.bias == nullptr ? kNoBias
                    : p.bias_sq == 0  ? kRowBias
                                      : kFullBias;
   switch (p.drop.mode * 3 + bias) {
-    case 0: return launch_wgmma<D, kNoDrop, kNoBias>(p, stream);
-    case 1: return launch_wgmma<D, kNoDrop, kRowBias>(p, stream);
-    case 2: return launch_wgmma<D, kNoDrop, kFullBias>(p, stream);
-    case 3: return launch_wgmma<D, kMaskDrop, kNoBias>(p, stream);
-    case 4: return launch_wgmma<D, kMaskDrop, kRowBias>(p, stream);
-    case 5: return launch_wgmma<D, kMaskDrop, kFullBias>(p, stream);
-    case 6: return launch_wgmma<D, kSeedDrop, kNoBias>(p, stream);
-    case 7: return launch_wgmma<D, kSeedDrop, kRowBias>(p, stream);
-    case 8: return launch_wgmma<D, kSeedDrop, kFullBias>(p, stream);
+    case 0: return launch_wgmma<E, D, kNoDrop, kNoBias>(p, stream);
+    case 1: return launch_wgmma<E, D, kNoDrop, kRowBias>(p, stream);
+    case 2: return launch_wgmma<E, D, kNoDrop, kFullBias>(p, stream);
+    case 3: return launch_wgmma<E, D, kMaskDrop, kNoBias>(p, stream);
+    case 4: return launch_wgmma<E, D, kMaskDrop, kRowBias>(p, stream);
+    case 5: return launch_wgmma<E, D, kMaskDrop, kFullBias>(p, stream);
+    case 6: return launch_wgmma<E, D, kSeedDrop, kNoBias>(p, stream);
+    case 7: return launch_wgmma<E, D, kSeedDrop, kRowBias>(p, stream);
+    case 8: return launch_wgmma<E, D, kSeedDrop, kFullBias>(p, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -715,10 +719,10 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
       !(scale > 0.f))
     return cudaErrorInvalidValue;
   if (keep != nullptr && seed != nullptr) return cudaErrorInvalidValue;
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (dtype < 0 || dtype > 2) return cudaErrorInvalidValue;
   const int64_t* st = static_cast<const int64_t*>(strides);
   // cp.async moves 16-byte chunks of q, k, v; the fp32 epilogue stores 16
-  // bytes of o, the bf16 one 4
+  // bytes of o, the bf16 and fp16 one 4
   const int esize = dtype == 0 ? 4 : 2;
   const int o_bytes = dtype == 0 ? 16 : 4;
   const void* ins[3] = {q, k, v};
@@ -754,8 +758,10 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64) return launch_simt<64>(p, s);
   if (dtype == 0 && D == 128) return launch_simt<128>(p, s);
-  if (dtype == 1 && D == 64) return launch_wgmma<64>(p, s);
-  if (dtype == 1 && D == 128) return launch_wgmma<128>(p, s);
+  if (dtype == 1 && D == 64) return launch_wgmma<bf16, 64>(p, s);
+  if (dtype == 1 && D == 128) return launch_wgmma<bf16, 128>(p, s);
+  if (dtype == 2 && D == 64) return launch_wgmma<f16, 64>(p, s);
+  if (dtype == 2 && D == 128) return launch_wgmma<f16, 128>(p, s);
   return cudaErrorInvalidValue;
 }
 

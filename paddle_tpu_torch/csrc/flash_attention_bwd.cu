@@ -34,8 +34,9 @@
 // near the ridge, so the design keeps the tensor cores fed and moves each
 // tile once:
 //
-// - bfloat16: every product is a wgmma (bf16 in, fp32 accumulate) on
-//   64-row tiles, a CTA one warpgroup. In the dQ kernel
+// - bfloat16 and float16 (one template, E the input type): every product
+//   is a wgmma (E in, fp32 accumulate) on 64-row tiles, a CTA one
+//   warpgroup. In the dQ kernel
 //   s = q k^T and dp = dO v^T read both operands from shared memory, and
 //   dQ += ds k takes ds from registers with k as an MN-major operand. In
 //   the dK/dV kernel the accumulators of s^T = k q^T and dp^T = v dO^T turn
@@ -45,8 +46,9 @@
 //   loaded once; the moving one streams through a ring of kStages tiles by
 //   cp.async, the next tile in flight while the tensor cores work on this
 //   one, in the 128-byte-swizzled layout that the wgmma descriptors read
-//   (a D = 64 bf16 row is one 128-byte line). A [B,1,1,S] bias, lse and
-//   delta arrive per tile in the same ring; a full bias is read per score.
+//   (a D = 64 row of 16-bit values is one 128-byte line). A [B,1,1,S]
+//   bias, lse and delta arrive per tile in the same ring; a full bias is
+//   read per score.
 //   p = exp2(s * scale * log2(e) + (bias - lse) * log2(e)): one FMA and
 //   one exp2 a score. Seed-mode dropout runs Philox once per 2 x 2 group
 //   and uses all four words: a lane computes one group and trades its
@@ -57,8 +59,9 @@
 //   against three, and the two warpgroups run in lockstep between the
 //   tile barriers) and a third stage (loads are not the limit). What is
 //   left bounds the kernels by the issue of the per-score arithmetic, so
-//   each kernel is compiled per dropout mode and bias layout: no score
-//   pays for a branch it does not take.
+//   each kernel is compiled per dropout mode, bias layout, D and input
+//   type: no score pays for a branch it does not take. (Tiling measured in
+//   bf16.)
 //   The wgmma and cp.async pieces are shared with the forward, in
 //   flash_wgmma.cuh.
 // - float32: the CUDA cores, fp32 FMA, 256 threads with 4 x 4 score and
@@ -76,12 +79,13 @@
 // host memory, in elements: q, k, v, o, dout, dq, dk, dv (batch, head,
 // row), then bias and keep (batch, head, query, key). The last dim of every
 // tensor but the bias and keep is contiguous; lse and delta are contiguous
-// [B,H,Sq] fp32. In bf16, q, k, v, o and dout must start on 16 bytes and
-// have strides that are multiples of 8 elements (cp.async moves 16-byte
-// chunks); the wrapper copies an input that does not. keep (uint8, 1 =
-// keep) selects mask mode, seed (one int64 in device memory) seed mode.
-// dtype codes: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
-// launch (0 on success).
+// [B,H,Sq] fp32. In bf16 and fp16, q, k, v, o and dout must start on 16
+// bytes and have strides that are multiples of 8 elements (cp.async moves
+// 16-byte chunks); the wrapper copies an input that does not. keep
+// (uint8, 1 = keep) selects mask mode, seed (one int64 in device memory)
+// seed mode.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16. Returns the
+// cudaError_t of the launch (0 on success).
 #include "flash_wgmma.cuh"
 
 using namespace flash;
@@ -479,9 +483,9 @@ struct DkvSmem {
 // delta = rowsum(dO * o) of rows [q0, q0 + valid) of this (b, h), D / 8
 // threads a row, each one 16-byte chunk, every load issued before the
 // first sum; into delta_s[0, kTile) and device memory
-template <int D>
-__device__ __forceinline__ void rows_delta(const BwdParams& p, const bf16* o,
-                                           const bf16* dout, int b, int h,
+template <int D, typename E>
+__device__ __forceinline__ void rows_delta(const BwdParams& p, const E* o,
+                                           const E* dout, int b, int h,
                                            int q0, int valid,
                                            float* delta_s) {
   constexpr int TPR = D / 8;
@@ -502,13 +506,13 @@ __device__ __forceinline__ void rows_delta(const BwdParams& p, const bf16* o,
 #pragma unroll
   for (int i = 0; i < kPasses; ++i) {
     const int r = r0 + i * (kThreads / TPR);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov[i]);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv[i]);
+    const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&ov[i]);
+    const uint32_t* d2 = reinterpret_cast<const uint32_t*>(&dv[i]);
     float s = 0.f;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float2 of = __bfloat1622float2(o2[k]);
-      const float2 df = __bfloat1622float2(d2[k]);
+      const float2 of = unpack2<E>(o2[k]);
+      const float2 df = unpack2<E>(d2[k]);
       s = fmaf(of.x, df.x, fmaf(of.y, df.y, s));
     }
 #pragma unroll
@@ -523,10 +527,10 @@ __device__ __forceinline__ void rows_delta(const BwdParams& p, const bf16* o,
 }
 
 // The dQ kernel: one CTA (a warpgroup) owns 64 queries and walks the key
-// tiles they can see. DROP is the dropout mode and
-// FULL_BIAS says the bias has a stride along the queries (read per score);
-// a [B,1,1,S] bias is staged per key tile.
-template <int D, int DROP, bool FULL_BIAS>
+// tiles they can see. E is the input type (bf16 or fp16), DROP the
+// dropout mode, and FULL_BIAS says the bias has a stride along the
+// queries (read per score); a [B,1,1,S] bias is staged per key tile.
+template <typename E, int D, int DROP, bool FULL_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_wgmma_kernel(const BwdParams p) {
   using L = DqSmem<D>;
@@ -540,11 +544,11 @@ flash_bwd_dq_wgmma_kernel(const BwdParams p) {
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const bf16* o = static_cast<const bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const E* q = static_cast<const E*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const E* k = static_cast<const E*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const E* v = static_cast<const E*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const E* o = static_cast<const E*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const E* dout = static_cast<const E*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* bias =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
   const bool row_bias = !FULL_BIAS && bias != nullptr;
@@ -591,7 +595,7 @@ flash_bwd_dq_wgmma_kernel(const BwdParams p) {
                           : p.Sk;
     brow[hr] = FULL_BIAS ? bias + rows[hr] * p.bias_sq : nullptr;
   }
-  rows_delta<D>(p, o, dout, b, h, q0, valid_q, delta_s);
+  rows_delta<D, E>(p, o, dout, b, h, q0, valid_q, delta_s);
   __syncthreads();  // delta_s
   // delta * scale: ds = p (dp keep scale - delta scale)
   const float dsc[2] = {delta_s[r_loc] * p.scale,
@@ -620,9 +624,9 @@ flash_bwd_dq_wgmma_kernel(const BwdParams p) {
     pin(s);
     pin(dp);
     wgmma_fence();
-    scores<D>(s, base + L::Q, kb);
+    scores<D, E>(s, base + L::Q, kb);
     wgmma_commit();
-    scores<D>(dp, base + L::dO, vb);
+    scores<D, E>(dp, base + L::dO, vb);
     wgmma_commit();
     // while the tensor cores work: the keep bits, bit i for element i
     uint32_t keep = 0xFFFFFFFFu;
@@ -667,11 +671,12 @@ flash_bwd_dq_wgmma_kernel(const BwdParams p) {
       s[i] *= fmaf(dp[i], fs, -dsc[(i / 2) % 2]);
     }
     uint32_t a[4][4];
-    to_a_frags(a, s);
+    to_a_frags<E>(a, s);
     pin(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], mnmajor_desc(kb, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<E>(acc, a[kk], mnmajor_desc(kb, kk));
     wgmma_commit();
     wgmma_wait<0>();
     pin(acc);
@@ -680,21 +685,20 @@ flash_bwd_dq_wgmma_kernel(const BwdParams p) {
   cp_async_wait<0>();
 
   // element 4n + 2hr + e of acc: row rows[hr], column 8n + 2t + e
-  bf16* dq = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  E* dq = static_cast<E*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     if (rows[hr] >= p.Sq) continue;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dq + rows[hr] * p.dq_ss + 8 * n +
-                                         2 * t) =
-          __floats2bfloat162_rn(acc[4 * n + 2 * hr], acc[4 * n + 2 * hr + 1]);
+      *reinterpret_cast<uint32_t*>(dq + rows[hr] * p.dq_ss + 8 * n + 2 * t) =
+          pack2<E>(acc[4 * n + 2 * hr], acc[4 * n + 2 * hr + 1]);
   }
 }
 
 // The dK/dV kernel: one CTA (a warpgroup) owns 64 keys and walks the
 // query tiles that can see them, on transposed scores (rows are keys).
-template <int D, int DROP, bool FULL_BIAS>
+template <typename E, int D, int DROP, bool FULL_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
   using L = DkvSmem<D>;
@@ -706,10 +710,10 @@ flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
   const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const E* q = static_cast<const E*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const E* k = static_cast<const E*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const E* v = static_cast<const E*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const E* dout = static_cast<const E*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* bias =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
   const bool row_bias = !FULL_BIAS && bias != nullptr;
@@ -779,9 +783,9 @@ flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
     pin(s);
     pin(dp);
     wgmma_fence();
-    scores<D>(s, base + L::K, qb);
+    scores<D, E>(s, base + L::K, qb);
     wgmma_commit();
-    scores<D>(dp, base + L::V, ob);
+    scores<D, E>(dp, base + L::V, ob);
     wgmma_commit();
     // while the tensor cores work: the keep bits, bit i for element i
     uint32_t keep = 0xFFFFFFFFu;
@@ -839,15 +843,17 @@ flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
         }
       }
     uint32_t ap[4][4], ads[4][4];
-    to_a_frags(ap, s);
-    to_a_frags(ads, dp);
+    to_a_frags<E>(ap, s);
+    to_a_frags<E>(ads, dp);
     pin(dv);
     pin(dk);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv, ap[kk], mnmajor_desc(ob, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<E>(dv, ap[kk], mnmajor_desc(ob, kk));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, ads[kk], mnmajor_desc(qb, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<E>(dk, ads[kk], mnmajor_desc(qb, kk));
     wgmma_commit();
     wgmma_wait<0>();
     pin(dv);
@@ -856,19 +862,17 @@ flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
   }
   cp_async_wait<0>();
 
-  bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  E* dkp = static_cast<E*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  E* dvp = static_cast<E*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     if (keys[hr] >= p.Sk) continue;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + keys[hr] * p.dk_ss + 8 * n +
-                                         2 * t) =
-          __floats2bfloat162_rn(dk[4 * n + 2 * hr], dk[4 * n + 2 * hr + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + keys[hr] * p.dv_ss + 8 * n +
-                                         2 * t) =
-          __floats2bfloat162_rn(dv[4 * n + 2 * hr], dv[4 * n + 2 * hr + 1]);
+      *reinterpret_cast<uint32_t*>(dkp + keys[hr] * p.dk_ss + 8 * n + 2 * t) =
+          pack2<E>(dk[4 * n + 2 * hr], dk[4 * n + 2 * hr + 1]);
+      *reinterpret_cast<uint32_t*>(dvp + keys[hr] * p.dv_ss + 8 * n + 2 * t) =
+          pack2<E>(dv[4 * n + 2 * hr], dv[4 * n + 2 * hr + 1]);
     }
   }
 }
@@ -919,14 +923,15 @@ bool make_params(BwdParams& p, const void* q, const void* k, const void* v,
   p.drop.mode = keep ? kMaskDrop : seed ? kSeedDrop : kNoDrop;
   p.scale = scale;
   p.causal = causal;
-  if (dtype == 1) {
+  if (dtype < 0 || dtype > 2) return false;
+  if (dtype != 0) {
     // cp.async and the delta pass move 16-byte chunks of q, k, v, o, dout
     const void* ins[5] = {q, k, v, o, dout};
     for (const void* ptr : ins)
       if (!aligned16(ptr)) return false;
     for (int i = 0; i < 15; ++i)
       if (st[i] % 8 != 0) return false;
-    // the epilogues store bf16 pairs: gradient rows 4-byte aligned
+    // the epilogues store pairs: gradient rows 4-byte aligned
     const void* outs[3] = {dq, dk, dv};
     for (const void* ptr : outs)
       if (ptr != nullptr && reinterpret_cast<uintptr_t>(ptr) % 4 != 0)
@@ -939,25 +944,25 @@ bool make_params(BwdParams& p, const void* q, const void* k, const void* v,
 
 // the dQ (dq) or the dK/dV kernel in its instance for this dropout mode
 // and bias layout
-template <int D, int DROP, bool FULL_BIAS>
+template <typename E, int D, int DROP, bool FULL_BIAS>
 int launch_wgmma(bool dq, const BwdParams& p, cudaStream_t stream) {
   if (dq)
-    return launch(flash_bwd_dq_wgmma_kernel<D, DROP, FULL_BIAS>, kThreads,
+    return launch(flash_bwd_dq_wgmma_kernel<E, D, DROP, FULL_BIAS>, kThreads,
                   DqSmem<D>::bytes, (p.Sq + kTile - 1) / kTile, p, stream);
-  return launch(flash_bwd_dkv_wgmma_kernel<D, DROP, FULL_BIAS>, kThreads,
+  return launch(flash_bwd_dkv_wgmma_kernel<E, D, DROP, FULL_BIAS>, kThreads,
                 DkvSmem<D>::bytes, (p.Sk + kTile - 1) / kTile, p, stream);
 }
 
-template <int D>
+template <typename E, int D>
 int launch_wgmma(bool dq, const BwdParams& p, cudaStream_t stream) {
   const bool full = p.bias != nullptr && p.bias_sq != 0;
   switch (p.drop.mode * 2 + full) {
-    case 0: return launch_wgmma<D, kNoDrop, false>(dq, p, stream);
-    case 1: return launch_wgmma<D, kNoDrop, true>(dq, p, stream);
-    case 2: return launch_wgmma<D, kMaskDrop, false>(dq, p, stream);
-    case 3: return launch_wgmma<D, kMaskDrop, true>(dq, p, stream);
-    case 4: return launch_wgmma<D, kSeedDrop, false>(dq, p, stream);
-    case 5: return launch_wgmma<D, kSeedDrop, true>(dq, p, stream);
+    case 0: return launch_wgmma<E, D, kNoDrop, false>(dq, p, stream);
+    case 1: return launch_wgmma<E, D, kNoDrop, true>(dq, p, stream);
+    case 2: return launch_wgmma<E, D, kMaskDrop, false>(dq, p, stream);
+    case 3: return launch_wgmma<E, D, kMaskDrop, true>(dq, p, stream);
+    case 4: return launch_wgmma<E, D, kSeedDrop, false>(dq, p, stream);
+    case 5: return launch_wgmma<E, D, kSeedDrop, true>(dq, p, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -985,8 +990,10 @@ extern "C" int pt_flash_attention_bwd_dq(PT_FLASH_BWD_ARGS) {
   if (dtype == 0 && D == 128)
     return launch(flash_bwd_dq_simt_kernel<128>, kSimtThreads,
                   simt_bwd_smem_bytes<128>(), tiles, p, s);
-  if (dtype == 1 && D == 64) return launch_wgmma<64>(true, p, s);
-  if (dtype == 1 && D == 128) return launch_wgmma<128>(true, p, s);
+  if (dtype == 1 && D == 64) return launch_wgmma<bf16, 64>(true, p, s);
+  if (dtype == 1 && D == 128) return launch_wgmma<bf16, 128>(true, p, s);
+  if (dtype == 2 && D == 64) return launch_wgmma<f16, 64>(true, p, s);
+  if (dtype == 2 && D == 128) return launch_wgmma<f16, 128>(true, p, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1004,7 +1011,9 @@ extern "C" int pt_flash_attention_bwd_dkv(PT_FLASH_BWD_ARGS) {
   if (dtype == 0 && D == 128)
     return launch(flash_bwd_dkv_simt_kernel<128>, kSimtThreads,
                   simt_bwd_smem_bytes<128>(), tiles, p, s);
-  if (dtype == 1 && D == 64) return launch_wgmma<64>(false, p, s);
-  if (dtype == 1 && D == 128) return launch_wgmma<128>(false, p, s);
+  if (dtype == 1 && D == 64) return launch_wgmma<bf16, 64>(false, p, s);
+  if (dtype == 1 && D == 128) return launch_wgmma<bf16, 128>(false, p, s);
+  if (dtype == 2 && D == 64) return launch_wgmma<f16, 64>(false, p, s);
+  if (dtype == 2 && D == 128) return launch_wgmma<f16, 128>(false, p, s);
   return cudaErrorInvalidValue;
 }

@@ -4,7 +4,8 @@
 // - tile sizes and the mask value;
 // - attention-probs dropout: the keep pattern, from an explicit keep mask
 //   or from Philox4x32-10 run inside the kernel.
-// The bf16 kernels' wgmma and cp.async pieces are in flash_wgmma.cuh.
+// The bf16 and fp16 kernels' wgmma and cp.async pieces are in
+// flash_wgmma.cuh.
 //
 // The dropout pattern replaces paddle_tpu/kernels/flash_attention.py:
 // _drop_keep_tile. The TPU kernel seeds its hardware PRNG per tile, so its
@@ -24,6 +25,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -31,6 +33,7 @@
 namespace flash {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;

@@ -1,8 +1,12 @@
-// The bf16 tensor-core pieces of the flash-attention kernels for Hopper
+// The tensor-core pieces of the flash-attention kernels for Hopper
 // (sm_90a), shared by the forward (flash_attention.cu) and the dQ and
-// dK/dV kernels (flash_attention_bwd.cu):
-// - cp.async copies of 64-row bf16 tiles into the 128-byte-swizzled layout
-//   that the wgmma shared-memory descriptors read, and of fp32 vectors;
+// dK/dV kernels (flash_attention_bwd.cu), for their two 16-bit input types
+// E, bf16 and fp16 (the same layouts and instructions, another wgmma type
+// and another pair packing); the paged-attention kernel
+// (paged_attention.cu) takes its exp2:
+// - cp.async copies of 64-row 16-bit tiles into the 128-byte-swizzled
+//   layout that the wgmma shared-memory descriptors read, and of fp32
+//   vectors;
 // - the descriptors of a K-major and of an MN-major operand in that layout;
 // - wgmma m64n64k16 with both operands in shared memory, and m64n64k16 /
 //   m64n128k16 with A from registers, with their fence, commit and wait;
@@ -10,6 +14,8 @@
 //   keep bits a lane needs of its 2 x 2 dropout groups.
 // A CTA is one or more warpgroups; THREADS below is its thread count.
 #pragma once
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -54,13 +60,15 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// rows [0, valid) of a kTile x D bf16 tile into shared memory at dst
-// (1024-byte aligned), the rest zero, in the layout the SW128 descriptors
-// read: D / 64 column blocks of kTile lines of 128 bytes, 16-byte chunk c
-// of row r at chunk c ^ (r & 7). Threads [0, THREADS) take part.
-template <int D, int THREADS = kWarpgroup>
-__device__ __forceinline__ void tile_async(uint32_t dst, const bf16* src,
+// rows [0, valid) of a kTile x D tile of 16-bit E into shared memory at
+// dst (1024-byte aligned), the rest zero, in the layout the SW128
+// descriptors read: D / 64 column blocks of kTile lines of 128 bytes,
+// 16-byte chunk c of row r at chunk c ^ (r & 7). Threads [0, THREADS) take
+// part.
+template <int D, int THREADS = kWarpgroup, typename E>
+__device__ __forceinline__ void tile_async(uint32_t dst, const E* src,
                                            int64_t row_stride, int valid) {
+  static_assert(sizeof(E) == 2, "tile_async: 16-bit elements");
   constexpr int kChunks = D / 8;                 // of a row
   constexpr int kRowsPass = THREADS / kChunks;   // rows a pass
   static_assert(kTile % kRowsPass == 0 && kRowsPass % 8 == 0,
@@ -69,7 +77,7 @@ __device__ __forceinline__ void tile_async(uint32_t dst, const bf16* src,
   // every pass
   const int c = threadIdx.x % kChunks, r0 = threadIdx.x / kChunks;
   const uint32_t col = (c / 8) * kTile * kLine + (((c % 8) ^ (r0 & 7)) * 16);
-  const bf16* from = src + c * 8;
+  const E* from = src + c * 8;
 #pragma unroll
   for (int i = 0; i < kTile / kRowsPass; ++i) {
     const int r = r0 + i * kRowsPass;
@@ -143,72 +151,114 @@ __device__ __forceinline__ void pin(float (&d)[N]) {
 #define PT_F16(i) PT_F4(i), PT_F4(i + 4), PT_F4(i + 8), PT_F4(i + 12)
 #define PT_F32(i) PT_F16(i), PT_F16(i + 16)
 
+// the wgmma input type of E
+template <typename E>
+constexpr bool kIsF16 = std::is_same<E, f16>::value;
+
 // d (+)= A B^T, 64 x 64, A and B K-major in shared memory
+#define PT_WGMMA_SS_N64(T)                                                   \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." T "." T " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"                    \
+      : PT_F32(0)                                                            \
+      : "l"(a), "l"(b), "r"(accumulate))
+template <typename E>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : PT_F32(0)
-      : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (kIsF16<E>)
+    PT_WGMMA_SS_N64("f16");
+  else
+    PT_WGMMA_SS_N64("bf16");
 }
+#undef PT_WGMMA_SS_N64
 
 // d += A B, 64 x N: A from registers (the m16n8k16 A fragment of each
 // warp's 16 rows), B MN-major in shared memory
+#define PT_WGMMA_RS_N64(T)                                                   \
+  asm volatile(                                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." T "." T " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"        \
+      : PT_F32(0)                                                            \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b))
+template <typename E>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      : PT_F32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  if constexpr (kIsF16<E>)
+    PT_WGMMA_RS_N64("f16");
+  else
+    PT_WGMMA_RS_N64("bf16");
 }
+#undef PT_WGMMA_RS_N64
 
+#define PT_WGMMA_RS_N128(T)                                                  \
+  asm volatile(                                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." T "." T " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                  \
+      "{%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"                             \
+      : PT_F32(0), PT_F32(32)                                                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b))
+template <typename E>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, 1, "
-      "1, 1;\n"
-      : PT_F32(0), PT_F32(32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  if constexpr (kIsF16<E>)
+    PT_WGMMA_RS_N128("f16");
+  else
+    PT_WGMMA_RS_N128("bf16");
 }
+#undef PT_WGMMA_RS_N128
 
 #undef PT_F32
 #undef PT_F16
 #undef PT_F4
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two fp32 values rounded to E, lo in the low half
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsF16<E>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+
+// the two E values of a 32-bit word as fp32, lo first
+template <typename E>
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  if constexpr (kIsF16<E>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
 
 // A fragments of the four 16-column k-steps of a 64 x 64 accumulator
+template <typename E>
 __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
                                            const float (&s)[32]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      a[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+      a[kk][i] = pack2<E>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
 
 // s = A B^T over D / 16 k-steps, A and B 64-row K-major tiles
-template <int D>
+template <int D, typename E>
 __device__ __forceinline__ void scores(float (&s)[32], uint32_t a,
                                        uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(s, kmajor_desc(a, kk), kmajor_desc(b, kk), kk > 0);
+    wgmma_ss_n64<E>(s, kmajor_desc(a, kk), kmajor_desc(b, kk), kk > 0);
 }
 
 // a bias value in the base-2 exponent, floored so that a finfo.min mask

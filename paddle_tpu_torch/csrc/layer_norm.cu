@@ -22,9 +22,18 @@
 // exactly once: TPR threads own one row (a warp for F <= 1024, a
 // 128-thread block up to F = 4096), each keeping up to 32 values of it in
 // registers between the passes over the row, and loads and stores 4 values
-// at a time (16 bytes in fp32, 8 in bf16) where F and the pointers allow.
-// The backward's partials add 2 G F fp32 values written and read once,
-// about 4% of its traffic at [16384, 768].
+// at a time (16 bytes in fp32, 8 in bf16 and fp16) where F and the
+// pointers allow. The backward's partials add 2 G F fp32 values written
+// and read once, about 4% of its traffic at [16384, 768].
+//
+// Wide rows (4096 < F <= kMaxFeatures): a 128-thread block owns a row and
+// walks it in strides, once for each pass, with no copy of the row in
+// registers: the forward reads x three times (sum, centred squares,
+// output) and the backward x and dy twice. The first read of a row comes
+// from device memory, the later ones mostly from the 50 MB L2 (a row is at
+// most 256 KB). The backward's block adds each row's dgamma and dbeta
+// terms into its own partial row, whose columns each thread owns, so the
+// fixed-order reduction of the narrow path serves unchanged.
 //
 // C interface, loaded with ctypes (paddle_tpu_torch/kernels/layer_norm.py):
 //   int pt_layer_norm_fwd(x, gamma, beta, y, mean, rstd, rows, features,
@@ -33,9 +42,11 @@
 //                         partial, rows, features, blocks, x_dtype, w_dtype,
 //                         stream)
 // partial is fp32 scratch of 2 * blocks * features values. dtype codes:
-// 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launches (0 on
+// 0 = float32, 1 = bfloat16, 2 = float16 (x in any of them, gamma/beta in
+// fp32 or x's dtype). Returns the cudaError_t of the launches (0 on
 // success).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,6 +54,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxPerThread = 32;
+// the widest row: the backward's partial sums take 2 G F fp32 values
+constexpr int kMaxFeatures = 65536;
 
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* p, float* out) {
@@ -68,6 +81,19 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
 }
 
 template <int VEC>
+__device__ __forceinline__ void load_vec(const __half* p, float* out) {
+  if constexpr (VEC == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&raw);
+    const float2 a = __half22float2(h[0]);
+    const float2 b = __half22float2(h[1]);
+    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+  } else {
+    out[0] = __half2float(p[0]);
+  }
+}
+
+template <int VEC>
 __device__ __forceinline__ void store_vec(float* p, const float* in) {
   if constexpr (VEC == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
@@ -86,6 +112,19 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* in) {
     *reinterpret_cast<uint2*>(p) = raw;
   } else {
     p[0] = __float2bfloat16(in[0]);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(__half* p, const float* in) {
+  if constexpr (VEC == 4) {
+    uint2 raw;
+    __half2* h = reinterpret_cast<__half2*>(&raw);
+    h[0] = __floats2half2_rn(in[0], in[1]);
+    h[1] = __floats2half2_rn(in[2], in[3]);
+    *reinterpret_cast<uint2*>(p) = raw;
+  } else {
+    p[0] = __float2half_rn(in[0]);
   }
 }
 
@@ -177,6 +216,55 @@ layer_norm_fwd_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
   }
 }
 
+// A row wider than the register-held kernel takes: the block walks it in
+// strides of kThreads * VEC values, once for each pass.
+template <typename T, typename W, int VEC>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_fwd_wide_kernel(const T* __restrict__ x,
+                           const W* __restrict__ gamma,
+                           const W* __restrict__ beta, T* __restrict__ y,
+                           float* __restrict__ mean_out,
+                           float* __restrict__ rstd_out, int F, float eps) {
+  __shared__ float scratch[kThreads / 32];
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * F;
+  float v[VEC];
+  float sum = 0.f;
+  for (int base = threadIdx.x * VEC; base < F; base += kThreads * VEC) {
+    load_vec<VEC>(xr + base, v);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) sum += v[j];
+  }
+  const float mean = row_sum<kThreads>(sum, scratch) / F;
+
+  float sq = 0.f;
+  for (int base = threadIdx.x * VEC; base < F; base += kThreads * VEC) {
+    load_vec<VEC>(xr + base, v);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float d = v[j] - mean;
+      sq += d * d;
+    }
+  }
+  const float var = row_sum<kThreads>(sq, scratch) / F;
+  const float rstd = rsqrtf(var + eps);
+
+  T* yr = y + row * F;
+  for (int base = threadIdx.x * VEC; base < F; base += kThreads * VEC) {
+    float g[VEC], b[VEC], out[VEC];
+    load_vec<VEC>(xr + base, v);
+    load_vec<VEC>(gamma + base, g);
+    load_vec<VEC>(beta + base, b);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) out[j] = (v[j] - mean) * rstd * g[j] + b[j];
+    store_vec<VEC>(yr + base, out);
+  }
+  if (threadIdx.x == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
+}
+
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -188,14 +276,23 @@ void launch_tpr(const void* x, const void* g, const void* b, void* y,
   const bool vec = F % 4 == 0 && aligned(x, 4 * sizeof(T)) &&
                    aligned(y, 4 * sizeof(T)) && aligned(g, 4 * sizeof(W)) &&
                    aligned(b, 4 * sizeof(W));
-  constexpr int kRowsPerBlock = kThreads / TPR;
+  constexpr int kRowsPerBlock = TPR == 0 ? 1 : kThreads / TPR;
   const unsigned grid =
       static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
   const T* xt = static_cast<const T*>(x);
   const W* gt = static_cast<const W*>(g);
   const W* bt = static_cast<const W*>(b);
   T* yt = static_cast<T*>(y);
-  if (vec) {
+  if constexpr (TPR == 0) {  // wide rows: a block a row
+    const unsigned wide = static_cast<unsigned>(rows);
+    if (vec) {
+      layer_norm_fwd_wide_kernel<T, W, 4><<<wide, kThreads, 0, stream>>>(
+          xt, gt, bt, yt, mean, rstd, F, eps);
+    } else {
+      layer_norm_fwd_wide_kernel<T, W, 1><<<wide, kThreads, 0, stream>>>(
+          xt, gt, bt, yt, mean, rstd, F, eps);
+    }
+  } else if (vec) {
     layer_norm_fwd_kernel<T, W, TPR, 4><<<grid, kThreads, 0, stream>>>(
         xt, gt, bt, yt, mean, rstd, rows, F, eps);
   } else {
@@ -210,8 +307,10 @@ void launch(const void* x, const void* g, const void* b, void* y,
             cudaStream_t stream) {
   if (F <= 32 * kMaxPerThread) {
     launch_tpr<T, W, 32>(x, g, b, y, mean, rstd, rows, F, eps, stream);
-  } else {
+  } else if (F <= kThreads * kMaxPerThread) {
     launch_tpr<T, W, 128>(x, g, b, y, mean, rstd, rows, F, eps, stream);
+  } else {
+    launch_tpr<T, W, 0>(x, g, b, y, mean, rstd, rows, F, eps, stream);
   }
 }
 
@@ -327,9 +426,66 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
   }
 }
 
+// The backward of a wide row: a block a row, G blocks walking the rows as
+// in the narrow kernel. Pass 1 over the row gives its two sums, pass 2 dx
+// and the row's dgamma and dbeta terms, added into this block's partial
+// rows (the same thread owns a column in every row, so no two threads
+// meet; the block's first row writes).
+template <typename T, typename W, int VEC>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_bwd_wide_kernel(const T* __restrict__ x,
+                           const W* __restrict__ gamma,
+                           const float* __restrict__ mean_in,
+                           const float* __restrict__ rstd_in,
+                           const T* __restrict__ dy, T* __restrict__ dx,
+                           float* __restrict__ partial, int64_t rows, int F) {
+  __shared__ float scratch[kThreads / 32];
+  float* pg = partial + static_cast<int64_t>(blockIdx.x) * F;
+  float* pb = partial + (static_cast<int64_t>(gridDim.x) + blockIdx.x) * F;
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+    const bool first = row == blockIdx.x;
+    const float mean = mean_in[row], rstd = rstd_in[row];
+    const T* xr = x + row * F;
+    const T* dr = dy + row * F;
+    float s1 = 0.f, s2 = 0.f;
+    for (int base = threadIdx.x * VEC; base < F; base += kThreads * VEC) {
+      float xv[VEC], d[VEC], g[VEC];
+      load_vec<VEC>(xr + base, xv);
+      load_vec<VEC>(dr + base, d);
+      load_vec<VEC>(gamma + base, g);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float w = d[j] * g[j];
+        s1 += w;
+        s2 += w * ((xv[j] - mean) * rstd);
+      }
+    }
+    const float c1 = row_sum<kThreads>(s1, scratch) / F;
+    const float c2 = row_sum<kThreads>(s2, scratch) / F;
+    for (int base = threadIdx.x * VEC; base < F; base += kThreads * VEC) {
+      float xv[VEC], d[VEC], g[VEC], out[VEC];
+      load_vec<VEC>(xr + base, xv);
+      load_vec<VEC>(dr + base, d);
+      load_vec<VEC>(gamma + base, g);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float xh = (xv[j] - mean) * rstd;
+        out[j] = (d[j] * g[j] - c1 - xh * c2) * rstd;
+        const float tg = d[j] * xh;
+        pg[base + j] = first ? tg : pg[base + j] + tg;
+        pb[base + j] = first ? d[j] : pb[base + j] + d[j];
+      }
+      store_vec<VEC>(dx + row * F + base, out);
+    }
+  }
+}
+
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store_one(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 // pass 2: out[which][col] = sum over the G partial rows, in a fixed order.
@@ -375,7 +531,15 @@ void launch_bwd_tpr(const void* x, const void* g, const float* mean,
   const W* gt = static_cast<const W*>(g);
   const T* dyt = static_cast<const T*>(dy);
   T* dxt = static_cast<T*>(dx);
-  if (vec) {
+  if constexpr (TPR == 0) {  // wide rows: a block a row
+    if (vec) {
+      layer_norm_bwd_wide_kernel<T, W, 4><<<blocks, kThreads, 0, stream>>>(
+          xt, gt, mean, rstd, dyt, dxt, partial, rows, F);
+    } else {
+      layer_norm_bwd_wide_kernel<T, W, 1><<<blocks, kThreads, 0, stream>>>(
+          xt, gt, mean, rstd, dyt, dxt, partial, rows, F);
+    }
+  } else if (vec) {
     layer_norm_bwd_kernel<T, W, TPR, 4><<<blocks, kThreads, 0, stream>>>(
         xt, gt, mean, rstd, dyt, dxt, partial, rows, F);
   } else {
@@ -392,9 +556,12 @@ void launch_bwd(const void* x, const void* g, const float* mean,
   if (F <= 32 * kMaxPerThread) {
     launch_bwd_tpr<T, W, 32>(x, g, mean, rstd, dy, dx, partial, rows, F,
                              blocks, stream);
-  } else {
+  } else if (F <= kThreads * kMaxPerThread) {
     launch_bwd_tpr<T, W, 128>(x, g, mean, rstd, dy, dx, partial, rows, F,
                               blocks, stream);
+  } else {
+    launch_bwd_tpr<T, W, 0>(x, g, mean, rstd, dy, dx, partial, rows, F,
+                            blocks, stream);
   }
   const int grid = (2 * F + kRedCols - 1) / kRedCols;
   layer_norm_bwd_reduce_kernel<W><<<grid, kRedCols * kRedSlices, 0, stream>>>(
@@ -403,27 +570,41 @@ void launch_bwd(const void* x, const void* g, const float* mean,
 
 }  // namespace
 
+// Runs f<T, W>() for the C interface's dtype codes; false for a pair
+// with no instance.
+template <typename F>
+bool dispatch(int x_dtype, int w_dtype, F&& f) {
+  if (x_dtype == 0 && w_dtype == 0) {
+    f(float{}, float{});
+  } else if (x_dtype == 1 && w_dtype == 0) {
+    f(__nv_bfloat16{}, float{});
+  } else if (x_dtype == 1 && w_dtype == 1) {
+    f(__nv_bfloat16{}, __nv_bfloat16{});
+  } else if (x_dtype == 2 && w_dtype == 0) {
+    f(__half{}, float{});
+  } else if (x_dtype == 2 && w_dtype == 2) {
+    f(__half{}, __half{});
+  } else {
+    return false;
+  }
+  return true;
+}
+
 extern "C" int pt_layer_norm_fwd(const void* x, const void* gamma,
                                  const void* beta, void* y, void* mean,
                                  void* rstd, long long rows, int features,
                                  float eps, int x_dtype, int w_dtype,
                                  void* stream) {
-  if (rows < 1 || features < 1 || features > 128 * kMaxPerThread)
+  if (rows < 1 || features < 1 || features > kMaxFeatures)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(mean);
   float* r = static_cast<float*>(rstd);
-  if (x_dtype == 0 && w_dtype == 0) {
-    launch<float, float>(x, gamma, beta, y, m, r, rows, features, eps, s);
-  } else if (x_dtype == 1 && w_dtype == 0) {
-    launch<__nv_bfloat16, float>(x, gamma, beta, y, m, r, rows, features,
-                                 eps, s);
-  } else if (x_dtype == 1 && w_dtype == 1) {
-    launch<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, m, r, rows,
-                                         features, eps, s);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  const bool ok = dispatch(x_dtype, w_dtype, [&](auto t, auto w) {
+    launch<decltype(t), decltype(w)>(x, gamma, beta, y, m, r, rows, features,
+                                     eps, s);
+  });
+  if (!ok) return cudaErrorInvalidValue;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -434,25 +615,17 @@ extern "C" int pt_layer_norm_bwd(const void* x, const void* gamma,
                                  void* dbeta, void* partial, long long rows,
                                  int features, int blocks, int x_dtype,
                                  int w_dtype, void* stream) {
-  if (rows < 1 || features < 1 || features > 128 * kMaxPerThread ||
-      blocks < 1)
+  if (rows < 1 || features < 1 || features > kMaxFeatures || blocks < 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mean);
   const float* r = static_cast<const float*>(rstd);
   float* part = static_cast<float*>(partial);
-  if (x_dtype == 0 && w_dtype == 0) {
-    launch_bwd<float, float>(x, gamma, m, r, dy, dx, dgamma, dbeta, part,
-                             rows, features, blocks, s);
-  } else if (x_dtype == 1 && w_dtype == 0) {
-    launch_bwd<__nv_bfloat16, float>(x, gamma, m, r, dy, dx, dgamma, dbeta,
-                                     part, rows, features, blocks, s);
-  } else if (x_dtype == 1 && w_dtype == 1) {
-    launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, gamma, m, r, dy, dx, dgamma,
-                                             dbeta, part, rows, features,
-                                             blocks, s);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  const bool ok = dispatch(x_dtype, w_dtype, [&](auto t, auto w) {
+    launch_bwd<decltype(t), decltype(w)>(x, gamma, m, r, dy, dx, dgamma,
+                                         dbeta, part, rows, features, blocks,
+                                         s);
+  });
+  if (!ok) return cudaErrorInvalidValue;
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,66 +12,172 @@
 //   at offset p % bs; queries j >= q_lens[b] see nothing. Scores
 //   (q * sm_scale) . k, masked at NEG_INF = -1e30; online softmax with
 //   p = 0 where s <= NEG_INF / 2; at the end l <= 0 -> 1, so a row with no
-//   visible key gives 0. A quantized pool dequantizes in the loop as
-//   float(stored) * (scale * inv_grid), the reference's order.
+//   visible key gives 0. A quantized pool's value is stored * scale / GRID.
 //
 // What bounds it on the H100: bytes. A decode query does 2 D flops per
-// key and reads 2 D values per key (8 D bytes in fp32): 0.25 flop/byte,
-// against the card's ~20 fp32 flop/byte. The least time is the visible K/V
-// rows (plus q, o and the scales) over 3.35 TB/s.
+// key and reads 2 D values per key (8 D bytes in fp32, 2 D + 8 in int8 or
+// fp8): under 1 flop/byte, against the card's ~20 fp32 flop/byte. The
+// least time is the visible K/V rows (plus q, o and the scales) over
+// 3.35 TB/s; the chunk's slots read their prompt's blocks again, mostly
+// from L2.
 //
-// Design (a first, simple kernel; not the TPU grid carried over):
-// - one CTA of 4 warps per (row b, head h, tile of QT queries), QT = 1 for
-//   a one-query row (every slot of the engine's mixed step) and 4 else;
-// - the CTA walks positions 0 .. min(ctx + last real query + 1, M * bs)
-//   and nothing past them: the TPU kernel's "skip blocks at or past
-//   ctx + qlen". Warp w takes groups of kGroup = 4 consecutive positions
-//   w*4, w*4 + 16, ...; it starts the K and V loads of a whole group
-//   before it uses them, so each warp keeps 8 rows in flight;
-// - a lane holds D/32 consecutive values of a row (16 B for fp32 at
-//   D = 128), so a warp reads a row of one head as one contiguous run;
-// - each warp keeps its own (m, l, acc) per query in registers (fp32,
-//   CUDA cores, no TF32: the engine is fp32 end to end); the four warps'
-//   states are merged through shared memory at the end, the same
-//   rescaling by exp(m_w - m) as the online softmax itself;
-// - scores are warp-shuffle sums over D.
+// Design. A first kernel (one lane holding D/32 values, a 5-step shuffle
+// sum and an expf per position, two scale loads by all 32 lanes per
+// position, 4 positions in flight a warp) spent its time on instructions
+// and latency paid per position: int8 ran slower than fp32 on 4x fewer
+// bytes. This one:
+// - lanes from sizeof(T): a group of G = D * sizeof(T) / 16 lanes (at
+//   most 32) owns one position's row of a head in 16-byte loads, so a
+//   warp reads 32 / G positions a load (8 for int8/fp8 at D 64, 2 for
+//   fp32); q sits in registers in the same layout, pre-scaled by
+//   sm_scale * log2(e), and the dot product is a log2(G)-step shuffle sum;
+// - each group keeps its own online softmax (m, l, acc over its lanes'
+//   slice of D) over the positions it reads, in base 2 (ex2.approx); the
+//   groups of a warp, then the CTA's warps, are merged at the end by
+//   the same rescaling by 2^(m_w - m);
+// - every warp keeps U loads of K and V in flight a lane and loads the
+//   next U while it computes on these (a register double buffer); more in
+//   flight costs registers, and so resident warps: int8/fp8 rows run
+//   fastest with 2 (93 registers a thread), fp32 with 4;
+// - the CTA first stages, for a chunk of up to kChunk positions, each
+//   position's pool row (the block-table read leaves the loop) and, for a
+//   quantized pool, its k and v scales times 1/GRID; the k scale then multiplies the
+//   score and the v scale p, one scalar a position instead of one per
+//   element. The JAX body dequantizes every element first, so fp32
+//   rounding is reordered: within the same tolerance of the plain
+//   version;
+// - int8 becomes fp32 by a byte permute into 2^23's mantissa and one
+//   subtraction (no I2F), fp8-e4m3 by the paired e4m3 -> f16x2 convert;
+// - one CTA per (row b, head h, tile of QT queries), QT = 1 for a
+//   one-query row (every slot of the engine's mixed step) and 4 else, its
+//   kWarps warps splitting the head's positions (at the main path's 80
+//   rows x 16 heads, 2 or 4 heads a CTA ran 11-40% slower, 8 warps
+//   24-32% slower, 2 warps within 4%); the CTA walks
+//   positions 0 .. min(ctx + last real query + 1, M * bs) and nothing
+//   past them (the TPU kernel's "skip blocks at or past ctx + qlen").
+// fp32 arithmetic on the CUDA cores throughout (the engine is fp32).
 // Not done yet: splitting a long row over several CTAs, and reading a
 // chunk's shared blocks once for all its slots (each slot of the mixed
-// step is its own row, as in the JAX engine, so a 64-token chunk reads
-// its prompt's blocks 64 times, mostly from L2).
+// step is its own row, as in the JAX engine).
 
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_wgmma.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using flash::fast_exp2;
+using flash::kLog2e;
+using flash::kNegInf;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kGroup = 4;  // consecutive positions a warp loads at once
+constexpr int kChunk = 512;  // positions whose rows and scales are staged
+// CTAs an SM for one-query rows: at most 102 registers a thread. Without
+// the bound ptxas gave int8 113 registers (4 CTAs an SM), which ran 10%
+// slower at the main path's call.
+constexpr int kMinCtas = 5;
 
-template <typename T, int E>
-struct alignas(sizeof(T) * E) Vec {
-  T v[E];
+// lanes, loads and values of one head's row of D values of T
+template <typename T, int D>
+struct Layout {
+  static constexpr int kRowVecs = D * static_cast<int>(sizeof(T)) / 16;
+  static constexpr int G = kRowVecs < 32 ? kRowVecs : 32;  // lanes a row
+  static constexpr int NV = kRowVecs / G;  // 16-byte vectors a lane
+  static constexpr int E = 16 / static_cast<int>(sizeof(T));  // a vector
+  static constexpr int P = 32 / G;  // positions a warp load
+  static_assert(kRowVecs >= 1 && kRowVecs % G == 0, "head dim");
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(int8_t x) {
-  return static_cast<float>(x);
-}
-__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
-  return static_cast<float>(x);
+// the E values of one 16-byte vector as fp32
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4],
+                                       float) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// four int8 as fp32: (x + 128) sits in the low byte of 2^23's bit pattern
+// (ulp 1), so subtracting 2^23 + 128 leaves x exactly
+__device__ __forceinline__ void int8x4(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int i = 0; i < 4; ++i) {
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) -
+           8388736.f;
+  }
+}
+
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[16],
+                                       int8_t) {
+  int8x4(r.x, f);
+  int8x4(r.y, f + 4);
+  int8x4(r.z, f + 8);
+  int8x4(r.w, f + 12);
+}
+
+__device__ __forceinline__ void fp8x4(uint32_t w, float* f) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w >> (16 * i)), __NV_E4M3);
+    const float2 x = __half22float2(__half2(h));
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[16],
+                                       __nv_fp8_e4m3) {
+  fp8x4(r.x, f);
+  fp8x4(r.y, f + 4);
+  fp8x4(r.z, f + 8);
+  fp8x4(r.w, f + 12);
+}
+
+// (m, l, acc) of another part of the same query folded into this one
+template <int N>
+__device__ __forceinline__ void fold(float& m, float& l, float (&acc)[N],
+                                     float m_o, float l_o,
+                                     const float (&acc_o)[N]) {
+  const float mn = fmaxf(m, m_o);
+  const float a = fast_exp2(m - mn);
+  const float c = fast_exp2(m_o - mn);
+  l = l * a + l_o * c;
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] = acc[e] * a + acc_o[e] * c;
+  m = mn;
+}
+
+// the K and V vectors a lane reads for positions base + u * P + slot
+// (u < U) of head h: 16-byte loads, zero past the staged chunk's end c1
+template <typename L, int U>
+__device__ __forceinline__ void load_rows(uint4 (&nk)[U][L::NV],
+                                          uint4 (&nv)[U][L::NV],
+                                          const uint4* __restrict__ kvec,
+                                          const uint4* __restrict__ vvec,
+                                          const int* s_row, int base, int c0,
+                                          int c1, int slot, int gi, int heads,
+                                          int h) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int p = base + u * L::P + slot;
+    const bool live = p < c1;
+    const long long row = live ? s_row[p - c0] : 0;
+#pragma unroll
+    for (int v = 0; v < L::NV; ++v) {
+      const long long at = (row * heads + h) * L::kRowVecs + gi + v * L::G;
+      nk[u][v] = live ? kvec[at] : make_uint4(0u, 0u, 0u, 0u);
+      nv[u][v] = live ? vvec[at] : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 }
 
 template <typename T, bool kQuant, int D, int QT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, QT == 1 ? kMinCtas : 1)
 ragged_paged_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
                     const T* __restrict__ v_pool,
                     const float* __restrict__ k_scales,
@@ -81,164 +187,232 @@ ragged_paged_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
                     const int* __restrict__ ctx_lens, float* __restrict__ out,
                     int cq, int heads, int bs, int max_blocks, float sm_scale,
                     float inv_grid) {
-  constexpr int E = D >= 32 ? D / 32 : 1;  // values a lane holds
-  constexpr int kLanes = D >= 32 ? 32 : D;  // lanes that hold values
+  using L = Layout<T, D>;
+  constexpr int G = L::G, NV = L::NV, E = L::E, P = L::P;
+  constexpr int V = NV * E;  // values of a row a lane holds
+  // loads of K (and of V) in flight a lane, beside the next U: for
+  // one-query rows 4 in fp32 and 2 in int8/fp8 (8 or 16 positions a warp),
+  // the faster of 2, 4 and 8 for each at the main path's call
+  constexpr int kInflight = QT == 1 && sizeof(T) == 4 ? 4 : 2;
+  constexpr int U = kInflight / NV > 0 ? kInflight / NV : 1;
+  constexpr int kSpan = U * P;  // positions a warp takes at once
   const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.z * QT;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const bool holds = lane < kLanes;
+  const int h = blockIdx.y;
+  const int slot = lane / G;
+  const int gi = lane % G;
+  const int q0 = blockIdx.z * QT;
   const int ctx = ctx_lens[b];
   const int qlen = q_lens[b];
   // real queries of this tile: q0 .. q_end - 1
   const int q_end = min(qlen, min(q0 + QT, cq));
   // positions some query of the tile may see: 0 .. kv_len - 1
   const int kv_len = q_end > q0 ? min(ctx + q_end, max_blocks * bs) : 0;
-  const long long tok_stride = static_cast<long long>(heads) * D;
 
-  float qr[QT][E];
+  __shared__ int s_row[kChunk];
+  __shared__ float s_ks[kQuant ? kChunk : 1];
+  __shared__ float s_vs[kQuant ? kChunk : 1];
+
+  // q in the lanes' layout: vector v of lane gi holds values
+  // (gi + v * G) * E .. + E - 1 of the row
+  float qr[QT][V];
 #pragma unroll
   for (int i = 0; i < QT; ++i) {
     const int qa = q0 + i;
-    Vec<float, E> x;
 #pragma unroll
-    for (int e = 0; e < E; ++e) x.v[e] = 0.f;
-    if (holds && qa < cq) {
-      const long long off = ((static_cast<long long>(b) * cq + qa) * heads + h)
-                            * D + lane * E;
-      x = *reinterpret_cast<const Vec<float, E>*>(q + off);
+    for (int v = 0; v < NV; ++v) {
+#pragma unroll
+      for (int e4 = 0; e4 < E; e4 += 4) {
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (qa < cq) {
+          const long long off =
+              ((static_cast<long long>(b) * cq + qa) * heads + h) * D +
+              (gi + v * G) * E + e4;
+          x = *reinterpret_cast<const float4*>(q + off);
+        }
+        const float c = sm_scale * kLog2e;
+        qr[i][v * E + e4] = x.x * c;
+        qr[i][v * E + e4 + 1] = x.y * c;
+        qr[i][v * E + e4 + 2] = x.z * c;
+        qr[i][v * E + e4 + 3] = x.w * c;
+      }
     }
-#pragma unroll
-    for (int e = 0; e < E; ++e) qr[i][e] = x.v[e] * sm_scale;
   }
 
-  float m[QT], l[QT], acc[QT][E];
+  float m[QT], l[QT], acc[QT][V];
 #pragma unroll
   for (int i = 0; i < QT; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < V; ++e) acc[i][e] = 0.f;
   }
 
+  const uint4* kvec = reinterpret_cast<const uint4*>(k_pool);
+  const uint4* vvec = reinterpret_cast<const uint4*>(v_pool);
   const int* table = tables + static_cast<long long>(b) * max_blocks;
-  for (int base = warp * kGroup; base < kv_len; base += kWarps * kGroup) {
-    float kf[kGroup][E], vf[kGroup][E];
-    // start every load of the group first
-    Vec<T, E> kraw[kGroup], vraw[kGroup];
-    float ksc[kGroup], vsc[kGroup];
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const int p = base + j;
-      ksc[j] = 0.f;
-      vsc[j] = 0.f;
-      if (p < kv_len) {
-        const long long row = static_cast<long long>(table[p / bs]) * bs
-                              + p % bs;
-        if (holds) {
-          const long long off = row * tok_stride + h * D + lane * E;
-          kraw[j] = *reinterpret_cast<const Vec<T, E>*>(k_pool + off);
-          vraw[j] = *reinterpret_cast<const Vec<T, E>*>(v_pool + off);
-        }
-        if (kQuant) {
-          ksc[j] = k_scales[row * heads + h] * inv_grid;
-          vsc[j] = v_scales[row * heads + h] * inv_grid;
-        } else {
-          ksc[j] = 1.f;
-          vsc[j] = 1.f;
-        }
+  const int stride = kWarps * kSpan;
+  for (int c0 = 0; c0 < kv_len; c0 += kChunk) {
+    const int c1 = min(kv_len, c0 + kChunk);
+    __syncthreads();  // the previous chunk's readers are done
+    for (int i = threadIdx.x; i < c1 - c0; i += kThreads) {
+      const int p = c0 + i;
+      s_row[i] = table[p / bs] * bs + p % bs;
+    }
+    if (kQuant) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < c1 - c0; i += kThreads) {
+        const long long at = static_cast<long long>(s_row[i]) * heads + h;
+        s_ks[i] = k_scales[at] * inv_grid;
+        s_vs[i] = v_scales[at] * inv_grid;
       }
     }
+    __syncthreads();
+
+    uint4 nk[U][NV], nv[U][NV];
+    int base = c0 + warp * kSpan;
+    if (base < c1)
+      load_rows<L, U>(nk, nv, kvec, vvec, s_row, base, c0, c1, slot, gi,
+                      heads, h);
+    for (; base < c1; base += stride) {
+      uint4 ck[U][NV], cv[U][NV];
 #pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const bool live = holds && base + j < kv_len;
+      for (int u = 0; u < U; ++u) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        float kv = live ? to_float(kraw[j].v[e]) : 0.f;
-        float vv = live ? to_float(vraw[j].v[e]) : 0.f;
-        if (kQuant) {
-          kv *= ksc[j];
-          vv *= vsc[j];
+        for (int v = 0; v < NV; ++v) {
+          ck[u][v] = nk[u][v];
+          cv[u][v] = nv[u][v];
         }
-        kf[j][e] = kv;
-        vf[j][e] = vv;
       }
-    }
-    float s[QT][kGroup];
+      if (base + stride < c1)
+        load_rows<L, U>(nk, nv, kvec, vvec, s_row, base + stride, c0, c1,
+                        slot, gi, heads, h);
+
+      float s[QT][U], vsc[U];
 #pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const int pos = base + j;
+      for (int u = 0; u < U; ++u) {
+        const int p = base + u * P + slot;
+        const bool live = p < c1;
+        float kf[V];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          float f[E];
+          unpack(ck[u][v], f, T());
+#pragma unroll
+          for (int e = 0; e < E; ++e) kf[v * E + e] = f[e];
+        }
+        float ksc = 1.f;
+        vsc[u] = 1.f;
+        if (kQuant) {
+          ksc = live ? s_ks[p - c0] : 0.f;
+          vsc[u] = live ? s_vs[p - c0] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < QT; ++i) {
+          float part = 0.f;
+#pragma unroll
+          for (int e = 0; e < V; ++e) part = fmaf(qr[i][e], kf[e], part);
+#pragma unroll
+          for (int o = G / 2; o > 0; o >>= 1)
+            part += __shfl_xor_sync(0xffffffffu, part, o);
+          const int qa = q0 + i;
+          s[i][u] = (live && p <= ctx + qa && qa < qlen) ? part * ksc
+                                                          : kNegInf;
+        }
+      }
+
+      float pw[QT][U];
 #pragma unroll
       for (int i = 0; i < QT; ++i) {
-        float part = 0.f;
+        float mx = s[i][0];
 #pragma unroll
-        for (int e = 0; e < E; ++e) part = fmaf(qr[i][e], kf[j][e], part);
-        const float dot = warp_sum(part);
-        const int qa = q0 + i;
-        s[i][j] = (pos < kv_len && pos <= ctx + qa && qa < qlen) ? dot
-                                                                 : kNegInf;
+        for (int u = 1; u < U; ++u) mx = fmaxf(mx, s[i][u]);
+        const float m_new = fmaxf(m[i], mx);
+        const float alpha = fast_exp2(m[i] - m_new);
+        float psum = 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float pu =
+              s[i][u] <= kNegInf / 2 ? 0.f : fast_exp2(s[i][u] - m_new);
+          psum += pu;
+          pw[i][u] = pu * vsc[u];
+        }
+        l[i] = l[i] * alpha + psum;
+        m[i] = m_new;
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[i][e] *= alpha;
       }
-    }
 #pragma unroll
-    for (int i = 0; i < QT; ++i) {
-      float mx = s[i][0];
+      for (int u = 0; u < U; ++u) {
 #pragma unroll
-      for (int j = 1; j < kGroup; ++j) mx = fmaxf(mx, s[i][j]);
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float p[kGroup];
-      float psum = 0.f;
+        for (int v = 0; v < NV; ++v) {
+          float f[E];
+          unpack(cv[u][v], f, T());
 #pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        p[j] = s[i][j] <= kNegInf / 2 ? 0.f : expf(s[i][j] - m_new);
-        psum += p[j];
+          for (int i = 0; i < QT; ++i) {
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              acc[i][v * E + e] = fmaf(pw[i][u], f[e], acc[i][v * E + e]);
+          }
+        }
       }
-      l[i] = l[i] * alpha + psum;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        float pv = 0.f;
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j) pv = fmaf(p[j], vf[j][e], pv);
-        acc[i][e] = acc[i][e] * alpha + pv;
-      }
-      m[i] = m_new;
     }
   }
 
-  // merge the warps' (m, l, acc)
-  __shared__ float sm_m[kWarps][QT];
-  __shared__ float sm_l[kWarps][QT];
-  __shared__ float sm_acc[kWarps][QT][D];
+  // merge the position groups of each warp: lanes gi, gi + G, ... hold
+  // the same slice of D
 #pragma unroll
-  for (int i = 0; i < QT; ++i) {
-    if (lane == 0) {
-      sm_m[warp][i] = m[i];
-      sm_l[warp][i] = l[i];
-    }
-    if (holds) {
+  for (int o = G; o < 32; o <<= 1) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) sm_acc[warp][i][lane * E + e] = acc[i][e];
+    for (int i = 0; i < QT; ++i) {
+      const float m_o = __shfl_xor_sync(0xffffffffu, m[i], o);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l[i], o);
+      float acc_o[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        acc_o[e] = __shfl_xor_sync(0xffffffffu, acc[i][e], o);
+      fold(m[i], l[i], acc[i], m_o, l_o, acc_o);
     }
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < QT * D; idx += kThreads) {
-    const int i = idx / D;
-    const int d = idx % D;
+
+  // then the warps, a query at a time
+  __shared__ float sm_m[kWarps];
+  __shared__ float sm_l[kWarps];
+  __shared__ float sm_acc[kWarps][D];
+#pragma unroll
+  for (int i = 0; i < QT; ++i) {
+    __syncthreads();
+    if (lane == 0) {
+      sm_m[warp] = m[i];
+      sm_l[warp] = l[i];
+    }
+    if (lane < G) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          sm_acc[warp][(gi + v * G) * E + e] = acc[i][v * E + e];
+      }
+    }
+    __syncthreads();
     const int qa = q0 + i;
     if (qa >= cq) continue;
-    float mg = kNegInf;
+    for (int d = threadIdx.x; d < D; d += kThreads) {
+      float mg = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mg = fmaxf(mg, sm_m[w][i]);
-    float lg = 0.f, ag = 0.f;
+      for (int w = 0; w < kWarps; ++w) mg = fmaxf(mg, sm_m[w]);
+      float lg = 0.f, ag = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w][i] - mg);
-      lg += sm_l[w][i] * f;
-      ag += sm_acc[w][i][d] * f;
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = fast_exp2(sm_m[w] - mg);
+        lg += sm_l[w] * f;
+        ag += sm_acc[w][d] * f;
+      }
+      if (lg <= 0.f) lg = 1.f;
+      out[((static_cast<long long>(b) * cq + qa) * heads + h) * D + d] =
+          ag / lg;
     }
-    if (lg <= 0.f) lg = 1.f;
-    out[((static_cast<long long>(b) * cq + qa) * heads + h) * D + d] = ag / lg;
   }
 }
 
@@ -295,6 +469,10 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                                      sm_scale, inv_grid, s);
     case 128:
       return launch_d<T, kQuant, 128>(qf, k_pool, v_pool, ks, vs, tb, ql, cl,
+                                      o, batch, cq, heads, bs, max_blocks,
+                                      sm_scale, inv_grid, s);
+    case 256:
+      return launch_d<T, kQuant, 256>(qf, k_pool, v_pool, ks, vs, tb, ql, cl,
                                       o, batch, cq, heads, bs, max_blocks,
                                       sm_scale, inv_grid, s);
     default:

@@ -113,7 +113,7 @@ def function(library: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
 
 
 # dtype codes of the C interfaces
-_DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+_DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}
 
 
 def dtype_code(dtype) -> int:

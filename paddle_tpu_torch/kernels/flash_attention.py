@@ -8,12 +8,12 @@ Replaces the TPU kernels of ``paddle_tpu/kernels/flash_attention.py``:
 ``_drop_keep_tile``. The CUDA sources are ``csrc/flash_attention.cu``
 (forward), ``csrc/flash_attention_bwd.cu`` (dQ, dK/dV) and
 ``csrc/flash_common.cuh`` (Philox) with ``csrc/flash_wgmma.cuh`` (the
-wgmma and cp.async pieces of the bf16 kernels); their headers say what
-bounds each kernel on the H100 and what the design keeps (the score matrix
-never reaches device memory; strided q/k/v/o/dO and bias, so no transposes
-and no materialised padding mask). bf16 inputs run on the tensor cores
-through ``wgmma`` fed by ``cp.async``, with fp32 accumulation; fp32 inputs
-run in fp32 on the CUDA cores.
+wgmma and cp.async pieces of the bf16 and fp16 kernels); their headers
+say what bounds each kernel on the H100 and what the design keeps (the
+score matrix never reaches device memory; strided q/k/v/o/dO and bias, so no transposes
+and no materialised padding mask). bf16 and fp16 inputs run on the tensor
+cores through ``wgmma`` fed by ``cp.async``, with fp32 accumulation (one
+template for both); fp32 inputs run in fp32 on the CUDA cores.
 
 Dropout comes in the TPU kernel's two modes. Mask mode reads an explicit
 [B, H, Sq, Sk] keep mask (the JAX package's HBM-mask path). Seed mode
@@ -28,7 +28,9 @@ Layouts as in the JAX package: q, k, v are [B, H, S, D]; the bias is
 additive and broadcasts to [B, H, Sq, Sk]; o is [B, H, Sq, D] and lse
 [B, H, Sq] fp32. On a CPU tensor the function runs the plain versions; on
 a CUDA tensor it launches the kernels or raises. None of the TPU routing
-or shape gates carry over: any Sq and Sk, D in {64, 128}.
+or shape gates carry over: any Sq and Sk, D in ``HEAD_DIMS``, a dtype in
+``DTYPES``. What the kernels do not take, the caller routes elsewhere
+(``nn/transformer.py`` ``attention_route``).
 """
 from __future__ import annotations
 
@@ -42,6 +44,10 @@ from . import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the input types of the tensor-core kernels, whose 16-byte copies need
+# aligned q, k, v, o, dO in the backward too
+_TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 
 # Kernel launches since the count was last set to 0: the forward, the dQ
 # kernel and the dK/dV kernel. Only the CUDA path adds to them, one per
@@ -51,8 +57,8 @@ launches_dq = 0
 launches_dkv = 0
 # Inputs copied before a launch because they did not start on 16 bytes or
 # had a stride that is not a whole number of 16-byte chunks (cp.async moves
-# 16-byte chunks): q, k, v of the forward in either dtype, and the bf16
-# q, k, v, o, dO of the backward. The main path's strided projection views
+# 16-byte chunks): q, k, v of the forward in any dtype, and the bf16 or
+# fp16 q, k, v, o, dO of the backward. The main path's strided projection views
 # are aligned and copy nothing.
 fwd_copies = 0
 bwd_copies = 0
@@ -236,10 +242,9 @@ def bias_grad_reference(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, H, S, D]")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
-            torch.float32, torch.bfloat16):
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
         raise TypeError("flash_attention kernel: q, k, v must share one "
-                        f"dtype, float32 or bfloat16; got {q.dtype}, "
+                        f"dtype, one of {DTYPES}; got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     b, h, _, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[1] != h or \
@@ -363,7 +368,7 @@ def bwd_args(do, q, k, v, o, lse, bias, causal, sm_scale, keep_mask, seed_t,
     entries but the stream, the gradients they write (each laid out
     [B, S, H, D] in memory and returned as a [B, H, S, D] view), and the
     tensors the arguments point into, to be kept alive until the launch.
-    A bf16 input the kernels' 16-byte copies cannot read is made
+    A bf16 or fp16 input the kernels' 16-byte copies cannot read is made
     contiguous first, and counted in ``bwd_copies``."""
     global bwd_copies
     _check(q, k, v)
@@ -375,7 +380,7 @@ def bwd_args(do, q, k, v, o, lse, bias, causal, sm_scale, keep_mask, seed_t,
                          f"{tuple(o.shape)}")
     if do.stride(-1) != 1:
         do = do.contiguous()
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _TENSOR_CORE_DTYPES:
         (q, k, v, o, do), copied = _chunk_aligned_inputs((q, k, v, o, do))
         bwd_copies += copied
     lse = lse.contiguous()
@@ -433,7 +438,7 @@ def kernel_keep_mask(seed_t: torch.Tensor, batch: int, heads: int, sq: int,
                      sk: int, keep_prob: float) -> torch.Tensor:
     """The seed-mode pattern as bool [B, H, Sq, Sk], generated on the card
     by Philox and ``group_bits``, the word selection of the forward and
-    the bf16 backward kernels: for holding it bit for bit against
+    the tensor-core backward kernels: for holding it bit for bit against
     ``philox_keep_mask``. The kernels themselves are held by running them
     in seed mode and in mask mode with this mask. Not on any model path;
     counts no launch."""

@@ -11,7 +11,8 @@ x, gamma and beta whichever device runs it. On a CPU tensor the function
 runs ``layer_norm_reference`` and ``layer_norm_backward_reference``; on a
 CUDA tensor it launches the kernels or raises. There is no fallback
 between the two, and none of the TPU kernel's shape gate (F % 128,
-rows % 8) carries over: the kernels take any row count and F up to 4096.
+rows % 8) carries over: the kernels take any row count, F up to
+``MAX_FEATURES`` and x in ``DTYPES`` (``takes`` says which inputs).
 """
 from __future__ import annotations
 
@@ -27,7 +28,11 @@ from . import _build
 launches = 0
 launches_bwd = 0
 
-MAX_FEATURES = 4096
+# rows up to 4096 values are held in registers, wider ones walked in
+# strides; the cap bounds the backward's partial sums (2 x MAX_BWD_BLOCKS
+# x F fp32 values, 256 MB at this width)
+MAX_FEATURES = 65536
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # The backward writes per-block fp32 partial sums of dgamma and dbeta and
 # reduces them in a second, fixed-order pass: at most this many blocks.
 MAX_BWD_BLOCKS = 512
@@ -79,19 +84,24 @@ def layer_norm_backward_reference(dy: torch.Tensor, x: torch.Tensor,
             dbeta.to(gamma.dtype))
 
 
+def takes(x_dtype: torch.dtype, features: int, gamma_dtype: torch.dtype,
+          beta_dtype: torch.dtype) -> bool:
+    """Whether the kernels have an instance for these dtypes and this
+    width: x in ``DTYPES``, 1..``MAX_FEATURES`` features, gamma and beta
+    sharing fp32 or x's dtype."""
+    return (x_dtype in DTYPES and 1 <= features <= MAX_FEATURES
+            and gamma_dtype == beta_dtype
+            and gamma_dtype in (torch.float32, x_dtype))
+
+
 def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor):
     f = x.shape[-1]
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"layer_norm kernel: x dtype {x.dtype} is not "
-                        "float32 or bfloat16")
-    if gamma.dtype != beta.dtype or gamma.dtype not in (torch.float32,
-                                                        x.dtype):
-        raise TypeError("layer_norm kernel: gamma and beta must share a "
-                        f"dtype, float32 or x's ({x.dtype}); got "
-                        f"{gamma.dtype} and {beta.dtype}")
-    if not 1 <= f <= MAX_FEATURES:
-        raise ValueError(f"layer_norm kernel: {f} features is outside "
-                         f"1..{MAX_FEATURES}")
+    if not takes(x.dtype, f, gamma.dtype, beta.dtype):
+        raise TypeError(f"layer_norm kernel: no instance for x {x.dtype} "
+                        f"with gamma {gamma.dtype} and beta {beta.dtype} "
+                        f"over {f} features (x in {DTYPES}, gamma and beta "
+                        "sharing float32 or x's dtype, 1.."
+                        f"{MAX_FEATURES} features)")
     if gamma.shape != (f,) or beta.shape != (f,):
         raise ValueError(f"layer_norm kernel: gamma {tuple(gamma.shape)} and "
                          f"beta {tuple(beta.shape)} must be ({f},)")

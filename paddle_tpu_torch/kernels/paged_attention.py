@@ -39,7 +39,7 @@ from . import _build
 from ..quant import grid_for_dtype
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 # Kernel launches since the count was last set to 0: fp32 pools
 # (_ragged_kernel) and int8/fp8 pools (_ragged_kernel_quant). Only the

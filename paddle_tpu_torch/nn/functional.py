@@ -5,15 +5,16 @@ forward and its pretraining loss use. Each follows the JAX package's op
 semantics (``ops/``): Paddle's ``[in, out]`` linear weight,
 ``lookup_table_v2``'s zeroed ``padding_idx`` rows, exact-erf gelu, the
 ``layer_norm`` op's fused-kernel route (any trailing-axis norm with both
-scale and bias, with no TPU-only gate), dropout that is the identity in
-eval mode and draws from the port's generator of its tensor's device in
-train mode, and ``softmax_with_cross_entropy`` with ``ignore_index``,
+scale and bias, with no TPU-only gate; a path log records it), dropout
+that is the identity in eval mode and draws from the port's generator of
+its tensor's device in train mode, and ``softmax_with_cross_entropy`` with ``ignore_index``,
 reduced by the ``mean`` op over every position. Matmul-class ops honour
 ``amp.auto_cast`` as the JAX tape's white list does.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import collections
+from typing import List, Optional, Sequence, Union
 
 import torch
 
@@ -77,6 +78,20 @@ def embedding(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+# which layer-norm path ran, appended at the moment of routing, as the
+# attention path log of nn/transformer.py: "kernel" (a CUDA tensor, which
+# the kernel takes or refuses) or "reference" (its plain version)
+_LN_PATH_LOG: "collections.deque[str]" = collections.deque(maxlen=65536)
+
+
+def reset_layer_norm_path_log() -> None:
+    _LN_PATH_LOG.clear()
+
+
+def layer_norm_paths_taken() -> List[str]:
+    return list(_LN_PATH_LOG)
+
+
 def layer_norm(x: torch.Tensor,
                normalized_shape: Union[int, Sequence[int], None] = None,
                weight: Optional[torch.Tensor] = None,
@@ -88,6 +103,8 @@ def layer_norm(x: torch.Tensor,
     n = 1 if normalized_shape is None or isinstance(normalized_shape, int) \
         else len(normalized_shape)
     if n == 1 and weight is not None and bias is not None:
+        _LN_PATH_LOG.append("kernel" if x.device.type == "cuda"
+                            else "reference")
         return _ln_kernel.layer_norm(x, weight, bias, epsilon)
     red = tuple(range(x.dim() - n, x.dim()))
     mean = x.mean(dim=red, keepdim=True)

@@ -2,16 +2,22 @@
 TransformerEncoder.
 
 Counterpart of ``paddle_tpu/nn/transformer.py``. The attention core routes
-by device and by nothing else: a CUDA tensor always goes to the flash
-kernels (``kernels/flash_attention.py``, forward and backward) and logs
-``"flash"``; a CPU tensor goes to the plain versions and logs
-``"reference"``. In training with ``dropout_p`` > 0 both run the
-attention-probs dropout in seed mode, with the seed drawn on the host from
-the port's CPU generator, so a CPU and a CUDA run from one seed drop the
-same probabilities. The JAX package's TPU
-routing (its sequence-length crossover, its backend gate, its fallback
-flag) does not carry over: a crossover on the H100 may come only from an
-H100 measurement. A kernel error propagates.
+by device and head dim (``attention_route``), and logs the path it takes:
+a CUDA tensor whose head dim the JAX router sends to its kernel (64, 128,
+256) goes to the flash kernels (``kernels/flash_attention.py``, forward
+and backward) and logs ``"flash"``; the wrappers launch or raise, so a
+head dim, dtype or mix of dtypes with no kernel instance yet (head dim
+256, fp16) raises there. A CUDA tensor of any other head dim takes the
+composed path of the JAX package's ``_attention_core`` in torch ops and
+logs ``"composed"``; a CPU tensor goes to the kernels' plain versions and
+logs ``"reference"``. In training with ``dropout_p`` > 0 every path
+runs the attention-probs dropout in seed mode, with the seed drawn on the
+host from the port's CPU generator and the pattern of
+``philox_keep_mask``, so a CPU and a CUDA run from one seed drop the same
+probabilities. The JAX package's TPU routing (its sequence-length
+crossover, its backend gate, its fallback flag) does not carry over: a
+crossover on the H100 may come only from an H100 measurement. A kernel
+error propagates.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from typing import List, Optional
 import torch
 
 from .. import amp
-from ..kernels.flash_attention import flash_attention
+from ..kernels import flash_attention as _fa
 from ..layers.helper import default_generator
 from . import functional as F
 from .layer import Layer, LayerList
@@ -43,6 +49,45 @@ def attention_paths_taken() -> List[str]:
     return list(_PATH_LOG)
 
 
+# the head dims the JAX package's routes_to_flash sends to its kernel
+KERNEL_HEAD_DIMS = (64, 128, 256)
+
+
+def attention_route(head_dim: int, device_type: str) -> str:
+    """Which path ``_attention_core`` takes, the counterpart of the JAX
+    package's ``routes_to_flash`` without its TPU crossover: "flash" for a
+    CUDA tensor whose head dim is in ``KERNEL_HEAD_DIMS``, "composed" for
+    any other CUDA tensor, "reference" (the kernels' plain versions) off
+    CUDA."""
+    if device_type != "cuda":
+        return "reference"
+    return "flash" if head_dim in KERNEL_HEAD_DIMS else "composed"
+
+
+def _composed_attention(q, k, v, attn_mask, keep_prob, is_causal, scale):
+    """The composed branch of the JAX package's ``_attention_core`` in
+    torch ops, in the inputs' dtype (an fp32 mask promotes the scores):
+    scores, bias, causal mask at the dtype's minimum (aligned
+    bottom-right, the kernels' rule; the same as the JAX package's square
+    mask for self-attention), softmax, upscale-in-train dropout of the
+    probabilities with the seed-mode pattern, and the product with v."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if attn_mask is not None:
+        scores = scores + attn_mask
+    if is_causal:
+        sq, sk = scores.shape[-2], scores.shape[-1]
+        visible = torch.ones(sq, sk, dtype=torch.bool,
+                             device=scores.device).tril(diagonal=sk - sq)
+        scores = scores.masked_fill(~visible, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores, dim=-1)
+    if keep_prob < 1.0:
+        b, h, sq, sk = probs.shape
+        keep = _fa.philox_keep_mask(_fa.draw_seed(default_generator()), b, h,
+                                    sq, sk, keep_prob, device=probs.device)
+        probs = torch.where(keep, probs / keep_prob, torch.zeros_like(probs))
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(probs.dtype))
+
+
 def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     attn_mask: Optional[torch.Tensor], dropout_p: float,
                     training: bool, is_causal: bool = False) -> torch.Tensor:
@@ -55,8 +100,13 @@ def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     want_dropout = bool(dropout_p) and training
     if attn_mask is not None:
         attn_mask = attn_mask.detach()
-    _PATH_LOG.append("flash" if q.device.type == "cuda" else "reference")
-    out = flash_attention(
+    route = attention_route(q.shape[-1], q.device.type)
+    _PATH_LOG.append(route)
+    if route == "composed":
+        return _composed_attention(
+            q, k, v, attn_mask, 1.0 - float(dropout_p) if want_dropout
+            else 1.0, is_causal, scale)
+    out = _fa.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         bias=attn_mask, causal=is_causal, sm_scale=scale,
         dropout_rate=float(dropout_p) if want_dropout else 0.0,

@@ -92,11 +92,12 @@ def test_layer_norm_kernel_checks_refuse_what_it_cannot_take(case):
     x = torch.zeros(4, 64)
     g, b = torch.ones(64), torch.zeros(64)
     if case == "dtype":
-        x = x.half()
+        x = x.double()
     elif case == "gamma_dtype":
         g, b = g.double(), b.double()
     elif case == "too_wide":
-        x, g, b = torch.zeros(2, 4097), torch.ones(4097), torch.zeros(4097)
+        f = tln.MAX_FEATURES + 1
+        x, g, b = torch.zeros(2, f), torch.ones(f), torch.zeros(f)
     elif case == "gamma_shape":
         g = torch.ones(32)
     else:
@@ -112,6 +113,15 @@ def test_layer_norm_kernel_checks_accept_bert_shapes():
     x = torch.zeros(3, 4096, dtype=torch.bfloat16)
     tln._check(x, torch.ones(4096, dtype=torch.bfloat16),
                torch.zeros(4096, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("f,dtype,w16", [
+    (8192, torch.float32, False), (8192, torch.bfloat16, True),
+    (768, torch.float16, False), (65536, torch.float16, True)])
+def test_layer_norm_kernel_checks_accept_wide_rows_and_fp16(f, dtype, w16):
+    w_dtype = dtype if w16 else torch.float32
+    tln._check(torch.zeros(2, f, dtype=dtype),
+               torch.ones(f, dtype=w_dtype), torch.zeros(f, dtype=w_dtype))
 
 
 def test_layer_norm_on_a_device_without_kernel_raises():
@@ -250,7 +260,7 @@ def test_flash_kernel_checks_refuse_what_it_cannot_take(case):
     if case == "head_dim":
         q = k = v = torch.zeros(1, 2, 16, 32)
     elif case == "dtype":
-        q = k = v = q.half()
+        q = k = v = q.double()
     elif case == "mixed_dtype":
         k = k.to(torch.bfloat16)
     elif case == "kv_shape":
@@ -313,6 +323,7 @@ def test_flash_backward_launches_aligned_projection_views_uncopied(
 
 
 @pytest.mark.parametrize("dtype,copied", [(torch.bfloat16, 3),
+                                          (torch.float16, 3),
                                           (torch.float32, 0)])
 def test_flash_backward_copies_misaligned_bf16_inputs_and_counts_them(
         monkeypatch, dtype, copied):
@@ -384,7 +395,8 @@ def test_flash_forward_launches_aligned_projection_views_uncopied(
     assert len(calls) == 2
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 @pytest.mark.parametrize("layout", ["odd_row_stride", "offset_contiguous"])
 def test_flash_forward_copies_misaligned_inputs_and_counts_them(
         monkeypatch, dtype, layout):

@@ -164,6 +164,50 @@ def test_quantized_pools_match_pallas_ragged(kv):
     _real_rows(got, pal, q_lens)
 
 
+def _ragged_case_d256(seed):
+    """_ragged_case's rows at head dim 256, the widest instance of the
+    rebuilt kernel: a full chunk, a decode single, a short chunk at ctx 0
+    and a decode single."""
+    rng = np.random.default_rng(seed)
+    b, cq, h, d, bs, n, m = 4, 4, 2, 256, 4, 16, 4
+    q = rng.normal(size=(b, cq, h, d)).astype(np.float32)
+    tbl = rng.integers(1, n, (b, m)).astype(np.int32)
+    q_lens = np.asarray([4, 1, 2, 1], np.int32)
+    ctx = np.asarray([5, 9, 0, 3], np.int32)
+    return q, (n, bs, h, d), tbl, q_lens, ctx
+
+
+@pytest.mark.parametrize("kv", ["fp32", "int8"])
+def test_head_dim_256_matches_pallas(kv):
+    """The plain version at D 256 over fp32 and int8 pools against
+    ragged_paged_attention_pallas in interpret mode."""
+    q, shape, tbl, q_lens, ctx = _ragged_case_d256(11)
+    if kv == "fp32":
+        rng = np.random.default_rng(12)
+        kp, vp = (rng.normal(size=shape).astype(np.float32)
+                  for _ in range(2))
+        pal = jpa.ragged_paged_attention_pallas(*_j(q, kp, vp, tbl, q_lens,
+                                                    ctx), interpret=True)
+        got = tpa.ragged_paged_attention(*_t(q, kp, vp, tbl, q_lens, ctx))
+    else:
+        (jk, tk), (jv, tv) = _quant_pools(kv, 12, *shape)
+        pal = jpa.ragged_paged_attention_pallas(
+            jnp.asarray(q), jk[0], jv[0], *_j(tbl, q_lens, ctx),
+            k_scales=jk[1], v_scales=jv[1], interpret=True)
+        got = tpa.ragged_paged_attention(
+            torch.from_numpy(q), tk[0], tv[0], *_t(tbl, q_lens, ctx),
+            k_scales=tk[1], v_scales=tv[1])
+    _real_rows(got.numpy(), pal, q_lens)
+
+
+def test_kernel_checks_take_head_dim_256():
+    # D 256 passes the head-dim check and stops only at the device check
+    q, shape, tbl, q_lens, ctx = _ragged_case_d256(13)
+    kp = np.zeros(shape, np.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpa._check(*_t(q, kp, kp, tbl, q_lens, ctx), None, None)
+
+
 def test_cpu_tensors_take_the_plain_version_and_log_it():
     before = (tpa.launches, tpa.launches_quant)
     tpa.reset_path_log()
