@@ -11,14 +11,16 @@ Phases, each printing its lines; any failure exits nonzero:
    built from ``paddle_tpu_torch/csrc`` with nvcc for sm_90a;
 2. kernel parity: each CUDA kernel against its plain PyTorch version on
    the card, at BERT-base shapes, with stated tolerances; every compiled
-   instance of the flash forward (dtype x D x dropout mode x bias layout),
-   seed mode bitwise equal to mask mode with ``philox_keep_mask`` and two
-   wrong dropouts shown to fail the tolerance; then the routes, through
-   the port's entry points on the card, with the path logs read back:
+   instance of the flash forward (dtype x D 64, 128, 256 x dropout mode x
+   bias layout), seed mode bitwise equal to mask mode with
+   ``philox_keep_mask`` and two wrong dropouts shown to fail the
+   tolerance; then the routes, through the port's entry points on the
+   card, with the path logs and launch counts read back:
    ``MultiHeadAttention(256, 8)`` (head dim 32, "composed", as the JAX
-   router composes it) with and without seed dropout, forward and every
-   gradient against the CPU port; head dim 256 ("flash", refused by the
-   wrapper with no launch and no plain version run: no instance yet); a
+   router composes it) and ``MultiHeadAttention(512, 2)`` (head dim 256,
+   "flash": one forward, dQ and dK/dV launch) in fp32 with and without
+   seed dropout, forward and every gradient against the CPU port; head dim
+   256 forward under bf16 ``auto_cast`` against the fp32 CPU port; a
    2-layer BERT forward under ``auto_cast(dtype="float16")`` ("flash",
    the fp16 instances) against the fp32 CPU port; and layer norms over
    8192 features and in fp16 ("kernel", one launch each way), forward and
@@ -35,7 +37,8 @@ Phases, each printing its lines; any failure exits nonzero:
    and the bf16 MLM argmax against fp32;
 4. times, printed only: each kernel against its bound, its plain version
    and the one PyTorch call that computes the same function (the flash
-   forward also at the train shape, with and without seed dropout); the
+   forward also at the train shape, with and without seed dropout, and at
+   head dim 256 in each dtype); the
    end-to-end forward per request shape, with its device time from a CUDA
    graph and a torch.profiler breakdown of device time by kernel group;
 5. training, the second main path:
@@ -61,7 +64,8 @@ Phases, each printing its lines; any failure exits nonzero:
    (iv) times: each new kernel against its bound, its plain version and
    the library call (the flash backward pair also at the main path's call,
    seed dropout 0.1, against SDPA's backward with dropout_p=0.1, with its
-   tiling); the train step's eager ms, tokens/s, MFU and device idle
+   tiling, and at head dim 256 in each dtype); the train step's eager ms,
+   tokens/s, MFU and device idle
    share, with a profiler breakdown;
 6. generation, the third main path: the decoder of docs/generation.md
    at full width and depth (vocab 32000, hidden 1024, 16 layers, 16
@@ -168,8 +172,17 @@ def ptxas_summary(log: str):
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             mangled = m.group(1)
-            short = re.search(r"\d+([a-z][a-z_]*_kernel)(?:I(.*?)EEv)?",
-                              mangled)
+            # the kernel's name is the shortest length-prefixed name
+            # ending in _kernel (a hash before the length may end in
+            # digits too, and a longer run may parse as a name)
+            short = min(
+                (re.match(r"(\w{%d})(?:I(.*?)EEv)?" % int(n.group()[j:]),
+                          mangled[n.end():])
+                 for n in re.finditer(r"\d+", mangled)
+                 for j in range(len(n.group()))
+                 if re.fullmatch(r"[a-z]\w*_kernel", mangled[
+                     n.end():n.end() + int(n.group()[j:])])),
+                key=lambda m: len(m.group(1)), default=None)
             kernel = mangled
             if short:
                 names = {"f": "f32", "a": "int8", "__nv_bfloat16": "bf16",
@@ -410,6 +423,13 @@ FLASH_EDGE_CASES = (  # (b, h, sq, sk, d, bias, causal, dtype, layout)
     (2, 12, 77, 77, 64, True, False, torch.float32, "qkv_views"),
     (1, 4, 100, 100, 64, False, True, torch.bfloat16, "unaligned"),
     (1, 4, 100, 100, 128, False, True, torch.bfloat16, "unaligned"),
+    # D 256 (every dtype x dropout x bias layout is in FLASH_INSTANCE_CASES)
+    (2, 8, 512, 384, 256, False, True, torch.bfloat16, "contiguous"),
+    (2, 8, 512, 384, 256, False, True, torch.float32, "contiguous"),
+    (2, 8, 77, 77, 256, True, False, torch.bfloat16, "qkv_views"),
+    (2, 8, 77, 77, 256, True, False, torch.float32, "qkv_views"),
+    (1, 4, 100, 100, 256, False, True, torch.bfloat16, "unaligned"),
+    (1, 4, 100, 100, 256, False, True, torch.float16, "unaligned"),
 )
 
 
@@ -478,7 +498,7 @@ def source_constants(names, *files):
 FLASH_INSTANCE_CASES = tuple(
     (2, 4, 200, 130, d, bias, bias is None, dtype, drop)
     for dtype in (torch.bfloat16, torch.float16, torch.float32)
-    for d in (64, 128)
+    for d in (64, 128, 256)
     for drop in (None, "mask", "seed") for bias in (None, "pad", "full")) + \
     tuple((2, 4, 200, 130, 64, bias, False, dtype, drop)
           for dtype in (torch.bfloat16, torch.float16, torch.float32)
@@ -722,11 +742,22 @@ FLASH_BWD_CASES = (
     (2, 4, 200, 130, 128, "full", False, torch.bfloat16, "contiguous",
      "mask"),
     (2, 4, 200, 130, 128, "full", True, torch.bfloat16, "contiguous", "seed"),
-) + tuple(  # every fp16 instance, and misaligned fp16 inputs
-    (2, 4, 200, 130, d, bias, bias == "pad", torch.float16, "contiguous",
-     drop) for d in (64, 128) for drop in (None, "mask", "seed")
+) + tuple(  # every fp16 and fp32 instance and the bf16 ones at D 256
+    (2, 4, 200, 130, d, bias, bias == "pad", dtype, "contiguous", drop)
+    for dtype, dims in ((torch.float16, (64, 128, 256)),
+                        (torch.float32, (64, 128, 256)),
+                        (torch.bfloat16, (256,)))
+    for d in dims for drop in (None, "mask", "seed")
     for bias in ("pad", "full")) + (
-    (1, 4, 100, 100, 64, None, True, torch.float16, "unaligned", "seed"),)
+    (1, 4, 100, 100, 64, None, True, torch.float16, "unaligned", "seed"),
+    # D 256: causal with Sq > Sk, the fused projection's views, and
+    # misaligned inputs
+    (2, 4, 200, 130, 256, None, True, torch.bfloat16, "contiguous", "seed"),
+    (2, 4, 200, 130, 256, None, True, torch.float32, "contiguous", None),
+    (2, 4, 77, 77, 256, "pad", False, torch.bfloat16, "qkv_views", "seed"),
+    (2, 4, 77, 77, 256, "full", False, torch.float32, "qkv_views", "mask"),
+    (1, 4, 100, 100, 256, None, True, torch.bfloat16, "unaligned", None),
+    (1, 4, 100, 100, 256, None, True, torch.float16, "unaligned", "seed"))
 KEEP_PROB = 0.9
 
 
@@ -920,6 +951,9 @@ ROUTE_TOL = 1e-4
 # every product's inputs at 2^-11, some ten roundings deep, and cuBLAS may
 # reduce fp16 products in fp16; 1% of the largest logit
 FP16_TOL = 1e-2
+# a bf16 auto_cast forward of MultiHeadAttention against the fp32 CPU port:
+# the same rule at bf16's step, 2^-8 against fp16's 2^-11
+BF16_TOL = 8 * FP16_TOL
 
 
 def close_to(got, want, rel):
@@ -964,40 +998,22 @@ def route_mha(device, embed, heads, dropout, seed):
     return results[0], results[1], logs[0]
 
 
-def refused(what, run):
-    """run() on the card must raise the flash wrapper's refusal
-    (TypeError or ValueError) before any flash launch."""
+def flash_counts():
     from paddle_tpu_torch.kernels import flash_attention as FA
-    from paddle_tpu_torch.nn.transformer import (attention_paths_taken,
-                                                 reset_attention_path_log)
-    launched = (FA.launches, FA.launches_dq, FA.launches_dkv)
-    reset_attention_path_log()
-    try:
-        run()
-    except (TypeError, ValueError) as e:
-        err = e
-    else:
-        fail(f"routes: {what} ran on the card; the flash kernels have no "
-             "instance for it and must refuse it")
-    log = attention_paths_taken()
-    if (FA.launches, FA.launches_dq, FA.launches_dkv) != launched or \
-            log[-1:] != ["flash"]:
-        fail(f"routes: {what}: path log {log}, flash launches "
-             f"{(FA.launches, FA.launches_dq, FA.launches_dkv)} from "
-             f"{launched}")
-    say("routes", f"{what}: path log {log[-1:]}, refused with no launch: "
-        f"{type(err).__name__}: {str(err)[:90]}")
+    return (FA.launches, FA.launches_dq, FA.launches_dkv)
 
 
 def check_routes(device):
     """The port's routes through its entry points on the card, each with
     its path log read back: head dim 32 (MultiHeadAttention(256, 8), which
-    the JAX router composes) with and without seed dropout against the CPU
-    port; head dim 256, which reaches the flash wrapper and its refusal (no
-    instance yet); a 2-layer BERT forward under auto_cast(dtype="float16")
-    on the fp16 flash and layer-norm instances against the fp32 CPU port;
-    layer norms over 8192 features and in fp16, one kernel launch each
-    way, against the CPU port."""
+    the JAX router composes) and head dim 256 (MultiHeadAttention(512, 2),
+    on the flash kernels: one forward, dQ and dK/dV launch) in fp32 with
+    and without seed dropout, forward and every gradient against the CPU
+    port; head dim 256 forward under bf16 auto_cast against the fp32 CPU
+    port; a 2-layer BERT forward under auto_cast(dtype="float16") on the
+    fp16 flash and layer-norm instances against the fp32 CPU port; layer
+    norms over 8192 features and in fp16, one kernel launch each way,
+    against the CPU port."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import load_reference_state
     from paddle_tpu_torch.kernels import flash_attention as FA
@@ -1007,13 +1023,19 @@ def check_routes(device):
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.nn.transformer import (attention_paths_taken,
                                                  reset_attention_path_log)
-    for embed, heads, dropout in ((256, 8, 0.0), (256, 8, 0.1)):
+    for embed, heads, dropout in ((256, 8, 0.0), (256, 8, 0.1),
+                                  (512, 2, 0.0), (512, 2, 0.1)):
+        route = "composed" if embed // heads == 32 else "flash"
+        before = flash_counts()
         (out, grads), (out_c, grads_c), log = route_mha(
             device, embed, heads, dropout, 40 + embed + heads)
+        n = tuple(a - b for a, b in zip(flash_counts(), before))
         what = (f"MultiHeadAttention({embed}, {heads}) head dim "
                 f"{embed // heads} dropout {dropout:g}")
-        if log != ["composed"]:
-            fail(f"routes: {what}: path log {log}, want ['composed']")
+        want_n = (1, 1, 1) if route == "flash" else (0, 0, 0)
+        if log != [route] or n != want_n:
+            fail(f"routes: {what}: path log {log}, flash launches (fwd, "
+                 f"dq, dkv) {n}; want [{route!r}], {want_n}")
         # the key bias's gradient is 0 in exact arithmetic (it shifts a
         # row's scores by one constant): both sides hold rounding noise
         errs = {"out": close_to(out, out_c, ROUTE_TOL)}
@@ -1023,17 +1045,40 @@ def check_routes(device):
         if bad:
             fail(f"routes: {what}: {bad} beyond {ROUTE_TOL:g} of the CPU "
                  f"port: {[errs[n][0] for n in bad]}")
-        say("routes", f"{what}: path log ['composed'] (CPU port "
-            f"['reference']); output and {len(errs) - 1} gradients against "
+        say("routes", f"{what}: path log [{route!r}] (CPU port "
+            f"['reference']), flash launches (fwd, dq, dkv) {n}; output and "
+            f"{len(errs) - 1} gradients against "
             f"the CPU port, max error {max(e for e, _ in errs.values()):.3e}"
             f" (tol {ROUTE_TOL:g} of each tensor's largest + {ROUTE_TOL:g}"
             "|ref|); ok")
 
-    # head dim 256: the flash route, refused
-    mha = MultiHeadAttention(512, 2, device=device)
-    x = torch.randn(2, 96, 512, device=device)
-    refused("MultiHeadAttention(512, 2) head dim 256", lambda: mha(x))
-    del mha
+    # head dim 256 under bf16 auto_cast: the bf16 D 256 flash instance
+    mhas = [MultiHeadAttention(512, 2, device=d) for d in (device, "cpu")]
+    state = random_state(mhas[0], SEED + 4)
+    x = np.random.default_rng(SEED + 4).standard_normal((2, 96, 512),
+                                                         dtype=np.float32)
+    for m in mhas:
+        load_reference_state(m, state)
+        m.eval()
+    before = flash_counts()
+    reset_attention_path_log()
+    with torch.no_grad(), amp.auto_cast():
+        out = mhas[0](torch.from_numpy(x).to(device))
+    n = tuple(a - b for a, b in zip(flash_counts(), before))
+    log = attention_paths_taken()
+    with torch.no_grad():
+        out_c = mhas[1](torch.from_numpy(x))
+    err, ok = close_to(out, out_c, BF16_TOL)
+    what = "MultiHeadAttention(512, 2) head dim 256 auto_cast bf16 forward"
+    if log != ["flash"] or n != (1, 0, 0) or not ok or \
+            not torch.isfinite(out).all():
+        fail(f"routes: {what}: path log {log}, launches {n}, output "
+             f"{out.dtype} error {err} against the fp32 CPU port (tol "
+             f"{BF16_TOL:g})")
+    say("routes", f"{what}: path log ['flash'], one forward launch, output "
+        f"{str(out.dtype)[6:]} max error {err:.3e} against the fp32 CPU port "
+        f"(tol {BF16_TOL:g} of the largest + {BF16_TOL:g}|ref|); ok")
+    del mhas
 
     # a small BERT under fp16 auto_cast: every attention on the fp16
     # flash instance
@@ -1190,6 +1235,13 @@ def causal_mask(sq, sk, device):
         diagonal=sk - sq)
 
 
+# head dim 256, timed in each dtype: S = 1024 is the shortest length at
+# which the JAX router sends a dropout-free D 256 attention to its kernel
+# (paddle_tpu/nn/transformer.py _FLASH_MIN_SEQ), and 8 query heads of 256
+# (hidden 2048) are Gemma-2B's attention width
+D256_SHAPE = (4, 8, 1024, 256)
+
+
 def time_flash(device, card):
     """The forward at FLASH_CASES in both dtypes, and at the train shape in
     bf16 with and without seed dropout: kernel, bound, plain version and
@@ -1201,7 +1253,7 @@ def time_flash(device, card):
     say("times", f"flash forward tiling: bf16 {tiles['kFwdWarpgroups']} "
         f"warpgroup(s) a CTA, {64 * tiles['kFwdWarpgroups']} queries, "
         f"{tiles['kFwdStages']} stages of 64-key tiles; fp32 64 queries a "
-        "CTA, 2 stages")
+        "CTA, 2 stages (D 256: 8 warps, one K and one V stage)")
     for (b, h, sq, sk, d, with_bias, causal) in FLASH_CASES + (
             FLASH_CAUSAL_CASE,):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1240,6 +1292,30 @@ def time_flash(device, card):
                 f"causal={causal}: kernel {ms:.4f} ms, bound "
                 f"{bms:.4f} ms ({by}), plain {plain_ms:.4f} ms, SDPA "
                 f"{lib_ms:.4f} ms  [{card}]")
+
+    # head dim 256 in each dtype, non-causal
+    b, h, s, d = D256_SHAPE
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        sets = copies(lambda i: attn_inputs(b, h, s, s, d, dtype, device,
+                                            600 + i),
+                      3 * b * h * s * d * (4 if dtype == torch.float32
+                                           else 2))
+        ms = device_ms([lambda x=x: FA.flash_attention_fwd(*x) for x in sets])
+        plain_ms = device_ms([lambda: FA.attention_reference(*sets[0])],
+                             reps=3)
+        lib_ms = device_ms([lambda x=x: torch.nn.functional
+                            .scaled_dot_product_attention(
+                                *x, scale=1.0 / math.sqrt(d)) for x in sets])
+        nbytes, flops = attn_work(sets[0][0], sets[0][1], None, False)
+        bms, by = bound_ms(nbytes, flops, dtype)
+        records[("d256", dtype)] = dict(ms=ms, plain_ms=plain_ms,
+                                        library_ms=lib_ms, bound_ms=bms,
+                                        bound_by=by)
+        say("times", f"flash fwd {str(dtype)[6:]} [{b},{h},{s},{d}]: kernel "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s), bound {bms:.4f} "
+            f"ms ({by}), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms  "
+            f"[{card}]")
+        del sets
 
     # the train shape in bf16, without and with the main path's seed
     # dropout; SDPA with dropout_p draws random numbers, which a CUDA graph
@@ -1756,7 +1832,9 @@ TIME_BWD_CASES = ((32, 12, 512, 64, False, torch.bfloat16, 1.0),
                   (32, 12, 512, 64, True, torch.bfloat16, 1.0),
                   (32, 12, 512, 64, False, torch.bfloat16, KEEP_PROB),
                   (32, 12, 512, 64, False, torch.float16, 1.0),
-                  (8, 12, 512, 64, False, torch.float32, 1.0))
+                  (8, 12, 512, 64, False, torch.float32, 1.0)) + tuple(
+    (*D256_SHAPE, False, dtype, 1.0)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32))
 
 
 def time_flash_bwd(device, card):

@@ -51,15 +51,18 @@
 //   tile, never transposed. While the tensor cores compute S a lane runs
 //   Philox for its half of a pair of 2 x 2 groups and trades the bits with
 //   lane ^ 4. Compiled per dropout mode (none, mask, seed), bias layout
-//   (none, [B,1,1,S], full), D (64, 128) and input type (bf16, fp16): no
-//   score pays for a branch it does not take. Tiling measured on the H100
-//   (bf16): see kFwdWarpgroups.
+//   (none, [B,1,1,S], full), D (64, 128, 256) and input type (bf16,
+//   fp16): no score pays for a branch it does not take. At D 256 the
+//   accumulator is 128 fp32 a thread and O += P V one m64n256k16 a
+//   k-step; bf16 there multiplies p in as two bf16 terms (kSplitP). Tiling
+//   measured on the H100 (bf16): see kFwdWarpgroups.
 // - float32: the CUDA cores, fp32 FMA (the TPU kernel's fp32 numerics; no
-//   TF32). A warp owns 16 queries; a lane the scores of 4 rows x 8 keys
-//   and the accumulator of those rows at D / 8 columns. Q and K sit in
-//   shared memory d-major, so per column d one 16-byte load gives 4 rows of
-//   q and two give 8 keys of k: 32 FMAs for 3 loads. A row's 8 lanes share
-//   one warp, so its max and sum are shuffles and p reaches the lanes that
+//   TF32). A warp owns 4 R queries; a lane the scores of R rows x 8 keys
+//   and the accumulator of those rows at D / 8 columns (R = 4 up to D 128,
+//   2 at D 256: see SimtTiling). Q and K sit in shared memory d-major, so
+//   per column d one load gives R rows of q and two 16-byte loads give 8
+//   keys of k: 32 FMAs for 3 loads at R = 4. A row's 8 lanes share one
+//   warp, so its max and sum are shuffles and p reaches the lanes that
 //   multiply it into V by shuffles too: the scores never pass through
 //   shared memory. A CTA owns 64 queries.
 //
@@ -149,11 +152,13 @@ struct FwdSmem {  // byte offsets from a 1024-byte-aligned base
 // The tile's scores s (element 4j + 2hr + e: row hr, key k0 + 8j + 2t + e)
 // become y: the raw score without a bias, the base-2 exponent
 // s scale log2(e) + bias log2(e) with one; -inf where the key is not
-// visible (MASKED: a tile that reaches past a row's last visible key).
+// visible (MASKED: a tile that reaches past a row's last visible key). A
+// full bias is read from brow, the bias row of row 0 (row 1 lies 8 rows
+// on): one pointer, not two, kept the D 256 instances free of spills.
 template <int BIAS, bool MASKED>
 __device__ __forceinline__ void exponents(float (&s)[32], float scale_log2,
                                           const float* bias_tile,
-                                          const float* const* brow,
+                                          const float* brow, int64_t bias_sq,
                                           int64_t bias_sk, int k0, int t,
                                           const int (&kmax)[2]) {
 #pragma unroll
@@ -170,11 +175,21 @@ __device__ __forceinline__ void exponents(float (&s)[32], float scale_log2,
         if (BIAS == kRowBias) y = fmaf(y, scale_log2, bl);
         if (BIAS == kFullBias)
           y = fmaf(y, scale_log2,
-                   vis ? bias_log2(brow[hr][kc * bias_sk]) : 0.f);
+                   vis ? bias_log2(brow[8 * hr * bias_sq + kc * bias_sk])
+                       : 0.f);
         s[i] = vis ? y : -INFINITY;
       }
     }
 }
+
+// bf16 rounds p at 2^-9 before p v, an error of up to 2^-9 of a row's
+// largest |v| where few keys are visible; at D 256 a row holds 256 values
+// of v, and that error passed FLASH_TOL's 2^-9 + 2^-6 |o| (chip_smoke.py)
+// where |o| was small. There p enters as two bf16 terms, p = hi + lo
+// (rounding at 2^-17), for a second p v product: the tensor cores' share of
+// the work grows by half. fp16 rounds p at 2^-12, within its tolerance.
+template <typename E, int D>
+constexpr bool kSplitP = D == 256 && !kIsF16<E>;
 
 // One CTA (kFwdWarpgroups warpgroups) owns kFwdRows queries and walks the
 // key tiles they can see. E is the input type (bf16 or fp16), DROP the
@@ -227,13 +242,13 @@ flash_fwd_wgmma_kernel(const Params p) {
   // this thread's rows: g and g + 8 of its warp's 16
   const int r_loc = wg * kTile + (threadIdx.x % kWarpgroup) / 32 * 16 + g;
   int rows[2], kmax[2];
-  const float* brow[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     rows[hr] = q0 + r_loc + 8 * hr;
     kmax[hr] = visible_keys(p, rows[hr]);
-    brow[hr] = BIAS == kFullBias ? bias + rows[hr] * p.bias_sq : nullptr;
   }
+  const float* brow =
+      BIAS == kFullBias ? bias + (q0 + r_loc) * p.bias_sq : nullptr;
   const int kmin = min(kmax[0], kmax[1]);
   const float scale_log2 = p.scale * kLog2e;
   // y (exponents) times mult is the base-2 exponent
@@ -282,11 +297,11 @@ flash_fwd_wgmma_kernel(const Params p) {
     pin(s);
     const float* bias_tile = bias_s + st * kTile;
     if (__any_sync(0xffffffffu, k0 + kTile > kmin))
-      exponents<BIAS, true>(s, scale_log2, bias_tile, brow, p.bias_sk, k0,
-                            t, kmax);
+      exponents<BIAS, true>(s, scale_log2, bias_tile, brow, p.bias_sq,
+                            p.bias_sk, k0, t, kmax);
     else
-      exponents<BIAS, false>(s, scale_log2, bias_tile, brow, p.bias_sk, k0,
-                             t, kmax);
+      exponents<BIAS, false>(s, scale_log2, bias_tile, brow, p.bias_sq,
+                             p.bias_sk, k0, t, kmax);
 
     // online softmax; a row's 64 values lie in the 4 lanes of its quad
 #pragma unroll
@@ -319,14 +334,27 @@ flash_fwd_wgmma_kernel(const Params p) {
       }
     }
 
-    // O += P V: P from registers, V MN-major from the same stage
-    uint32_t a[4][4];
+    // O += P V: P from registers, V MN-major from the same stage; bf16 at
+    // D 256 (kSplitP) as P_hi V + P_lo V
+    uint32_t a[4][4], lo[kSplitP<E, D> ? 4 : 1][4];
     to_a_frags<E>(a, s);
+    if constexpr (kSplitP<E, D>)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 hi = unpack2<E>(a[kk][i]);
+          lo[kk][i] = pack2<E>(s[8 * kk + 2 * i] - hi.x,
+                               s[8 * kk + 2 * i + 1] - hi.y);
+        }
     pin(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < 4; ++kk) {
       wgmma_rs<E>(acc, a[kk], mnmajor_desc(vb, kk));
+      if constexpr (kSplitP<E, D>)
+        wgmma_rs<E>(acc, lo[kk], mnmajor_desc(vb, kk));
+    }
     wgmma_commit();
     wgmma_wait<0>();
     pin(acc);
@@ -359,21 +387,33 @@ flash_fwd_wgmma_kernel(const Params p) {
 // float32: register-tiled CUDA-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kWarpRows = 16;  // queries a warp owns
-// A CTA owns kTile queries (4 warps, 82 KB of shared memory at D = 64: two
-// CTAs an SM). On the H100 this beat 32 queries a CTA (twice the CTAs) at
-// B=8 S=512 and at the serving request B=1 S=384, though 64 leaves 72 CTAs
-// for 132 SMs there; it also beat 8 x 8 scores a lane (a third fewer loads
-// and shuffles a FMA, 2 warps a CTA) at both shapes. One V stage (three
-// CTAs an SM) gained a few percent at B=8 only.
-constexpr int kSimtThreads = kTile / kWarpRows * 32;
+// Tiling a head dim. A CTA owns kTile queries, a warp 4 R of them, a lane
+// the scores of R rows x 8 keys and the accumulator of those rows at D / 8
+// columns. D 64 and 128: R = 4 (4 warps; 82 KB of shared memory at D 64:
+// two CTAs an SM). On the H100 this beat 32 queries a CTA (twice the CTAs)
+// at B=8 S=512 and at the serving request B=1 S=384, though 64 leaves 72
+// CTAs for 132 SMs there; it also beat 8 x 8 scores a lane (a third fewer
+// loads and shuffles a FMA, 2 warps a CTA) at both shapes. One V stage
+// (three CTAs an SM) gained a few percent at B=8 only. D 256: a lane's 4
+// rows would hold 128 accumulator floats and two stages of K and V would
+// need 328 KB, so R = 2 (8 warps, 64 floats a lane) and one stage each of
+// K and V (192 KB): K's next tile loads while this one's softmax and
+// p v run, V's while the next scores run.
+template <int D>
+struct SimtTiling {
+  static constexpr int R = D <= 128 ? 4 : 2;
+  static constexpr int kWarps = kTile / (4 * R);
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kStages = D <= 128 ? 2 : 1;
+};
 
 template <int D>
 struct SimtSmem {  // float offsets
-  static constexpr int Q = 0;                     // q^T [D][kTile]
-  static constexpr int K = Q + D * kTile;         // 2 stages of k^T [D][kTile]
-  static constexpr int V = K + 2 * D * kTile;     // 2 stages of v [kTile][D]
-  static constexpr int bias = V + 2 * kTile * D;  // 2 stages of kTile
+  static constexpr int kStages = SimtTiling<D>::kStages;
+  static constexpr int Q = 0;                       // q^T [D][kTile]
+  static constexpr int K = Q + D * kTile;           // stages of k^T [D][kTile]
+  static constexpr int V = K + kStages * D * kTile;  // stages of v [kTile][D]
+  static constexpr int bias = V + kStages * kTile * D;  // 2 stages of kTile
   static constexpr int bytes = 4 * (bias + 2 * kTile);
 };
 
@@ -386,11 +426,12 @@ template <int D>
 __device__ __forceinline__ void tile_t_async(uint32_t dst, const float* src,
                                              int64_t row_stride, int valid) {
   constexpr int kRowBlocks = kTile / 8;
+  constexpr int kThreads = SimtTiling<D>::kThreads;
   const int lane = threadIdx.x % 32;
   const int r_lo = lane % 8, d_lo = lane / 8;
 #pragma unroll 4
   for (int blk = threadIdx.x / 32; blk < kRowBlocks * (D / 4);
-       blk += kSimtThreads / 32) {
+       blk += kThreads / 32) {
     const int r = (blk % kRowBlocks) * 8 + r_lo;
     const int d = (blk / kRowBlocks) * 4 + d_lo;
     const bool in = r < valid;
@@ -407,8 +448,9 @@ __device__ __forceinline__ void tile_rows_async(uint32_t dst,
                                                 int64_t row_stride,
                                                 int valid) {
   constexpr int kChunks = D / 4;
+  constexpr int kThreads = SimtTiling<D>::kThreads;
 #pragma unroll 4
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kSimtThreads) {
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * 4;
     const bool in = r < valid;
     cp_async16(dst + 4 * (r * D + c), in ? src + r * row_stride + c : src,
@@ -416,36 +458,29 @@ __device__ __forceinline__ void tile_rows_async(uint32_t dst,
   }
 }
 
-// the keep bits of a lane's 4 rows x 8 keys from q (even) and k (a
-// multiple of 8): bit 8 i + j for row q + i, key k + j
-template <int MODE>
-__device__ __forceinline__ uint32_t lane_keep_bits(const Dropout& d,
-                                                   uint2 seed, int b, int h,
-                                                   int q, int k, int Sq,
-                                                   int Sk) {
-  uint32_t keep = 0u;
-#pragma unroll
-  for (int ip = 0; ip < 2; ++ip)
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      const uint32_t bits =
-          group_bits<MODE>(d, seed, b, h, q + 2 * ip, k + 2 * jp, Sq, Sk);
-      // bit (q' & 1) * 2 + (k' & 1) of the group
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-        keep |= ((bits >> (2 * a)) & 3u) << (8 * (2 * ip + a) + 2 * jp);
-    }
-  return keep;
+// R consecutive fp32 values from p (R = 4: 16 bytes, R = 2: 8)
+template <int R>
+__device__ __forceinline__ void load_rows(const float* p, float (&out)[R]) {
+  if constexpr (R == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x; out[1] = v.y;
+  }
 }
 
-// A warp owns kWarpRows queries of the CTA's kTile; lane (rg, cg) =
-// (lane / 8, lane % 8) the scores of rows 4 rg .. 4 rg + 3 of the warp and
-// keys 8 cg .. 8 cg + 7 of a tile, and the accumulator of those rows at
-// columns 32 c + 4 cg .. 32 c + 4 cg + 3.
+// A warp owns 4 R queries of the CTA's kTile; lane (rg, cg) =
+// (lane / 8, lane % 8) the scores of rows R rg .. R rg + R - 1 of the warp
+// and keys 8 cg .. 8 cg + 7 of a tile, and the accumulator of those rows
+// at columns 32 c + 4 cg .. 32 c + 4 cg + 3.
 template <int D>
-__global__ void __launch_bounds__(kSimtThreads)
+__global__ void __launch_bounds__(SimtTiling<D>::kThreads)
 flash_fwd_simt_kernel(const Params p) {
   using L = SimtSmem<D>;
+  constexpr int R = SimtTiling<D>::R;
+  constexpr int kThreads = SimtTiling<D>::kThreads;
+  constexpr bool kSplit = SimtTiling<D>::kStages == 1;
   constexpr int DC = D / 32;  // 16-byte column groups of a lane
   extern __shared__ __align__(16) float smem[];
   const uint32_t base = smem_u32(smem);
@@ -463,75 +498,96 @@ flash_fwd_simt_kernel(const Params p) {
   const uint2 seed = read_seed(p.drop);
   const int n_tiles = k_tiles(p, q0, kTile);
 
-  auto issue = [&](int kt) {
-    const int st = kt & 1, k0 = kt * kTile;
+  // two stages: K, V and the bias of a tile in one group. One stage (kSplit):
+  // K and the bias in one group, V in the next.
+  auto issue_k = [&](int kt) {
+    const int st = kSplit ? 0 : kt & 1, k0 = kt * kTile;
     tile_t_async<D>(base + 4 * (L::K + st * D * kTile), k + k0 * p.k_ss,
                     p.k_ss, p.Sk - k0);
+    if (row_bias)
+      vec_async<kThreads>(base + 4 * (L::bias + (kt & 1) * kTile),
+                          bias + k0 * p.bias_sk, p.bias_sk, p.Sk - k0);
+  };
+  auto issue_v = [&](int kt) {
+    const int st = kSplit ? 0 : kt & 1, k0 = kt * kTile;
     tile_rows_async<D>(base + 4 * (L::V + st * kTile * D), v + k0 * p.v_ss,
                        p.v_ss, p.Sk - k0);
-    if (row_bias)
-      vec_async<kSimtThreads>(base + 4 * (L::bias + st * kTile),
-                              bias + k0 * p.bias_sk, p.bias_sk, p.Sk - k0);
   };
   tile_t_async<D>(base + 4 * L::Q, q + q0 * p.q_ss, p.q_ss, p.Sq - q0);
-  if (n_tiles > 0) issue(0);
+  if (n_tiles > 0) issue_k(0);
+  if (!kSplit && n_tiles > 0) issue_v(0);
   cp_async_commit();
+  if (kSplit) {
+    if (n_tiles > 0) issue_v(0);
+    cp_async_commit();
+  }
 
-  const int r0 = warp * kWarpRows + 4 * rg;  // this lane's first row
-  int kmax[4];
-  const float* brow[4];
+  const int r0 = warp * 4 * R + R * rg;  // this lane's first row
+  int kmax[R];
+  const float* brow[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     kmax[i] = visible_keys(p, q0 + r0 + i);
     brow[i] = bias && !row_bias ? bias + (q0 + r0 + i) * p.bias_sq : nullptr;
   }
-  const int kmin = min(min(kmax[0], kmax[1]), min(kmax[2], kmax[3]));
+  int kmin = kmax[0];
+#pragma unroll
+  for (int i = 1; i < R; ++i) kmin = min(kmin, kmax[i]);
   const float scale_log2 = p.scale * kLog2e;
   const float mult = bias ? 1.f : scale_log2;
 
-  float acc[4][4 * DC];
+  float acc[R][4 * DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < 4 * DC; ++c) acc[i][c] = 0.f;
-  float m[4], l[4];
+  float m[R], l[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = kNegInf * kLog2e;  // as in the bf16 kernel
     l[i] = 0.f;
   }
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    if (kt + 1 < n_tiles) issue(kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // tile kt (and Q) landed
+    if (!kSplit) {
+      if (kt + 1 < n_tiles) {
+        issue_k(kt + 1);
+        issue_v(kt + 1);
+      }
+      cp_async_commit();
+    }
+    cp_async_wait<1>();  // tile kt's K (and V with two stages, and Q) landed
     __syncthreads();
-    const int st = kt & 1, k0 = kt * kTile;
+    const int st = kSplit ? 0 : kt & 1, k0 = kt * kTile;
     const float* Qs = smem + L::Q;
     const float* Ks = smem + L::K + st * D * kTile;
     const float* Vs = smem + L::V + st * kTile * D;
-    const float* bias_tile = smem + L::bias + st * kTile;
+    const float* bias_tile = smem + L::bias + (kt & 1) * kTile;
 
-    // s = q k^T: per column d one 16-byte load of 4 rows, two of 8 keys
-    float s[4][8];
+    // s = q k^T: per column d one load of R rows, two of 8 keys
+    float s[R][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
       const int sw = 8 * (d % 4);
-      const float4 qa =
-          *reinterpret_cast<const float4*>(Qs + d * kTile + (r0 ^ sw));
+      float qv[R];
+      load_rows<R>(Qs + d * kTile + (r0 ^ sw), qv);
       const float* krow = Ks + d * kTile + ((8 * cg) ^ sw);
       const float4 ka = *reinterpret_cast<const float4*>(krow);
       const float4 kb = *reinterpret_cast<const float4*>(krow + 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
       const float kv[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+    if (kSplit) {  // K is read: the next tile's K (and bias) may land
+      __syncthreads();
+      if (kt + 1 < n_tiles) issue_k(kt + 1);
+      cp_async_commit();
     }
 
     // y: the raw score without a bias, the base-2 exponent with one; -inf
@@ -542,7 +598,7 @@ flash_fwd_simt_kernel(const Params p) {
       const int kc = k0 + 8 * cg + j;
       const float bl = row_bias ? bias_log2(bias_tile[8 * cg + j]) : 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         const bool vis = !edge || kc < kmax[i];
         float y = s[i][j];
         if (bias)
@@ -555,15 +611,15 @@ flash_fwd_simt_kernel(const Params p) {
 
     uint32_t keep = 0xFFFFFFFFu;
     if (p.drop.mode == kSeedDrop)
-      keep = lane_keep_bits<kSeedDrop>(p.drop, seed, b, h, q0 + r0,
-                                       k0 + 8 * cg, p.Sq, p.Sk);
+      keep = slice_keep_bits<kSeedDrop, R, 8, false>(
+          p.drop, seed, b, h, q0 + r0, k0 + 8 * cg, p.Sq, p.Sk);
     else if (p.drop.mode == kMaskDrop)
-      keep = lane_keep_bits<kMaskDrop>(p.drop, seed, b, h, q0 + r0,
-                                       k0 + 8 * cg, p.Sq, p.Sk);
+      keep = slice_keep_bits<kMaskDrop, R, 8, false>(
+          p.drop, seed, b, h, q0 + r0, k0 + 8 * cg, p.Sq, p.Sk);
 
     // online softmax; a row's 64 values lie in the 8 lanes of its rg
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) mx = fmaxf(mx, s[i][j]);
@@ -586,22 +642,26 @@ flash_fwd_simt_kernel(const Params p) {
       for (int c = 0; c < 4 * DC; ++c) acc[i][c] *= alpha;
     }
 
+    if (kSplit) {  // tile kt's V landed (the next K may still be loading)
+      cp_async_wait<1>();
+      __syncthreads();
+    }
     // acc += p v: p of key 8 kc8 + j for this lane's rows is held by lane
     // (rg, kc8), as its s[i][j]
 #pragma unroll 2
     for (int kc8 = 0; kc8 < 8; ++kc8) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        float pv[4];
+        float pv[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
           pv[i] = __shfl_sync(0xffffffffu, s[i][j], rg * 8 + kc8);
         const float* vrow = Vs + (8 * kc8 + j) * D + 4 * cg;
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
           const float4 vv = *reinterpret_cast<const float4*>(vrow + 32 * c);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < R; ++i) {
             acc[i][4 * c] = fmaf(pv[i], vv.x, acc[i][4 * c]);
             acc[i][4 * c + 1] = fmaf(pv[i], vv.y, acc[i][4 * c + 1]);
             acc[i][4 * c + 2] = fmaf(pv[i], vv.z, acc[i][4 * c + 2]);
@@ -611,13 +671,17 @@ flash_fwd_simt_kernel(const Params p) {
       }
     }
     __syncthreads();  // every warp is done with this stage
+    if (kSplit) {  // V is read: the next tile's V may land
+      if (kt + 1 < n_tiles) issue_v(kt + 1);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();
 
   const float rinv = p.drop.mode == kNoDrop ? 1.f : p.drop.rinv;
   float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     float lt = l[i];
 #pragma unroll
     for (int off = 1; off < 8; off *= 2)
@@ -676,8 +740,8 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
 
 template <int D>
 int launch_simt(const Params& p, cudaStream_t stream) {
-  return launch(flash_fwd_simt_kernel<D>, kSimtThreads, SimtSmem<D>::bytes,
-                kTile, p, stream);
+  return launch(flash_fwd_simt_kernel<D>, SimtTiling<D>::kThreads,
+                SimtSmem<D>::bytes, kTile, p, stream);
 }
 
 // one thread a 2 x 2 group of the seed-mode pattern, through group_bits,
@@ -758,10 +822,13 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64) return launch_simt<64>(p, s);
   if (dtype == 0 && D == 128) return launch_simt<128>(p, s);
+  if (dtype == 0 && D == 256) return launch_simt<256>(p, s);
   if (dtype == 1 && D == 64) return launch_wgmma<bf16, 64>(p, s);
   if (dtype == 1 && D == 128) return launch_wgmma<bf16, 128>(p, s);
+  if (dtype == 1 && D == 256) return launch_wgmma<bf16, 256>(p, s);
   if (dtype == 2 && D == 64) return launch_wgmma<f16, 64>(p, s);
   if (dtype == 2 && D == 128) return launch_wgmma<f16, 128>(p, s);
+  if (dtype == 2 && D == 256) return launch_wgmma<f16, 256>(p, s);
   return cudaErrorInvalidValue;
 }
 

@@ -61,12 +61,23 @@
 //   left bounds the kernels by the issue of the per-score arithmetic, so
 //   each kernel is compiled per dropout mode, bias layout, D and input
 //   type: no score pays for a branch it does not take. (Tiling measured in
-//   bf16.)
+//   bf16.) At D 256 a thread of the dQ kernel holds 128 fp32 of dQ (one
+//   m64n256k16 a k-step); dK and dV (2 x 128) fit no single warpgroup, so
+//   the dK/dV kernel runs two warpgroups on the same 64 keys, one for dV
+//   and one for dK (dkv_roles; against a grid over D halves, see PERF.md).
 //   The wgmma and cp.async pieces are shared with the forward, in
 //   flash_wgmma.cuh.
-// - float32: the CUDA cores, fp32 FMA, 256 threads with 4 x 4 score and
-//   4 x D/16 accumulator slices each; the scores pass through shared
-//   memory (not yet register-tiled like the forward's fp32 kernel).
+// - float32: the CUDA cores, fp32 FMA (no TF32), register-tiled like the
+//   forward's fp32 kernel (F32Tiling): a lane owns an R x C slice of the
+//   scores (s and dp, or s^T and dp^T) and the accumulators of its R rows
+//   at D / 8 columns. Every tile sits in shared memory d-major in a
+//   swizzle that keeps a lane's 16-byte loads free of bank conflicts; the
+//   streamed tiles come through a two-stage cp.async ring. p, p keep and ds
+//   stay in the registers of the lane that computed them and reach the
+//   lanes that multiply them into k, dO or q by warp shuffles: no score
+//   passes through shared memory. p = exp2 of one FMA, and one group_bits
+//   call a 2 x 2 group, as in the tensor-core kernels. What bounds them:
+//   fp32 operations at 67 TFLOP/s (6 Sq Sk D and 8 Sq Sk D a head).
 //
 // C interface, loaded with ctypes (paddle_tpu_torch/kernels/flash_attention.py):
 //   int pt_flash_attention_bwd_dq(q, k, v, o, dout, lse, delta, bias, keep,
@@ -114,54 +125,226 @@ struct BwdParams {
   Dropout drop;
 };
 
-// score of query qr and key kc after scale, bias and masks; -inf outside
-// the [Sq, Sk] range, -1e30 where causal masks it. bias is already offset
-// to this (b, h).
-__device__ __forceinline__ float score(const BwdParams& p, const float* bias,
-                                       float s, int qr, int kc) {
-  if (qr >= p.Sq || kc >= p.Sk) return -INFINITY;
-  float val = s;
-  if (bias != nullptr) val += bias[qr * p.bias_sq + kc * p.bias_sk];
-  if (p.causal && qr + (p.Sk - p.Sq) < kc) val = kNegInf;
-  return val;
+// keys [0, n) are visible to query row `row`; none past Sq
+__device__ __forceinline__ int visible_keys(const BwdParams& p, int row) {
+  if (row >= p.Sq) return 0;
+  return p.causal ? max(0, min(p.Sk, row + (p.Sk - p.Sq) + 1)) : p.Sk;
 }
 
-// k tiles a block of `rows` queries from q0 needs (causal: up to the last
-// key its last row can see)
+// queries [n, Sq) see key `key`; none (Sq) past Sk
+__device__ __forceinline__ int first_query(const BwdParams& p, int key) {
+  if (key >= p.Sk) return p.Sq;
+  return p.causal ? max(0, key - (p.Sk - p.Sq)) : 0;
+}
+
+// key tiles of COLS that a block of `rows` queries from q0 needs: up to
+// the last key its last row can see
+template <int COLS = kBlockK>
 __device__ __forceinline__ int visible_k_tiles(const BwdParams& p, int q0,
                                                int rows) {
-  int n = (p.Sk + kBlockK - 1) / kBlockK;
-  if (p.causal) {
-    const int last = min(q0 + rows, p.Sq) - 1 + (p.Sk - p.Sq);
-    n = last < 0 ? 0 : min(n, last / kBlockK + 1);
-  }
-  return n;
+  return (visible_keys(p, min(q0 + rows, p.Sq) - 1) + COLS - 1) / COLS;
 }
 
-// the first q tile that can see a k tile starting at k0
+// the first query tile of COLS that can see a key tile starting at k0
+template <int COLS = kBlockQ>
 __device__ __forceinline__ int first_q_tile(const BwdParams& p, int k0) {
-  return p.causal ? max(k0 - (p.Sk - p.Sq), 0) / kBlockQ : 0;
+  return p.causal ? max(k0 - (p.Sk - p.Sq), 0) / COLS : 0;
+}
+
+// ---------------------------------------------------------------------------
+// float32: register-tiled CUDA-core kernels
+// ---------------------------------------------------------------------------
+
+// Tiling a head dim. A CTA of W warps owns ROWS = 4 R W rows (queries in
+// the dQ kernel, keys in the dK/dV kernel) and streams tiles of COLS = 8 C
+// columns (keys, queries); a warp owns 4 R rows, and lane (rg, cg) =
+// (lane / 8, lane % 8) the scores of rows R rg .. R rg + R - 1 of the warp
+// and columns C cg .. C cg + C - 1 of the tile, and the accumulators of its
+// rows at columns 8 c + cg, c < D / 8. Every tile sits in shared memory
+// d-major, so a lane reads its R rows and C columns of one d in one or two
+// 16-byte loads. Two stages of the streamed tiles; the shared memory of a
+// CTA is 4 (2 ROWS + 4 COLS) D bytes. D 64: 64 rows and 32 columns, 64 KB,
+// three CTAs an SM; on the H100 (PERF.md, §6) this beat 64 columns
+// (96 KB, two CTAs: dQ 13% and dK/dV 3% slower) and R = 2 with 8 warps
+// (1.6x slower), and unrolling further gained nothing: latency, not
+// issue, limits these kernels. D 128: R = 2 and 8 warps (192 KB, one
+// CTA); D 256: 32 rows and 32 columns, so that two stages fit.
+template <int D>
+struct F32Tiling;
+template <>
+struct F32Tiling<64> {
+  static constexpr int R = 4, C = 4, W = 4;
+};
+template <>
+struct F32Tiling<128> {
+  static constexpr int R = 2, C = 8, W = 8;
+};
+template <>
+struct F32Tiling<256> {
+  static constexpr int R = 2, C = 4, W = 4;
+};
+
+template <int D>
+struct F32Bwd : F32Tiling<D> {
+  using T = F32Tiling<D>;
+  static constexpr int kThreads = 32 * T::W;
+  static constexpr int ROWS = 4 * T::R * T::W;
+  static constexpr int COLS = 8 * T::C;
+  // float offsets: two fixed d-major [D][ROWS] tiles, two stages of two
+  // streamed d-major [D][COLS] tiles, then two stages of COLS floats for
+  // each of two vectors (the dQ kernel: the [B,1,1,S] bias; the dK/dV
+  // kernel: lse and delta) and ROWS floats (delta of the dQ kernel's rows)
+  static constexpr int A0 = 0, A1 = D * ROWS;
+  static constexpr int S0 = 2 * D * ROWS;  // stage st, tile t: + (2st + t)
+  static constexpr int kStreamed = D * COLS;
+  static constexpr int V0 = S0 + 4 * kStreamed;  // vector v, stage st:
+  static constexpr int V1 = V0 + 2 * COLS;       //   Vv + st COLS
+  static constexpr int rows_vec = V1 + 2 * COLS;
+  static constexpr int bytes = 4 * (rows_vec + ROWS);
+};
+
+// rows [0, valid) of an NR x D fp32 tile (rows of D floats row_stride
+// apart) into shared memory at dst, d-major: element (r, d) at float
+// d * NR + (r ^ 4 (d % 8)), the rest zero. A warp moves 8 rows x 4 columns
+// a pass (16-byte runs of device memory). The swizzle keeps a group of 4
+// rows from a multiple of 4 contiguous, and makes the 8 lanes that read
+// 4 rows of d = 8 c + cg (cg = 0 .. 7) read 32 distinct banks.
+template <int NR, int D, int THREADS>
+__device__ __forceinline__ void dmajor_async(uint32_t dst, const float* src,
+                                             int64_t row_stride, int valid) {
+  constexpr int kRowBlocks = NR / 8;
+  const int lane = threadIdx.x % 32;
+  const int r_lo = lane % 8, d_lo = lane / 8;
+#pragma unroll 4
+  for (int blk = threadIdx.x / 32; blk < kRowBlocks * (D / 4);
+       blk += THREADS / 32) {
+    const int r = (blk % kRowBlocks) * 8 + r_lo;
+    const int d = (blk / kRowBlocks) * 4 + d_lo;
+    const bool in = r < valid;
+    cp_async4(dst + 4 * (d * NR + (r ^ (4 * (d % 8)))),
+              in ? src + r * row_stride + d : src, in);
+  }
+}
+
+// N values of column d of a d-major tile from row (or column) r (a
+// multiple of N when N < 4, of 4 otherwise): the swizzled place of every
+// group of 4
+template <int N, int NR>
+__device__ __forceinline__ void dmajor_run(const float* tile, int d, int r,
+                                           float (&out)[N]) {
+  const float* col = tile + d * NR;
+  const int sw = 4 * (d % 8);
+  if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(col + (r ^ sw));
+    out[0] = v.x; out[1] = v.y;
+  } else {
+#pragma unroll
+    for (int g = 0; g < N / 4; ++g) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(col + ((r + 4 * g) ^ sw));
+      out[4 * g] = v.x; out[4 * g + 1] = v.y;
+      out[4 * g + 2] = v.z; out[4 * g + 3] = v.w;
+    }
+  }
+}
+
+// s += a b^T and t += c e^T over D for a lane's R x C slice: a and c are
+// the fixed d-major tiles (rows from r0), b and e the streamed ones
+// (columns from c0); per d four loads for 2 R C FMAs
+template <int D, int R, int C, int NR, int NC>
+__device__ __forceinline__ void slice_products(float (&s)[R][C],
+                                               float (&t)[R][C],
+                                               const float* a, const float* c,
+                                               const float* b, const float* e,
+                                               int r0, int c0) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) s[i][j] = t[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float av[R], cv[R], bv[C], ev[C];
+    dmajor_run<R, NR>(a, d, r0, av);
+    dmajor_run<R, NR>(c, d, r0, cv);
+    dmajor_run<C, NC>(b, d, c0, bv);
+    dmajor_run<C, NC>(e, d, c0, ev);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+        t[i][j] = fmaf(cv[i], ev[j], t[i][j]);
+      }
+  }
+}
+
+// acc[i][c] += sum over the tile's COLS columns j of x[row i][j] times
+// column j's value at d = 8 c + cg of the d-major tile t (and, with
+// SECOND, acc2 += x2 t2 alike). x[row i][j] lives in lane (rg, j / C) as its
+// x[i][j % C]: four columns at a time reach this lane by shuffles, and one
+// 16-byte load of t gives their values at one d.
+template <int D, int R, int C, int NC, bool SECOND>
+__device__ __forceinline__ void slice_accumulate(
+    float (&acc)[R][D / 8], const float (&x)[R][C], const float* t,
+    float (&acc2)[R][D / 8], const float (&x2)[R][C], const float* t2,
+    int rg, int cg) {
+  const int sw = 4 * cg;  // d % 8 == cg for every column of this lane
+#pragma unroll 2
+  for (int src = 0; src < 8; ++src) {
+#pragma unroll
+    for (int g = 0; g < C / 4; ++g) {
+      const int j0 = C * src + 4 * g;  // the tile's first column of four
+      float xv[R][4], xv2[R][4];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          xv[i][jj] = __shfl_sync(0xffffffffu, x[i][4 * g + jj], rg * 8 + src);
+          if (SECOND)
+            xv2[i][jj] =
+                __shfl_sync(0xffffffffu, x2[i][4 * g + jj], rg * 8 + src);
+        }
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        const int off = (8 * c + cg) * NC + (j0 ^ sw);
+        const float4 tv = *reinterpret_cast<const float4*>(t + off);
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          acc[i][c] = fmaf(xv[i][3], tv.w, fmaf(xv[i][2], tv.z,
+                      fmaf(xv[i][1], tv.y, fmaf(xv[i][0], tv.x, acc[i][c]))));
+        if (SECOND) {
+          const float4 uv = *reinterpret_cast<const float4*>(t2 + off);
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+            acc2[i][c] = fmaf(xv2[i][3], uv.w, fmaf(xv2[i][2], uv.z,
+                         fmaf(xv2[i][1], uv.y,
+                              fmaf(xv2[i][0], uv.x, acc2[i][c]))));
+        }
+      }
+    }
+  }
 }
 
 // delta = rowsum(dO * o) of fp32 rows [q0, q0 + valid) of this (b, h), 4
-// threads a row (blockDim.x / 4 rows at a time); into delta_s and device
-// memory
-template <int D>
+// threads a row (THREADS / 4 rows at a time); into delta_s[0, ROWS) and
+// device memory
+template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void row_delta(const BwdParams& p, const float* o,
                                           const float* dout, int b, int h,
                                           int q0, int valid,
                                           float* delta_s) {
-  for (int base = 0; base < kBlockQ; base += blockDim.x / 4) {
+  for (int base = 0; base < ROWS; base += THREADS / 4) {
     const int r = base + threadIdx.x / 4, part = threadIdx.x % 4;
     float s = 0.f;
     if (r < valid) {
       const float* orow = o + (q0 + r) * p.o_ss;
       const float* drow = dout + (q0 + r) * p.do_ss;
-      for (int c = part; c < D; c += 4) s += orow[c] * drow[c];
+#pragma unroll 4
+      for (int c = part; c < D; c += 4) s = fmaf(orow[c], drow[c], s);
     }
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (part == 0 && r < kBlockQ) {
+    if (part == 0 && r < ROWS) {
       delta_s[r] = s;
       if (r < valid)
         p.delta[(static_cast<int64_t>(b) * p.H + h) * p.Sq + q0 + r] = s;
@@ -169,47 +352,22 @@ __device__ __forceinline__ void row_delta(const BwdParams& p, const float* o,
   }
 }
 
-// ---------------------------------------------------------------------------
-// float32: CUDA-core kernels
-// ---------------------------------------------------------------------------
+// The fp32 dQ kernel: a CTA owns ROWS queries and walks the key tiles they
+// can see; Q and dO are fixed, K and V stream (with a [B,1,1,S] bias).
+// ds = p (dp keep - delta) scale stays in the registers of the lane that
+// computed it and reaches the lanes of dQ += ds k by shuffles.
+template <int D, int DROP, bool FULL_BIAS>
+__global__ void __launch_bounds__(F32Bwd<D>::kThreads)
+flash_bwd_dq_f32_kernel(const BwdParams p) {
+  using L = F32Bwd<D>;
+  constexpr int R = L::R, C = L::C, ROWS = L::ROWS, COLS = L::COLS;
+  constexpr int kThreads = L::kThreads;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t base = smem_u32(smem);
 
-constexpr int kSimtThreads = 256;
-
-// rows [0, valid) of a 64-row fp32 tile into shared memory (row stride
-// LD), the rest zero
-template <int D, int LD, int THREADS>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int64_t row_stride, int valid) {
-  for (int i = threadIdx.x; i < kBlockQ * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    dst[r * LD + c] = r < valid ? src[r * row_stride + c] : 0.f;
-  }
-}
-
-template <int D>
-constexpr size_t simt_bwd_smem_bytes() {
-  return sizeof(float) * (4 * kBlockQ * (D + 1) + 2 * kBlockQ * (kBlockK + 1) +
-                          2 * kBlockQ);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kSimtThreads)
-flash_bwd_dq_simt_kernel(const BwdParams p) {
-  constexpr int LD = D + 1;
-  constexpr int SS = kBlockK + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // [64][LD]
-  float* dOs = Qs + kBlockQ * LD;    // [64][LD]
-  float* Ks = dOs + kBlockQ * LD;    // [64][LD]
-  float* Vs = Ks + kBlockK * LD;     // [64][LD]
-  float* Ss = Vs + kBlockK * LD;     // [64][SS], ds
-  float* lse_s = Ss + 2 * kBlockQ * SS;
-  float* delta_s = lse_s + kBlockQ;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = lane / 8, cg = lane % 8;
+  const int q0 = blockIdx.x * ROWS;
   const int h = blockIdx.y, b = blockIdx.z;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -219,118 +377,124 @@ flash_bwd_dq_simt_kernel(const BwdParams p) {
       static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* bias =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
+  const bool row_bias = !FULL_BIAS && bias != nullptr;
   const uint2 seed = read_seed(p.drop);
-  const int valid_q = min(kBlockQ, p.Sq - q0);
+  const int valid_q = min(ROWS, p.Sq - q0);
+  const int n_tiles = visible_k_tiles<COLS>(p, q0, ROWS);
 
-  load_tile_f32<D, LD, kSimtThreads>(Qs, q + q0 * p.q_ss, p.q_ss, valid_q);
-  load_tile_f32<D, LD, kSimtThreads>(dOs, dout + q0 * p.do_ss, p.do_ss,
-                                     valid_q);
-  row_delta<D>(p, o, dout, b, h, q0, valid_q, delta_s);
-  if (tid < kBlockQ)
-    lse_s[tid] = tid < valid_q
-                     ? p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + q0 + tid]
-                     : 0.f;
+  // the fixed tiles and the first streamed one in one group
+  dmajor_async<ROWS, D, kThreads>(base + 4 * L::A0, q + q0 * p.q_ss, p.q_ss,
+                                  valid_q);
+  dmajor_async<ROWS, D, kThreads>(base + 4 * L::A1, dout + q0 * p.do_ss,
+                                  p.do_ss, valid_q);
+  auto issue = [&](int kt) {
+    const int st = kt & 1, k0 = kt * COLS, valid = p.Sk - k0;
+    dmajor_async<COLS, D, kThreads>(base + 4 * (L::S0 + 2 * st * L::kStreamed),
+                                    k + k0 * p.k_ss, p.k_ss, valid);
+    dmajor_async<COLS, D, kThreads>(
+        base + 4 * (L::S0 + (2 * st + 1) * L::kStreamed), v + k0 * p.v_ss,
+        p.v_ss, valid);
+    if (row_bias)
+      vec_async<kThreads, COLS>(base + 4 * (L::V0 + st * COLS),
+                                bias + k0 * p.bias_sk, p.bias_sk, valid);
+  };
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();
 
-  float acc[4][DJ];
+  const int r0 = warp * 4 * R + R * rg;  // this lane's first row
+  int kmax[R];
+  float lse2[R];
+  const float* brow[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  const int n_tiles = visible_k_tiles(p, q0, kBlockQ);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // Q, dO, lse, delta staged; last tile's K, ds consumed
-    load_tile_f32<D, LD, kSimtThreads>(Ks, k + k0 * p.k_ss, p.k_ss,
-                                       min(kBlockK, p.Sk - k0));
-    load_tile_f32<D, LD, kSimtThreads>(Vs, v + k0 * p.v_ss, p.v_ss,
-                                       min(kBlockK, p.Sk - k0));
-    __syncthreads();
-
-    // thread (ty, tx) owns rows ty + 16i and keys tx + 16j
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], da[4], kb[4], vb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = Qs[(ty + 16 * i) * LD + d];
-        da[i] = dOs[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kb[j] = Ks[(tx + 16 * j) * LD + d];
-        vb[j] = Vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-          dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float pv =
-            expf(score(p, bias, s[i][j] * p.scale, q0 + r, k0 + c) - lse_s[r]);
-        const float f = drop_factor(p.drop, seed, b, h, q0 + r, k0 + c,
-                                    p.Sq, p.Sk);
-        Ss[r * SS + c] = pv * (dp[i][j] * f - delta_s[r]) * p.scale;
-      }
-    __syncthreads();
-
-    // dQ += ds k
-#pragma unroll 4
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float dsv[4], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = Ss[(ty + 16 * i) * SS + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = Ks[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + r0 + i;
+    kmax[i] = visible_keys(p, row);
+    lse2[i] = row < p.Sq ? p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq +
+                                 row] * kLog2e
+                         : 0.f;
+    brow[i] = FULL_BIAS ? bias + row * p.bias_sq : nullptr;
   }
+  float* delta_s = smem + L::rows_vec;
+  row_delta<D, ROWS, kThreads>(p, o, dout, b, h, q0, valid_q, delta_s);
+  __syncthreads();  // delta_s
+  float dsc[R];  // delta * scale: ds = p (dp keep scale - delta scale)
+#pragma unroll
+  for (int i = 0; i < R; ++i) dsc[i] = delta_s[r0 + i] * p.scale;
+  const float scale_log2 = p.scale * kLog2e;
+  const float kept = (DROP == kNoDrop ? 1.f : p.drop.rinv) * p.scale;
+
+  float acc[R][D / 8];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    if (kt + 1 < n_tiles) issue(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt (and Q, dO) landed
+    __syncthreads();
+    const int st = kt & 1, k0 = kt * COLS;
+    const float* Ks = smem + L::S0 + 2 * st * L::kStreamed;
+    const float* Vs = Ks + L::kStreamed;
+    const float* bias_tile = smem + L::V0 + st * COLS;
+
+    float s[R][C], dp[R][C];
+    slice_products<D, R, C, ROWS, COLS>(s, dp, smem + L::A0, smem + L::A1,
+                                        Ks, Vs, r0, C * cg);
+    uint32_t keep = 0xFFFFFFFFu;
+    if (DROP != kNoDrop)
+      keep = slice_keep_bits<DROP, R, C, false>(p.drop, seed, b, h, q0 + r0,
+                                                k0 + C * cg, p.Sq, p.Sk);
+    // p = exp2(s scale log2(e) + (bias - lse) log2(e)), 0 where masked;
+    // ds = p (dp keep - delta) scale, into s
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int kc = k0 + C * cg + j;
+      const float bl = row_bias ? bias_log2(bias_tile[C * cg + j]) : 0.f;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const bool vis = kc < kmax[i];
+        float x = bl - lse2[i];
+        if (FULL_BIAS && vis) x += bias_log2(brow[i][kc * p.bias_sk]);
+        const float pv = vis ? fast_exp2(fmaf(s[i][j], scale_log2, x)) : 0.f;
+        const float fs = (keep >> (i * C + j)) & 1u ? kept : 0.f;
+        s[i][j] = pv * fmaf(dp[i][j], fs, -dsc[i]);
+      }
+    }
+    // dQ += ds k
+    slice_accumulate<D, R, C, COLS, false>(acc, s, Ks, acc, s, Ks, rg, cg);
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();
 
   float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qrow = q0 + ty + 16 * i;
-    if (qrow >= p.Sq) continue;
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + r0 + i;
+    if (row >= p.Sq) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dq[qrow * p.dq_ss + tx + 16 * j] = acc[i][j];
+    for (int c = 0; c < D / 8; ++c) dq[row * p.dq_ss + 8 * c + cg] = acc[i][c];
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kSimtThreads)
-flash_bwd_dkv_simt_kernel(const BwdParams p) {
-  constexpr int LD = D + 1;
-  constexpr int SS = kBlockQ + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;                  // [64][LD]
-  float* Vs = Ks + kBlockK * LD;     // [64][LD]
-  float* Qs = Vs + kBlockK * LD;     // [64][LD]
-  float* dOs = Qs + kBlockQ * LD;    // [64][LD]
-  float* Ps = dOs + kBlockQ * LD;    // [64 keys][SS queries], p * keep
-  float* DSs = Ps + kBlockK * SS;    // [64 keys][SS queries], ds
-  float* lse_s = DSs + kBlockK * SS;
-  float* delta_s = lse_s + kBlockQ;
+// The fp32 dK/dV kernel: a CTA owns ROWS keys and walks the query tiles
+// that can see them, on transposed scores s^T = k q^T (rows are keys); K
+// and V are fixed, Q, dO, lse and delta stream. p keep and ds stay in
+// registers and reach the lanes of dV += (p keep)^T dO and dK += ds^T q by
+// shuffles.
+template <int D, int DROP, bool FULL_BIAS>
+__global__ void __launch_bounds__(F32Bwd<D>::kThreads)
+flash_bwd_dkv_f32_kernel(const BwdParams p) {
+  using L = F32Bwd<D>;
+  constexpr int R = L::R, C = L::C, ROWS = L::ROWS, COLS = L::COLS;
+  constexpr int kThreads = L::kThreads;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t base = smem_u32(smem);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * kBlockK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = lane / 8, cg = lane % 8;
+  const int k0 = blockIdx.x * ROWS;
   const int h = blockIdx.y, b = blockIdx.z;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -339,110 +503,105 @@ flash_bwd_dkv_simt_kernel(const BwdParams p) {
       static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* bias =
       p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
+  const bool row_bias = !FULL_BIAS && bias != nullptr;
   const float* lse = p.lse + (static_cast<int64_t>(b) * p.H + h) * p.Sq;
   const float* delta = p.delta + (static_cast<int64_t>(b) * p.H + h) * p.Sq;
   const uint2 seed = read_seed(p.drop);
+  const int valid_k = min(ROWS, p.Sk - k0);
+  const int qt0 = first_q_tile<COLS>(p, k0);
+  const int n_tiles = (p.Sq + COLS - 1) / COLS - qt0;
 
-  load_tile_f32<D, LD, kSimtThreads>(Ks, k + k0 * p.k_ss, p.k_ss,
-                                     min(kBlockK, p.Sk - k0));
-  load_tile_f32<D, LD, kSimtThreads>(Vs, v + k0 * p.v_ss, p.v_ss,
-                                     min(kBlockK, p.Sk - k0));
+  dmajor_async<ROWS, D, kThreads>(base + 4 * L::A0, k + k0 * p.k_ss, p.k_ss,
+                                  valid_k);
+  dmajor_async<ROWS, D, kThreads>(base + 4 * L::A1, v + k0 * p.v_ss, p.v_ss,
+                                  valid_k);
+  auto issue = [&](int i) {
+    const int st = i & 1, q0 = (qt0 + i) * COLS, valid = p.Sq - q0;
+    dmajor_async<COLS, D, kThreads>(base + 4 * (L::S0 + 2 * st * L::kStreamed),
+                                    q + q0 * p.q_ss, p.q_ss, valid);
+    dmajor_async<COLS, D, kThreads>(
+        base + 4 * (L::S0 + (2 * st + 1) * L::kStreamed),
+        dout + q0 * p.do_ss, p.do_ss, valid);
+    vec_async<kThreads, COLS>(base + 4 * (L::V0 + st * COLS), lse + q0, 1,
+                              valid);
+    vec_async<kThreads, COLS>(base + 4 * (L::V1 + st * COLS), delta + q0, 1,
+                              valid);
+  };
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();
 
-  float dk[4][DJ], dv[4][DJ];
+  const int r0 = warp * 4 * R + R * rg;  // this lane's first key
+  int qmin[R];
+  float bl[R];
+  const float* bcol[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  const int n_q = (p.Sq + kBlockQ - 1) / kBlockQ;
-  for (int qt = first_q_tile(p, k0); qt < n_q; ++qt) {
-    const int q0 = qt * kBlockQ;
-    const int valid_q = min(kBlockQ, p.Sq - q0);
-    __syncthreads();  // the last tile's Q, dO, p, ds are consumed
-    load_tile_f32<D, LD, kSimtThreads>(Qs, q + q0 * p.q_ss, p.q_ss, valid_q);
-    load_tile_f32<D, LD, kSimtThreads>(dOs, dout + q0 * p.do_ss, p.do_ss,
-                                       valid_q);
-    if (tid < kBlockQ) {
-      lse_s[tid] = tid < valid_q ? lse[q0 + tid] : 0.f;
-      delta_s[tid] = tid < valid_q ? delta[q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // transposed scores: thread (ty, tx) owns keys ty + 16i, queries tx + 16j
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float ka[4], va[4], qb[4], db[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ka[i] = Ks[(ty + 16 * i) * LD + d];
-        va[i] = Vs[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qb[j] = Qs[(tx + 16 * j) * LD + d];
-        db[j] = dOs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[i][j] = fmaf(ka[i], qb[j], st[i][j]);
-          dpt[i][j] = fmaf(va[i], db[j], dpt[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float pv =
-            expf(score(p, bias, st[i][j] * p.scale, q0 + c, k0 + r) - lse_s[c]);
-        const float f = drop_factor(p.drop, seed, b, h, q0 + c, k0 + r,
-                                    p.Sq, p.Sk);
-        Ps[r * SS + c] = pv * f;
-        DSs[r * SS + c] = pv * (dpt[i][j] * f - delta_s[c]) * p.scale;
-      }
-    __syncthreads();
-
-    // dV += (p keep)^T dO, dK += ds^T q
-#pragma unroll 4
-    for (int qq = 0; qq < kBlockQ; ++qq) {
-      float pa[4], da[4], ob[DJ], qb[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = Ps[(ty + 16 * i) * SS + qq];
-        da[i] = DSs[(ty + 16 * i) * SS + qq];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        ob[j] = dOs[qq * LD + tx + 16 * j];
-        qb[j] = Qs[qq * LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dv[i][j] = fmaf(pa[i], ob[j], dv[i][j]);
-          dk[i][j] = fmaf(da[i], qb[j], dk[i][j]);
-        }
-    }
+  for (int i = 0; i < R; ++i) {
+    const int key = k0 + r0 + i;
+    qmin[i] = first_query(p, key);
+    bl[i] = row_bias && key < p.Sk ? bias_log2(bias[key * p.bias_sk]) : 0.f;
+    bcol[i] = FULL_BIAS ? bias + key * p.bias_sk : nullptr;
   }
+  const float scale_log2 = p.scale * kLog2e;
+  const float rinv = DROP == kNoDrop ? 1.f : p.drop.rinv;
+
+  float dk[R][D / 8], dv[R][D / 8];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) issue(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile it (and K, V) landed
+    __syncthreads();
+    const int st = it & 1, q0 = (qt0 + it) * COLS;
+    const float* Qs = smem + L::S0 + 2 * st * L::kStreamed;
+    const float* dOs = Qs + L::kStreamed;
+    const float* lse_s = smem + L::V0 + st * COLS;
+    const float* delta_s = smem + L::V1 + st * COLS;
+
+    // s^T = k q^T and dp^T = v dO^T: key r0 + i, query q0 + C cg + j
+    float s[R][C], dp[R][C];
+    slice_products<D, R, C, ROWS, COLS>(s, dp, smem + L::A0, smem + L::A1,
+                                        Qs, dOs, r0, C * cg);
+    uint32_t keep = 0xFFFFFFFFu;
+    if (DROP != kNoDrop)
+      keep = slice_keep_bits<DROP, R, C, true>(p.drop, seed, b, h, k0 + r0,
+                                               q0 + C * cg, p.Sq, p.Sk);
+    // s becomes p keep, dp becomes ds = p (dp keep - delta) scale
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int qq = q0 + C * cg + j;
+      const float l2 = lse_s[C * cg + j] * kLog2e;
+      const float dsc = delta_s[C * cg + j] * p.scale;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const bool vis = qq >= qmin[i] && qq < p.Sq;
+        float x = bl[i] - l2;
+        if (FULL_BIAS && vis) x += bias_log2(bcol[i][qq * p.bias_sq]);
+        const float pv = vis ? fast_exp2(fmaf(s[i][j], scale_log2, x)) : 0.f;
+        const float f = (keep >> (i * C + j)) & 1u ? rinv : 0.f;
+        dp[i][j] = pv * fmaf(dp[i][j], f * p.scale, -dsc);
+        s[i][j] = pv * f;
+      }
+    }
+    // dV += (p keep)^T dO, dK += ds^T q
+    slice_accumulate<D, R, C, COLS, true>(dv, s, dOs, dk, dp, Qs, rg, cg);
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();
 
   float* dkp = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
   float* dvp = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int krow = k0 + ty + 16 * i;
-    if (krow >= p.Sk) continue;
+  for (int i = 0; i < R; ++i) {
+    const int key = k0 + r0 + i;
+    if (key >= p.Sk) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dkp[krow * p.dk_ss + tx + 16 * j] = dk[i][j];
-      dvp[krow * p.dv_ss + tx + 16 * j] = dv[i][j];
+    for (int c = 0; c < D / 8; ++c) {
+      dkp[key * p.dk_ss + 8 * c + cg] = dk[i][c];
+      dvp[key * p.dv_ss + 8 * c + cg] = dv[i][c];
     }
   }
 }
@@ -589,10 +748,7 @@ flash_bwd_dq_wgmma_kernel(const BwdParams p) {
     lse2[hr] = in ? p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq +
                           rows[hr]] * kLog2e
                   : 0.f;
-    // keys [0, kmax) are visible to the row
-    kmax[hr] = !in ? 0
-               : p.causal ? max(0, min(p.Sk, rows[hr] + (p.Sk - p.Sq) + 1))
-                          : p.Sk;
+    kmax[hr] = visible_keys(p, rows[hr]);
     brow[hr] = FULL_BIAS ? bias + rows[hr] * p.bias_sq : nullptr;
   }
   rows_delta<D, E>(p, o, dout, b, h, q0, valid_q, delta_s);
@@ -696,18 +852,30 @@ flash_bwd_dq_wgmma_kernel(const BwdParams p) {
   }
 }
 
-// The dK/dV kernel: one CTA (a warpgroup) owns 64 keys and walks the
-// query tiles that can see them, on transposed scores (rows are keys).
+// Warpgroups of the dK/dV kernel: one up to D 128. At D 256 a thread's
+// dK and dV (2 x 128 fp32) fit no single warpgroup, so two warpgroups own
+// the same 64 keys: the first accumulates dV from p^T, the second dK from
+// ds^T, and both compute s^T (only the second dp^T).
+__host__ __device__ constexpr int dkv_roles(int D) { return D > 128 ? 2 : 1; }
+
+// The dK/dV kernel: one CTA owns 64 keys and walks the query tiles that
+// can see them, on transposed scores (rows are keys).
 template <typename E, int D, int DROP, bool FULL_BIAS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(dkv_roles(D) * kWarpgroup)
 flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
   using L = DkvSmem<D>;
+  constexpr int kRoles = dkv_roles(D);
+  constexpr int kCta = kRoles * kWarpgroup;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm;
   const uint32_t base = aligned_smem(smem_raw, sm);
 
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
+  // with two roles: warpgroup 0 accumulates dV, warpgroup 1 dK
+  const int wg = threadIdx.x / kWarpgroup;
+  const bool does_dv = kRoles == 1 || wg == 0;
+  const bool does_dk = kRoles == 1 || wg == 1;
   const int k0 = blockIdx.x * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
   const E* q = static_cast<const E*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -724,19 +892,20 @@ flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
   const int qt0 = first_q_tile(p, k0);
   const int n_tiles = (p.Sq + kTile - 1) / kTile - qt0;
 
-  tile_async<D>(base + L::K, k + k0 * p.k_ss, p.k_ss, valid_k);
-  tile_async<D>(base + L::V, v + k0 * p.v_ss, p.v_ss, valid_k);
+  tile_async<D, kCta>(base + L::K, k + k0 * p.k_ss, p.k_ss, valid_k);
+  tile_async<D, kCta>(base + L::V, v + k0 * p.v_ss, p.v_ss, valid_k);
   if (row_bias)
-    vec_async(base + L::bias, bias + k0 * p.bias_sk, p.bias_sk, valid_k);
+    vec_async<kCta>(base + L::bias, bias + k0 * p.bias_sk, p.bias_sk,
+                    valid_k);
   auto issue = [&](int i) {
     const int st = i % kStages, q0 = (qt0 + i) * kTile;
     const int valid = min(kTile, p.Sq - q0);
-    tile_async<D>(base + L::Q + st * L::kTileBytes, q + q0 * p.q_ss, p.q_ss,
-                  valid);
-    tile_async<D>(base + L::dO + st * L::kTileBytes, dout + q0 * p.do_ss,
-                  p.do_ss, valid);
-    vec_async(base + L::lse + st * kTile * 4, lse + q0, 1, valid);
-    vec_async(base + L::delta + st * kTile * 4, delta + q0, 1, valid);
+    tile_async<D, kCta>(base + L::Q + st * L::kTileBytes, q + q0 * p.q_ss,
+                        p.q_ss, valid);
+    tile_async<D, kCta>(base + L::dO + st * L::kTileBytes,
+                        dout + q0 * p.do_ss, p.do_ss, valid);
+    vec_async<kCta>(base + L::lse + st * kTile * 4, lse + q0, 1, valid);
+    vec_async<kCta>(base + L::delta + st * kTile * 4, delta + q0, 1, valid);
   };
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
@@ -745,22 +914,24 @@ flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
   }
 
   // this thread's keys: g and g + 8 of its warp's 16
-  const int r_loc = threadIdx.x / 32 * 16 + g;
+  const int r_loc = (threadIdx.x % kWarpgroup) / 32 * 16 + g;
   int keys[2], qmin[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     keys[hr] = k0 + r_loc + 8 * hr;
-    // queries [qmin, Sq) see the key; none when it is past Sk
-    qmin[hr] = keys[hr] >= p.Sk ? p.Sq
-               : p.causal       ? keys[hr] - (p.Sk - p.Sq)
-                                : 0;
+    qmin[hr] = first_query(p, keys[hr]);
   }
   const float scale_log2 = p.scale * kLog2e;
   const float rinv = DROP == kNoDrop ? 1.f : p.drop.rinv;
 
-  float dk[D / 2], dv[D / 2];
+  // one role: dV, then dK; two: this warpgroup's one
+  float acc[kRoles == 1 ? 2 : 1][D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int r = 0; r < (kRoles == 1 ? 2 : 1); ++r)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[r][i] = 0.f;
+  float(&dv)[D / 2] = acc[0];
+  float(&dk)[D / 2] = acc[kRoles == 1 ? 1 : 0];
 
   for (int it = 0; it < n_tiles; ++it) {
     if (it + kStages - 1 < n_tiles) issue(it + kStages - 1);
@@ -785,8 +956,10 @@ flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
     wgmma_fence();
     scores<D, E>(s, base + L::K, qb);
     wgmma_commit();
-    scores<D, E>(dp, base + L::V, ob);
-    wgmma_commit();
+    if (does_dk) {
+      scores<D, E>(dp, base + L::V, ob);
+      wgmma_commit();
+    }
     // while the tensor cores work: the keep bits, bit i for element i
     uint32_t keep = 0xFFFFFFFFu;
     if (DROP != kNoDrop) {
@@ -802,7 +975,10 @@ flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
                 ((w1 & 1u) | (w1 >> 1 & 2u)) << (4 * j + 2);
       }
     }
-    wgmma_wait<1>();
+    if (does_dk)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
     pin(s);
     float bl[2];
 #pragma unroll
@@ -826,8 +1002,10 @@ flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
           s[i] = vis ? fast_exp2(fmaf(s[i], scale_log2, x)) : 0.f;
         }
       }
-    wgmma_wait<0>();
-    pin(dp);
+    if (does_dk) {
+      wgmma_wait<0>();
+      pin(dp);
+    }
     // dp becomes ds = p (dp keep - delta) scale, s becomes p keep
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -838,26 +1016,43 @@ flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
         for (int hr = 0; hr < 2; ++hr) {
           const int i = 4 * j + 2 * hr + e;
           const float f = (keep >> i) & 1u ? rinv : 0.f;
-          dp[i] = s[i] * fmaf(dp[i], f * p.scale, -dsc);
+          if (does_dk) dp[i] = s[i] * fmaf(dp[i], f * p.scale, -dsc);
           s[i] *= f;
         }
       }
-    uint32_t ap[4][4], ads[4][4];
-    to_a_frags<E>(ap, s);
-    to_a_frags<E>(ads, dp);
-    pin(dv);
-    pin(dk);
-    wgmma_fence();
+    if constexpr (kRoles == 1) {
+      uint32_t ap[4][4], ads[4][4];
+      to_a_frags<E>(ap, s);
+      to_a_frags<E>(ads, dp);
+      pin(dv);
+      pin(dk);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<E>(dv, ap[kk], mnmajor_desc(ob, kk));
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<E>(dv, ap[kk], mnmajor_desc(ob, kk));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<E>(dk, ads[kk], mnmajor_desc(qb, kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(dv);
-    pin(dk);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<E>(dk, ads[kk], mnmajor_desc(qb, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(dv);
+      pin(dk);
+    } else {  // dV += (p keep)^T dO or dK += ds^T q
+      uint32_t a[4][4];
+      if (does_dk)
+        to_a_frags<E>(a, dp);
+      else
+        to_a_frags<E>(a, s);
+      const uint32_t bb = does_dk ? qb : ob;
+      pin(acc[0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<E>(acc[0], a[kk], mnmajor_desc(bb, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc[0]);
+    }
     __syncthreads();  // every warp is done with this stage
   }
   cp_async_wait<0>();
@@ -869,10 +1064,14 @@ flash_bwd_dkv_wgmma_kernel(const BwdParams p) {
     if (keys[hr] >= p.Sk) continue;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dkp + keys[hr] * p.dk_ss + 8 * n + 2 * t) =
-          pack2<E>(dk[4 * n + 2 * hr], dk[4 * n + 2 * hr + 1]);
-      *reinterpret_cast<uint32_t*>(dvp + keys[hr] * p.dv_ss + 8 * n + 2 * t) =
-          pack2<E>(dv[4 * n + 2 * hr], dv[4 * n + 2 * hr + 1]);
+      if (does_dk)
+        *reinterpret_cast<uint32_t*>(dkp + keys[hr] * p.dk_ss + 8 * n +
+                                     2 * t) =
+            pack2<E>(dk[4 * n + 2 * hr], dk[4 * n + 2 * hr + 1]);
+      if (does_dv)
+        *reinterpret_cast<uint32_t*>(dvp + keys[hr] * p.dv_ss + 8 * n +
+                                     2 * t) =
+            pack2<E>(dv[4 * n + 2 * hr], dv[4 * n + 2 * hr + 1]);
     }
   }
 }
@@ -949,22 +1148,57 @@ int launch_wgmma(bool dq, const BwdParams& p, cudaStream_t stream) {
   if (dq)
     return launch(flash_bwd_dq_wgmma_kernel<E, D, DROP, FULL_BIAS>, kThreads,
                   DqSmem<D>::bytes, (p.Sq + kTile - 1) / kTile, p, stream);
-  return launch(flash_bwd_dkv_wgmma_kernel<E, D, DROP, FULL_BIAS>, kThreads,
-                DkvSmem<D>::bytes, (p.Sk + kTile - 1) / kTile, p, stream);
+  return launch(flash_bwd_dkv_wgmma_kernel<E, D, DROP, FULL_BIAS>,
+                dkv_roles(D) * kWarpgroup, DkvSmem<D>::bytes,
+                (p.Sk + kTile - 1) / kTile, p, stream);
 }
 
+// the fp32 dQ (dq) or dK/dV kernel in its instance
+template <int D, int DROP, bool FULL_BIAS>
+int launch_f32(bool dq, const BwdParams& p, cudaStream_t stream) {
+  using L = F32Bwd<D>;
+  if (dq)
+    return launch(flash_bwd_dq_f32_kernel<D, DROP, FULL_BIAS>, L::kThreads,
+                  L::bytes, (p.Sq + L::ROWS - 1) / L::ROWS, p, stream);
+  return launch(flash_bwd_dkv_f32_kernel<D, DROP, FULL_BIAS>, L::kThreads,
+                L::bytes, (p.Sk + L::ROWS - 1) / L::ROWS, p, stream);
+}
+
+// the instance of the kernel of input type E (float: the fp32 kernels)
+// for this dropout mode and bias layout
 template <typename E, int D>
-int launch_wgmma(bool dq, const BwdParams& p, cudaStream_t stream) {
+int launch_instance(bool dq, const BwdParams& p, cudaStream_t stream) {
   const bool full = p.bias != nullptr && p.bias_sq != 0;
+#define PT_BWD_CASE(N, DROP, FULL)                                  \
+  case N:                                                           \
+    if constexpr (std::is_same<E, float>::value)                    \
+      return launch_f32<D, DROP, FULL>(dq, p, stream);              \
+    else                                                            \
+      return launch_wgmma<E, D, DROP, FULL>(dq, p, stream);
   switch (p.drop.mode * 2 + full) {
-    case 0: return launch_wgmma<E, D, kNoDrop, false>(dq, p, stream);
-    case 1: return launch_wgmma<E, D, kNoDrop, true>(dq, p, stream);
-    case 2: return launch_wgmma<E, D, kMaskDrop, false>(dq, p, stream);
-    case 3: return launch_wgmma<E, D, kMaskDrop, true>(dq, p, stream);
-    case 4: return launch_wgmma<E, D, kSeedDrop, false>(dq, p, stream);
-    case 5: return launch_wgmma<E, D, kSeedDrop, true>(dq, p, stream);
+    PT_BWD_CASE(0, kNoDrop, false)
+    PT_BWD_CASE(1, kNoDrop, true)
+    PT_BWD_CASE(2, kMaskDrop, false)
+    PT_BWD_CASE(3, kMaskDrop, true)
+    PT_BWD_CASE(4, kSeedDrop, false)
+    PT_BWD_CASE(5, kSeedDrop, true)
   }
+#undef PT_BWD_CASE
   return cudaErrorInvalidValue;
+}
+
+// the kernel for this dtype and D
+int launch_bwd(bool dq, int dtype, int D, const BwdParams& p,
+               cudaStream_t s) {
+#define PT_BWD_D(E)                                          \
+  if (D == 64) return launch_instance<E, 64>(dq, p, s);      \
+  if (D == 128) return launch_instance<E, 128>(dq, p, s);    \
+  if (D == 256) return launch_instance<E, 256>(dq, p, s);    \
+  return cudaErrorInvalidValue;
+  if (dtype == 0) { PT_BWD_D(float) }
+  if (dtype == 1) { PT_BWD_D(bf16) }
+  PT_BWD_D(f16)
+#undef PT_BWD_D
 }
 
 }  // namespace
@@ -982,19 +1216,7 @@ extern "C" int pt_flash_attention_bwd_dq(PT_FLASH_BWD_ARGS) {
                    nullptr, nullptr, B, H, Sq, Sk, strides, scale, causal,
                    thresh, rinv, dtype))
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (Sq + kBlockQ - 1) / kBlockQ;
-  if (dtype == 0 && D == 64)
-    return launch(flash_bwd_dq_simt_kernel<64>, kSimtThreads,
-                  simt_bwd_smem_bytes<64>(), tiles, p, s);
-  if (dtype == 0 && D == 128)
-    return launch(flash_bwd_dq_simt_kernel<128>, kSimtThreads,
-                  simt_bwd_smem_bytes<128>(), tiles, p, s);
-  if (dtype == 1 && D == 64) return launch_wgmma<bf16, 64>(true, p, s);
-  if (dtype == 1 && D == 128) return launch_wgmma<bf16, 128>(true, p, s);
-  if (dtype == 2 && D == 64) return launch_wgmma<f16, 64>(true, p, s);
-  if (dtype == 2 && D == 128) return launch_wgmma<f16, 128>(true, p, s);
-  return cudaErrorInvalidValue;
+  return launch_bwd(true, dtype, D, p, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pt_flash_attention_bwd_dkv(PT_FLASH_BWD_ARGS) {
@@ -1003,17 +1225,5 @@ extern "C" int pt_flash_attention_bwd_dkv(PT_FLASH_BWD_ARGS) {
                    nullptr, dk, dv, B, H, Sq, Sk, strides, scale, causal,
                    thresh, rinv, dtype))
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (Sk + kBlockK - 1) / kBlockK;
-  if (dtype == 0 && D == 64)
-    return launch(flash_bwd_dkv_simt_kernel<64>, kSimtThreads,
-                  simt_bwd_smem_bytes<64>(), tiles, p, s);
-  if (dtype == 0 && D == 128)
-    return launch(flash_bwd_dkv_simt_kernel<128>, kSimtThreads,
-                  simt_bwd_smem_bytes<128>(), tiles, p, s);
-  if (dtype == 1 && D == 64) return launch_wgmma<bf16, 64>(false, p, s);
-  if (dtype == 1 && D == 128) return launch_wgmma<bf16, 128>(false, p, s);
-  if (dtype == 2 && D == 64) return launch_wgmma<f16, 64>(false, p, s);
-  if (dtype == 2 && D == 128) return launch_wgmma<f16, 128>(false, p, s);
-  return cudaErrorInvalidValue;
+  return launch_bwd(false, dtype, D, p, static_cast<cudaStream_t>(stream));
 }

@@ -17,11 +17,9 @@
 // TPU kernel's threshold rule. The forward, the dQ kernel and the dK/dV
 // kernel each regenerate it bit for bit whatever their tiles, and
 // paddle_tpu_torch/kernels/flash_attention.py:philox_keep_mask gives the
-// same bits on any device. The forward and the bf16 backward kernels run
-// Philox once per 2 x 2 group and use all four words (group_bits); the
-// fp32 backward kernels take one word an element (drop_factor). The
-// constants and the round are those of at::philox_engine
-// (ATen/core/PhiloxRNGEngine.h).
+// same bits on any device. Every kernel runs Philox once per 2 x 2 group
+// and uses all four words (group_bits). The constants and the round are
+// those of at::philox_engine (ATen/core/PhiloxRNGEngine.h).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -65,10 +63,6 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 key) {
   return philox_round(c, key);
 }
 
-__device__ __forceinline__ uint32_t philox_word(uint4 r, int i) {
-  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
-}
-
 // The four words of the 2 x 2 group holding element (q, k) of head (b, h)
 __device__ __forceinline__ uint4 keep_group(uint2 seed, int b, int h, int q,
                                             int k) {
@@ -94,22 +88,6 @@ __device__ __forceinline__ uint2 read_seed(const Dropout& d) {
   if (d.mode != kSeedDrop) return make_uint2(0u, 0u);
   const uint64_t s = static_cast<uint64_t>(*d.seed);
   return make_uint2(static_cast<uint32_t>(s), static_cast<uint32_t>(s >> 32));
-}
-
-__device__ __forceinline__ float mask_factor(const Dropout& d, int b, int h,
-                                             int q, int k, int Sq, int Sk) {
-  if (q >= Sq || k >= Sk) return 0.f;
-  return d.keep[b * d.sb + h * d.sh + q * d.sq + k * d.sk] ? d.rinv : 0.f;
-}
-
-// dropout factor (0 or 1/keep_prob; 1 without dropout) of element (q, k)
-__device__ __forceinline__ float drop_factor(const Dropout& d, uint2 seed,
-                                             int b, int h, int q, int k,
-                                             int Sq, int Sk) {
-  if (d.mode == kNoDrop) return 1.f;
-  if (d.mode == kMaskDrop) return mask_factor(d, b, h, q, k, Sq, Sk);
-  const uint4 r = keep_group(seed, b, h, q, k);
-  return philox_word(r, (q & 1) * 2 + (k & 1)) >= d.thresh ? d.rinv : 0.f;
 }
 
 // keep bits of the 2 x 2 group holding (q, k) of head (b, h): bit
@@ -148,6 +126,39 @@ __device__ __forceinline__ uint32_t group_bits(const Dropout& d, uint2 seed,
     }
   }
   return bits;
+}
+
+// The keep bits of a lane's slice of R rows x C columns from row r0 and
+// column c0 (R, C, r0 and c0 even): bit i * C + j for row r0 + i, column
+// c0 + j. Rows are queries and columns keys or, TRANSPOSED (the dK/dV
+// kernels' scores), rows keys and columns queries. The slice holds whole
+// 2 x 2 groups, one group_bits call each.
+template <int MODE, int R, int C, bool TRANSPOSED>
+__device__ __forceinline__ uint32_t slice_keep_bits(const Dropout& d,
+                                                    uint2 seed, int b, int h,
+                                                    int r0, int c0, int Sq,
+                                                    int Sk) {
+  static_assert(R % 2 == 0 && C % 2 == 0 && R * C <= 32, "whole groups");
+  uint32_t keep = 0u;
+#pragma unroll
+  for (int ip = 0; ip < R / 2; ++ip)
+#pragma unroll
+    for (int jp = 0; jp < C / 2; ++jp) {
+      const int r = r0 + 2 * ip, c = c0 + 2 * jp;
+      // bit (q' & 1) * 2 + (k' & 1) of the group
+      const uint32_t bits = TRANSPOSED
+                                ? group_bits<MODE>(d, seed, b, h, c, r, Sq, Sk)
+                                : group_bits<MODE>(d, seed, b, h, r, c, Sq, Sk);
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        if (TRANSPOSED)  // row parity a is the key's: bits a and 2 + a
+          keep |= ((bits >> a) & 1u | (bits >> (1 + a)) & 2u)
+                  << ((2 * ip + a) * C + 2 * jp);
+        else  // row parity a is the query's: bits 2a and 2a + 1
+          keep |= ((bits >> (2 * a)) & 3u) << ((2 * ip + a) * C + 2 * jp);
+      }
+    }
+  return keep;
 }
 
 inline bool aligned16(const void* ptr) {

@@ -8,8 +8,9 @@
 //   layout that the wgmma shared-memory descriptors read, and of fp32
 //   vectors;
 // - the descriptors of a K-major and of an MN-major operand in that layout;
-// - wgmma m64n64k16 with both operands in shared memory, and m64n64k16 /
-//   m64n128k16 with A from registers, with their fence, commit and wait;
+// - wgmma m64n64k16 with both operands in shared memory, and m64n64k16,
+//   m64n128k16 and m64n256k16 with A from registers (N = D for D 64, 128
+//   and 256), with their fence, commit and wait;
 // - the accumulator turned into A fragments, exp2 in one MUFU op, and the
 //   keep bits a lane needs of its 2 x 2 dropout groups.
 // A CTA is one or more warpgroups; THREADS below is its thread count.
@@ -64,34 +65,37 @@ __device__ __forceinline__ void fence_proxy_async() {
 // dst (1024-byte aligned), the rest zero, in the layout the SW128
 // descriptors read: D / 64 column blocks of kTile lines of 128 bytes,
 // 16-byte chunk c of row r at chunk c ^ (r & 7). Threads [0, THREADS) take
-// part.
+// part, a thread one chunk column of rows kRowsPass apart.
 template <int D, int THREADS = kWarpgroup, typename E>
 __device__ __forceinline__ void tile_async(uint32_t dst, const E* src,
                                            int64_t row_stride, int valid) {
   static_assert(sizeof(E) == 2, "tile_async: 16-bit elements");
   constexpr int kChunks = D / 8;                 // of a row
   constexpr int kRowsPass = THREADS / kChunks;   // rows a pass
-  static_assert(kTile % kRowsPass == 0 && kRowsPass % 8 == 0,
+  static_assert(kTile % kRowsPass == 0 && (kRowsPass % 8 == 0 ||
+                                           8 % kRowsPass == 0),
                 "tile_async: whole passes");
-  // a thread's chunk column, and its swizzled place, are the same in
-  // every pass
   const int c = threadIdx.x % kChunks, r0 = threadIdx.x / kChunks;
-  const uint32_t col = (c / 8) * kTile * kLine + (((c % 8) ^ (r0 & 7)) * 16);
+  const uint32_t block = (c / 8) * kTile * kLine;
   const E* from = src + c * 8;
 #pragma unroll
   for (int i = 0; i < kTile / kRowsPass; ++i) {
     const int r = r0 + i * kRowsPass;
+    // whole 8-row passes keep a thread's swizzled chunk; shorter ones (D
+    // 256 a warpgroup: 4 rows) step through r & 7
+    const int sw = kRowsPass % 8 == 0 ? r0 & 7 : r & 7;
     const bool in = r < valid;
-    cp_async16(dst + col + r * kLine, in ? from + r * row_stride : src, in);
+    cp_async16(dst + block + (((c % 8) ^ sw) * 16) + r * kLine,
+               in ? from + r * row_stride : src, in);
   }
 }
 
-// kTile fp32 values src[i * stride], i < valid, into shared memory; the
-// rest 0
-template <int THREADS = kWarpgroup>
+// N fp32 values src[i * stride], i < valid, into shared memory; the rest
+// 0
+template <int THREADS = kWarpgroup, int N = kTile>
 __device__ __forceinline__ void vec_async(uint32_t dst, const float* src,
                                           int64_t stride, int valid) {
-  for (int i = threadIdx.x; i < kTile; i += THREADS) {
+  for (int i = threadIdx.x; i < N; i += THREADS) {
     const bool in = i < valid;
     cp_async4(dst + 4 * i, in ? src + i * stride : src, in);
   }
@@ -215,6 +219,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
     PT_WGMMA_RS_N128("bf16");
 }
 #undef PT_WGMMA_RS_N128
+
+#define PT_WGMMA_RS_N256(T)                                                  \
+  asm volatile(                                                              \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." T "." T " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "    \
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "    \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "    \
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "    \
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "   \
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "   \
+      "%127}, {%128, %129, %130, %131}, %132, 1, 1, 1, 1;\n"                 \
+      : PT_F32(0), PT_F32(32), PT_F32(64), PT_F32(96)                        \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b))
+template <typename E>
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (kIsF16<E>)
+    PT_WGMMA_RS_N256("f16");
+  else
+    PT_WGMMA_RS_N256("bf16");
+}
+#undef PT_WGMMA_RS_N256
 
 #undef PT_F32
 #undef PT_F16

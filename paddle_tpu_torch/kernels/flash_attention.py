@@ -43,7 +43,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # the input types of the tensor-core kernels, whose 16-byte copies need
 # aligned q, k, v, o, dO in the backward too

@@ -152,13 +152,20 @@ FLASH_CASES = {
     "padding_bias": dict(sq=128, sk=128, bias=True, causal=False),
     "causal": dict(sq=128, sk=128, bias=False, causal=True),
     "causal_sq_gt_sk": dict(sq=256, sk=128, bias=False, causal=True),
+    # head dim 256, which the card's kernels are held against these plain
+    # versions at
+    "d256_plain": dict(sq=128, sk=128, bias=False, causal=False, d=256),
+    "d256_padding_bias": dict(sq=128, sk=128, bias=True, causal=False,
+                              d=256),
+    "d256_causal_sq_gt_sk": dict(sq=256, sk=128, bias=False, causal=True,
+                                 d=256),
 }
 
 
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_attention_reference_matches_pallas(name):
     c = FLASH_CASES[name]
-    b, h, d = 2, 2, 64
+    b, h, d = 2, 2, c.get("d", 64)
     q, k, v = _qkv(b, h, c["sq"], c["sk"], d, 10)
     bias = _padding_bias(b, c["sk"], 11) if c["bias"] else None
     scale = 1.0 / np.sqrt(d)
@@ -171,7 +178,7 @@ def test_attention_reference_matches_pallas(name):
         None if bias is None else torch.from_numpy(bias), c["causal"], scale)
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **F32_TOL)
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), **F32_TOL)
-    if name == "causal_sq_gt_sk":
+    if name.endswith("causal_sq_gt_sk"):
         # the leading rows see no key: o = 0 and lse = 0 in both
         empty = c["sq"] - c["sk"]
         assert np.all(o_t.numpy()[:, :, :empty] == 0.0)
@@ -603,6 +610,15 @@ FLASH_BWD_CASES = {
                            keep=True),
     "keep_mask_causal": dict(sq=128, sk=128, bias=None, causal=True,
                              keep=True),
+    # head dim 256
+    "d256_plain": dict(sq=128, sk=128, bias=None, causal=False, keep=False,
+                       d=256),
+    "d256_padding_bias": dict(sq=128, sk=128, bias="pad", causal=False,
+                              keep=False, d=256),
+    "d256_causal_sq_gt_sk": dict(sq=256, sk=128, bias=None, causal=True,
+                                 keep=False, d=256),
+    "d256_keep_mask_bias": dict(sq=128, sk=128, bias="full", causal=False,
+                                keep=True, d=256),
 }
 
 
@@ -611,7 +627,7 @@ def test_flash_backward_matches_pallas(name):
     # fp32 on both sides; sums of 128 terms in another order: 1e-5 of the
     # O(1) gradients. The bias gradient sums ds over the broadcast dims.
     c = FLASH_BWD_CASES[name]
-    b, h, d = 2, 2, 64
+    b, h, d = 2, 2, c.get("d", 64)
     q, k, v = _qkv(b, h, c["sq"], c["sk"], d, 70)
     do = _rand((b, h, c["sq"], d), 71)
     bias = None
@@ -646,7 +662,7 @@ def test_flash_backward_matches_pallas(name):
         c["causal"], scale, kmt, keep_prob)
     for got, want in zip(plain, (dq_j, dk_j, dv_j)):
         np.testing.assert_allclose(got.numpy(), want, **tol)
-    if name == "causal_sq_gt_sk":
+    if name.endswith("causal_sq_gt_sk"):
         # rows that see no key: o = 0, lse = 0 and no gradient
         empty = c["sq"] - c["sk"]
         assert np.all(qt.grad.numpy()[:, :, :empty] == 0.0)
