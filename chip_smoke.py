@@ -361,9 +361,9 @@ def copies(make, per_copy_bytes):
 
 # other code paths of the kernels, beyond BERT-base's shapes: (rows, F)
 # with F not a multiple of 4 (scalar loads), F > 1024 (a block per row),
-# bf16 and fp16 gamma/beta, fp16 x, and rows past 4096 values (the wide
-# kernels: more rows than the backward's 512 blocks, scalar loads, the
-# widest row)
+# bf16 and fp16 gamma/beta, fp16 x, and rows past 4096 values (the
+# forward's wide kernel; the backward's clusters past 8192, scalar loads,
+# the widest row)
 LN_EDGE_CASES = ((7, 130, torch.float32, False), (7, 130, torch.bfloat16, False),
                  (5, 4096, torch.bfloat16, True), (3, 2050, torch.float32, False),
                  (7, 130, torch.float16, False),
@@ -371,7 +371,34 @@ LN_EDGE_CASES = ((7, 130, torch.float32, False), (7, 130, torch.bfloat16, False)
                  (5, 4096, torch.float16, True),
                  (1030, 8192, torch.float32, False),
                  (5, 8194, torch.bfloat16, True),
-                 (3, 65536, torch.float16, True))
+                 (3, 65536, torch.float16, True),
+                 # the backward's grid (kernels/layer_norm.py bwd_grid):
+                 # fewer rows than a full wave's CTAs, a last CTA with 1
+                 # row of 8, and 17 rows a CTA with 10 in the last
+                 (100, 768, torch.float32, False),
+                 (1001, 768, torch.bfloat16, False),
+                 (2203, 1024, torch.float32, False)) + tuple(
+    # each side of every bucket of the backward's instances
+    # (bwd_instance): the upper side is never a multiple of 4, nor is 3 in
+    # the first bucket
+    (37, f, dt, w16) for f, dt, w16 in (
+        (3, torch.float32, False),
+        (128, torch.float32, False), (129, torch.bfloat16, False),
+        (256, torch.float16, False), (257, torch.float32, False),
+        (384, torch.bfloat16, True), (385, torch.float16, False),
+        (512, torch.float32, False), (513, torch.bfloat16, False),
+        (768, torch.float16, True), (769, torch.float32, False),
+        (1024, torch.bfloat16, False), (1025, torch.float32, False),
+        (2048, torch.float16, False), (2049, torch.bfloat16, True),
+        (4096, torch.float32, False), (4097, torch.float32, False),
+        (6144, torch.bfloat16, False), (6145, torch.float16, False),
+        (8192, torch.float32, False), (8193, torch.bfloat16, False),
+        (12288, torch.float32, False), (12289, torch.float16, True),
+        (16384, torch.bfloat16, False), (16385, torch.float32, False),
+        (24576, torch.float16, False), (24577, torch.bfloat16, False),
+        (32768, torch.float32, False), (32769, torch.bfloat16, True),
+        (49152, torch.float16, False), (49153, torch.float32, False),
+        (65536, torch.float32, False)))
 
 
 def check_layer_norm(device, rows=4096, f=768):
@@ -619,7 +646,7 @@ def check_flash_instances(device):
 # Tolerances of the backward kernels against their plain versions on the
 # card. Layer norm, fp32: dx is O(1) values from the same fp32 arithmetic
 # in another order (a few ulps); dgamma and dbeta sum 16384 rows of O(1)
-# terms in another order (partials of up to 32 rows, then 512 partials),
+# terms in another order (a warp's ~16 rows, 8 warps, then 132 groups),
 # an error of ~1e-5 of their O(100) size. bf16 dx: both sides round nearly
 # the same fp32 value to bf16, up to two bf16 steps apart.
 LN_BWD_TOL = {torch.float32: dict(dx=(1e-5, 1e-5), dgamma=(1e-3, 1e-5),

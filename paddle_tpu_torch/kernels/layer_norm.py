@@ -28,14 +28,30 @@ from . import _build
 launches = 0
 launches_bwd = 0
 
-# rows up to 4096 values are held in registers, wider ones walked in
-# strides; the cap bounds the backward's partial sums (2 x MAX_BWD_BLOCKS
-# x F fp32 values, 256 MB at this width)
+# the forward holds rows up to 4096 values in registers and walks wider
+# ones in strides; the backward holds every row in registers, past 8192
+# values across a cluster of up to 8 CTAs
 MAX_FEATURES = 65536
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-# The backward writes per-block fp32 partial sums of dgamma and dbeta and
-# reduces them in a second, fixed-order pass: at most this many blocks.
-MAX_BWD_BLOCKS = 512
+
+# The backward's instances and grid, mirroring csrc/layer_norm.cu. Up to
+# 1024 features a warp owns a row, 4 values a lane in each of N chunks of
+# 128 columns, N one of BWD_WARP_CHUNKS, one CTA an SM of
+# bwd_cta_warps(N) warps. Wider rows: a 512-thread CTA, or a cluster of K
+# of them, owns a row, N (1-4) chunks of 2048 columns of a CTA's slice of
+# ceil(F / K) columns.
+BWD_WARP_CHUNKS = (1, 2, 3, 4, 6, 8)
+BWD_WARP_MAX_FEATURES = 32 * 4 * BWD_WARP_CHUNKS[-1]
+BWD_ROW_THREADS = 512
+BWD_ROW_MAX_CHUNKS = 4
+BWD_CLUSTERS = (1, 2, 4, 8)
+# the H100's SMs, and the clusters of 2, 4 and 8 CTAs (one an SM) that its
+# GPCs hold at once
+SMS = 132
+RESIDENT_CLUSTERS = {2: 66, 4: 32, 8: 16}
+# the backward's fp32 scratch of [2, G, F] partial sums never exceeds this
+# (bwd_grid: G F <= 132 x 8192 for every instance)
+MAX_BWD_SCRATCH_BYTES = 2 * SMS * 8192 * 4
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_int,
@@ -145,11 +161,58 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y, mean, rstd
 
 
-def bwd_blocks(rows: int, f: int) -> int:
-    """Blocks of the backward's first pass, and so rows of its partial
-    sums: 4 rows a block for F <= 1024 (a warp each), else 1, capped."""
-    per_block = 4 if f <= 1024 else 1
-    return max(1, min(MAX_BWD_BLOCKS, -(-rows // per_block)))
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_instance(f: int) -> Tuple[str, int, int]:
+    """("warp", N, 1) or ("row", N, K): the backward kernel that takes rows
+    of f features, N its chunks a lane and K its cluster size (the
+    dispatch of csrc/layer_norm.cu, warp_chunks and row_plan)."""
+    if not 1 <= f <= MAX_FEATURES:
+        raise ValueError(f"layer_norm backward: no instance for {f} features")
+    if f <= BWD_WARP_MAX_FEATURES:
+        need = _ceil_div(f, 128)
+        return "warp", next(n for n in BWD_WARP_CHUNKS if n >= need), 1
+    k = 1
+    while k * BWD_ROW_THREADS * 4 * BWD_ROW_MAX_CHUNKS < f:
+        k *= 2
+    s = (_ceil_div(f, k) + 3) // 4 * 4
+    return "row", _ceil_div(s, BWD_ROW_THREADS * 4), k
+
+
+def bwd_cta_warps(n: int) -> int:
+    """Warps of the warp kernel's CTA at N chunks, one CTA an SM."""
+    return {1: 32, 2: 24, 3: 16, 4: 16, 6: 8, 8: 8}[n]
+
+
+def bwd_row_min_blocks(n: int) -> int:
+    """CTAs an SM the 512-thread instance at N chunks is compiled for."""
+    return 2 if n == 1 else 1
+
+
+def bwd_grid(rows: int, f: int) -> Tuple[int, int]:
+    """(groups G, rows a group): the backward's grid, one wave on the
+    H100. A group is a CTA (up to 1024 features) or a cluster of K CTAs;
+    it owns a run of rows and writes one row of dgamma and dbeta partial
+    sums. G is at most what the SMs hold at once and no group is left
+    without rows (rows >= 1)."""
+    kind, n, k = bwd_instance(f)
+    if kind == "warp":
+        groups = min(_ceil_div(rows, bwd_cta_warps(n)), SMS)
+    else:
+        most = SMS * bwd_row_min_blocks(n) if k == 1 else \
+            RESIDENT_CLUSTERS[k]
+        groups = min(rows, most)
+    per_group = _ceil_div(rows, groups)
+    return _ceil_div(rows, per_group), per_group
+
+
+def bwd_scratch(rows: int, f: int, device) -> torch.Tensor:
+    """The backward's fp32 partial sums [2, G, f] of dgamma and dbeta, one
+    row of each a group (at most ``MAX_BWD_SCRATCH_BYTES``)."""
+    groups, _ = bwd_grid(rows, f)
+    return torch.empty((2, groups, f), dtype=torch.float32, device=device)
 
 
 def _launch_bwd(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
@@ -170,13 +233,12 @@ def _launch_bwd(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
     dbeta = torch.empty_like(gamma)
     if rows == 0:
         return dx, dgamma.zero_(), dbeta.zero_()
-    blocks = bwd_blocks(rows, f)
-    partial = torch.empty((2, blocks, f), dtype=torch.float32,
-                          device=x.device)
+    partial = bwd_scratch(rows, f, x.device)
+    groups = partial.shape[1]
     fn = _build.function("layer_norm", "pt_layer_norm_bwd", _BWD_ARGTYPES)
     rc = fn(x.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
-            dbeta.data_ptr(), partial.data_ptr(), rows, f, blocks,
+            dbeta.data_ptr(), partial.data_ptr(), rows, f, groups,
             _build.dtype_code(x.dtype), _build.dtype_code(gamma.dtype),
             _build.stream_ptr(x.device))
     launches_bwd += 1

@@ -8,7 +8,9 @@ kernels are held against these plain versions on the card by
 chip_smoke.py.
 """
 import ctypes
+import pathlib
 import re
+import shutil
 
 import numpy as np
 import pytest
@@ -526,17 +528,23 @@ def _ln_vjp_jax(x, g, b, dy, eps):
     return vjp(dy.astype(y.dtype))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_layer_norm_backward_matches_pallas(dtype):
+@pytest.mark.parametrize("dtype,rows,f", [
+    pytest.param("float32", 16, 128, id="float32"),
+    pytest.param("bfloat16", 16, 128, id="bfloat16"),
+    # each side of the backward's boundary between a warp a row and a
+    # 512-thread CTA a row (bwd_instance)
+    pytest.param("float32", 8, 1024, id="float32-1024"),
+    pytest.param("bfloat16", 8, 1025, id="bfloat16-1025")])
+def test_layer_norm_backward_matches_pallas(dtype, rows, f):
     # fp32: the same formula summed in another order, a few ulps of O(1)
-    # values (dgamma/dbeta sum 16 rows). bf16 dx: both sides compute in fp32
-    # from identical bf16 inputs and round to bf16, so they may differ by
-    # one bf16 step (2^-8 relative) of values up to ~4; dgamma and dbeta
+    # values (dgamma/dbeta sum 8-16 rows). bf16 dx: both sides compute in
+    # fp32 from identical bf16 inputs and round to bf16, so they may differ
+    # by one bf16 step (2^-8 relative) of values up to ~4; dgamma and dbeta
     # stay fp32 (gamma's dtype) from identical bf16 products.
     eps = 1e-5
-    x = _rand((16, 128), 60, scale=2.0, shift=0.5)
-    g, b = _rand((128,), 61, 0.1, 1.0), _rand((128,), 62, 0.1)
-    dy = _rand((16, 128), 63)
+    x = _rand((rows, f), 60, scale=2.0, shift=0.5)
+    g, b = _rand((f,), 61, 0.1, 1.0), _rand((f,), 62, 0.1)
+    dy = _rand((rows, f), 63)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     dx_j, dg_j, db_j = _ln_vjp_jax(jnp.asarray(x, jdt), jnp.asarray(g),
@@ -571,10 +579,127 @@ def test_layer_norm_with_stats_gradient_flows_through_y_only():
     torch.testing.assert_close(b.grad, torch.full((96,), 4.0))
 
 
-def test_layer_norm_backward_blocks_are_capped():
-    assert tln.bwd_blocks(16384, 768) == tln.MAX_BWD_BLOCKS
-    assert tln.bwd_blocks(7, 130) == 2
-    assert tln.bwd_blocks(5, 4096) == 5
+@pytest.mark.parametrize("rows,f,want", [
+    (16384, 768, (132, 125)),  # BERT-base's train step: one CTA an SM
+    (2048, 8192, (128, 16)),   # a 512-thread CTA a row, one an SM
+    (7, 130, (1, 7)),          # fewer rows than a CTA's 24 warps
+    (5, 4096, (5, 1)),
+    (1001, 768, (126, 8)),     # 8 rows a CTA of 8 warps, 1 in the last
+    (40, 65536, (14, 3)),      # clusters of 8: 16 at once
+    (10 ** 6, 1, (132, 7576))])
+def test_layer_norm_backward_grid_is_one_wave(rows, f, want):
+    groups, per_group = tln.bwd_grid(rows, f)
+    assert (groups, per_group) == want
+    # every row in a group, no group without rows, and no more groups (of
+    # K CTAs) than the H100's SMs hold at once
+    assert (groups - 1) * per_group < rows <= groups * per_group
+    kind, n, k = tln.bwd_instance(f)
+    ctas_per_sm = 1 if kind == "warp" else tln.bwd_row_min_blocks(n)
+    assert groups * k <= tln.SMS * ctas_per_sm
+    if k > 1:
+        assert groups <= tln.RESIDENT_CLUSTERS[k]
+
+
+def test_layer_norm_backward_every_width_has_an_instance():
+    warp_capacity = 32 * 4
+    row_capacity = tln.BWD_ROW_THREADS * 4
+    for f in range(1, tln.MAX_FEATURES + 1):
+        kind, n, k = tln.bwd_instance(f)
+        if f <= tln.BWD_WARP_MAX_FEATURES:
+            assert kind == "warp" and k == 1 and n in tln.BWD_WARP_CHUNKS
+            assert n * warp_capacity >= f
+            smaller = [m for m in tln.BWD_WARP_CHUNKS if m < n]
+            assert not smaller or smaller[-1] * warp_capacity < f
+        else:
+            assert kind == "row" and k in tln.BWD_CLUSTERS
+            assert 1 <= n <= tln.BWD_ROW_MAX_CHUNKS
+            # a CTA's slice fits its N chunks, the K slices cover the row,
+            # and neither a smaller cluster nor fewer chunks would do
+            s = (-(-f // k) + 3) // 4 * 4
+            assert (n - 1) * row_capacity < s <= n * row_capacity
+            assert k * s >= f
+            assert k == 1 or \
+                (k // 2) * row_capacity * tln.BWD_ROW_MAX_CHUNKS < f
+    for f in (0, tln.MAX_FEATURES + 1):
+        with pytest.raises(ValueError):
+            tln.bwd_instance(f)
+
+
+def test_layer_norm_backward_instances_mirror_the_cuda_source():
+    src = (_build.CSRC_DIR / "layer_norm.cu").read_text()
+
+    def const(name):  # an integer or a product of integers
+        expr = re.search(rf"constexpr int {name} = ([\d *]+);", src).group(1)
+        return int(np.prod([int(v) for v in expr.split("*")]))
+    chunks = re.search(r"kWarpChunks\[\] = \{([^}]*)\}", src).group(1)
+    assert tuple(int(v) for v in chunks.split(",")) == tln.BWD_WARP_CHUNKS
+    assert const("kWarpMaxFeatures") == tln.BWD_WARP_MAX_FEATURES
+    assert const("kRowThreads") == tln.BWD_ROW_THREADS
+    assert const("kRowMaxChunks") == tln.BWD_ROW_MAX_CHUNKS
+    assert const("kRowMaxCluster") == tln.BWD_CLUSTERS[-1]
+    assert const("kMaxFeatures") == tln.MAX_FEATURES
+
+    def ladder(fn):  # "n <= 1 ? 8 : n <= 2 ? 6 : ... : 2" as {n: blocks}
+        body = re.search(rf"int {fn}\(int n\) \{{\s*return ([^;]+);",
+                         src).group(1)
+        steps = [(int(a), int(b))
+                 for a, b in re.findall(r"n <= (\d+) \? (\d+)", body)]
+        last = int(body.rsplit(":", 1)[1])
+        return lambda n: next((b for a, b in steps if n <= a), last)
+    warps, row = ladder("warp_cta_warps"), ladder("row_min_blocks")
+    for n in tln.BWD_WARP_CHUNKS:
+        assert warps(n) == tln.bwd_cta_warps(n)
+    for n in range(1, tln.BWD_ROW_MAX_CHUNKS + 1):
+        assert row(n) == tln.bwd_row_min_blocks(n)
+
+
+def test_layer_norm_backward_scratch_stays_bounded():
+    worst = 0
+    for f in range(1, tln.MAX_FEATURES + 1, 7):
+        groups, _ = tln.bwd_grid(10 ** 7, f)
+        worst = max(worst, 2 * groups * f * 4)
+    assert worst <= tln.MAX_BWD_SCRATCH_BYTES
+    for rows, f in ((16384, 768), (2048, 8192), (3, 65536)):
+        part = tln.bwd_scratch(rows, f, "cpu")
+        assert part.dtype == torch.float32
+        assert part.shape == (2, tln.bwd_grid(rows, f)[0], f)
+        assert part.numel() * 4 <= tln.MAX_BWD_SCRATCH_BYTES
+
+
+def test_layer_norm_backward_launch_passes_the_grid(monkeypatch):
+    seen = []
+
+    def fake(*args):
+        seen.append(args)
+        return 0
+    monkeypatch.setattr(_build, "function", lambda *a: fake)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    x = torch.zeros(300, 2050)
+    before = tln.launches_bwd
+    tln._launch_bwd(torch.zeros_like(x), x, torch.ones(2050),
+                    torch.zeros(300), torch.ones(300))
+    assert tln.launches_bwd == before + 1
+    (args,) = seen
+    assert args[9:12] == (300, 2050, tln.bwd_grid(300, 2050)[0])
+
+
+def test_ln_bwd_probe_trace_patch_finds_its_anchors(tmp_path):
+    # scripts/ln_bwd_probe.py trace stamps a copy of csrc/layer_norm.cu at
+    # fixed lines; each must be in the source exactly once
+    import importlib.util
+    root = pathlib.Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "ln_bwd_probe", root / "scripts" / "ln_bwd_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    shutil.copytree(root / "paddle_tpu_torch", tmp_path / "paddle_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(root / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    copy = probe.make_trace_copy(tmp_path)
+    src = (copy / "paddle_tpu_torch" / "csrc" / "layer_norm.cu").read_text()
+    # the helper, then one stamp for each other entry
+    assert src.count("gtime()") == len(probe.TRACE_PATCH)
+    assert "pt_ln_trace" in src
 
 
 # --------------------------------------------------------------------------
