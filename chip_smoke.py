@@ -67,7 +67,24 @@ Phases, each printing its lines; any failure exits nonzero:
    tiling, and at head dim 256 in each dtype); the train step's eager ms,
    tokens/s, MFU and device idle
    share, with a profiler breakdown;
-6. generation, the third main path: the decoder of docs/generation.md
+6. the BERT training recipe ("[recipe]" lines), the fourth main path:
+   (i) two fp32 ``TrainStep`` steps of AdamW(0.01) and of Lamb(0.01) +
+   ``L2Decay(1e-4)``, each with ``GradientClipByGlobalNorm(1.0)`` under
+   warmup into a linear decay, on the card against the CPU port (loss,
+   lr, clip factor, every clipped gradient, every parameter after each
+   step); an inf in the fp16 flash backward's dO and the layer-norm
+   backward's dy gives non-finite gradients; (ii) the main path: the eager
+   dygraph loop under ``auto_cast(dtype="float16")`` with ``GradScaler``
+   at B=32 S=512 M=80, dropout on, 10 steps, counts set to 0 before and
+   read after: 26 layer-norm forward and backward, 12 flash forward, dQ
+   and dK/dV launches a step, the flash kernels on fp16, all-"flash" and
+   all-"kernel" path logs, falling losses, the scale sequence; (iii) the
+   same loop from a loss scale of 2^32 that overflows: each skipped step
+   leaves every parameter, accumulator and the schedule's step bitwise
+   unchanged, the scale follows the rule; (iv) times of the recipe's steps
+   beside the plain ``Adam(1e-4)`` step: step ms, device ms, kernels and
+   host syncs a step;
+7. generation, the third main path: the decoder of docs/generation.md
    at full width and depth (vocab 32000, hidden 1024, 16 layers, 16
    heads; weights from ``init_params`` through ``load_reference_params``):
    (i) both paged-attention kernels (fp32, int8 and fp8 pools; Cq 1 and
@@ -87,7 +104,7 @@ Phases, each printing its lines; any failure exits nonzero:
    gather + SDPA; tokens/s, mixed-step, TTFT and TPOT quantiles, and the
    device idle share and the paged-attention group's device ms a mixed
    step over profiled mixed steps, in fp32 and int8 KV;
-7. one JSON line of kernel records, the card line, and last the result
+8. one JSON line of kernel records, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -784,7 +801,10 @@ FLASH_BWD_CASES = (
     (2, 4, 77, 77, 256, "pad", False, torch.bfloat16, "qkv_views", "seed"),
     (2, 4, 77, 77, 256, "full", False, torch.float32, "qkv_views", "mask"),
     (1, 4, 100, 100, 256, None, True, torch.bfloat16, "unaligned", None),
-    (1, 4, 100, 100, 256, None, True, torch.float16, "unaligned", "seed"))
+    (1, 4, 100, 100, 256, None, True, torch.float16, "unaligned", "seed"),
+    # the fp16 recipe's calls (phase 6): the train shape, seed dropout 0.1
+    (32, 12, 512, 512, 64, None, False, torch.float16, "contiguous", None),
+    (32, 12, 512, 512, 64, None, False, torch.float16, "contiguous", "seed"))
 KEEP_PROB = 0.9
 
 
@@ -864,7 +884,7 @@ def check_flash_bwd(device):
         if copies != want:
             fail(f"{label}: {copies} inputs copied before the launch, want "
                  f"{want}")
-        if drop == "seed" and b == TRAIN_B and dtype == torch.bfloat16:
+        if drop == "seed" and b == TRAIN_B and dtype != torch.float32:
             # no atomics: a second run gives the same bits
             again = FA._launch_bwd(do, q, k, v, o, lse, bias, causal, scale,
                                    None, seed_t, kp)
@@ -1512,13 +1532,14 @@ def train_flops(cfg, b, s, m):
 
 
 def grads_at_step(opt, sink):
-    """Wrap opt.step to hand the gradients it is about to apply to sink."""
-    inner = opt.step
+    """Wrap the optimizer's update (``TrainStep`` calls ``opt._apply``) to
+    hand the gradients it is about to apply to sink."""
+    inner = opt._apply
 
-    def step():
+    def apply(step):
         sink(opt.named_parameters())
-        inner()
-    opt.step = step
+        inner(step)
+    opt._apply = apply
 
 
 def check_step_against_cpu(device, state, cfg_kw):
@@ -1776,18 +1797,31 @@ def profiled_ms(fn, reps=5):
     (autograd's backward of a library call, a library call that draws
     random numbers): the summed durations of its kernels in a
     torch.profiler trace, so the host's gaps between launches are left
-    out."""
+    out. A trace that holds no device event at all (the profiler
+    sometimes records none) is taken again, up to three times; then the
+    calls are timed with CUDA events, gaps included, and that is said."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy > 0:
+            return busy / 1e3 / reps
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    say("times", "profiler traces held no device event: timed with CUDA "
+        "events instead")
+    return start.elapsed_time(end) / reps
 
 
 # (rows, F, x dtype) timed: the train step's norm in each dtype, and a
@@ -1934,29 +1968,22 @@ TRAIN_GROUPS = (("flash attention fwd", ("flash_fwd",)),
                 ("casts and copies", ("copy",)))
 
 
-def time_train_step(step, batch, cfg, card, reps=10):
-    """The main path's step: eager ms (host clock, synchronised, median),
-    tokens/s, MFU at 989 TFLOP/s with bench.py's FLOP count, and from
-    torch.profiler the device busy time by kernel group and the idle
-    share 1 - busy / eager."""
+def profile_step(fn):
+    """One call of ``fn`` under torch.profiler: (device busy ms, kernels,
+    busy ms by TRAIN_GROUPS group, [ms, count] by kernel name). A trace
+    with no device event (the profiler sometimes records none) is taken
+    again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):
-        step(*batch)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        step(*batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    ms = 1e3 * float(np.median(times))
-    tokens = TRAIN_B * TRAIN_S
-    flops = train_flops(cfg, TRAIN_B, TRAIN_S, TRAIN_M)
-    mfu = flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(*batch)
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events()):
+            break
+    else:
+        fail("three profiler traces of a step held no device event")
     groups = {g: 0.0 for g, _ in TRAIN_GROUPS}
     groups["other (elementwise, optimizer, loss)"] = 0.0
     by_name = {}
@@ -1973,7 +2000,28 @@ def time_train_step(step, batch, cfg, card, reps=10):
         ms_n = by_name.setdefault(e.name[:90], [0.0, 0])
         ms_n[0] += t
         ms_n[1] += 1
-    busy = sum(groups.values())
+    return sum(groups.values()), n_kernels, groups, by_name
+
+
+def time_train_step(step, batch, cfg, card, reps=10):
+    """The main path's step: eager ms (host clock, synchronised, median),
+    tokens/s, MFU at 989 TFLOP/s with bench.py's FLOP count, and from
+    torch.profiler the device busy time by kernel group and the idle
+    share 1 - busy / eager."""
+    for _ in range(2):
+        step(*batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * float(np.median(times))
+    tokens = TRAIN_B * TRAIN_S
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S, TRAIN_M)
+    mfu = flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    busy, n_kernels, groups, by_name = profile_step(lambda: step(*batch))
     if busy <= 0.0:
         say("times", "train step: the profiler saw no device time; device "
             "ms and idle share not measured")
@@ -1995,7 +2043,592 @@ def time_train_step(step, batch, cfg, card, reps=10):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: generation
+# phase 6: the BERT training recipe
+# ---------------------------------------------------------------------------
+
+# Paddle's BERT pretraining recipe: linear warmup into a linear decay,
+# GradientClipByGlobalNorm(1.0), AdamW(weight_decay 0.01) or Lamb(0.01)
+# with L2Decay(1e-4); in fp16, dynamic loss scaling.
+RECIPE_LR = 1e-4
+# (i) the fp32 recipe on the card against the CPU port: three steps (lr
+# 0, 2.5e-5, 5e-5 of the warmup), B=2 S=128, dropout 0, held at STEP_TOL;
+# the parameters after a step within 2.5 times that step's lr (STEP_TOL's
+# rule), and each step's update (parameters after minus before) per
+# tensor: |d_card - d_cpu| <= UPDATE_RTOL |d_cpu| in the 2-norm. An update
+# that did nothing or flipped sign is off by 1 or 2 of |d_cpu|. Sound
+# arithmetic in another order: 2.2e-5 at most in tests/test_torch_train.py
+# (port vs JAX on the CPU), 1.73e-4 (AdamW) and 2.36e-4 (Lamb) on the
+# card, each in a layer norm's 768 values: the rules' m / (sqrt(v) + eps)
+# is free of the gradient's scale, so an element's update follows its
+# gradient's relative error, large where the gradient is small beside
+# the tensor's max (STEP_TOL holds gradients to a share of the max; the
+# worst element's gradient was 2e-4 of it). The worst element is
+# printed with its gradient. The key projection's bias is held
+# elementwise only: its exact gradient is 0 (a softmax row is unchanged
+# by q . b_k added to every score), so its update is rounding noise on
+# either device.
+RECIPE_CHECK_STEPS = 3
+UPDATE_RTOL = 1e-3
+# (ii) the fp16 eager loop at the main path's batch, as many steps
+RECIPE_STEPS = 10
+RECIPE_INIT_SCALE = 2.0 ** 15
+# (iii) the overflow run: 2^32 / 2560 masked positions is far past fp16's
+# 65504 in the MLM decoder's gradient; the scale halves on every skip
+# (decr_every_n_nan_or_inf 1) and the run goes on until RECIPE_STEPS steps
+# were applied. Other fp16 weight gradients overflow down to ~2^18, so the
+# first 13-16 steps are skipped: 40 steps leave room.
+OVERFLOW_EXPONENTS = (32, 36, 40)
+OVERFLOW_MAX_STEPS = 40
+# (iv) steps counted under torch.cuda.set_sync_debug_mode
+SYNC_STEPS = 5
+
+
+def recipe_optimizer(which, parameters=None):
+    """The recipe's optimizer: AdamW(0.01), or Lamb(0.01) with L2Decay
+    (1e-4), under the global-norm clip and the schedule."""
+    from paddle_tpu_torch import optimizer as O
+    sched = O.LinearLrWarmup(
+        O.PolynomialDecay(RECIPE_LR, decay_steps=1000, end_learning_rate=0.0,
+                          power=1.0), warmup_steps=4, start_lr=0.0,
+        end_lr=RECIPE_LR)
+    clip = O.GradientClipByGlobalNorm(1.0)
+    if which == "adamw":
+        return O.AdamW(sched, weight_decay=0.01, grad_clip=clip,
+                       parameters=parameters)
+    return O.Lamb(sched, lamb_weight_decay=0.01, grad_clip=clip,
+                  regularization=O.L2Decay(1e-4), parameters=parameters)
+
+
+class RecipeRecorder:
+    """Records what an optimizer's update saw: each step's lr, clip factor
+    and the gradients after the clip, on the host."""
+
+    def __init__(self, opt):
+        self.lrs, self.factors, self.grads = [], [], []
+        lr_on, clip = opt._lr_on, opt.grad_clip
+        factor, apply = clip.factor, clip.eager_apply
+
+        def rec_lr(device, step):
+            self.lrs.append(lr_on(device, step))
+            return self.lrs[-1]
+
+        def rec_factor(grads):
+            self.factors.append(factor(grads))
+            return self.factors[-1]
+
+        def rec_clip(pgs):
+            out = apply(pgs)
+            self.grads.append({opt._param_names[p]: g.detach().cpu()
+                               for p, g in out})
+            return out
+        opt._lr_on, clip.factor, clip.eager_apply = rec_lr, rec_factor, \
+            rec_clip
+
+
+def check_recipe_against_cpu(device, state, which):
+    """(i) RECIPE_CHECK_STEPS fp32 TrainStep steps of the recipe on the
+    card and on the CPU port from one state: loss, lr, clip factor, every
+    gradient after the clip, every parameter and its update at each
+    step."""
+    from paddle_tpu_torch.jit import TrainStep, load_reference_state
+    from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                              pretraining_loss)
+    cfg = BertConfig(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    runs = []
+    for where in (device, torch.device("cpu")):
+        model = BertForPretraining(cfg, device=where)
+        load_reference_state(model, state)
+        opt = recipe_optimizer(which)
+        step = TrainStep(model, pretraining_loss, opt)
+        rec = RecipeRecorder(opt)
+        inputs, labels = train_batch(2, 128, 20, cfg.vocab_size, where,
+                                     SEED + 5)
+        losses = []
+        params = [{n: p.detach().cpu().clone() for n, p in
+                   opt.named_parameters().items()}]
+        for _ in range(RECIPE_CHECK_STEPS):
+            losses.append(float(step(inputs, labels)))
+            params.append({n: p.detach().cpu().clone() for n, p in
+                           opt.named_parameters().items()})
+        runs.append(dict(loss=losses, lr=[float(x) for x in rec.lrs],
+                         factor=[float(x) for x in rec.factors],
+                         grads=rec.grads, params=params))
+        del model, opt, step, rec
+        torch.cuda.empty_cache()
+    gpu, cpu = runs
+    worst = dict(loss=0.0, lr=0.0, factor=0.0, grad=0.0, param=0.0,
+                 update=0.0)
+    for key in ("loss", "lr", "factor"):
+        if len(gpu[key]) != RECIPE_CHECK_STEPS or \
+                len(cpu[key]) != RECIPE_CHECK_STEPS:
+            fail(f"{which} recipe: {key} recorded {len(gpu[key])} / "
+                 f"{len(cpu[key])} times in {RECIPE_CHECK_STEPS} steps")
+        for a, b in zip(gpu[key], cpu[key]):
+            rel = abs(a - b) / max(abs(b), 1e-30)
+            worst[key] = max(worst[key], rel)
+            if rel > STEP_TOL["loss_rtol"]:
+                fail(f"{which} recipe: {key} {a} on the card, {b} on the "
+                     "CPU")
+    for i in range(RECIPE_CHECK_STEPS):
+        gg, gc = gpu["grads"][i], cpu["grads"][i]
+        top = max(float(g.abs().max()) for g in gc.values())
+        if set(gg) != set(gc):
+            fail(f"{which} recipe step {i}: gradients of other parameters")
+        for n in gc:
+            scale = float(gc[n].abs().max())
+            atol = STEP_TOL["grad_rel"] * scale + STEP_TOL["grad_floor"] * top
+            err, ok = max_err(gg[n], gc[n], atol, STEP_TOL["grad_rel"])
+            worst["grad"] = max(worst["grad"], err / atol)
+            if not ok:
+                fail(f"{which} recipe step {i}: clipped gradient of {n} "
+                     f"differs by {err} (max |grad| {scale})")
+        atol = 2.5 * cpu["lr"][i]
+        for n, want in cpu["params"][i + 1].items():
+            got = gpu["params"][i + 1][n]
+            err, ok = max_err(got, want, atol, 0.0)
+            worst["param"] = max(worst["param"], err)
+            if not ok:
+                fail(f"{which} recipe step {i}: {n} differs by {err} (tol "
+                     f"{atol:g}, 2.5 lr)")
+            if cpu["lr"][i] == 0.0 or n.endswith("k_proj.bias"):
+                continue
+            d_gpu = got.double() - gpu["params"][i][n].double()
+            d_cpu = want.double() - cpu["params"][i][n].double()
+            off, norm = float((d_gpu - d_cpu).norm()), float(d_cpu.norm())
+            rel = off / norm if norm else (0.0 if off == 0.0 else math.inf)
+            e = (d_gpu - d_cpu).abs().flatten()
+            j = int(e.argmax())
+            elem = (f"{n} step {i}: {rel:.3e} of its norm, its worst element "
+                    f"off by {float(e[j]) / cpu['lr'][i]:.2e} lr where the "
+                    f"clipped gradient is {float(gc[n].flatten()[j]):.3e} "
+                    f"(card {float(gg[n].flatten()[j]):.3e}; the tensor's "
+                    f"max {float(gc[n].abs().max()):.3e})")
+            if rel >= worst["update"]:
+                worst["update"], worst["update_at"] = rel, elem
+            if not rel <= UPDATE_RTOL:
+                fail(f"{which} recipe: the update of {elem} away from the "
+                     f"CPU port's (tol {UPDATE_RTOL:g})")
+    say("recipe", f"fp32 {which} recipe on the card vs the CPU port, "
+        f"BERT-base B=2 S=128, dropout 0, {RECIPE_CHECK_STEPS} steps: losses "
+        + " ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(gpu["loss"],
+                                                     cpu["loss"])) +
+        f"; lr {gpu['lr']} (worst {worst['lr']:.1e} relative); clip factor "
+        + " ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(gpu["factor"],
+                                                     cpu["factor"])) +
+        f" (worst {worst['factor']:.1e}); clipped gradients at "
+        f"{worst['grad']:.3f} of their tolerance; parameters within "
+        f"{worst['param']:.2e} (2.5 lr of each step); updates of the steps "
+        f"with lr > 0 within {worst['update']:.2e} of their norm (tol "
+        f"{UPDATE_RTOL:g}; the worst: {worst.get('update_at')})")
+
+
+class LaunchDtypes:
+    """Records the dtype each kernel launch of the path was given (its
+    counts are untouched: the launch functions run as they are)."""
+
+    WRAPPED = (("FA", "_launch_fwd", "flash_attention_fwd", 0),
+               ("FA", "_launch_bwd", "flash_attention_bwd", 1),
+               ("LN", "_launch", "layer_norm_fwd", 0),
+               ("LN", "_launch_bwd", "layer_norm_bwd", 1))
+
+    def __init__(self):
+        from paddle_tpu_torch.kernels import flash_attention as FA
+        from paddle_tpu_torch.kernels import layer_norm as LN
+        self.mods = {"FA": FA, "LN": LN}
+        self.seen = {name: set() for _, _, name, _ in self.WRAPPED}
+        self._saved = []
+
+    def __enter__(self):
+        for mod, attr, name, arg in self.WRAPPED:
+            fn = getattr(self.mods[mod], attr)
+            self._saved.append((mod, attr, fn))
+
+            def wrapped(*a, _fn=fn, _name=name, _arg=arg):
+                self.seen[_name].add(str(a[_arg].dtype).replace("torch.", ""))
+                return _fn(*a)
+            setattr(self.mods[mod], attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(self.mods[mod], attr, fn)
+        return False
+
+
+def snapshot(opt, params):
+    """Copies of every parameter and accumulator, and the step count."""
+    return ([p.detach().clone() for p in params],
+            {i: {k: v.clone() for k, v in opt._accumulators.get(p, {}).items()}
+             for i, p in enumerate(params)}, opt._eager_step_count)
+
+
+def same_as(snap, opt, params):
+    values, accs, count = snap
+    if count != opt._eager_step_count:
+        return False
+    for i, p in enumerate(params):
+        now = opt._accumulators.get(p, {})
+        if not torch.equal(values[i], p.detach()) or \
+                set(now) != set(accs[i]) or \
+                not all(torch.equal(v, accs[i][k]) for k, v in now.items()):
+            return False
+    return True
+
+
+def expected_scales(init, skipped, incr_every, decr_every):
+    """The dynamic loss-scaling rule of the JAX package's GradScaler at its
+    default ratios (x2, x0.5), written out: the scale before each step,
+    given which were skipped."""
+    scales, good, bad, scale = [], 0, 0, init
+    for skip in skipped:
+        scales.append(scale)
+        if skip:
+            bad, good = bad + 1, 0
+            if bad >= decr_every:
+                scale, bad = max(scale * 0.5, 1.0), 0
+        else:
+            good, bad = good + 1, 0
+            if good >= incr_every:
+                scale, good = scale * 2.0, 0
+    return scales
+
+
+def fp16_recipe_run(device, state, batch, init_scale, decr_every, applied,
+                    max_steps, check_skips):
+    """The eager fp16 recipe on BERT-base (dropout on) from ``state`` under
+    seed SEED: auto_cast(float16) forward, the loss outside it,
+    scaler.scale(loss).backward(), scaler.minimize(opt, scaled),
+    opt.clear_grad(); until ``applied`` steps were applied or
+    ``max_steps`` ran. Counts are set to 0 just before and read just
+    after. With ``check_skips`` every skipped step is held bitwise against
+    a snapshot taken before it."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.amp import GradScaler, auto_cast
+    from paddle_tpu_torch.jit import load_reference_state
+    from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                              pretraining_loss)
+    from paddle_tpu_torch.nn.functional import (layer_norm_paths_taken,
+                                                reset_layer_norm_path_log)
+    from paddle_tpu_torch.nn.transformer import (attention_paths_taken,
+                                                 reset_attention_path_log)
+    model = BertForPretraining(BertConfig(), device=device)
+    load_reference_state(model, state)
+    model.train()
+    params = list(model.parameters())
+    opt = recipe_optimizer("adamw", parameters=params)
+    scaler = GradScaler(init_loss_scaling=init_scale,
+                        decr_every_n_nan_or_inf=decr_every)
+    inputs, labels = batch
+    losses, scales, skipped, unchanged = [], [], [], []
+    paddle_tpu_torch.seed(SEED)
+    with LaunchDtypes() as dtypes:
+        torch.cuda.synchronize()
+        reset_counts()
+        reset_attention_path_log()
+        reset_layer_norm_path_log()
+        while opt._eager_step_count < applied and len(losses) < max_steps:
+            snap = snapshot(opt, params) if check_skips else None
+            scales.append(scaler.get_scale())
+            with auto_cast(dtype="float16"):
+                out = model(*inputs)
+            loss = pretraining_loss(*out, *labels)
+            scaled = scaler.scale(loss)
+            scaled.backward()
+            scaler.minimize(opt, scaled)
+            opt.clear_grad()
+            skipped.append(scaler._found_inf_last)
+            losses.append(loss.detach())
+            if snap is not None and skipped[-1]:
+                unchanged.append(same_as(snap, opt, params))
+            del snap
+        torch.cuda.synchronize()
+        counts = read_counts()
+        paths = (attention_paths_taken(), layer_norm_paths_taken())
+    del model, opt, params
+    torch.cuda.empty_cache()
+    return dict(losses=[float(x) for x in losses], scales=scales,
+                skipped=skipped, unchanged=unchanged, counts=counts,
+                paths=paths, dtypes=dtypes.seen)
+
+
+def check_fp16_launches(run, cfg, label):
+    """26 layer-norm forward and backward and 12 flash forward, dQ and
+    dK/dV launches a step, no forward input copied, all-"flash" and
+    all-"kernel" path logs, the flash kernels on fp16."""
+    steps = len(run["losses"])
+    n_ln = 2 * cfg.num_hidden_layers + 2
+    per_step = {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
+                "flash_attention_fwd": cfg.num_hidden_layers,
+                "flash_attention_bwd_dq": cfg.num_hidden_layers,
+                "flash_attention_bwd_dkv": cfg.num_hidden_layers,
+                "flash_attention_fwd_copies": 0}
+    for name, n in per_step.items():
+        if run["counts"][name] != n * steps:
+            fail(f"{label}: {name} launched {run['counts'][name]} times in "
+                 f"{steps} steps, want {n} a step")
+    paths, ln_paths = run["paths"]
+    if set(paths) != {"flash"} or len(paths) != cfg.num_hidden_layers * \
+            steps:
+        fail(f"{label}: attention path log is not all 'flash': "
+             f"{sorted(set(paths))} x {len(paths)}")
+    if set(ln_paths) != {"kernel"} or len(ln_paths) != n_ln * steps:
+        fail(f"{label}: layer-norm path log is not all 'kernel': "
+             f"{sorted(set(ln_paths))} x {len(ln_paths)}")
+    dt = run["dtypes"]
+    if dt["flash_attention_fwd"] != {"float16"} or \
+            dt["flash_attention_bwd"] != {"float16"}:
+        fail(f"{label}: the flash kernels ran on {dt}, want float16")
+    # the norms' inputs are fp32 sums (an fp16 product plus an fp32 bias
+    # promotes to fp32, as in JAX), so the norms stay fp32
+    if dt["layer_norm_fwd"] != {"float32"} or \
+            dt["layer_norm_bwd"] != {"float32"}:
+        fail(f"{label}: the layer norms ran on {dt}, want float32 (the AMP "
+             "promotion of the residual sums)")
+    return per_step
+
+
+def check_nonfinite_backward(device):
+    """An inf in the flash backward's dO and in the layer-norm backward's
+    dy gives non-finite gradients (which the scaler's flag sees), not a
+    crash and not a finite value."""
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.kernels import layer_norm as LN
+    q, k, v = (t.requires_grad_() for t in attn_inputs(
+        2, 12, 128, 128, 64, torch.float16, device, SEED + 41))
+    o = FA.flash_attention(q, k, v)
+    do = torch.zeros_like(o)
+    do[0, 3, 5, 7] = float("inf")
+    o.backward(do)
+    x, gamma, beta = ln_inputs(256, 768, torch.float32, device, SEED + 42)
+    x.requires_grad_()
+    y = LN.layer_norm(x, gamma, beta)
+    dy = torch.zeros_like(y)
+    dy[17, 100] = float("inf")
+    y.backward(dy)
+    torch.cuda.synchronize()
+    bad = {n: bool(torch.isfinite(t.grad).all()) for n, t in
+           (("dq", q), ("dk", k), ("dv", v), ("dx", x))}
+    if any(bad.values()):
+        fail(f"an inf in dO / dy left these gradients finite: {bad}")
+    say("recipe", "an inf in the fp16 flash backward's dO and in the layer "
+        "norm backward's dy: dq, dk, dv and dx each hold non-finite values")
+
+
+def sync_sites(fn):
+    """The host syncs of ``fn``, counted under
+    torch.cuda.set_sync_debug_mode("warn") over SYNC_STEPS calls: {site:
+    syncs a call}, the site being the innermost frame of the stack in the
+    port's package (else in this repo, else the warning's own frame), so a
+    sync asked for through torch's Python code is laid at the line of the
+    port that called it. Only warnings raised inside ``fn`` count: setting
+    the mode can raise one of its own."""
+    import collections
+    import os
+    import traceback
+    import warnings
+    root = os.path.dirname(os.path.abspath(__file__))
+    package = os.path.join(root, "paddle_tpu_torch") + os.sep
+    sites = collections.Counter()
+    inside = [False]
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not inside[0] or "synchroniz" not in str(message):
+            return
+        frames = [(os.path.abspath(f.filename), f.lineno)
+                  for f in traceback.extract_stack()[:-1]]
+        inner = [x for x in frames if x[0].startswith(package)] or \
+            [x for x in frames if x[0].startswith(root + os.sep)] or \
+            [(os.path.abspath(filename), lineno)]
+        f, n = inner[-1]
+        sites[f"{os.path.relpath(f, root)}:{n}"] += 1
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(SYNC_STEPS):
+                inside[0] = True
+                fn()
+                inside[0] = False
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return {k: v / SYNC_STEPS for k, v in sites.items()}
+
+
+def time_recipe(device, state, cfg, card, reps=10):
+    """(iv) the recipe's steps at the main path's batch beside the plain
+    Adam step, all four built first and timed in turns: step ms (host
+    clock, synchronised, median), device busy ms and kernels a step
+    (torch.profiler), host syncs a step, in all and by the line of the port
+    that asked (the clip and the schedule add none to plain Adam's, the
+    scaler one)."""
+    from paddle_tpu_torch.amp import GradScaler, auto_cast
+    from paddle_tpu_torch.jit import TrainStep, load_reference_state
+    from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                              pretraining_loss)
+    from paddle_tpu_torch.optimizer import Adam
+    batch = train_batch(TRAIN_B, TRAIN_S, TRAIN_M, cfg.vocab_size, device, 0)
+
+    def train_step(opt):
+        def make(model):
+            step = TrainStep(model, pretraining_loss, opt,
+                             amp_dtype="bfloat16")
+            return lambda: step(*batch)
+        return make
+
+    def fp16_eager(model):
+        model.train()
+        opt = recipe_optimizer("adamw", parameters=model.parameters())
+        scaler = GradScaler(init_loss_scaling=RECIPE_INIT_SCALE)
+
+        def step():
+            with auto_cast(dtype="float16"):
+                out = model(*batch[0])
+            scaled = scaler.scale(pretraining_loss(*out, *batch[1]))
+            scaled.backward()
+            scaler.minimize(opt, scaled)
+            opt.clear_grad()
+        return step
+
+    cases = (("Adam(1e-4) bf16 TrainStep", train_step(Adam(TRAIN_LR))),
+             ("AdamW recipe bf16 TrainStep",
+              train_step(recipe_optimizer("adamw"))),
+             ("Lamb recipe bf16 TrainStep",
+              train_step(recipe_optimizer("lamb"))),
+             ("AdamW recipe fp16 eager + GradScaler", fp16_eager))
+    fns = {}
+    for label, make in cases:
+        model = BertForPretraining(BertConfig(), device=device)
+        load_reference_state(model, state)
+        fns[label] = make(model)
+        for _ in range(2):
+            fns[label]()
+    torch.cuda.synchronize()
+    times = {label: [] for label in fns}
+    for _ in range(reps):
+        for label, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    out = {}
+    for label, fn in fns.items():
+        ms = 1e3 * float(np.median(times[label]))
+        sites = sync_sites(fn)
+        busy, n_kernels, _, _ = profile_step(fn)
+        out[label] = dict(ms=ms, device_ms=busy, kernels=n_kernels,
+                          syncs=sum(sites.values()), sites=sites)
+        say("recipe", f"times: {label}, BERT-base B={TRAIN_B} S={TRAIN_S} "
+            f"M={TRAIN_M}: step {ms:.2f} ms median of {reps} (in turns), "
+            f"device busy {busy:.2f} ms in {n_kernels} kernels, idle share "
+            f"{max(0.0, 1.0 - busy / ms):.3f}, host syncs a step "
+            f"{sum(sites.values()):g} " + str(sites) + f"  [{card}]")
+    del fns
+    torch.cuda.empty_cache()
+    # the clip and the schedule add no sync to plain Adam's step, the
+    # scaler exactly one (its non-finite flag, read once a step); the
+    # totals are compared, whatever line asked
+    plain = out[cases[0][0]]["syncs"]
+    for label, r in out.items():
+        scaler = "GradScaler" in label
+        want = plain + (1 if scaler else 0)
+        scaler_syncs = sum(n for site, n in r["sites"].items()
+                           if site.startswith("paddle_tpu_torch/amp.py:"))
+        if r["syncs"] > want or scaler_syncs != (1 if scaler else 0):
+            fail(f"{label}: host syncs a step {r['syncs']:g} {r['sites']}, "
+                 f"plain Adam's {plain:g}: the clip and the schedule must "
+                 "add none, the scaler one")
+    return out
+
+
+def run_recipe(device, state, cfg, card):
+    """Phase 6. Returns the fp16 main path's launch counts."""
+    # (i) the fp32 recipe on the card against the CPU port
+    for which in ("adamw", "lamb"):
+        check_recipe_against_cpu(device, state, which)
+    check_nonfinite_backward(device)
+    batch = train_batch(TRAIN_B, TRAIN_S, TRAIN_M, cfg.vocab_size, device, 0)
+
+    # (ii) the fp16 eager recipe, the main path: counts set to 0 just
+    # before, read just after
+    t0 = time.perf_counter()
+    run = fp16_recipe_run(device, state, batch, RECIPE_INIT_SCALE, 2,
+                          applied=RECIPE_STEPS, max_steps=RECIPE_STEPS,
+                          check_skips=False)
+    losses = run["losses"]
+    say("recipe", f"fp16 main path: BERT-base dropout 0.1/0.1, B={TRAIN_B} "
+        f"S={TRAIN_S} M={TRAIN_M}, AdamW(0.01) + GradientClipByGlobalNorm"
+        f"(1.0) + warmup 4 into linear decay (peak {RECIPE_LR:g}), "
+        f"auto_cast(float16), GradScaler({RECIPE_INIT_SCALE:g}), "
+        f"{len(losses)} eager steps in {time.perf_counter() - t0:.1f} s; "
+        "losses " + " ".join(f"{x:.4f}" for x in losses) + "; scales "
+        + " ".join(f"{x:g}" for x in run["scales"]) + "; skipped "
+        + "".join("x" if s else "." for s in run["skipped"]))
+    if len(losses) != RECIPE_STEPS or not all(math.isfinite(x) for x in
+                                              losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"fp16 recipe: losses not finite or not lower at the end: "
+             f"{losses}")
+    per_step = check_fp16_launches(run, cfg, "fp16 recipe")
+    if run["scales"] != expected_scales(RECIPE_INIT_SCALE, run["skipped"],
+                                        1000, 2):
+        fail(f"fp16 recipe: scales {run['scales']} do not follow the rule")
+    say("recipe", f"fp16 main path launches in {RECIPE_STEPS} steps: "
+        + ", ".join(f"{k} {v}" for k, v in run["counts"].items()) +
+        f" ({', '.join(f'{v} a step' for v in per_step.values())}); path "
+        f"logs {len(run['paths'][0])} x 'flash', {len(run['paths'][1])} x "
+        f"'kernel'; kernel dtypes {run['dtypes']}")
+    counts = run["counts"]
+
+    # (iii) the overflow path
+    for exp in OVERFLOW_EXPONENTS:
+        over = fp16_recipe_run(device, state, batch, 2.0 ** exp, 1,
+                               applied=RECIPE_STEPS,
+                               max_steps=OVERFLOW_MAX_STEPS,
+                               check_skips=True)
+        if over["skipped"][0]:
+            break
+        say("recipe", f"overflow run: 2^{exp} did not overflow the first "
+            "step; raising the initial scale")
+    else:
+        fail("overflow run: no initial scale overflowed the first step")
+    losses = over["losses"]
+    n_skip = sum(over["skipped"])
+    say("recipe", f"overflow run from 2^{exp}, decr_every_n_nan_or_inf 1: "
+        f"{len(losses)} steps, {n_skip} skipped ("
+        + "".join("x" if s else "." for s in over["skipped"]) + "); scales "
+        + " ".join(f"{x:g}" for x in over["scales"]) + "; losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if n_skip < 1 or not all(over["unchanged"]) or \
+            len(over["unchanged"]) != n_skip:
+        fail(f"overflow run: skips {over['skipped']}, skipped steps left "
+             f"everything unchanged: {over['unchanged']}")
+    if over["scales"] != expected_scales(2.0 ** exp, over["skipped"], 1000,
+                                         1):
+        fail(f"overflow run: scales {over['scales']} do not follow the rule")
+    if len(losses) - n_skip != RECIPE_STEPS or \
+            not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"overflow run: {len(losses) - n_skip} steps applied, losses "
+             f"{losses}")
+    check_fp16_launches(over, cfg, "overflow run")
+    say("recipe", f"overflow run: every one of the {n_skip} skipped steps "
+        "left every parameter, every accumulator and the schedule's step "
+        "bitwise unchanged; the scale halved on each skip; "
+        f"{RECIPE_STEPS} steps applied, losses finite and lower at the end")
+
+    # (iv) times
+    time_recipe(device, state, cfg, card)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: generation
 # ---------------------------------------------------------------------------
 
 # the decoder of docs/generation.md at full width and depth: 267.5 M
@@ -2827,12 +3460,17 @@ def main() -> int:
     del tmodel, tstep
     torch.cuda.empty_cache()
 
-    # -- 6. generation: counts set to 0 just before each pool run, read
+    # -- 6. the BERT training recipe: the fp16 main path's counts set to 0
+    # just before its run, read just after
+    recipe_counts = run_recipe(device, state, cfg, card)
+    torch.cuda.empty_cache()
+
+    # -- 7. generation: counts set to 0 just before each pool run, read
     # just after
     paged_err, gen_recs, paged_times = run_generation(device, card)
 
-    # -- 7. records: launches are the serving, training and generation
-    # runs
+    # -- 8. records: launches are the serving, training, recipe and
+    # generation runs
     ln_rec = ln_times[(4096, 768, torch.float32)]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]
@@ -2841,31 +3479,36 @@ def main() -> int:
         dict(name="layer_norm_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/layer_norm.cu",
              replaces="paddle_tpu/kernels/layer_norm.py:33",
-             launches=ln_total + train_counts["layer_norm_fwd"] + sum(
+             launches=ln_total + train_counts["layer_norm_fwd"] +
+             recipe_counts["layer_norm_fwd"] + sum(
                  r["counts"]["layer_norm"] for r in gen_recs.values()),
              max_abs_err=ln_err[(4096, 768, torch.float32, 1e-12)],
              **ln_rec),
         dict(name="layer_norm_bwd", route="cuda",
              source="paddle_tpu_torch/csrc/layer_norm.cu",
              replaces="paddle_tpu/kernels/layer_norm.py:46",
-             launches=train_counts["layer_norm_bwd"],
+             launches=train_counts["layer_norm_bwd"] +
+             recipe_counts["layer_norm_bwd"],
              max_abs_err=ln_bwd_err[(16384, 768, torch.float32)],
              **ln_bwd_times[(16384, 768, torch.float32)]),
         dict(name="flash_attention_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:207",
-             launches=fa_total + train_counts["flash_attention_fwd"],
+             launches=fa_total + train_counts["flash_attention_fwd"] +
+             recipe_counts["flash_attention_fwd"],
              max_abs_err=fa_err[(*fa_key, "contiguous")], **fa_rec),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:364",
-             launches=train_counts["flash_attention_bwd_dq"],
+             launches=train_counts["flash_attention_bwd_dq"] +
+             recipe_counts["flash_attention_bwd_dq"],
              max_abs_err=fa_bwd_err[(0, "dq")],
              **fa_bwd_times[(*bwd_key, "dq")]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:413",
-             launches=train_counts["flash_attention_bwd_dkv"],
+             launches=train_counts["flash_attention_bwd_dkv"] +
+             recipe_counts["flash_attention_bwd_dkv"],
              max_abs_err=max(fa_bwd_err[(0, "dk")], fa_bwd_err[(0, "dv")]),
              **fa_bwd_times[(*bwd_key, "dkv")]),
         dict(name="paged_attention", route="cuda",

@@ -1,19 +1,22 @@
-"""Model state and the training step: state_of, load_state, the weight
-and optimizer-state carry-across from the JAX package, and TrainStep.
+"""Model state and the training step: functional_call, state_of,
+load_state, the state carry-across from the JAX package, and TrainStep.
 
-Counterparts of ``paddle_tpu/jit.py:state_of``, ``load_state`` and
-``TrainStep`` (single device), plus ``load_reference_state`` and
-``load_reference_opt_state``, which copy the JAX package's
-``state_of(model)`` and ``TrainStep._opt_state`` (as numpy arrays) into the
-port by name, so that the two packages can start or continue from one
-state. Names are deduplicated by object identity as
-``paddle_tpu/jit.py:_named_state`` does, so a tied weight (BERT's MLM
-decoder is the word embedding) is one tensor under its first name. Linear
-weights are ``[in, out]`` in both packages, so nothing is transposed.
-``load_reference_params`` does the same for the generation decoder's flat
-parameter dict (``generation/model.py``).
-``functional_call`` and ``to_static`` are not ported yet (``ROADMAP.md``
-A1c).
+Counterparts of ``paddle_tpu/jit.py:functional_call``, ``state_of``,
+``load_state`` and ``TrainStep`` (single device, with a scheduler, a clip
+and a regularizer), plus loaders that copy the JAX package's state (as
+numpy arrays) into the port, so that the two packages can start or
+continue from one state: ``load_reference_state`` (``state_of(model)``),
+``load_reference_opt_state`` (``TrainStep._opt_state`` and ``_lr_step``),
+``load_reference_eager_opt_state`` (an eager optimizer's ``state_dict()``)
+and ``load_reference_scaler_state`` (``GradScaler.state_dict()``). Names
+are deduplicated by object identity as ``paddle_tpu/jit.py:_named_state``
+does, so a tied weight (BERT's MLM decoder is the word embedding) is one
+tensor under its first name. Linear weights are ``[in, out]`` in both
+packages, so nothing is transposed. ``load_reference_params`` does the
+same for the generation decoder's flat parameter dict
+(``generation/model.py``). ``to_static`` is not ported: on the card it is
+a CUDA-graph capture of the forward (``ROADMAP.md`` A5), its AST
+conversion A8's ``dygraph_to_static``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,42 @@ def _named_state(layer: Layer) -> Dict[str, torch.Tensor]:
             seen.add(id(t))
             named[n] = t
     return named
+
+
+def functional_call(layer: Layer, state: Mapping[str, torch.Tensor], *args,
+                    training: bool = False, rng=None, **kwargs):
+    """Run ``layer`` with its parameters and buffers taken from ``state``
+    (name -> tensor; a name it lacks keeps the layer's own) and return
+    ``(outputs, new_state)``, ``new_state`` being every parameter and
+    buffer after the call. The layer is left as it was found: its tensors,
+    its train/eval mode and the port's generators. ``rng`` fixes the
+    randomness of the call: a seed, or a ``torch.Generator`` that serves
+    draws on its device (see ``layers.helper.generator_scope``). Autograd
+    follows the given tensors, as jax.grad follows the JAX call."""
+    from .layers.helper import generator_scope
+    named = _named_state(layer)
+    given = {n: state[n] for n in named if n in state}
+    modes = [(m, m.training) for m in layer.modules()]
+    try:
+        layer.train(training)
+        with generator_scope(rng):
+            # tie_weights: a tensor given under its first name also
+            # replaces it under the others (the tied MLM decoder)
+            out = torch.func.functional_call(layer, given, args, kwargs,
+                                             tie_weights=True, strict=False)
+    finally:
+        for m, mode in modes:
+            m.training = mode
+    # the port's layers update no parameter or buffer by assignment, so
+    # after the call each name still holds what it held before it
+    return out, {n: given.get(n, t) for n, t in named.items()}
+
+
+def to_static(layer_or_fn, example_inputs=None, donate_state: bool = False):
+    raise NotImplementedError(
+        "to_static is not ported yet: on the card it is a CUDA-graph "
+        "capture of the forward, with A5's shape buckets (ROADMAP.md A5); "
+        "its AST conversion is A8's dygraph_to_static")
 
 
 def state_of(layer: Layer) -> Dict[str, torch.Tensor]:
@@ -72,42 +111,106 @@ def load_reference_state(model: Layer,
         t.copy_(torch.from_numpy(np.array(arrays[n])))
 
 
+def _reference_accumulators(optimizer, name: str, p: torch.Tensor,
+                            entry: Mapping, bad: list) -> Optional[dict]:
+    """The accumulators of one parameter from the reference, as numpy
+    arrays checked against the optimizer's spec; None (and a line in
+    ``bad``) when they differ."""
+    spec = {k: (() if is_scalar else tuple(p.shape))
+            for k, _, is_scalar in optimizer._accumulator_spec()}
+    if set(entry) != set(spec):
+        bad.append(f"{name}: accumulators {sorted(entry)}, want "
+                   f"{sorted(spec)}")
+        return None
+    arrays = {k: np.asarray(entry[k]) for k in spec}
+    for k, shape in spec.items():
+        if arrays[k].shape != shape:
+            bad.append(f"{name}.{k}: {arrays[k].shape} vs {shape}")
+    return arrays
+
+
+def _set_accumulators(optimizer, found: Dict[torch.Tensor, dict]) -> None:
+    for p, arrays in found.items():
+        optimizer.set_accumulators(p, {
+            k: torch.from_numpy(np.array(v, dtype=np.float32)).to(p.device)
+            for k, v in arrays.items()})
+
+
 @torch.no_grad()
-def load_reference_opt_state(optimizer, opt_state: Mapping[str, Mapping[
-        str, np.ndarray]]) -> None:
-    """Load the JAX package's ``TrainStep._opt_state``
-    (``{param name: {moment1, moment2, beta1_pow, beta2_pow}}``, converted
-    to numpy) into the optimizer's accumulators, by the parameter names
-    that ``TrainStep`` bound to it. Raises on a missing or extra name or
-    accumulator, or a shape that differs; nothing is copied unless
+def load_reference_opt_state(target, opt_state: Mapping[str, Mapping[
+        str, np.ndarray]], lr_step=None) -> None:
+    """Load the JAX package's ``TrainStep._opt_state`` (``{param name:
+    {accumulator: array}}``, the keys of the optimizer class's
+    ``_eager_spec``, converted to numpy) into the optimizer's accumulators,
+    by the parameter names that ``TrainStep`` bound to it. ``target`` is
+    the optimizer, or the port's ``TrainStep``, which also takes the JAX
+    ``TrainStep._lr_step`` as ``lr_step``. Raises on a missing or extra
+    name or accumulator, or a shape that differs; nothing is copied unless
     everything agrees."""
-    from .optimizer.static_opt import ACCUMULATORS
+    step = target if isinstance(target, TrainStep) else None
+    optimizer = step.optimizer if step is not None else target
+    if lr_step is not None and step is None:
+        raise ValueError("load_reference_opt_state: lr_step belongs to a "
+                         "TrainStep; pass the TrainStep")
     own = optimizer.named_parameters()
     missing = sorted(set(own) - set(opt_state))
     extra = sorted(set(opt_state) - set(own))
     if missing or extra:
         raise KeyError(f"load_reference_opt_state: names differ; missing "
                        f"{missing}, unexpected {extra}")
-    bad = []
-    arrays = {}
-    for name, p in own.items():
-        entry = opt_state[name]
-        if set(entry) != set(ACCUMULATORS):
-            bad.append(f"{name}: accumulators {sorted(entry)}")
-            continue
-        arrays[name] = {k: np.asarray(entry[k]) for k in ACCUMULATORS}
-        want = {"moment1": tuple(p.shape), "moment2": tuple(p.shape),
-                "beta1_pow": (), "beta2_pow": ()}
-        for k, shape in want.items():
-            if arrays[name][k].shape != shape:
-                bad.append(f"{name}.{k}: {arrays[name][k].shape} vs {shape}")
+    bad: list = []
+    found = {p: _reference_accumulators(optimizer, name, p, opt_state[name],
+                                        bad) for name, p in own.items()}
     if bad:
         raise ValueError("load_reference_opt_state: state differs "
                          "(reference vs port): " + "; ".join(bad))
-    for name, p in own.items():
-        optimizer.set_accumulators(p, {
-            k: torch.from_numpy(np.array(v, dtype=np.float32)).to(p.device)
-            for k, v in arrays[name].items()})
+    _set_accumulators(optimizer, found)
+    if lr_step is not None:
+        step._lr_step = int(np.asarray(lr_step))
+
+
+@torch.no_grad()
+def load_reference_eager_opt_state(optimizer, state: Mapping[str, object],
+                                   names: Sequence[str]) -> None:
+    """Load a JAX eager optimizer's ``state_dict()`` (``{"_step": n,
+    "<param name>@<accumulator>": array}``) into the port's optimizer.
+    ``names`` are the JAX parameter names (``p.name``) in the order of the
+    port optimizer's parameters. Raises on a name, accumulator or shape
+    that differs; nothing is copied unless everything agrees."""
+    params = optimizer.parameters
+    if len(names) != len(params):
+        raise ValueError(f"load_reference_eager_opt_state: {len(names)} "
+                         f"names for {len(params)} parameters")
+    by_name = dict(zip(names, params))
+    entries: Dict[str, dict] = {}
+    for key, v in state.items():
+        if key == "_step":
+            continue
+        pname, sep, acc = str(key).rpartition("@")
+        if not sep or pname not in by_name:
+            raise KeyError(f"load_reference_eager_opt_state: unexpected key "
+                           f"{key!r}")
+        entries.setdefault(pname, {})[acc] = v
+    bad: list = []
+    found = {by_name[n]: _reference_accumulators(optimizer, n, by_name[n],
+                                                 entry, bad)
+             for n, entry in entries.items()}
+    if bad:
+        raise ValueError("load_reference_eager_opt_state: state differs "
+                         "(reference vs port): " + "; ".join(bad))
+    _set_accumulators(optimizer, found)
+    optimizer._eager_step_count = int(state.get("_step", 0))
+
+
+def load_reference_scaler_state(scaler, state: Mapping[str, object]) -> None:
+    """Load the JAX package's ``GradScaler.state_dict()`` (scale,
+    incr_count, decr_count) into the port's ``amp.GradScaler``."""
+    want = {"scale", "incr_count", "decr_count"}
+    if set(state) != want:
+        raise KeyError(f"load_reference_scaler_state: keys {sorted(state)}, "
+                       f"want {sorted(want)}")
+    scaler.load_state_dict({k: np.asarray(v).item() for k, v in
+                            state.items()})
 
 
 def load_reference_params(cfg, params: Mapping[str, np.ndarray],
@@ -172,8 +275,16 @@ def _microbatch(values: Sequence, k: int, i: int) -> tuple:
 class TrainStep:
     """One training step on one device: train mode, the forward under
     ``amp.auto_cast(amp_dtype)``, ``loss_fn(*outputs, *labels)`` outside
-    it, the backward, ``optimizer.step()`` and ``clear_grad()``. Returns
-    the loss in fp32 (a device tensor; reading it syncs).
+    it, the backward, the optimizer's update (its clip, regularizer and
+    rule) and ``clear_grad()``. Returns the loss in fp32 (a device tensor;
+    reading it syncs).
+
+    The learning rate comes from the step's own counter, ``_lr_step``, as
+    in the JAX package: it starts at 0 and advances once a call, under
+    ``grad_accum_steps`` too, and an ``LRScheduler`` turns it into a
+    float32 lr on the card (a fill of the count, then the schedule: no
+    copy, no sync). The optimizer's own step count, which its eager
+    ``step()`` advances, is not touched.
 
     With ``grad_accum_steps=k`` the batch is cut into k slices along dim
     0; their gradients are summed and multiplied by 1/k before the update,
@@ -204,6 +315,7 @@ class TrainStep:
         optimizer.bind_names(params)
         self.param_names = list(params)
         self._device = next(iter(params.values())).device
+        self._lr_step = 0
 
     def _loss(self, inputs, labels) -> torch.Tensor:
         with amp.auto_cast(enable=self.amp_dtype is not None,
@@ -230,6 +342,7 @@ class TrainStep:
                 for p in self.optimizer.parameters:
                     if p.grad is not None:
                         p.grad.mul_(1.0 / k)
-        self.optimizer.step()
+        self.optimizer._apply(self._lr_step)
+        self._lr_step += 1
         self.optimizer.clear_grad()
         return losses[0] if k == 1 else torch.stack(losses).mean()

@@ -16,6 +16,7 @@ reproducible on either device, the contract of the JAX package's
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -36,17 +37,49 @@ def seed(s: int) -> None:
         g.manual_seed(_SEED)
 
 
-def default_generator(device=None) -> torch.Generator:
-    """The port's generator for ``device`` (default the CPU)."""
+def _key(device) -> str:
     dev = torch.device("cpu" if device is None else device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    key = str(dev)
+    return str(dev)
+
+
+def default_generator(device=None) -> torch.Generator:
+    """The port's generator for ``device`` (default the CPU)."""
+    dev = torch.device("cpu" if device is None else device)
+    key = _key(dev)
     g = _GENERATORS.get(key)
     if g is None:
         g = torch.Generator(device=dev).manual_seed(_SEED)
         _GENERATORS[key] = g
     return g
+
+
+@contextlib.contextmanager
+def generator_scope(rng=None):
+    """Inside, the port's generators are ``rng``'s: a seed gives every
+    device a generator seeded with it; a ``torch.Generator`` serves its own
+    device and the others start from its initial seed. ``None`` changes
+    nothing. The generators of before are back on exit (``functional_call``
+    uses it for its ``rng``)."""
+    global _SEED
+    if rng is None:
+        yield
+        return
+    saved, saved_seed = dict(_GENERATORS), _SEED
+    _GENERATORS.clear()
+    try:
+        if isinstance(rng, torch.Generator):
+            _SEED = rng.initial_seed()
+            _GENERATORS[_key(rng.device)] = rng
+        else:
+            _SEED = int(rng)
+        _GENERATORS.setdefault("cpu", torch.Generator().manual_seed(_SEED))
+        yield
+    finally:
+        _GENERATORS.clear()
+        _GENERATORS.update(saved)
+        _SEED = saved_seed
 
 
 class ParamAttr:

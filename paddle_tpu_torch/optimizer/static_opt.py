@@ -1,73 +1,196 @@
-"""Optimizer, Adam and AdamW: the dygraph side of the JAX package's
-optimizers.
+"""The optimizers' dygraph side: gradient clips, regularizers, the
+``Optimizer`` base with its eager contract, the update rules, and the
+parameter averages.
 
-Counterparts of ``paddle_tpu/optimizer/static_opt.py`` (``Optimizer``'s
-eager ``step`` and ``clear_grad``, ``Adam``, ``AdamW``), with the update
-rule of its op lowerings ``paddle_tpu/ops/optimizers.py`` (``adam``,
-``adamw``) written out in plain PyTorch, in the same order of operations:
+Counterparts of ``paddle_tpu/optimizer/static_opt.py`` (each class's
+eager ``step`` / ``minimize`` / ``eager_apply``) with the update rules of
+its op lowerings ``paddle_tpu/ops/optimizers.py`` written out in torch, in
+the same order of operations, under the accumulator names of each class's
+``_eager_spec``. ``Optimizer.step()`` is, as in the JAX package:
+
+    clip (one global norm for ``GradientClipByGlobalNorm``), cast each
+    gradient to its parameter's dtype, regularize, update; then the step
+    count advances (it feeds the learning-rate schedule).
+
+Adam's rule, for instance, is the ``adam`` op's, eps outside the bias
+correction (not ``torch.optim.Adam``):
 
     m1 = b1 m1 + (1 - b1) g,   m2 = b2 m2 + (1 - b2) g^2
-    lr_t = lr sqrt(1 - b2^t) / (1 - b1^t)
-    p = p - lr_t m1 / (sqrt(m2) + eps)          (eps outside the bias
-                                                 correction)
-    b1^t *= b1, b2^t *= b2                      (after the update; both
-                                                 start at b1 and b2)
+    p = p - lr sqrt(1 - b2^t) / (1 - b1^t) m1 / (sqrt(m2) + eps)
+    b1^t *= b1, b2^t *= b2        (after the update; they start at b1, b2)
 
-AdamW first takes p - lr coeff p. This is not ``torch.optim.Adam``, which
-puts eps inside the bias correction. The accumulators carry the JAX
-names ``moment1``, ``moment2``, ``beta1_pow`` and ``beta2_pow``; the
-update runs in place under ``torch.no_grad``. The JAX update is no Pallas
-kernel, so none is written here.
+Everything stays on the parameters' device and nothing is read back:
+the learning rate is a float32 0-d tensor (a fill, or a schedule of the
+step, ``lr_scheduler.py``), and the reductions that XLA fuses into one
+pass over all gradients (the global norm, Lamb's and LARS's norms) are
+``torch._foreach_*`` calls, so they do not add a launch a parameter. The
+elementwise rules stay per parameter, in the lowerings' order. The JAX
+update is no Pallas kernel, so none is written here.
 
-Gradient clipping, regularizers and learning-rate schedulers are not
-ported yet (``ROADMAP.md`` A1c): an optimizer given one raises.
+``weight_decay=`` on the base class is ``L2Decay`` (added to the
+gradient); on ``AdamW`` it is the decoupled decay of the ``adamw`` op.
+
+Not ported, and raising ``NotImplementedError`` that names the queue: the
+static Program side of every class (``minimize`` on a Program,
+``apply_gradients``, ``set_lr``, a clip's or regularizer's ``apply``) and
+``LookaheadOptimizer``, which is static only (``ROADMAP.md`` A2);
+``DpSGD``'s update, whose ``dpsgd`` lowering comes with the static side
+(A2); ``SelectedRows`` gradients (A2, with ``core/selected_rows.py``).
 """
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
-ACCUMULATORS = ("moment1", "moment2", "beta1_pow", "beta2_pow")
+from .lr_scheduler import LRScheduler, _div
+
+_STATIC = "the static Program side of the optimizers is not ported yet " \
+          "(ROADMAP.md A2)"
+
+
+def _dense(grads: Iterable[torch.Tensor]) -> None:
+    for g in grads:
+        if g.layout != torch.strided:
+            raise NotImplementedError(
+                "SelectedRows (sparse) gradients are not ported yet "
+                "(ROADMAP.md A2, with core/selected_rows.py)")
+
+
+def _norms(tensors) -> torch.Tensor:
+    """The L2 norm of each tensor, stacked, in float64. The sums are kept
+    in float64: torch's float32 norm on the CPU adds a long row in float32
+    one term after another and is off by ~1e-3 relative over BERT's
+    23M-element embedding; the card's is within ~1e-7 either way."""
+    return torch.stack(torch._foreach_norm(list(tensors),
+                                           dtype=torch.float64))
+
+
+class GradClipBase:
+    def apply(self, block, params_grads):
+        raise NotImplementedError(f"{type(self).__name__}.apply: {_STATIC}")
+
+
+class GradientClipByValue(GradClipBase):
+    """Each gradient element clipped to [min, max] (min = -max by
+    default)."""
+
+    def __init__(self, max, min=None):
+        self.max = max
+        self.min = -max if min is None else min
+
+    def eager_apply(self, pgs):
+        """[(param, grad)] -> [(param, clipped grad)]."""
+        if not pgs:
+            return []
+        ps, gs = zip(*pgs)
+        _dense(gs)
+        gs = torch._foreach_clamp_max(
+            torch._foreach_clamp_min(list(gs), self.min), self.max)
+        return list(zip(ps, gs))
+
+
+class GradientClipByNorm(GradClipBase):
+    """Each gradient times clip_norm / max(||g||, clip_norm)."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = clip_norm
+
+    def eager_apply(self, pgs):
+        if not pgs:
+            return []
+        ps, gs = zip(*pgs)
+        _dense(gs)
+        factors = _div(self.clip_norm,
+                       torch.clamp(_norms(gs).float(), min=self.clip_norm))
+        return [(p, g * f) for p, g, f in zip(ps, gs, factors.unbind())]
+
+
+class GradientClipByGlobalNorm(GradClipBase):
+    """fluid.clip.GradientClipByGlobalNorm: every gradient times one factor
+    clip_norm / max(global norm, clip_norm), the global norm over all the
+    gradients, computed on their device with no host read."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = clip_norm
+
+    def factor(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The clip factor, a float32 0-d tensor on the gradients' device."""
+        gnorm = torch.linalg.vector_norm(_norms(grads)).float()
+        return _div(self.clip_norm, torch.clamp(gnorm, min=self.clip_norm))
+
+    def eager_apply(self, pgs):
+        if not pgs:
+            return []
+        ps, gs = zip(*pgs)
+        _dense(gs)
+        gs = list(gs)
+        return list(zip(ps, torch._foreach_mul(gs, self.factor(gs))))
+
+
+class L2Decay:
+    """fluid.regularizer.L2Decay: grad + coeff * param."""
+
+    def __init__(self, regularization_coeff: float = 0.0):
+        self.coeff = regularization_coeff
+
+    def apply(self, block, p, g):
+        raise NotImplementedError(f"{type(self).__name__}.apply: {_STATIC}")
+
+    def eager_apply(self, params: List[torch.Tensor],
+                    grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The regularized gradients of lists of parameters and gradients
+        (the JAX package takes one pair at a time)."""
+        return torch._foreach_add(grads, torch._foreach_mul(params,
+                                                            self.coeff))
+
+
+class L1Decay(L2Decay):
+    """fluid.regularizer.L1Decay: grad + coeff * sign(param)."""
+
+    def eager_apply(self, params, grads):
+        return torch._foreach_add(grads, torch._foreach_mul(
+            torch._foreach_sign(params), self.coeff))
+
+
+def _as_tensor(value, device) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value.detach().to(device).clone()
+    # np.array copies: a JAX array's numpy view is read-only
+    return torch.from_numpy(np.array(value)).to(device)
 
 
 class Optimizer:
-    """Base optimizer over a list of parameters with a float learning
-    rate: ``step()`` applies the update to every parameter that has a
-    gradient, ``clear_grad()`` drops the gradients."""
+    """Base optimizer over a list of parameters (``parameters=`` or
+    ``parameter_list=``). ``learning_rate`` is a float or an
+    ``LRScheduler``; ``grad_clip``, ``regularization`` (or a float
+    ``weight_decay``, meaning ``L2Decay``) as in the JAX package."""
 
-    def __init__(self, learning_rate: float = 0.001,
-                 parameters: Optional[Iterable[torch.Tensor]] = None,
-                 regularization=None, grad_clip=None, name=None):
+    def __init__(self, learning_rate=0.001, regularization=None,
+                 grad_clip=None, name: Optional[str] = None,
+                 parameter_list=None, parameters=None, weight_decay=None):
         self._learning_rate = learning_rate
         self.regularization = regularization
+        if weight_decay is not None and regularization is None:
+            self.regularization = (
+                L2Decay(float(weight_decay))
+                if isinstance(weight_decay, (int, float)) else weight_decay)
         self.grad_clip = grad_clip
         self._name = name or type(self).__name__
+        params = parameters if parameters is not None else parameter_list
         self._parameter_list: Optional[List[torch.Tensor]] = \
-            None if parameters is None else list(parameters)
+            None if params is None else list(params)
         self._param_names: Dict[torch.Tensor, str] = {}
         self._accumulators: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {}
-        self._check_supported()
+        self._eager_step_count = 0
 
-    def _check_supported(self) -> None:
-        if not isinstance(self._learning_rate, (int, float)):
-            raise NotImplementedError(
-                f"{self._name}: learning-rate schedulers are not ported yet "
-                "(ROADMAP.md A1c); pass a float learning_rate")
-        if self.grad_clip is not None:
-            raise NotImplementedError(
-                f"{self._name}: gradient clipping is not ported yet "
-                "(ROADMAP.md A1c)")
-        if self.regularization is not None:
-            raise NotImplementedError(
-                f"{self._name}: regularizers are not ported yet "
-                "(ROADMAP.md A1c)")
-
+    # -- parameters and their names ---------------------------------------
     @property
     def parameters(self) -> List[torch.Tensor]:
         if self._parameter_list is None:
             raise ValueError(f"{self._name} needs parameters= at "
-                             "construction")
+                             "construction (or parameter_list= to minimize)")
         return self._parameter_list
 
     def bind_names(self, named: Dict[str, torch.Tensor]) -> None:
@@ -86,64 +209,209 @@ class Optimizer:
                              "optimizer first")
         return {self._param_names[p]: p for p in self.parameters}
 
+    def _key_name(self, i: int, p: torch.Tensor) -> str:
+        """A parameter's name in ``state_dict`` keys: its bound name, else
+        its index in the parameter list."""
+        return self._param_names.get(p, str(i))
+
+    # -- accumulators -----------------------------------------------------
+    def _accumulator_spec(self):
+        """[(name, initial value, is a scalar)]: the accumulators of the JAX
+        class's ``_eager_spec``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no eager implementation")
+
     def set_accumulators(self, param: torch.Tensor,
                          state: Dict[str, torch.Tensor]) -> None:
         self._accumulators[param] = dict(state)
 
     def accumulators(self, param: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The accumulators of ``param``, made at their initial values on
-        first use."""
-        state = self._accumulators.get(param)
-        if state is None:
-            state = self._init_accumulators(param)
-            self._accumulators[param] = state
+        """The accumulators of ``param``; the ones it lacks are made at
+        their initial values on first use."""
+        state = self._accumulators.setdefault(param, {})
+        for key, fill, is_scalar in self._accumulator_spec():
+            if key not in state:
+                state[key] = (
+                    torch.full((), fill, dtype=torch.float32,
+                               device=param.device)
+                    if is_scalar else torch.full_like(param.detach(), fill))
         return state
 
-    def _init_accumulators(self, param: torch.Tensor
-                           ) -> Dict[str, torch.Tensor]:
-        return {}
+    # -- the learning rate ------------------------------------------------
+    def _lr_on(self, device, step: int) -> torch.Tensor:
+        """The learning rate at ``step`` as a float32 0-d tensor on
+        ``device``: a fill, with no copy from the host and no sync."""
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate.lr_at(
+                torch.full((), step, dtype=torch.int32, device=device))
+        return torch.full((), float(self._learning_rate),
+                          dtype=torch.float32, device=device)
 
+    def get_lr(self) -> float:
+        """The learning rate of the next step (reads it back)."""
+        if not isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate)
+        params = self._parameter_list or []
+        device = params[0].device if params else torch.device("cpu")
+        return float(self._lr_on(device, self._eager_step_count))
+
+    def set_lr(self, value, scope=None):
+        raise NotImplementedError(f"{self._name}.set_lr: {_STATIC}")
+
+    # -- the update -------------------------------------------------------
     def _update(self, param: torch.Tensor, grad: torch.Tensor,
                 lr: torch.Tensor, state: Dict[str, torch.Tensor]) -> None:
         raise NotImplementedError
 
+    def _update_all(self, params, grads, lrs) -> None:
+        for p, g in zip(params, grads):
+            self._update(p, g, lrs[p.device], self.accumulators(p))
+
     @torch.no_grad()
+    def _apply(self, step: int) -> None:
+        """Clip, cast, regularize and update every parameter that has a
+        gradient, with the learning rate of ``step``."""
+        self._accumulator_spec()  # a class with no eager rule raises here
+        pgs = [(p, p.grad) for p in self.parameters if p.grad is not None]
+        _dense(g for _, g in pgs)
+        if not pgs:
+            return
+        if self.grad_clip is not None:
+            pgs = self.grad_clip.eager_apply(pgs)
+        params = [p for p, _ in pgs]
+        grads = [g.to(p.dtype) for p, g in pgs]
+        if self.regularization is not None:
+            grads = self.regularization.eager_apply(params, grads)
+        lrs = {}
+        for p in params:
+            if p.device not in lrs:
+                lrs[p.device] = self._lr_on(p.device, step)
+        self._update_all(params, grads, lrs)
+
     def step(self) -> None:
-        self._check_supported()
-        lrs: Dict[torch.device, torch.Tensor] = {}
-        for p in self.parameters:
-            if p.grad is None:
-                continue
-            lr = lrs.get(p.device)
-            if lr is None:
-                # a fill on the card: no copy from the host, no sync
-                lr = lrs[p.device] = torch.full(
-                    (), float(self._learning_rate), dtype=torch.float32,
-                    device=p.device)
-            self._update(p, p.grad.to(p.dtype), lr, self.accumulators(p))
+        self._apply(self._eager_step_count)
+        self._eager_step_count += 1
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, program=None):
+        """The eager minimize: ``loss.backward()`` has run; apply one step
+        to the parameters (less ``no_grad_set``). Returns (None, [])."""
+        if not isinstance(loss, torch.Tensor):
+            raise NotImplementedError(f"{self._name}.minimize on a "
+                                      f"Program: {_STATIC}")
+        if self._parameter_list is None and parameter_list is not None:
+            self._parameter_list = list(parameter_list)
+        if no_grad_set:
+            skip = {id(p) for p in no_grad_set}
+            saved = self.parameters
+            self._parameter_list = [p for p in saved if id(p) not in skip]
+            try:
+                self.step()
+            finally:
+                self._parameter_list = saved
+        else:
+            self.step()
+        return None, []
+
+    def apply_gradients(self, params_grads, program=None, startup=None):
+        raise NotImplementedError(f"{self._name}.apply_gradients: {_STATIC}")
 
     def clear_grad(self) -> None:
-        for p in self.parameters:
+        for p in self._parameter_list or []:
             p.grad = None
+
+    clear_gradients = clear_grad
+
+    # -- state ------------------------------------------------------------
+    def state_dict(self) -> Dict[str, object]:
+        """``{"_step": n, "<param>@<accumulator>": tensor}``, the JAX key
+        format; ``<param>`` is the bound name or the list index."""
+        out: Dict[str, object] = {"_step": self._eager_step_count}
+        for i, p in enumerate(self._parameter_list or []):
+            for k, v in self._accumulators.get(p, {}).items():
+                out[f"{self._key_name(i, p)}@{k}"] = v.detach().clone()
+        return out
+
+    def set_state_dict(self, state) -> None:
+        self._eager_step_count = int(state.get("_step", 0))
+        for i, p in enumerate(self._parameter_list or []):
+            prefix = f"{self._key_name(i, p)}@"
+            store = self._accumulators.setdefault(p, {})
+            for k, v in state.items():
+                if isinstance(k, str) and k.startswith(prefix):
+                    store[k[len(prefix):]] = _as_tensor(v, p.device)
+
+
+class SGD(Optimizer):
+    """The ``sgd`` op: p - lr g."""
+
+    def _accumulator_spec(self):
+        return []
+
+    def _update(self, param, grad, lr, state):
+        param.copy_(param - lr * grad)
+
+
+class Momentum(Optimizer):
+    """The ``momentum`` op, with Nesterov."""
+
+    def __init__(self, learning_rate, momentum=0.9, use_nesterov=False,
+                 **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _accumulator_spec(self):
+        return [("velocity", 0.0, False)]
+
+    def _update(self, param, grad, lr, state):
+        mu = self._momentum
+        v = mu * state["velocity"] + grad
+        if self._use_nesterov:
+            param.copy_(param - (grad + mu * v) * lr)
+        else:
+            param.copy_(param - lr * v)
+        state["velocity"] = v
+
+
+class LarsMomentum(Optimizer):
+    """The ``lars_momentum`` op: a local rate from ||p|| and ||g||."""
+
+    def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _accumulator_spec(self):
+        return [("velocity", 0.0, False)]
+
+    def _update_all(self, params, grads, lrs):
+        mu, coeff, wd = (self._momentum, self._lars_coeff,
+                         self._lars_weight_decay)
+        p_norms = _norms(params).float().unbind()
+        g_norms = _norms(grads).float().unbind()
+        for p, g, pn, gn in zip(params, grads, p_norms, g_norms):
+            state = self.accumulators(p)
+            local_lr = lrs[p.device] * coeff * pn / (gn + wd * pn)
+            v = mu * state["velocity"] + local_lr * (g + wd * p)
+            p.copy_(p - v)
+            state["velocity"] = v
 
 
 class Adam(Optimizer):
-    """AdamOptimizer: the ``adam`` op's rule, eps outside the bias
-    correction."""
+    """AdamOptimizer: the ``adam`` op's rule."""
 
-    def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
-                 beta2: float = 0.999, epsilon: float = 1e-8,
-                 parameters=None, **kw):
-        super().__init__(learning_rate, parameters, **kw)
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
-    def _init_accumulators(self, param):
-        def scalar(v):
-            return torch.full((), v, dtype=torch.float32, device=param.device)
-        return {"moment1": torch.zeros_like(param),
-                "moment2": torch.zeros_like(param),
-                "beta1_pow": scalar(self._beta1),
-                "beta2_pow": scalar(self._beta2)}
+    def _accumulator_spec(self):
+        return [("moment1", 0.0, False), ("moment2", 0.0, False),
+                ("beta1_pow", self._beta1, True),
+                ("beta2_pow", self._beta2, True)]
 
     def _decay(self, param, lr):
         return param
@@ -161,14 +429,375 @@ class Adam(Optimizer):
 
 
 class AdamW(Adam):
-    """AdamW: the ``adamw`` op, p - lr coeff p before the Adam step."""
+    """The ``adamw`` op: p - lr coeff p before the Adam step (decoupled
+    ``weight_decay``, not ``L2Decay``)."""
 
-    def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
-                 beta2: float = 0.999, epsilon: float = 1e-8,
-                 weight_decay: float = 0.01, parameters=None, **kw):
-        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         **kw)
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, weight_decay=0.01, **kw):
+        super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
         self._coeff = float(weight_decay)
 
     def _decay(self, param, lr):
         return param - lr * self._coeff * param
+
+
+class Lamb(Adam):
+    """The ``lamb`` op: the Adam direction plus decay, scaled by the trust
+    ratio ||p|| / ||update|| over the whole tensor."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
+        self._weight_decay = lamb_weight_decay
+
+    def _update_all(self, params, grads, lrs):
+        b1, b2, eps, wd = (self._beta1, self._beta2, self._epsilon,
+                           self._weight_decay)
+        updates = []
+        for p, g in zip(params, grads):
+            state = self.accumulators(p)
+            m1 = b1 * state["moment1"] + (1 - b1) * g
+            m2 = b2 * state["moment2"] + (1 - b2) * g * g
+            m1_hat = m1 / (1 - state["beta1_pow"])
+            m2_hat = m2 / (1 - state["beta2_pow"])
+            updates.append(m1_hat / (torch.sqrt(m2_hat) + eps) + wd * p)
+            state["moment1"], state["moment2"] = m1, m2
+        # the trust ratios of all the parameters at once
+        p_norm = _norms(params).float()
+        u_norm = _norms(updates).float()
+        trust = torch.where(p_norm > 0, torch.where(
+            u_norm > 0, p_norm / u_norm, 1.0), 1.0).unbind()
+        for p, u, t in zip(params, updates, trust):
+            state = self._accumulators[p]
+            p.copy_(p - lrs[p.device] * t * u)
+            state["beta1_pow"] = state["beta1_pow"] * b1
+            state["beta2_pow"] = state["beta2_pow"] * b2
+
+
+class Adagrad(Optimizer):
+    """The ``adagrad`` op."""
+
+    def __init__(self, learning_rate, epsilon=1e-6,
+                 initial_accumulator_value=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+        self._init_value = initial_accumulator_value
+
+    def _accumulator_spec(self):
+        return [("moment", self._init_value, False)]
+
+    def _update(self, param, grad, lr, state):
+        m = state["moment"] + grad * grad
+        param.copy_(param - lr * grad / (torch.sqrt(m) + self._epsilon))
+        state["moment"] = m
+
+
+class DecayedAdagrad(Optimizer):
+    """The ``decayed_adagrad`` op."""
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._decay, self._epsilon = decay, epsilon
+
+    def _accumulator_spec(self):
+        return [("moment", 0.0, False)]
+
+    def _update(self, param, grad, lr, state):
+        d = self._decay
+        m = d * state["moment"] + (1 - d) * grad * grad
+        param.copy_(param - lr * grad / (torch.sqrt(m) + self._epsilon))
+        state["moment"] = m
+
+
+class Adamax(Optimizer):
+    """The ``adamax`` op."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _accumulator_spec(self):
+        return [("moment", 0.0, False), ("inf_norm", 0.0, False),
+                ("beta1_pow", self._beta1, True)]
+
+    def _update(self, param, grad, lr, state):
+        b1, b2 = self._beta1, self._beta2
+        m = b1 * state["moment"] + (1 - b1) * grad
+        inf = torch.maximum(b2 * state["inf_norm"],
+                            torch.abs(grad) + self._epsilon)
+        b1p = state["beta1_pow"]
+        param.copy_(param - (lr / (1 - b1p)) * m / inf)
+        state["moment"], state["inf_norm"] = m, inf
+        state["beta1_pow"] = b1p * b1
+
+
+class Adadelta(Optimizer):
+    """The ``adadelta`` op (it takes no learning rate)."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _accumulator_spec(self):
+        return [("asg", 0.0, False), ("asu", 0.0, False)]
+
+    def _update(self, param, grad, lr, state):
+        rho, eps = self._rho, self._epsilon
+        asg = rho * state["asg"] + (1 - rho) * grad * grad
+        update = -torch.sqrt((state["asu"] + eps) / (asg + eps)) * grad
+        state["asu"] = rho * state["asu"] + (1 - rho) * update * update
+        state["asg"] = asg
+        param.copy_(param + update)
+
+
+class RMSProp(Optimizer):
+    """The ``rmsprop`` op, centered or not."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _accumulator_spec(self):
+        return [("mean_square", 0.0, False), ("mean_grad", 0.0, False),
+                ("moment", 0.0, False)]
+
+    def _update(self, param, grad, lr, state):
+        rho, eps = self._rho, self._epsilon
+        ms = rho * state["mean_square"] + (1 - rho) * grad * grad
+        if self._centered:
+            mg = rho * state["mean_grad"] + (1 - rho) * grad
+            denom = ms - mg * mg + eps
+        else:
+            mg = state["mean_grad"]
+            denom = ms + eps
+        mom = self._momentum * state["moment"] + lr * grad / torch.sqrt(
+            denom)
+        param.copy_(param - mom)
+        state["mean_square"], state["mean_grad"] = ms, mg
+        state["moment"] = mom
+
+
+class Ftrl(Optimizer):
+    """The ``ftrl`` op."""
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _accumulator_spec(self):
+        return [("squared", 0.0, False), ("linear", 0.0, False)]
+
+    def _update(self, param, grad, lr, state):
+        sq, power = state["squared"], self._lr_power
+        new_sq = sq + grad * grad
+        if power == -0.5:
+            root_new = torch.sqrt(new_sq)
+            sigma = (root_new - torch.sqrt(sq)) / lr
+        else:
+            root_new = torch.pow(new_sq, -power)
+            sigma = (root_new - torch.pow(sq, -power)) / lr
+        lin = state["linear"] + grad - sigma * param
+        x = self._l2 + root_new / lr
+        pre = torch.clamp(lin, -self._l1, self._l1) - lin
+        param.copy_(pre / x)
+        state["squared"], state["linear"] = new_sq, lin
+
+
+class DpSGD(Optimizer):
+    """DpSGD: the class and its arguments. Its update is the ``dpsgd``
+    lowering, which comes with the static side; ``step()`` raises as the
+    JAX package's eager step does."""
+
+    def __init__(self, learning_rate, clip=10.0, batch_size=16.0, sigma=1.0,
+                 **kw):
+        super().__init__(learning_rate, **kw)
+        self._clip, self._batch_size, self._sigma = clip, batch_size, sigma
+
+    def _accumulator_spec(self):
+        raise NotImplementedError(
+            "DpSGD has no eager implementation; its dpsgd update comes "
+            "with the static side (ROADMAP.md A2)")
+
+
+SGDOptimizer = SGD
+MomentumOptimizer = Momentum
+LarsMomentumOptimizer = LarsMomentum
+AdamOptimizer = Adam
+LambOptimizer = Lamb
+AdagradOptimizer = Adagrad
+DecayedAdagradOptimizer = DecayedAdagrad
+AdamaxOptimizer = Adamax
+AdadeltaOptimizer = Adadelta
+RMSPropOptimizer = RMSProp
+FtrlOptimizer = Ftrl
+DpSGDOptimizer = DpSGD
+
+
+def _eager_only(scope, program) -> None:
+    if scope is not None or program is not None:
+        raise NotImplementedError(f"a scope or program: {_STATIC}")
+
+
+class _Swap:
+    """The apply()/restore() protocol of the averages: ``values(name)``
+    swapped into the parameters, the originals kept for ``restore``."""
+
+    def _items(self):
+        if self._params is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} without parameters= (a Program's "
+                f"parameters): {_STATIC}")
+        return [("p%d" % i, p) for i, p in enumerate(self._params)]
+
+    def apply(self, scope=None, program=None, need_restore: bool = True):
+        """Context manager: the averaged values in, the originals back on
+        exit when ``need_restore``."""
+        _eager_only(scope, program)
+        avg = self
+
+        class _Guard:
+            def __enter__(self_g):
+                avg._backup = {}
+                with torch.no_grad():
+                    for name, p in avg._items():
+                        value = avg._swapped_in(name)
+                        if value is not None:
+                            avg._backup[name] = p.detach().clone()
+                            p.copy_(value)
+                return avg
+
+            def __exit__(self_g, *exc):
+                if need_restore:
+                    avg.restore()
+                return False
+        return _Guard()
+
+    def restore(self, scope=None, program=None):
+        _eager_only(scope, program)
+        with torch.no_grad():
+            for name, p in self._items():
+                if name in self._backup:
+                    p.copy_(self._backup[name])
+        self._backup = {}
+
+
+class ExponentialMovingAverage(_Swap):
+    """fluid.optimizer.ExponentialMovingAverage, eager side: shadow = decay
+    shadow + (1 - decay) param, with the warmup decay min(decay, (1 + t) /
+    (10 + t)) when ``thres_steps`` is given. The shadows are tensors on the
+    parameters' device."""
+
+    def __init__(self, decay: float = 0.999, thres_steps=None,
+                 parameters=None):
+        self._warmup = thres_steps is not None
+        self._decay = float(decay)
+        self._params = list(parameters) if parameters is not None else None
+        self._step = 0
+        self._shadow: Dict[str, torch.Tensor] = {}
+        self._backup: Dict[str, torch.Tensor] = {}
+
+    @torch.no_grad()
+    def update(self, scope=None, program=None):
+        _eager_only(scope, program)
+        self._step += 1
+        decay = min(self._decay, (1.0 + self._step) / (10.0 + self._step)) \
+            if self._warmup else self._decay
+        items = self._items()
+        if not self._shadow:
+            self._shadow = {n: p.detach().clone() for n, p in items}
+            return
+        names = [n for n, _ in items]
+        prev = [self._shadow[n] for n in names]
+        cur = [p.detach() for _, p in items]
+        new = torch._foreach_add(torch._foreach_mul(prev, decay),
+                                 torch._foreach_mul(cur, 1.0 - decay))
+        self._shadow = dict(zip(names, new))
+
+    def _swapped_in(self, name):
+        return self._shadow.get(name)
+
+
+class ModelAverage(_Swap):
+    """fluid.optimizer.ModelAverage, eager side: the sliding-window average
+    of ``average_accumulates``: sum_1 += param each update; every 16384
+    updates sum_1 folds into sum_2; when num_accum >= min_window and
+    num_accum >= min(max_window, num_updates * rate) the window restarts
+    (sum_3 <- sum_1 + sum_2, the old sum_3 dropped, sum_1 = sum_2 = 0).
+    The sums are tensors on the parameters' device."""
+
+    _MAX_NUM_ACCUMULATES = 16384
+
+    def __init__(self, average_window_rate: float,
+                 min_average_window: int = 10000,
+                 max_average_window: int = 10000, parameters=None):
+        self._rate = float(average_window_rate)
+        self._min_w = int(min_average_window)
+        self._max_w = int(max_average_window)
+        self._params = list(parameters) if parameters is not None else None
+        self._num_updates = 0
+        self._num_accum = 0
+        self._old_num_accum = 0
+        self._sum1: Dict[str, torch.Tensor] = {}
+        self._sum2: Dict[str, torch.Tensor] = {}
+        self._sum3: Dict[str, torch.Tensor] = {}
+        self._backup: Dict[str, torch.Tensor] = {}
+
+    @torch.no_grad()
+    def update(self, scope=None, program=None):
+        _eager_only(scope, program)
+        self._num_updates += 1
+        self._num_accum += 1
+        for name, p in self._items():
+            s1 = self._sum1.get(name)
+            self._sum1[name] = p.detach().clone() if s1 is None else s1 + p
+        if self._num_updates % self._MAX_NUM_ACCUMULATES == 0:
+            for name, s1 in self._sum1.items():
+                s2 = self._sum2.get(name)
+                self._sum2[name] = s1 if s2 is None else s2 + s1
+                self._sum1[name] = torch.zeros_like(s1)
+        if self._num_accum >= self._min_w and self._num_accum >= min(
+                self._max_w, self._num_updates * self._rate):
+            for name, s1 in self._sum1.items():
+                s2 = self._sum2.get(name)
+                self._sum3[name] = s1.clone() if s2 is None else s1 + s2
+                self._sum1[name] = torch.zeros_like(s1)
+                self._sum2[name] = torch.zeros_like(s1)
+            self._old_num_accum = self._num_accum
+            self._num_accum = 0
+
+    def _swapped_in(self, name):
+        sums = [s[name] for s in (self._sum1, self._sum2, self._sum3)
+                if name in s]
+        if name not in self._sum1 and name not in self._sum3:
+            return None
+        total = sums[0]
+        for s in sums[1:]:
+            total = total + s
+        return _div(total, max(self._num_accum + self._old_num_accum, 1))
+
+
+class LookaheadOptimizer:
+    """fluid.optimizer.LookaheadOptimizer: static only in the reference
+    (its dygraph minimize raises), so ``minimize`` raises here until the
+    static side is ported (``ROADMAP.md`` A2)."""
+
+    def __init__(self, inner_optimizer, alpha=0.5, k=5):
+        if inner_optimizer is None:
+            raise ValueError("inner optimizer can not be None")
+        if not 0.0 <= alpha <= 1.0:
+            raise ValueError("alpha should be larger or equal to 0.0, and "
+                             "less or equal than 1.0")
+        if not isinstance(k, int) or k <= 0:
+            raise ValueError("k should be a positive integer")
+        self.inner_optimizer = inner_optimizer
+        self.alpha = float(alpha)
+        self.k = int(k)
+        self.type = "lookahead"
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, program=None):
+        raise NotImplementedError(f"LookaheadOptimizer is static only; "
+                                  f"{_STATIC}")

@@ -231,6 +231,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "             m.startswith('paddle_tpu.'))\n"
         "assert len(names) >= 15, names\n"
         "for n in ('paddle_tpu_torch.optimizer', 'paddle_tpu_torch.jit',\n"
+        "          'paddle_tpu_torch.optimizer.lr_scheduler',\n"
+        "          'paddle_tpu_torch.optimizer.static_opt',\n"
+        "          'paddle_tpu_torch.amp',\n"
         "          'paddle_tpu_torch.generation',\n"
         "          'paddle_tpu_torch.generation.model',\n"
         "          'paddle_tpu_torch.generation.sampling',\n"
