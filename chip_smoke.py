@@ -84,7 +84,22 @@ Phases, each printing its lines; any failure exits nonzero:
    unchanged, the scale follows the rule; (iv) times of the recipe's steps
    beside the plain ``Adam(1e-4)`` step: step ms, device ms, kernels and
    host syncs a step;
-7. generation, the third main path: the decoder of docs/generation.md
+7. the static Program path ("[static]" lines), the fifth main path: the
+   12-layer BERT-base-shaped train program of
+   ``tools/check_backward_replay.py:89`` (H 768, FF 3072, 12 heads, S 128,
+   B 8, Adam(1e-4), fp32) built with the port's ``layers`` and run by its
+   ``Executor`` in three forms from one startup state: (a) as built
+   (attention of mul/matmul/softmax, norms composed over S x H: no
+   launch), (b) after ``multihead_matmul_fuse`` (the flash forward, dQ and
+   dK/dV 12 times each a step), (c) (b) with ``begin_norm_axis=2`` (the
+   layer-norm forward and backward 24 times each a step on top); (a) and
+   (c) on the card against the CPU port (loss, every ``@GRAD``, the
+   parameters after the update), (b) against (a) on the card, the exact
+   launches, path logs and op lowerings of each form's step (each op once:
+   no second forward), the main path of ten steps of (c) with counts set to
+   0 before and read after, a bitwise rerun, the verify skill's recipe,
+   and each form's step ms, device ms, kernels and idle share;
+8. generation, the third main path: the decoder of docs/generation.md
    at full width and depth (vocab 32000, hidden 1024, 16 layers, 16
    heads; weights from ``init_params`` through ``load_reference_params``):
    (i) both paged-attention kernels (fp32, int8 and fp8 pools; Cq 1 and
@@ -104,13 +119,14 @@ Phases, each printing its lines; any failure exits nonzero:
    gather + SDPA; tokens/s, mixed-step, TTFT and TPOT quantiles, and the
    device idle share and the paged-attention group's device ms a mixed
    step over profiled mixed steps, in fp32 and int8 KV;
-8. one JSON line of kernel records, the card line, and last the result
+9. one JSON line of kernel records, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -415,7 +431,9 @@ LN_EDGE_CASES = ((7, 130, torch.float32, False), (7, 130, torch.bfloat16, False)
         (24576, torch.float16, False), (24577, torch.bfloat16, False),
         (32768, torch.float32, False), (32769, torch.bfloat16, True),
         (49152, torch.float16, False), (49153, torch.float32, False),
-        (65536, torch.float32, False)))
+        (65536, torch.float32, False))) + (
+    # the static program's trailing-axis norms (phase 7, form (c))
+    (1024, 768, torch.float32, False),)
 
 
 def check_layer_norm(device, rows=4096, f=768):
@@ -454,6 +472,7 @@ FLASH_CASES = (  # (b, h, sq, sk, d, padding bias, causal)
     (8, 12, 512, 512, 64, True, False),
     (1, 12, 384, 384, 64, False, False),
     (1, 12, 384, 384, 64, True, False),
+    (8, 12, 128, 128, 64, False, False),  # the static program's attention
 )
 FLASH_CAUSAL_CASE = (2, 12, 512, 384, 64, False, True)
 # other code paths: D = 128, ragged tiles, q/k/v as strided views of one
@@ -804,7 +823,9 @@ FLASH_BWD_CASES = (
     (1, 4, 100, 100, 256, None, True, torch.float16, "unaligned", "seed"),
     # the fp16 recipe's calls (phase 6): the train shape, seed dropout 0.1
     (32, 12, 512, 512, 64, None, False, torch.float16, "contiguous", None),
-    (32, 12, 512, 512, 64, None, False, torch.float16, "contiguous", "seed"))
+    (32, 12, 512, 512, 64, None, False, torch.float16, "contiguous", "seed"),
+    # the static program's multihead_matmul (phase 7, forms (b) and (c))
+    (8, 12, 128, 128, 64, None, False, torch.float32, "qkv_views", None))
 KEEP_PROB = 0.9
 
 
@@ -1249,7 +1270,8 @@ def check_outputs(outputs, requests, vocab):
 
 # (rows, F, x dtype) timed: BERT-base's norm in each dtype, and a wide row
 LN_TIME_CASES = ((4096, 768, torch.float32), (4096, 768, torch.bfloat16),
-                 (4096, 768, torch.float16), (1024, 8192, torch.float32))
+                 (4096, 768, torch.float16), (1024, 8192, torch.float32),
+                 (1024, 768, torch.float32))  # the static program's norm
 
 
 def time_layer_norm(device, card, eps=1e-12):
@@ -1829,7 +1851,8 @@ def profiled_ms(fn, reps=5):
 LN_BWD_TIME_CASES = ((16384, 768, torch.float32),
                      (16384, 768, torch.bfloat16),
                      (16384, 768, torch.float16),
-                     (2048, 8192, torch.float32))
+                     (2048, 8192, torch.float32),
+                     (1024, 768, torch.float32))  # the static program's
 
 
 def time_layer_norm_bwd(device, card):
@@ -1893,7 +1916,9 @@ TIME_BWD_CASES = ((32, 12, 512, 64, False, torch.bfloat16, 1.0),
                   (32, 12, 512, 64, True, torch.bfloat16, 1.0),
                   (32, 12, 512, 64, False, torch.bfloat16, KEEP_PROB),
                   (32, 12, 512, 64, False, torch.float16, 1.0),
-                  (8, 12, 512, 64, False, torch.float32, 1.0)) + tuple(
+                  (8, 12, 512, 64, False, torch.float32, 1.0),
+                  # the static program's attention
+                  (8, 12, 128, 64, False, torch.float32, 1.0)) + tuple(
     (*D256_SHAPE, False, dtype, 1.0)
     for dtype in (torch.bfloat16, torch.float16, torch.float32))
 
@@ -2628,7 +2653,454 @@ def run_recipe(device, state, cfg, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: generation
+# phase 7: the static Program path
+# ---------------------------------------------------------------------------
+
+# the 12-layer BERT-base-shaped static train program of
+# tools/check_backward_replay.py:89 build_bert_shaped, in fp32: H 768, FF
+# 3072, 12 heads, S 128, B 8, Adam(1e-4)
+STATIC_CFG = dict(layers_n=12, H=768, FF=3072, heads=12, S=128)
+STATIC_B = 8
+STATIC_CPU_B = 2
+STATIC_STEPS = 10
+STATIC_LR = 1e-4
+STATIC_SEED = 2024
+# the program's loss is the mean of the last norm's output, which is 0 for
+# every input while each norm's scale is 1 and its bias 0 (the mean of a
+# normalized row is 0): every gradient below the last norm would be
+# rounding noise. So the checks draw the norms' scale and bias from a
+# numpy seed: 1 + 0.1 N and 0.1 N.
+STATIC_LN_SPREAD = 0.1
+# the loss against the CPU port: a mean of ~1e5 terms of O(0.1) summed in
+# other orders through 12 layers of fp32 arithmetic
+STATIC_LOSS_TOL = dict(atol=1e-6, rtol=1e-5)
+# the fused form (flash) against the composed one on the card: the fp32
+# flash tolerance (A, R) of FLASH_BWD_TOL, A taken as a share of each
+# tensor's max |ref|, with STEP_TOL's floor of the model's largest
+# gradient for the key biases, whose exact gradient is 0
+STATIC_FUSED_TOL = FLASH_BWD_TOL[torch.float32]
+# a verify-skill step: fc -> softmax_with_cross_entropy -> Adam(1e-3)
+VERIFY_STEPS = 5
+
+
+def build_bert_shaped(pt, layers_n=12, H=768, FF=3072, heads=12, S=128,
+                      norm_axis=1):
+    """The program of tools/check_backward_replay.py:89 built with package
+    ``pt``'s layers (the port here; the tests also pass the JAX package):
+    L layers of multi_head_attention, residual, layer_norm, an FFN of two
+    fc (gelu), residual, layer_norm; the mean as the loss; Adam(STATIC_LR).
+    ``norm_axis`` is the norms' begin_norm_axis: 1 (the tool's, over
+    S x H) or 2 (the trailing axis). Returns (main, startup, loss)."""
+    layers = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        h = layers.data("x", [S, H])
+        for _ in range(layers_n):
+            a = layers.multi_head_attention(h, heads)
+            h = layers.reshape(layers.layer_norm(
+                layers.elementwise_add(a, h), begin_norm_axis=norm_axis),
+                [-1, S, H])
+            f = layers.fc(layers.reshape(
+                layers.fc(h, FF, act="gelu", num_flatten_dims=2),
+                [-1, S, FF]), H, num_flatten_dims=2)
+            h = layers.reshape(layers.layer_norm(
+                layers.elementwise_add(f, h), begin_norm_axis=norm_axis),
+                [-1, S, H])
+        loss = layers.mean(h)
+        pt.optimizer.Adam(STATIC_LR).minimize(loss, startup_program=startup,
+                                              program=main)
+    return main, startup, loss
+
+
+def static_forms(cfg=STATIC_CFG, seed=STATIC_SEED):
+    """{form: (main, startup, loss name)}: (a) as built, (b) after
+    multihead_matmul_fuse, (c) (b) with begin_norm_axis 2."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.passes import apply_pass
+    main_a, startup_a, loss_a = build_bert_shaped(pt, **cfg)
+    main_c, startup_c, loss_c = build_bert_shaped(pt, **cfg, norm_axis=2)
+    for startup in (startup_a, startup_c):
+        startup.random_seed = seed
+    fuse = (lambda m: apply_pass(m.clone(), "multihead_matmul_fuse"))
+    return {"a": (main_a, startup_a, loss_a.name),
+            "b": (fuse(main_a), startup_a, loss_a.name),
+            "c": (fuse(main_c), startup_c, loss_c.name)}
+
+
+def static_state(startup, device, seed=STATIC_SEED):
+    """The startup program run on ``device`` into a new scope, every layer
+    norm's scale and bias then drawn from numpy (STATIC_LN_SPREAD): the
+    state as numpy arrays by name."""
+    import paddle_tpu_torch as pt
+    scope = pt.Scope()
+    pt.Executor(device).run(startup, scope=scope)
+    rng = np.random.default_rng(seed)
+    state = {}
+    for name, var in startup.global_block.vars.items():
+        value = scope.find_var(name).cpu().numpy()
+        if var.is_parameter and name.startswith("layer_norm."):
+            base = 1.0 if ".w_" in name else 0.0
+            value = (base + STATIC_LN_SPREAD * rng.standard_normal(
+                value.shape)).astype(np.float32)
+        state[name] = value
+    return state
+
+
+def static_feed(b, cfg=STATIC_CFG, seed=STATIC_SEED + 1):
+    rng = np.random.default_rng(seed)
+    return {"x": rng.standard_normal((b, cfg["S"], cfg["H"]))
+            .astype(np.float32)}
+
+
+class StaticRun:
+    """A form's main program on ``device`` from a carried state: its
+    executor, scope, feed and gradient names."""
+
+    def __init__(self, form, state, device, b):
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch.core.scope import load_reference_scope
+        self.main, _, self.loss = form
+        self.scope = pt.Scope()
+        load_reference_scope(self.scope, state, device)
+        self.exe = pt.Executor(device)
+        self.feed = static_feed(b)
+        self.grads = [n for n in self.main.global_block.vars
+                      if n.endswith("@GRAD")]
+
+    def step(self, grads=False):
+        """One step; the loss (and the gradients), tensors on the
+        device."""
+        return self.exe.run(self.main, feed=self.feed,
+                            fetch_list=[self.loss] + (self.grads if grads
+                                                      else []),
+                            scope=self.scope, return_numpy=False)
+
+    def params(self):
+        return {v.name: self.scope.find_var(v.name).cpu().clone()
+                for v in self.main.all_parameters()}
+
+
+def static_paths():
+    from paddle_tpu_torch.nn.functional import layer_norm_paths_taken
+    from paddle_tpu_torch.nn.transformer import attention_paths_taken
+    return attention_paths_taken(), layer_norm_paths_taken()
+
+
+def reset_static_logs():
+    from paddle_tpu_torch.nn.functional import reset_layer_norm_path_log
+    from paddle_tpu_torch.nn.transformer import reset_attention_path_log
+    reset_attention_path_log()
+    reset_layer_norm_path_log()
+
+
+def static_expect(form, n_layers):
+    """(launches a step by KERNEL_COUNTS name, attention path log, layer-
+    norm path log) of one step of a form."""
+    flash = 0 if form == "a" else n_layers
+    ln = 2 * n_layers if form == "c" else 0
+    counts = dict(layer_norm_fwd=ln, layer_norm_bwd=ln,
+                  flash_attention_fwd=flash, flash_attention_bwd_dq=flash,
+                  flash_attention_bwd_dkv=flash,
+                  flash_attention_fwd_copies=0)
+    return (counts, ["flash"] * flash,
+            ["kernel" if form == "c" else "composed"] * (2 * n_layers))
+
+
+def check_lowered(run, form, n_layers):
+    """Each op of the program lowered once in the step just run: the
+    executor's count by op type equals the program's; the forward has 5L
+    mul and 2L matmul in (a), 2L mul, L multihead_matmul and no matmul in
+    (b) and (c)."""
+    import collections
+    want = collections.Counter(op.type for op in run.main.global_block.ops)
+    got = run.exe.lowered
+    if got != want:
+        fail(f"static ({form}): lowerings {dict(got)} against the program's "
+             f"ops {dict(want)}")
+    fwd = (dict(mul=5 * n_layers, matmul=2 * n_layers, multihead_matmul=0)
+           if form == "a" else
+           dict(mul=2 * n_layers, matmul=0, multihead_matmul=n_layers))
+    if any(got[k] != v for k, v in fwd.items()):
+        fail(f"static ({form}): {dict(got)}, expected {fwd} a step")
+    return {k: got[k] for k in fwd}
+
+
+def check_static_vs_cpu(forms, states, device):
+    """(a) and (c) one step each at B=2 on the card and on the CPU port
+    from one carried state: the loss and every @GRAD by name (STEP_TOL),
+    the parameters after the update within 2.5 lr and each update in norm
+    (UPDATE_RTOL; the key bias, whose exact gradient is 0, elementwise
+    only)."""
+    cpu = torch.device("cpu")
+    for form in ("a", "c"):
+        out = []
+        for where in (device, cpu):
+            run = StaticRun(forms[form], states[form], where, STATIC_CPU_B)
+            before = run.params()
+            vals = run.step(grads=True)
+            out.append(dict(
+                loss=float(vals[0]), params=run.params(), before=before,
+                grads={n: v.cpu() for n, v in zip(run.grads, vals[1:])}))
+            del run
+        g, c = out
+        err = abs(g["loss"] - c["loss"])
+        if err > STATIC_LOSS_TOL["atol"] + STATIC_LOSS_TOL["rtol"] * \
+                abs(c["loss"]):
+            fail(f"static ({form}) vs CPU: loss {g['loss']} on the card, "
+                 f"{c['loss']} on the CPU port")
+        top = max(float(t.abs().max()) for t in c["grads"].values())
+        worst_g = 0.0
+        for n, want in c["grads"].items():
+            scale = float(want.abs().max())
+            atol = STEP_TOL["grad_rel"] * scale + STEP_TOL["grad_floor"] * top
+            e, ok = max_err(g["grads"][n], want, atol, STEP_TOL["grad_rel"])
+            worst_g = max(worst_g, e / atol)
+            if not ok:
+                fail(f"static ({form}) vs CPU: {n} differs by {e} (max "
+                     f"|grad| {scale})")
+        worst_p, worst_u = 0.0, 0.0
+        for n, want in c["params"].items():
+            e, ok = max_err(g["params"][n], want, 2.5 * STATIC_LR, 0.0)
+            worst_p = max(worst_p, e)
+            if not ok:
+                fail(f"static ({form}) vs CPU: {n} after the update differs "
+                     f"by {e} (tol 2.5 lr)")
+            if ".k_b_" in n:
+                continue
+            d_g = g["params"][n].double() - g["before"][n].double()
+            d_c = want.double() - c["before"][n].double()
+            rel = float((d_g - d_c).norm()) / max(float(d_c.norm()), 1e-30)
+            worst_u = max(worst_u, rel)
+            if not rel <= UPDATE_RTOL:
+                fail(f"static ({form}) vs CPU: the update of {n} is "
+                     f"{rel:.3e} of its norm away (tol {UPDATE_RTOL:g})")
+        say("static", f"({form}) card vs CPU port, B={STATIC_CPU_B}: loss "
+            f"{g['loss']:.8f} / {c['loss']:.8f}; {len(c['grads'])} @GRAD at "
+            f"{worst_g:.3f} of STEP_TOL; parameters within {worst_p:.2e} "
+            f"(2.5 lr), updates within {worst_u:.2e} of their norm (tol "
+            f"{UPDATE_RTOL:g})")
+
+
+def check_static_fused(forms, states, device):
+    """(b) against (a) on the card at B=8, one step each from one state:
+    the loss and every gradient within STATIC_FUSED_TOL; the launches, the
+    path logs and the lowerings of each step."""
+    n_layers = STATIC_CFG["layers_n"]
+    out = {}
+    for form in ("a", "b"):
+        run = StaticRun(forms[form], states["a"], device, STATIC_B)
+        reset_counts()
+        reset_static_logs()
+        vals = run.step(grads=True)
+        torch.cuda.synchronize()
+        counts, paths = read_counts(), static_paths()
+        want_counts, want_attn, want_ln = static_expect(form, n_layers)
+        if counts != want_counts or paths != (want_attn, want_ln):
+            fail(f"static ({form}): launches {counts}, paths "
+                 f"{[sorted(set(p)) for p in paths]} x "
+                 f"{[len(p) for p in paths]}; expected {want_counts}")
+        lowered = check_lowered(run, form, n_layers)
+        out[form] = dict(loss=float(vals[0]), grads={
+            n: v.cpu() for n, v in zip(run.grads, vals[1:])})
+        say("static", f"({form}) one step at B={STATIC_B}: launches "
+            + ", ".join(f"{k} {v}" for k, v in counts.items()) +
+            f"; attention log {len(paths[0])} x "
+            f"{sorted(set(paths[0])) or '-'}, layer-norm log "
+            f"{len(paths[1])} x {sorted(set(paths[1]))}; lowerings {lowered} "
+            f"(each of the program's {len(run.main.global_block.ops)} ops "
+            "once)")
+        del run
+    a_, r_ = STATIC_FUSED_TOL
+    top = max(float(t.abs().max()) for t in out["a"]["grads"].values())
+    worst = 0.0
+    for n, want in out["a"]["grads"].items():
+        got = out["b"]["grads"][n]
+        lim = a_ * float(want.abs().max()) + r_ * want.abs() + \
+            STEP_TOL["grad_floor"] * top
+        share = float(((got - want).abs() / lim.clamp_min(1e-30)).max())
+        worst = max(worst, share)
+        if share > 1.0:
+            fail(f"static (b) vs (a): {n} off by "
+                 f"{float((got - want).abs().max())} (tol {a_:g} max|ref| + "
+                 f"{r_:g}|ref| + {STEP_TOL['grad_floor']:g} max grad)")
+    la, lb = out["a"]["loss"], out["b"]["loss"]
+    if abs(la - lb) > STATIC_LOSS_TOL["atol"] + STATIC_LOSS_TOL["rtol"] * \
+            abs(la):
+        fail(f"static (b) vs (a): loss {lb} against {la}")
+    say("static", f"(b) vs (a) on the card: loss {lb:.8f} / {la:.8f}; every "
+        f"gradient within {worst:.3f} of the fp32 flash tolerance "
+        f"({a_:g} max|ref| + {r_:g}|ref|)")
+
+
+def static_main_path(form, state, device):
+    """STATIC_STEPS steps of a form at B=8 with the counts set to 0 just
+    before and read just after: (losses, counts, paths, final params)."""
+    run = StaticRun(form, state, device, STATIC_B)
+    reset_counts()
+    reset_static_logs()
+    losses = [run.step()[0] for _ in range(STATIC_STEPS)]
+    torch.cuda.synchronize()
+    counts, paths = read_counts(), static_paths()
+    return [float(x) for x in losses], counts, paths, run.params()
+
+
+def check_verify_recipe(device):
+    """The verify skill's recipe on the card: fc -> softmax_with_cross_
+    entropy -> Adam(1e-3), VERIFY_STEPS steps on one batch; the loss must
+    fall."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = STATIC_SEED
+    with pt.program_guard(main, startup):
+        x = layers.data("x", [4])
+        label = layers.data("y", [1], dtype="int64")
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            layers.fc(x, 10), label))
+        pt.optimizer.Adam(1e-3).minimize(loss, startup_program=startup,
+                                         program=main)
+    scope = pt.Scope()
+    exe = pt.Executor(device)
+    exe.run(startup, scope=scope)
+    rng = np.random.default_rng(STATIC_SEED)
+    feed = {"x": rng.standard_normal((8, 4)).astype(np.float32),
+            "y": rng.integers(0, 10, (8, 1))}
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(VERIFY_STEPS)]
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"verify recipe on the card: losses {losses}")
+    say("static", "verify recipe (fc -> softmax_with_cross_entropy -> "
+        f"Adam(1e-3)) on {torch.cuda.get_device_name(0)}: losses "
+        + " ".join(f"{v:.6f}" for v in losses))
+
+
+class GcClock:
+    """The host time spent in Python's cyclic garbage collector while the
+    block runs (``ms``), and its collections by generation (``counts``)."""
+
+    def __enter__(self):
+        self.ms, self.counts, self._t = 0.0, [0, 0, 0], None
+        gc.callbacks.append(self._tick)
+        return self
+
+    def _tick(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.ms += 1e3 * (time.perf_counter() - self._t)
+            self.counts[info["generation"]] += 1
+            self._t = None
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._tick)
+
+
+def time_static(forms, states, device, card, reps=10):
+    """Each form at B=8, the three built first and timed in turns: eager
+    step ms (host clock, synchronised, median of ``reps``, and the range),
+    the host ms spent in the garbage collector during those steps
+    (GcClock), device busy ms and kernels a step (torch.profiler), the
+    idle share, and the flash and layer-norm launches a step."""
+    n_layers = STATIC_CFG["layers_n"]
+    runs = {form: StaticRun(forms[form], states[form], device, STATIC_B)
+            for form in ("a", "b", "c")}
+    for run in runs.values():
+        for _ in range(2):
+            run.step()
+    torch.cuda.synchronize()
+    times = {form: [] for form in runs}
+    gc_ms = {form: 0.0 for form in runs}
+    gc_n = {form: [0, 0, 0] for form in runs}
+    for _ in range(reps):
+        for form, run in runs.items():
+            with GcClock() as clock:
+                t0 = time.perf_counter()
+                run.step()
+                torch.cuda.synchronize()
+                times[form].append(time.perf_counter() - t0)
+            gc_ms[form] += clock.ms
+            gc_n[form] = [a + b for a, b in zip(gc_n[form], clock.counts)]
+    for form, run in runs.items():
+        ms = 1e3 * float(np.median(times[form]))
+        lo, hi = 1e3 * min(times[form]), 1e3 * max(times[form])
+        reset_counts()
+        busy, n_kernels, groups, _ = profile_step(run.step)
+        counts = read_counts()
+        idle = max(0.0, 1.0 - busy / ms)
+        say("static", f"times ({form}) BERT-shaped {n_layers} layers "
+            f"B={STATIC_B} S={STATIC_CFG['S']} fp32: step {ms:.2f} ms median "
+            f"of {reps} (in turns; {lo:.2f}-{hi:.2f}), garbage collector "
+            f"{gc_ms[form] / reps:.2f} ms a step ({gc_n[form]} collections "
+            f"by generation in the {reps}), device busy {busy:.2f} ms in "
+            f"{n_kernels} kernels, idle share {idle:.3f}; flash "
+            f"{counts['flash_attention_fwd']}/"
+            f"{counts['flash_attention_bwd_dq']}/"
+            f"{counts['flash_attention_bwd_dkv']}, layer norm "
+            f"{counts['layer_norm_fwd']}/{counts['layer_norm_bwd']} a step; "
+            + ", ".join(f"{g} {t:.2f} ms" for g, t in groups.items()) +
+            f"  [{card}]")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def run_static(device, card):
+    """Phase 7. Returns the main path's launch counts: STATIC_STEPS steps
+    of form (c)."""
+    n_layers = STATIC_CFG["layers_n"]
+    t0 = time.perf_counter()
+    forms = static_forms()
+    states = {"a": static_state(forms["a"][1], device),
+              "c": static_state(forms["c"][1], device)}
+    same = [n for n in states["a"] if not n.startswith("layer_norm.")
+            and "@" not in n]
+    if any(not np.array_equal(states["a"][n], states["c"][n])
+           for n in same):
+        fail("static: the two startup programs from one seed drew "
+             "different weights")
+    states["b"] = states["a"]
+    say("static", f"BERT-shaped program {STATIC_CFG}, three forms built and "
+        f"started from seed {STATIC_SEED} in {time.perf_counter() - t0:.1f} "
+        f"s; ops: " + ", ".join(f"({k}) {len(v[0].global_block.ops)}"
+                                for k, v in forms.items()) +
+        f"; {len(same)} weights equal across the two startups")
+
+    check_static_vs_cpu(forms, states, device)
+    torch.cuda.empty_cache()
+    check_static_fused(forms, states, device)
+    torch.cuda.empty_cache()
+
+    # the main path: ten steps of (c), counts set to 0 just before
+    losses, counts, paths, params = static_main_path(forms["c"],
+                                                     states["c"], device)
+    want_counts, want_attn, want_ln = static_expect("c", n_layers)
+    want_counts = {k: STATIC_STEPS * v for k, v in want_counts.items()}
+    if counts != want_counts or paths != (want_attn * STATIC_STEPS,
+                                          want_ln * STATIC_STEPS):
+        fail(f"static (c) main path: launches {counts} (expected "
+             f"{want_counts}), paths {[sorted(set(p)) for p in paths]} x "
+             f"{[len(p) for p in paths]}")
+    if not all(math.isfinite(v) for v in losses) or \
+            len(set(losses)) < 2 or losses[-1] == losses[0]:
+        fail(f"static (c): losses not finite or not moving: {losses}")
+    again, _, _, params2 = static_main_path(forms["c"], states["c"], device)
+    diff = max(float((params[n] - params2[n]).abs().max()) for n in params)
+    if again != losses or diff != 0.0:
+        fail(f"static (c) rerun: losses {again} against {losses}, "
+             f"parameters off by up to {diff}")
+    say("static", f"(c) main path, {STATIC_STEPS} steps at B={STATIC_B}: "
+        "losses " + " ".join(f"{v:.8f}" for v in losses) + "; launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items()) +
+        f"; path logs {len(paths[0])} x 'flash', {len(paths[1])} x "
+        "'kernel'; a rerun from the same state is bitwise equal (losses and "
+        "every parameter)")
+    check_verify_recipe(device)
+    time_static(forms, states, device, card)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8: generation
 # ---------------------------------------------------------------------------
 
 # the decoder of docs/generation.md at full width and depth: 267.5 M
@@ -3465,11 +3937,16 @@ def main() -> int:
     recipe_counts = run_recipe(device, state, cfg, card)
     torch.cuda.empty_cache()
 
-    # -- 7. generation: counts set to 0 just before each pool run, read
+    # -- 7. the static Program path: the main path's counts (ten steps of
+    # form (c)) set to 0 just before its run, read just after
+    static_counts = run_static(device, card)
+    torch.cuda.empty_cache()
+
+    # -- 8. generation: counts set to 0 just before each pool run, read
     # just after
     paged_err, gen_recs, paged_times = run_generation(device, card)
 
-    # -- 8. records: launches are the serving, training, recipe and
+    # -- 9. records: launches are the serving, training, recipe, static and
     # generation runs
     ln_rec = ln_times[(4096, 768, torch.float32)]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
@@ -3480,7 +3957,8 @@ def main() -> int:
              source="paddle_tpu_torch/csrc/layer_norm.cu",
              replaces="paddle_tpu/kernels/layer_norm.py:33",
              launches=ln_total + train_counts["layer_norm_fwd"] +
-             recipe_counts["layer_norm_fwd"] + sum(
+             recipe_counts["layer_norm_fwd"] +
+             static_counts["layer_norm_fwd"] + sum(
                  r["counts"]["layer_norm"] for r in gen_recs.values()),
              max_abs_err=ln_err[(4096, 768, torch.float32, 1e-12)],
              **ln_rec),
@@ -3488,27 +3966,31 @@ def main() -> int:
              source="paddle_tpu_torch/csrc/layer_norm.cu",
              replaces="paddle_tpu/kernels/layer_norm.py:46",
              launches=train_counts["layer_norm_bwd"] +
-             recipe_counts["layer_norm_bwd"],
+             recipe_counts["layer_norm_bwd"] +
+             static_counts["layer_norm_bwd"],
              max_abs_err=ln_bwd_err[(16384, 768, torch.float32)],
              **ln_bwd_times[(16384, 768, torch.float32)]),
         dict(name="flash_attention_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:207",
              launches=fa_total + train_counts["flash_attention_fwd"] +
-             recipe_counts["flash_attention_fwd"],
+             recipe_counts["flash_attention_fwd"] +
+             static_counts["flash_attention_fwd"],
              max_abs_err=fa_err[(*fa_key, "contiguous")], **fa_rec),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:364",
              launches=train_counts["flash_attention_bwd_dq"] +
-             recipe_counts["flash_attention_bwd_dq"],
+             recipe_counts["flash_attention_bwd_dq"] +
+             static_counts["flash_attention_bwd_dq"],
              max_abs_err=fa_bwd_err[(0, "dq")],
              **fa_bwd_times[(*bwd_key, "dq")]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:413",
              launches=train_counts["flash_attention_bwd_dkv"] +
-             recipe_counts["flash_attention_bwd_dkv"],
+             recipe_counts["flash_attention_bwd_dkv"] +
+             static_counts["flash_attention_bwd_dkv"],
              max_abs_err=max(fa_bwd_err[(0, "dk")], fa_bwd_err[(0, "dv")]),
              **fa_bwd_times[(*bwd_key, "dkv")]),
         dict(name="paged_attention", route="cuda",

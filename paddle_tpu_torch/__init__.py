@@ -6,8 +6,19 @@ imports JAX or anything of ``paddle_tpu``. Its TPU kernels are hand-written
 CUDA kernels for sm_90a under ``csrc/``, built with nvcc at first use.
 
 Device rule: the default device is "gpu"; without a CUDA card, building a
-model raises unless the caller asks for "cpu" (``set_device("cpu")`` or
-``device="cpu"``).
+model or an ``Executor`` raises unless the caller asks for "cpu"
+(``set_device("cpu")``, ``device="cpu"`` or ``Executor("cpu")``).
+
+The static-graph surface of ``paddle_tpu`` (``Program``,
+``program_guard``, ``Executor``, the scope, ``append_backward``) is
+re-exported here, as the JAX package does; ``layers`` builds programs and
+``optimizer`` minimizes them.
 """
 from .device import get_device, set_device  # noqa: F401
-from .layers.helper import seed  # noqa: F401
+from .layers.helper import ParamAttr, seed  # noqa: F401
+from .core.backward import append_backward, gradients  # noqa: F401
+from .core.executor import Executor  # noqa: F401
+from .core.program import (Program, default_main_program,  # noqa: F401
+                           default_startup_program, program_guard)
+from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
+from . import layers, optimizer, static  # noqa: F401

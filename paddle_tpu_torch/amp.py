@@ -119,7 +119,7 @@ class GradScaler:
         if any(g.layout != torch.strided for g in grads):
             raise NotImplementedError(
                 "GradScaler: SelectedRows (sparse) gradients are not ported "
-                "yet (ROADMAP.md A2)")
+                "yet (ROADMAP.md A2b)")
         # a true division, as the JAX package's g / scale
         torch._foreach_div_(grads, self._scale)
         found_inf = torch.zeros((), dtype=torch.float32,

@@ -1,0 +1,240 @@
+"""Executor: runs a Program's global block op by op in eager PyTorch.
+
+Counterpart of ``paddle_tpu/core/executor.py`` (``Executor.run`` :380,
+``_run_impl`` :429, ``_BlockLowerer._lower_one`` :76). The scope holds
+the persistable state (parameters, optimizer accumulators, the learning
+rate) as tensors on the executor's device; a run puts it and the feeds
+in an environment, lowers each op once through the registry, fetches by
+name and writes the persistable results back.
+
+The backward is not the JAX design. There, the ``backward`` meta-op
+replays the forward inside ``jax.value_and_grad`` and XLA drops the
+outer copy as dead code; eager PyTorch has no such pass, and a replay
+would run the forward twice. Here the gradient targets enter the
+environment as leaf tensors that require grad (views of the scope's
+tensors, made anew each run, so no graph outlives a step; a target that
+an op produces, as ``gradients()`` allows, becomes such a leaf where the
+op writes it, which cuts the path through it as the JAX replay's
+override does); the forward
+runs once with autograd recording, the ``backward`` op is one
+``torch.autograd.grad`` call on the scaled loss, and the ops after it
+(the updates) run under ``no_grad`` and write their ``inplace_map``
+outputs into the scope's tensors in place. ``lowered`` counts each op
+type's lowerings in the last run: each op of the program once.
+
+Left out, raising where the JAX signature has them: ``CompiledProgram``
+and mesh plans (``ROADMAP.md`` A6), the program cache and AOT, lazy
+``FetchHandle`` fetches, ``train_from_dataset`` and recompute segments
+(A2b), and telemetry (A7).
+"""
+from __future__ import annotations
+
+import collections
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import device as _device
+from .. import ops  # noqa: F401  (registers the lowerings)
+from .backward import BACKWARD_OP, GRAD_SUFFIX
+from .program import OpDesc, Program, VarDesc, default_main_program
+from .registry import REGISTRY, LowerCtx
+from .scope import Scope, global_scope
+
+RNG_VAR = "@rng_state@"
+
+
+def _as_feed(v, device: torch.device) -> torch.Tensor:
+    """A feed as a tensor on ``device``; float64 becomes float32, as JAX
+    with 64-bit types off runs it. Integer feeds keep int64 for
+    indexing."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.ascontiguousarray(v))
+    if v.dtype == torch.float64:
+        v = v.float()
+    return v.to(device)
+
+
+def _is_float(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.is_floating_point()
+
+
+class Executor:
+    """Runs Programs: ``run(program, feed, fetch_list)``. ``place`` is the
+    device, the default one (the card) when None; ``"cpu"`` runs on the
+    CPU."""
+
+    def __init__(self, place=None):
+        self.device = _device.resolve(place)
+        self._seed_counter = 0
+        # op type -> lowerings in the last run
+        self.lowered: collections.Counter = collections.Counter()
+
+    def run(self, program: Optional[Program] = None,
+            feed: Optional[Dict[str, Any]] = None,
+            fetch_list: Optional[Sequence] = None,
+            scope: Optional[Scope] = None, return_numpy=True,
+            use_program_cache: bool = True):
+        """Run one step. ``return_numpy`` True returns numpy arrays, False
+        the tensors on the device."""
+        if program is not None and not isinstance(program, Program):
+            raise NotImplementedError(
+                f"Executor.run({type(program).__name__}): compiled and "
+                "mesh-planned programs are not ported yet (ROADMAP.md A6)")
+        if return_numpy == "lazy":
+            raise NotImplementedError(
+                "return_numpy='lazy' (FetchHandle) is not ported yet "
+                "(ROADMAP.md A2b)")
+        program = program if program is not None else default_main_program()
+        scope = scope if scope is not None else global_scope()
+        fetch_names = [f.name if isinstance(f, VarDesc) else str(f)
+                       for f in (fetch_list or [])]
+        persistable = {v.name for v in program.persistable_vars()}
+        env: Dict[str, Any] = {}
+        for n in sorted(persistable):
+            v = scope.find_var(n)
+            if v is None:
+                continue
+            if isinstance(v, torch.Tensor) and v.device != self.device:
+                v = v.to(self.device)
+                scope.set(n, v)
+            env[n] = v
+        state = dict(env)
+        for n, v in (feed or {}).items():
+            env[n] = _as_feed(v, self.device)
+        gen = scope.find_var(RNG_VAR)
+        if gen is None:
+            seed = program.random_seed
+            if seed is None:
+                self._seed_counter += 1
+                seed = self._seed_counter
+            gen = torch.Generator().manual_seed(int(seed))
+            scope.set(RNG_VAR, gen)
+        ctx = LowerCtx(self.device, generator=gen)
+        self.lowered = collections.Counter()
+        self._run_block(program, env, ctx)
+        for n, v in env.items():
+            if n in persistable and v is not state.get(n):
+                scope.set(n, v.detach() if isinstance(v, torch.Tensor)
+                          else v)
+        fetches = []
+        for n in fetch_names:
+            if n not in env:
+                raise KeyError(f"fetch {n!r}: no op of the program "
+                               "produced it and it is not fed")
+            v = env[n]
+            fetches.append(v.detach() if isinstance(v, torch.Tensor) else v)
+        if return_numpy:
+            fetches = [v.cpu().numpy() if isinstance(v, torch.Tensor)
+                       else np.asarray(v) for v in fetches]
+        return fetches
+
+    def _run_block(self, program: Program, env: Dict[str, Any],
+                   ctx: LowerCtx) -> None:
+        """Lower every op of the global block once: with autograd
+        recording up to the last ``backward`` op, under ``no_grad``
+        after it."""
+        ops_ = program.global_block.ops
+        last_bwd = max((i for i, op in enumerate(ops_)
+                        if op.type == BACKWARD_OP), default=-1)
+        mid = set()
+        for op in ops_[:last_bwd + 1]:
+            if op.type == BACKWARD_OP:
+                for n in op.attr("parameter_list", []):
+                    if n not in env:
+                        mid.add(n)
+                    elif _is_float(env[n]) and not env[n].requires_grad:
+                        env[n] = env[n].detach().requires_grad_(True)
+        with torch.enable_grad():
+            for i, op in enumerate(ops_[:last_bwd + 1]):
+                if op.type == BACKWARD_OP:
+                    self._lower_backward(op, env, retain=i < last_bwd)
+                else:
+                    self._lower_one(program, op, env, ctx, mid)
+        with torch.no_grad():
+            for op in ops_[last_bwd + 1:]:
+                self._lower_one(program, op, env, ctx)
+
+    def _lower_one(self, program: Program, op: OpDesc, env: Dict[str, Any],
+                   ctx: LowerCtx, mid=frozenset()) -> None:
+        opdef = REGISTRY.get(op.type)
+        ins = {slot: [env[n] for n in names]
+               for slot, names in op.inputs.items() if names}
+        try:
+            outs = opdef.lower(ctx, ins, op.attrs)
+        except Exception as e:  # annotate with the op, PADDLE_ENFORCE-style
+            e.add_note(f"while lowering op {op.type!r} "
+                       f"(in={op.inputs}, out={op.outputs})")
+            raise
+        self.lowered[op.type] += 1
+        block = program.global_block
+        for slot, names in op.outputs.items():
+            vals = outs.get(slot)
+            if vals is None:
+                continue
+            if len(vals) < len(names):
+                raise RuntimeError(
+                    f"op {op.type} produced {len(vals)} values for slot "
+                    f"{slot} but {len(names)} outputs declared")
+            target = opdef.inplace_map.get(slot)
+            for j, (n, v) in enumerate(zip(names, vals)):
+                if target is not None:
+                    # an update op: write into the input's tensor
+                    dst = ins[target][j]
+                    dst.detach().copy_(v)
+                    v = dst
+                elif n in block.vars:
+                    vd = block.vars[n]
+                    # stop_gradient on produced vars; leaves (feeds,
+                    # parameters) are handled by the gradient targets
+                    if vd.stop_gradient and not vd.is_parameter and \
+                            _is_float(v):
+                        v = v.detach()
+                if n in mid and _is_float(v):
+                    # a produced gradient target: a leaf from here on
+                    v = v.detach().requires_grad_(True)
+                env[n] = v
+
+    def _lower_backward(self, op: OpDesc, env: Dict[str, Any],
+                        retain: bool) -> None:
+        """d(loss * scale) / d(each of parameter_list) by one autograd
+        pass over the forward that ran; a target the loss does not reach
+        gets zeros, as ``jax.grad`` gives."""
+        if op.attr("remat_segments"):
+            raise NotImplementedError(
+                "backward with remat_segments: recompute segments are not "
+                "ported yet (ROADMAP.md A2b)")
+        names = list(op.attr("parameter_list", []))
+        loss = env[op.input("Loss")[0]]
+        if loss.dim() != 0:
+            loss = loss.sum()
+        scale = op.attr("loss_scale", 1.0)
+        if op.input("LossScale"):
+            scale = env[op.input("LossScale")[0]]
+        loss = loss * torch.as_tensor(scale, dtype=loss.dtype,
+                                      device=loss.device)
+        for n in names:
+            if n not in env:
+                raise KeyError(f"gradient target {n!r} has no primal value")
+        live = [n for n in names if _is_float(env[n]) and
+                env[n].requires_grad and loss.requires_grad]
+        grads = torch.autograd.grad(loss, [env[n] for n in live],
+                                    allow_unused=True,
+                                    retain_graph=retain) if live else ()
+        got = dict(zip(live, grads))
+        for n in names:
+            g = got.get(n)
+            env[n + GRAD_SUFFIX] = torch.zeros_like(env[n]).detach() \
+                if g is None else g
+        self.lowered[BACKWARD_OP] += 1
+
+    def train_from_dataset(self, *args, **kwargs):
+        raise NotImplementedError("Executor.train_from_dataset is not ported "
+                                  "yet (ROADMAP.md A2b)")
+
+    infer_from_dataset = train_from_dataset
+
+    def close(self) -> None:
+        pass
+

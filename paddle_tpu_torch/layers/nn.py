@@ -1,0 +1,264 @@
+"""Graph-building layer functions of the static path.
+
+Counterparts of the ``paddle_tpu/layers/nn.py`` functions whose ops the
+port lowers: each appends the same ops, slots, attrs and parameters (the
+same names and shapes, in the same order) as the JAX function, through
+``LayerHelper``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+
+from ..core import dtypes
+from ..core.program import VarDesc, default_main_program
+from .helper import Constant, LayerHelper
+
+__all__ = ["data", "fc", "layer_norm", "relu", "sigmoid", "tanh", "gelu",
+           "exp", "sqrt", "abs", "square", "log", "softsign", "erf",
+           "softmax", "softmax_with_cross_entropy", "mean", "concat",
+           "reshape", "transpose", "elementwise_add", "elementwise_sub",
+           "elementwise_mul", "elementwise_div", "elementwise_max",
+           "elementwise_min", "elementwise_pow", "matmul", "mul",
+           "fill_constant", "multi_head_attention"]
+
+
+def data(name: str, shape: Sequence[int], dtype="float32",
+         lod_level: int = 0, append_batch_size: bool = True) -> VarDesc:
+    """A feed placeholder; with append_batch_size a leading -1 (the batch)
+    is added unless the shape starts with one."""
+    shape = list(shape)
+    if append_batch_size and (not shape or shape[0] != -1):
+        shape = [-1] + shape
+    return default_main_program().global_block.create_var(
+        name, shape=shape, dtype=dtype, stop_gradient=True,
+        lod_level=lod_level)
+
+
+def fc(input: VarDesc, size: int, num_flatten_dims: int = 1,
+       param_attr=None, bias_attr=None, act: Optional[str] = None,
+       name: Optional[str] = None) -> VarDesc:
+    """mul + elementwise_add + activation."""
+    helper = LayerHelper("fc", name)
+    in_dim = int(np.prod(input.shape[num_flatten_dims:]))
+    w = helper.create_parameter(param_attr, [in_dim, size], input.dtype)
+    pre = helper.create_tmp_variable(input.dtype)
+    helper.append_op("mul", inputs={"X": [input.name], "Y": [w.name]},
+                     outputs={"Out": [pre.name]},
+                     attrs={"x_num_col_dims": num_flatten_dims,
+                            "y_num_col_dims": 1})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [size], input.dtype,
+                                    is_bias=True)
+        tmp = helper.create_tmp_variable(input.dtype)
+        helper.append_op("elementwise_add",
+                         inputs={"X": [pre.name], "Y": [b.name]},
+                         outputs={"Out": [tmp.name]},
+                         attrs={"axis": num_flatten_dims})
+        pre = tmp
+    return helper.append_activation(pre, act)
+
+
+def layer_norm(input: VarDesc, scale: bool = True, shift: bool = True,
+               begin_norm_axis: int = 1, epsilon: float = 1e-5,
+               param_attr=None, bias_attr=None, act: Optional[str] = None,
+               name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("layer_norm", name)
+    norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input.name]}
+    if scale:
+        s = helper.create_parameter(param_attr, norm_shape, input.dtype,
+                                    default_initializer=Constant(1.0))
+        inputs["Scale"] = [s.name]
+    if shift:
+        b = helper.create_parameter(bias_attr, norm_shape, input.dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b.name]
+    y = helper.create_tmp_variable(input.dtype)
+    mean = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    var = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    helper.append_op("layer_norm", inputs=inputs,
+                     outputs={"Y": [y.name], "Mean": [mean.name],
+                              "Variance": [var.name]},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(y, act)
+
+
+def _unary(op_type):
+    def f(x: VarDesc, name: Optional[str] = None, **attrs) -> VarDesc:
+        helper = LayerHelper(op_type, name)
+        out = helper.create_tmp_variable(x.dtype)
+        helper.append_op(op_type, inputs={"X": [x.name]},
+                         outputs={"Out": [out.name]}, attrs=attrs)
+        return out
+    f.__name__ = op_type
+    return f
+
+
+relu = _unary("relu")
+sigmoid = _unary("sigmoid")
+tanh = _unary("tanh")
+gelu = _unary("gelu")
+exp = _unary("exp")
+sqrt = _unary("sqrt")
+abs = _unary("abs")  # noqa: A001
+square = _unary("square")
+log = _unary("log")
+softsign = _unary("softsign")
+erf = _unary("erf")
+
+
+def softmax(input: VarDesc, axis: int = -1,
+            name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("softmax", name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("softmax", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def softmax_with_cross_entropy(logits: VarDesc, label: VarDesc,
+                               soft_label: bool = False,
+                               ignore_index: int = -100, axis: int = -1,
+                               return_softmax: bool = False,
+                               name: Optional[str] = None):
+    helper = LayerHelper("softmax_with_cross_entropy", name)
+    softmax_out = helper.create_tmp_variable(logits.dtype)
+    loss = helper.create_tmp_variable(logits.dtype)
+    helper.append_op("softmax_with_cross_entropy",
+                     inputs={"Logits": [logits.name], "Label": [label.name]},
+                     outputs={"Softmax": [softmax_out.name],
+                              "Loss": [loss.name]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index, "axis": axis})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def mean(x: VarDesc, name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("mean", name)
+    out = helper.create_tmp_variable(x.dtype, shape=())
+    helper.append_op("mean", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def concat(input, axis: int = 0, name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("concat", name)
+    out = helper.create_tmp_variable(input[0].dtype)
+    helper.append_op("concat", inputs={"X": [v.name for v in input]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def reshape(x: VarDesc, shape, name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("reshape", name)
+    out = helper.create_tmp_variable(x.dtype)
+    xshape = helper.create_tmp_variable(x.dtype, stop_gradient=True)
+    helper.append_op("reshape2", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "XShape": [xshape.name]},
+                     attrs={"shape": list(shape)})
+    return out
+
+
+def transpose(x: VarDesc, perm, name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("transpose", name)
+    out = helper.create_tmp_variable(x.dtype)
+    xshape = helper.create_tmp_variable(x.dtype, stop_gradient=True)
+    helper.append_op("transpose2", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "XShape": [xshape.name]},
+                     attrs={"axis": list(perm)})
+    return out
+
+
+def _binary(op_type):
+    def f(x: VarDesc, y: VarDesc, axis: int = -1,
+          act: Optional[str] = None, name: Optional[str] = None) -> VarDesc:
+        helper = LayerHelper(op_type, name)
+        out = helper.create_tmp_variable(x.dtype)
+        helper.append_op(op_type, inputs={"X": [x.name], "Y": [y.name]},
+                         outputs={"Out": [out.name]}, attrs={"axis": axis})
+        return helper.append_activation(out, act)
+    f.__name__ = op_type
+    return f
+
+
+elementwise_add = _binary("elementwise_add")
+elementwise_sub = _binary("elementwise_sub")
+elementwise_mul = _binary("elementwise_mul")
+elementwise_div = _binary("elementwise_div")
+elementwise_max = _binary("elementwise_max")
+elementwise_min = _binary("elementwise_min")
+elementwise_pow = _binary("elementwise_pow")
+
+
+def matmul(x: VarDesc, y: VarDesc, transpose_x: bool = False,
+           transpose_y: bool = False, alpha: float = 1.0,
+           name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("matmul", name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("matmul", inputs={"X": [x.name], "Y": [y.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y, "alpha": alpha})
+    return out
+
+
+def mul(x: VarDesc, y: VarDesc, x_num_col_dims: int = 1,
+        y_num_col_dims: int = 1, name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("mul", name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("mul", inputs={"X": [x.name], "Y": [y.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def fill_constant(shape, dtype, value, name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("fill_constant", name)
+    out = helper.create_tmp_variable(dtype, stop_gradient=True)
+    helper.append_op("fill_constant", inputs={},
+                     outputs={"Out": [out.name]},
+                     attrs={"shape": list(shape), "value": value,
+                            "dtype": dtypes.convert_dtype(dtype)})
+    return out
+
+
+def multi_head_attention(queries: VarDesc, num_heads: int,
+                         attn_mask: Optional[VarDesc] = None,
+                         param_prefix: Optional[str] = None,
+                         name: Optional[str] = None) -> VarDesc:
+    """The unfused self-attention subgraph: three mul+add projections,
+    reshape2/transpose2 into heads, the scaled q k^T (+ mask), softmax,
+    the product with v, transpose2/reshape2 back: the pattern the
+    ``multihead_matmul_fuse`` pass rewrites onto one op. queries:
+    [B, S, H]."""
+    helper = LayerHelper(param_prefix or "mha", name)
+    H = int(queries.shape[-1])
+    if H % num_heads:
+        raise ValueError(f"hidden {H} is not a multiple of {num_heads} "
+                         "heads")
+    d = H // num_heads
+
+    def proj(tag):
+        w = helper.create_parameter(helper.unique_name(tag + "_w"),
+                                    [H, H], queries.dtype)
+        b = helper.create_parameter(helper.unique_name(tag + "_b"),
+                                    [H], queries.dtype, is_bias=True)
+        return elementwise_add(mul(queries, w, x_num_col_dims=2), b)
+
+    def heads(x):
+        return transpose(reshape(x, [0, 0, num_heads, d]), [0, 2, 1, 3])
+
+    q, k, v = proj("q"), proj("k"), proj("v")
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    score = matmul(qh, kh, transpose_y=True, alpha=1.0 / math.sqrt(d))
+    if attn_mask is not None:
+        score = elementwise_add(score, attn_mask)
+    ctx = matmul(softmax(score), vh)
+    return reshape(transpose(ctx, [0, 2, 1, 3]), [0, 0, H])

@@ -1,0 +1,55 @@
+"""``multihead_matmul``: the fused QKV projection and attention.
+
+Counterpart of ``paddle_tpu/ops/fused.py`` :24, the op that the
+``multihead_matmul_fuse`` pass (``core/passes.py``) puts in place of an
+attention subgraph. Input [B, S, H] is projected by W ([H, 3, H] or
+[H, 3H]) and Bias into packed q, k, v, whose heads are strided views
+(no copy) handed to the attention; BiasQK is its additive bias, alpha its
+scale. The route is ``nn/transformer.py``'s ``attention_route``, logged in
+the attention path log: "flash" on a CUDA tensor whose head dim the flash
+kernels take (forward, dQ and dK/dV through ``FlashAttentionFunction``),
+"composed" for another head dim on the card (the JAX lowering's
+``flash_attention`` composes the shapes its kernel refuses), "reference"
+on the CPU (the kernels' plain versions).
+"""
+from __future__ import annotations
+
+import math
+
+from ..core.registry import register_op
+from ..kernels import flash_attention as _fa
+from ..nn import transformer as _tr
+from .common import one
+
+
+@register_op("multihead_matmul", inputs=("Input", "W", "Bias", "BiasQK"))
+def _multihead_matmul(ctx, ins, attrs):
+    x = ins["Input"][0]
+    n_head = attrs["head_number"]
+    if ins.get("W"):
+        w = ins["W"][0]
+        if w.dim() == 3:
+            w = w.reshape(w.shape[0], -1)
+        x = x @ w
+        if ins.get("Bias"):
+            x = x + ins["Bias"][0].reshape(-1)
+    b, s, h3 = x.shape
+    d = h3 // 3 // n_head
+    qkv = x.reshape(b, s, 3, n_head, d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # [B, S, heads, d]
+    bias = ins["BiasQK"][0] if ins.get("BiasQK") else None
+    scale = attrs.get("alpha", 1.0 / math.sqrt(d))
+    if x.device.type == "meta":  # shape inference: the plain math
+        out = _fa.attention_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), bias, False,
+                                      scale)[0].transpose(1, 2)
+        return one(out.reshape(b, s, h3 // 3))
+    route = _tr.attention_route(d, x.device.type)
+    _tr._PATH_LOG.append(route)
+    if route == "composed":
+        out = _tr._composed_attention(q, k, v, bias, 1.0, False, scale)
+    else:
+        out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), bias=bias,
+                                  sm_scale=scale).transpose(1, 2)
+    return one(out.reshape(b, s, h3 // 3))

@@ -1,0 +1,60 @@
+"""Dense math ops: ``matmul``, ``mul``, ``mean``.
+
+Counterparts of ``paddle_tpu/ops/math.py`` :18, :49 and :103. The
+products go to ``torch.matmul`` (cuBLAS on the card), as the JAX package
+leaves them to XLA.
+"""
+from __future__ import annotations
+
+import math as _math
+
+import torch
+
+from ..core.registry import register_op
+from .common import one
+
+
+@register_op("matmul", inputs=("X", "Y"))
+def _matmul(ctx, ins, attrs):
+    # transpose_X/transpose_Y/alpha, batched over the leading dims
+    x, y = ins["X"][0], ins["Y"][0]
+    alpha = attrs.get("alpha", 1.0)
+    if x.dim() == 1 and y.dim() == 1:
+        out = torch.dot(x, y)
+    else:
+        if attrs.get("transpose_X", False) and x.dim() > 1:
+            x = x.transpose(-1, -2)
+        if attrs.get("transpose_Y", False) and y.dim() > 1:
+            y = y.transpose(-1, -2)
+        out = torch.matmul(x, y)
+    if alpha != 1.0:
+        out = out * alpha
+    return one(out)
+
+
+@register_op("mul", inputs=("X", "Y"))
+def _mul(ctx, ins, attrs):
+    # flattens X to 2-D at x_num_col_dims and Y at y_num_col_dims, then one
+    # product: the fc building block
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = attrs.get("x_num_col_dims", 1)
+    yn = attrs.get("y_num_col_dims", 1)
+    xshape = tuple(x.shape)
+    x2 = x.reshape(_math.prod(xshape[:xn]) if xn else 1, -1) \
+        if x.dim() != 2 else x
+    y2 = y.reshape(-1, _math.prod(y.shape[yn:])) if y.dim() != 2 else y
+    out = torch.matmul(x2, y2)
+    if x.dim() > 2:
+        out = out.reshape(xshape[:xn] + tuple(y.shape[yn:]))
+    return one(out)
+
+
+@register_op("mean", inputs=("X",))
+def _mean(ctx, ins, attrs):
+    return one(torch.mean(ins["X"][0]))
+
+
+@register_op("sum_of_sums", inputs=("X",))
+def _sum_of_sums(ctx, ins, attrs):
+    # the loss of gradients() with several targets
+    return one(sum(torch.sum(x) for x in ins["X"]))

@@ -3,8 +3,8 @@
 The exports of ``paddle_tpu/optimizer/__init__.py`` under the same names
 and aliases: the learning-rate schedulers (``lr_scheduler.py``), the
 gradient clips, the regularizers, every optimizer with an eager side,
-``DpSGD`` (whose update raises, ``ROADMAP.md`` A2), the parameter
-averages and ``LookaheadOptimizer`` (static only, A2).
+``DpSGD`` (whose update raises, ``ROADMAP.md`` A2b), the parameter
+averages and ``LookaheadOptimizer`` (static only, A2b).
 ``DGCMomentumOptimizer``, ``PipelineOptimizer`` and ``RecomputeOptimizer``
 belong to the distributed runtime and raise (A6).
 """

@@ -20,7 +20,7 @@ does.
 
 The classes keep the JAX package's names and arguments. ``lr_at(step)``
 is the eager side of each; ``_build`` (the static Program side) is not
-ported (``ROADMAP.md`` A2). ``ReduceLROnPlateau`` keeps its state on the
+ported (``ROADMAP.md`` A2b). ``ReduceLROnPlateau`` keeps its state on the
 host as the reference does: ``step(metric)`` changes ``learning_rate``,
 which the next optimizer step reads.
 """
@@ -144,7 +144,7 @@ class LRScheduler:
     def _build(self, program, startup):
         raise NotImplementedError(
             f"{type(self).__name__}: the static Program side of the "
-            "schedulers is not ported yet (ROADMAP.md A2)")
+            "schedulers is not ported yet (ROADMAP.md A2b)")
 
 
 class ExponentialDecay(LRScheduler):

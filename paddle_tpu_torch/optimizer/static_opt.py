@@ -1,5 +1,5 @@
-"""The optimizers' dygraph side: gradient clips, regularizers, the
-``Optimizer`` base with its eager contract, the update rules, and the
+"""The optimizers: gradient clips, regularizers, the ``Optimizer`` base
+with its eager contract and its static side, the update rules, and the
 parameter averages.
 
 Counterparts of ``paddle_tpu/optimizer/static_opt.py`` (each class's
@@ -30,12 +30,20 @@ update is no Pallas kernel, so none is written here.
 ``weight_decay=`` on the base class is ``L2Decay`` (added to the
 gradient); on ``AdamW`` it is the decoupled decay of the ``adamw`` op.
 
-Not ported, and raising ``NotImplementedError`` that names the queue: the
-static Program side of every class (``minimize`` on a Program,
-``apply_gradients``, ``set_lr``, a clip's or regularizer's ``apply``) and
-``LookaheadOptimizer``, which is static only (``ROADMAP.md`` A2);
-``DpSGD``'s update, whose ``dpsgd`` lowering comes with the static side
-(A2); ``SelectedRows`` gradients (A2, with ``core/selected_rows.py``).
+The static side (``minimize`` on a Program's loss var,
+``apply_gradients``, ``set_lr``) is the JAX package's: ``minimize``
+appends the ``backward`` op, the learning rate is a persistable float32
+var filled in the startup program, each accumulator a persistable var
+``<param>@<optimizer name>@<accumulator>`` filled there, and each
+parameter gets one update op (``ops/optimizers.py``). SGD, Momentum, Adam
+and AdamW have it.
+
+Not ported, and raising ``NotImplementedError`` that names the queue
+(``ROADMAP.md`` A2b): the static side of the other classes, of the clips,
+the regularizers and the schedulers (``grad_clip`` or ``regularization``
+on a Program, ``apply``, ``_build``), ``LookaheadOptimizer``, which is
+static only, ``DpSGD``'s ``dpsgd`` update, and ``SelectedRows``
+gradients (with ``core/selected_rows.py``).
 """
 from __future__ import annotations
 
@@ -44,10 +52,14 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..core.backward import append_backward
+from ..core.program import (VarDesc, default_main_program,
+                            default_startup_program)
+from ..core.scope import global_scope
 from .lr_scheduler import LRScheduler, _div
 
-_STATIC = "the static Program side of the optimizers is not ported yet " \
-          "(ROADMAP.md A2)"
+_STATIC = "this static Program side of the optimizers is not ported yet " \
+          "(ROADMAP.md A2b)"
 
 
 def _dense(grads: Iterable[torch.Tensor]) -> None:
@@ -55,7 +67,7 @@ def _dense(grads: Iterable[torch.Tensor]) -> None:
         if g.layout != torch.strided:
             raise NotImplementedError(
                 "SelectedRows (sparse) gradients are not ported yet "
-                "(ROADMAP.md A2, with core/selected_rows.py)")
+                "(ROADMAP.md A2b, with core/selected_rows.py)")
 
 
 def _norms(tensors) -> torch.Tensor:
@@ -184,6 +196,10 @@ class Optimizer:
         self._param_names: Dict[torch.Tensor, str] = {}
         self._accumulators: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {}
         self._eager_step_count = 0
+        # the static side: the lr var's name, and accumulator -> parameter
+        # name -> accumulator var name
+        self._lr_name: Optional[str] = None
+        self._accumulator_names: Dict[str, Dict[str, str]] = {}
 
     # -- parameters and their names ---------------------------------------
     @property
@@ -256,12 +272,79 @@ class Optimizer:
         return float(self._lr_on(device, self._eager_step_count))
 
     def set_lr(self, value, scope=None):
-        raise NotImplementedError(f"{self._name}.set_lr: {_STATIC}")
+        """Set the static learning-rate var in the scope (the global one
+        by default), on the device its value is on."""
+        if self._lr_name is None:
+            raise ValueError(f"{self._name}.set_lr: no learning-rate var "
+                             "yet; minimize on a Program first")
+        scope = scope or global_scope()
+        old = scope.find_var(self._lr_name)
+        scope.set(self._lr_name, torch.tensor(
+            float(value), dtype=torch.float32,
+            device=old.device if isinstance(old, torch.Tensor) else "cpu"))
+
+    # -- the static side --------------------------------------------------
+    def _create_global_learning_rate(self, program, startup) -> str:
+        if self._lr_name is not None:
+            return self._lr_name
+        if isinstance(self._learning_rate, LRScheduler):
+            self._lr_name = self._learning_rate._build(program, startup)
+            return self._lr_name
+        name = program._unique_name(f"{self._name}_lr")
+        for prog in (program, startup):
+            prog.global_block.create_var(name, shape=(), dtype="float32",
+                                         persistable=True,
+                                         stop_gradient=True)
+        startup.global_block.append_op(
+            "fill_constant", inputs={}, outputs={"Out": [name]},
+            attrs={"shape": [], "value": float(self._learning_rate),
+                   "dtype": "float32"})
+        self._lr_name = name
+        return name
+
+    def _add_accumulator(self, name: str, param: VarDesc, program, startup,
+                         fill_value: float = 0.0, shape=None,
+                         dtype=None) -> str:
+        key = f"{param.name}@{self._name}@{name}"
+        shape = list(shape if shape is not None else param.shape)
+        dtype = dtype or param.dtype
+        for prog in (program, startup):
+            prog.global_block.create_var(key, shape=shape, dtype=dtype,
+                                         persistable=True,
+                                         stop_gradient=True)
+        startup.global_block.append_op(
+            "fill_constant", inputs={}, outputs={"Out": [key]},
+            attrs={"shape": shape, "value": fill_value, "dtype": dtype})
+        self._accumulator_names.setdefault(name, {})[param.name] = key
+        return key
+
+    def _append_optimize_op(self, block, param, grad, lr, program, startup):
+        raise NotImplementedError(f"{self._name}.minimize on a Program: "
+                                  f"{_STATIC}")
 
     # -- the update -------------------------------------------------------
+    # the update op the static side appends, and its accumulator slots as
+    # (input slot, accumulator): a class with an op runs its lowering
+    # eagerly too, so each rule is written once (ops/optimizers.py)
+    _op_type: Optional[str] = None
+    _op_slots: tuple = ()
+
+    def _op_attrs(self) -> Dict[str, object]:
+        return {}
+
     def _update(self, param: torch.Tensor, grad: torch.Tensor,
                 lr: torch.Tensor, state: Dict[str, torch.Tensor]) -> None:
-        raise NotImplementedError
+        """The ``_op_type`` op's lowering on one parameter: its
+        ``ParamOut`` copied into ``param``, its accumulators' outputs
+        into ``state``."""
+        from .. import ops  # noqa: F401  (registers the lowerings)
+        from ..core.registry import REGISTRY
+        ins = {"Param": [param], "Grad": [grad], "LearningRate": [lr]}
+        ins.update({slot: [state[key]] for slot, key in self._op_slots})
+        outs = REGISTRY.get(self._op_type).lower(None, ins, self._op_attrs())
+        param.copy_(outs["ParamOut"][0])
+        for slot, key in self._op_slots:
+            state[key] = outs[slot + "Out"][0]
 
     def _update_all(self, params, grads, lrs) -> None:
         for p, g in zip(params, grads):
@@ -294,11 +377,23 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, program=None):
-        """The eager minimize: ``loss.backward()`` has run; apply one step
-        to the parameters (less ``no_grad_set``). Returns (None, [])."""
+        """Static, on a Program's loss var: append the backward op and
+        the update ops (``apply_gradients``) to ``program`` and the
+        initializers of the learning rate and accumulators to
+        ``startup_program`` (the default ones when None); returns (None,
+        [(param, grad)]). Eager, on a loss tensor: ``loss.backward()``
+        has run; apply one step to the parameters (less
+        ``no_grad_set``) and return (None, [])."""
+        if isinstance(loss, VarDesc):
+            program = program or default_main_program()
+            startup = startup_program or default_startup_program()
+            params_grads = append_backward(loss, parameter_list, no_grad_set,
+                                           program=program)
+            self.apply_gradients(params_grads, program, startup)
+            return None, params_grads
         if not isinstance(loss, torch.Tensor):
-            raise NotImplementedError(f"{self._name}.minimize on a "
-                                      f"Program: {_STATIC}")
+            raise TypeError(f"{self._name}.minimize: the loss is a Program "
+                            f"var or a tensor, not {type(loss).__name__}")
         if self._parameter_list is None and parameter_list is not None:
             self._parameter_list = list(parameter_list)
         if no_grad_set:
@@ -314,7 +409,21 @@ class Optimizer:
         return None, []
 
     def apply_gradients(self, params_grads, program=None, startup=None):
-        raise NotImplementedError(f"{self._name}.apply_gradients: {_STATIC}")
+        """Append one update op a (param, grad) pair to ``program`` and
+        the learning rate's and accumulators' initializers to
+        ``startup``."""
+        if self.grad_clip is not None or self.regularization is not None:
+            raise NotImplementedError(
+                f"{self._name}: grad_clip or regularization on a Program: "
+                f"{_STATIC}")
+        program = program or default_main_program()
+        startup = startup or default_startup_program()
+        block = program.global_block
+        lr = self._create_global_learning_rate(program, startup)
+        for p, g in params_grads:
+            self._append_optimize_op(block, _as_var(block, p),
+                                     _as_var(block, g), lr, program, startup)
+        return params_grads
 
     def clear_grad(self) -> None:
         for p in self._parameter_list or []:
@@ -342,18 +451,30 @@ class Optimizer:
                     store[k[len(prefix):]] = _as_tensor(v, p.device)
 
 
+def _as_var(block, v) -> VarDesc:
+    return v if isinstance(v, VarDesc) else block.var(str(v))
+
+
 class SGD(Optimizer):
     """The ``sgd`` op: p - lr g."""
+
+    _op_type = "sgd"
 
     def _accumulator_spec(self):
         return []
 
-    def _update(self, param, grad, lr, state):
-        param.copy_(param - lr * grad)
+    def _append_optimize_op(self, block, param, grad, lr, program, startup):
+        block.append_op("sgd",
+                        inputs={"Param": [param.name], "Grad": [grad.name],
+                                "LearningRate": [lr]},
+                        outputs={"ParamOut": [param.name]})
 
 
 class Momentum(Optimizer):
     """The ``momentum`` op, with Nesterov."""
+
+    _op_type = "momentum"
+    _op_slots = (("Velocity", "velocity"),)
 
     def __init__(self, learning_rate, momentum=0.9, use_nesterov=False,
                  **kw):
@@ -364,14 +485,17 @@ class Momentum(Optimizer):
     def _accumulator_spec(self):
         return [("velocity", 0.0, False)]
 
-    def _update(self, param, grad, lr, state):
-        mu = self._momentum
-        v = mu * state["velocity"] + grad
-        if self._use_nesterov:
-            param.copy_(param - (grad + mu * v) * lr)
-        else:
-            param.copy_(param - lr * v)
-        state["velocity"] = v
+    def _op_attrs(self):
+        return {"mu": self._momentum, "use_nesterov": self._use_nesterov}
+
+    def _append_optimize_op(self, block, param, grad, lr, program, startup):
+        vel = self._add_accumulator("velocity", param, program, startup)
+        block.append_op(
+            "momentum",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "Velocity": [vel], "LearningRate": [lr]},
+            outputs={"ParamOut": [param.name], "VelocityOut": [vel]},
+            attrs=self._op_attrs())
 
 
 class LarsMomentum(Optimizer):
@@ -403,6 +527,10 @@ class LarsMomentum(Optimizer):
 class Adam(Optimizer):
     """AdamOptimizer: the ``adam`` op's rule."""
 
+    _op_type = "adam"
+    _op_slots = (("Moment1", "moment1"), ("Moment2", "moment2"),
+                 ("Beta1Pow", "beta1_pow"), ("Beta2Pow", "beta2_pow"))
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
         super().__init__(learning_rate, **kw)
@@ -413,32 +541,41 @@ class Adam(Optimizer):
                 ("beta1_pow", self._beta1, True),
                 ("beta2_pow", self._beta2, True)]
 
-    def _decay(self, param, lr):
-        return param
+    def _op_attrs(self):
+        return {"beta1": self._beta1, "beta2": self._beta2,
+                "epsilon": self._epsilon}
 
-    def _update(self, param, grad, lr, state):
-        b1, b2, eps = self._beta1, self._beta2, self._epsilon
-        m1 = b1 * state["moment1"] + (1 - b1) * grad
-        m2 = b2 * state["moment2"] + (1 - b2) * grad * grad
-        b1p, b2p = state["beta1_pow"], state["beta2_pow"]
-        lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
-        param.copy_(self._decay(param, lr) - lr_t * m1 /
-                    (torch.sqrt(m2) + eps))
-        state["moment1"], state["moment2"] = m1, m2
-        state["beta1_pow"], state["beta2_pow"] = b1p * b1, b2p * b2
+    def _append_optimize_op(self, block, param, grad, lr, program, startup):
+        m1 = self._add_accumulator("moment1", param, program, startup)
+        m2 = self._add_accumulator("moment2", param, program, startup)
+        b1p = self._add_accumulator("beta1_pow", param, program, startup,
+                                    fill_value=self._beta1, shape=())
+        b2p = self._add_accumulator("beta2_pow", param, program, startup,
+                                    fill_value=self._beta2, shape=())
+        block.append_op(
+            self._op_type,
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "LearningRate": [lr], "Moment1": [m1], "Moment2": [m2],
+                    "Beta1Pow": [b1p], "Beta2Pow": [b2p]},
+            outputs={"ParamOut": [param.name], "Moment1Out": [m1],
+                     "Moment2Out": [m2], "Beta1PowOut": [b1p],
+                     "Beta2PowOut": [b2p]},
+            attrs=self._op_attrs())
 
 
 class AdamW(Adam):
     """The ``adamw`` op: p - lr coeff p before the Adam step (decoupled
     ``weight_decay``, not ``L2Decay``)."""
 
+    _op_type = "adamw"
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, weight_decay=0.01, **kw):
         super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
         self._coeff = float(weight_decay)
 
-    def _decay(self, param, lr):
-        return param - lr * self._coeff * param
+    def _op_attrs(self):
+        return dict(super()._op_attrs(), coeff=self._coeff)
 
 
 class Lamb(Adam):
@@ -449,6 +586,9 @@ class Lamb(Adam):
                  beta1=0.9, beta2=0.999, epsilon=1e-6, **kw):
         super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
         self._weight_decay = lamb_weight_decay
+
+    # the lamb lowering is not ported: no static side yet
+    _append_optimize_op = Optimizer._append_optimize_op
 
     def _update_all(self, params, grads, lrs):
         b1, b2, eps, wd = (self._beta1, self._beta2, self._epsilon,
@@ -619,7 +759,7 @@ class DpSGD(Optimizer):
     def _accumulator_spec(self):
         raise NotImplementedError(
             "DpSGD has no eager implementation; its dpsgd update comes "
-            "with the static side (ROADMAP.md A2)")
+            "with the static side (ROADMAP.md A2b)")
 
 
 SGDOptimizer = SGD
@@ -782,7 +922,7 @@ class ModelAverage(_Swap):
 class LookaheadOptimizer:
     """fluid.optimizer.LookaheadOptimizer: static only in the reference
     (its dygraph minimize raises), so ``minimize`` raises here until the
-    static side is ported (``ROADMAP.md`` A2)."""
+    static side is ported (``ROADMAP.md`` A2b)."""
 
     def __init__(self, inner_optimizer, alpha=0.5, k=5):
         if inner_optimizer is None:

@@ -243,7 +243,23 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "          'paddle_tpu_torch.kernels.paged_attention',\n"
         "          'paddle_tpu_torch.quant', 'paddle_tpu_torch.flags',\n"
         "          'paddle_tpu_torch.monitor', 'paddle_tpu_torch.tracing',\n"
-        "          'paddle_tpu_torch.serving'):\n"
+        "          'paddle_tpu_torch.serving',\n"
+        "          'paddle_tpu_torch.core.program',\n"
+        "          'paddle_tpu_torch.core.scope',\n"
+        "          'paddle_tpu_torch.core.registry',\n"
+        "          'paddle_tpu_torch.core.shape_inference',\n"
+        "          'paddle_tpu_torch.core.backward',\n"
+        "          'paddle_tpu_torch.core.executor',\n"
+        "          'paddle_tpu_torch.core.passes',\n"
+        "          'paddle_tpu_torch.ops', 'paddle_tpu_torch.ops.common',\n"
+        "          'paddle_tpu_torch.ops.math',\n"
+        "          'paddle_tpu_torch.ops.elementwise',\n"
+        "          'paddle_tpu_torch.ops.activation',\n"
+        "          'paddle_tpu_torch.ops.tensor',\n"
+        "          'paddle_tpu_torch.ops.random', 'paddle_tpu_torch.ops.nn',\n"
+        "          'paddle_tpu_torch.ops.fused',\n"
+        "          'paddle_tpu_torch.ops.optimizers',\n"
+        "          'paddle_tpu_torch.layers.nn', 'paddle_tpu_torch.static'):\n"
         "    assert n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
