@@ -43,7 +43,9 @@ def _softmax_with_ce(ctx, ins, attrs):
         lbl = label
         if lbl.dim() == logits.dim():
             lbl = lbl.squeeze(axis)
-        lbl = lbl.unsqueeze(-1).long()
+        # the size-1 axis goes back where it was taken from, so that
+        # Loss has the logits' shape with 1 at ``axis``
+        lbl = lbl.unsqueeze(axis).long()
         ignored = lbl == ignore
         # an ignored label reads class 0 and is zeroed after: torch.gather
         # has no out-of-range fill

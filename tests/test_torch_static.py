@@ -37,6 +37,7 @@ from paddle_tpu_torch.core.registry import REGISTRY as TREG
 from paddle_tpu_torch.core.registry import LowerCtx as TCtx
 from paddle_tpu_torch.core.scope import Scope as TScope
 from paddle_tpu_torch.core.scope import load_reference_scope
+from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.nn.functional import (layer_norm_paths_taken,
                                             reset_layer_norm_path_log)
 from paddle_tpu_torch.nn.transformer import (attention_paths_taken,
@@ -308,6 +309,53 @@ def test_layer_norm_route_is_logged():
         _port_lower(*OP_CASES[name])
     # the CPU composes both, as the JAX lowering composes off the TPU
     assert layer_norm_paths_taken() == ["composed", "composed"]
+
+
+@pytest.mark.parametrize("axis,shape", [(1, (2, 5, 3)), (2, (2, 3, 5, 4))])
+def test_softmax_with_ce_at_a_non_last_axis(axis, shape):
+    """The op's Loss is the per-position loss: the logits' shape with size
+    1 at ``axis`` (label 1 of position 0 ignored). Held against the
+    dygraph function and numpy; at axis 1 also against the diagonal
+    [n, j, j] of the JAX op's Loss, which broadcasts the picked class
+    over the trailing axis at any axis but the last (ROADMAP.md C3)."""
+    rng = np.random.default_rng(3)
+    logits = rng.standard_normal(shape).astype(np.float32)
+    lshape = list(shape)
+    lshape[axis] = 1
+    label = rng.integers(0, shape[axis], lshape).astype(np.int64)
+    label.reshape(-1)[1] = -100
+    attrs = {"axis": axis}
+    got = _port_lower("softmax_with_cross_entropy",
+                      {"Logits": [logits], "Label": [label]}, attrs)["Loss"][0]
+    assert got.shape == tuple(lshape)
+    dyg = TF.softmax_with_cross_entropy(torch.from_numpy(logits),
+                                        torch.from_numpy(label), axis=axis)
+    np.testing.assert_allclose(got, dyg.numpy(), **F32_TOL)
+    shifted = logits - logits.max(axis=axis, keepdims=True)
+    logp = shifted - np.log(np.exp(shifted).sum(axis=axis, keepdims=True))
+    want = -np.take_along_axis(logp, np.maximum(label, 0), axis=axis)
+    want[label == -100] = 0.0
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    if axis == 1:
+        ref = _jax_lower("softmax_with_cross_entropy",
+                         {"Logits": [logits], "Label": [label]},
+                         attrs)["Loss"][0]
+        n, _, s = shape
+        assert ref.shape == (n, s, s)
+        diag = ref[:, np.arange(s), np.arange(s)]
+        np.testing.assert_allclose(got[:, 0, :], diag, **F32_TOL)
+
+
+def test_softmax_with_ce_at_the_last_axis_matches_jax():
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal((3, 4, 6)).astype(np.float32)
+    label = rng.integers(0, 6, (3, 4, 1)).astype(np.int64)
+    label[0, 2, 0] = -100
+    ins = {"Logits": [logits], "Label": [label]}
+    got = _port_lower("softmax_with_cross_entropy", ins, {"axis": -1})
+    _assert_outs(got, _jax_lower("softmax_with_cross_entropy", ins,
+                                 {"axis": -1}))
+    assert got["Loss"][0].shape == (3, 4, 1)
 
 
 def test_unported_op_raises_naming_its_queue():
