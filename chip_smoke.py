@@ -119,7 +119,24 @@ Phases, each printing its lines; any failure exits nonzero:
    gather + SDPA; tokens/s, mixed-step, TTFT and TPOT quantiles, and the
    device idle share and the paged-attention group's device ms a mixed
    step over profiled mixed steps, in fp32 and int8 KV;
-9. one JSON line of kernel records, the card line, and last the result
+9. ResNet-50 ("[resnet]" lines), the sixth main path, which launches
+   none of the seven kernels (no TPU kernel lies on it: the convolutions
+   are cuDNN's, batch norm and pooling torch ops): (i) resnet50 at B=4,
+   224 x 224, on the card against the CPU port from one numpy state, in
+   float64 and in fp32 (TF32 off): eval logits, one Momentum(0.1, 0.9)
+   ``TrainStep``'s loss, every gradient, running statistic and parameter
+   after, and the ReLU inputs on the other side of 0 from the float64
+   run; (ii) the static conv -> batch_norm(relu) -> pool2d -> fc program,
+   one step on the card against the CPU port, its moving statistics
+   moved and each op lowered once; (iii) the main path, ``bench.py``'s
+   cell: B=256 bf16 ``TrainStep`` steps on one batch, the seven kernels'
+   counts set to 0 before and read after, eager and device ms, images/s,
+   MFU, device time by group, batch norm's bytes bound, peak memory, and
+   a bitwise rerun at B=32 under ``cudnn.deterministic``; (iv) the bf16
+   eval forward at B=256: images/s, CUDA-graph device ms, top-1 against
+   fp32; (v) a stage-1 batch norm against cuDNN's (timed only) and the
+   step in ``channels_last``;
+10. one JSON line of kernel records, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -3787,6 +3804,651 @@ def run_generation(device, card, cfg_kw=GEN_CFG, n_requests=GEN_REQUESTS,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 9: ResNet-50
+# ---------------------------------------------------------------------------
+
+CONV_NET_LR = 0.1
+
+
+def build_conv_net(pt, c_in=3, hw=32, filters=16, classes=10):
+    """The static conv net, built with package ``pt``'s layers (the port
+    here; the tests also pass the JAX package): conv2d (3x3, no bias) ->
+    batch_norm(act="relu") -> 2x2 max pool2d -> fc to ``classes`` ->
+    softmax_with_cross_entropy -> mean; Momentum(CONV_NET_LR, 0.9).
+    Returns (main, startup, loss)."""
+    layers = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = layers.data("img", [c_in, hw, hw])
+        y = layers.data("label", [1], dtype="int64")
+        h = layers.conv2d(x, filters, 3, padding=1, bias_attr=False)
+        h = layers.pool2d(layers.batch_norm(h, act="relu"), 2, "max", 2)
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            layers.fc(h, classes), y))
+        pt.optimizer.Momentum(CONV_NET_LR, 0.9).minimize(
+            loss, startup_program=startup, program=main)
+    return main, startup, loss
+
+
+def conv_net_feed(b, c_in=3, hw=32, classes=10, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"img": rng.standard_normal((b, c_in, hw, hw)).astype(np.float32),
+            "label": rng.integers(0, classes, (b, 1))}
+
+
+RESNET_SEED = 5150
+RESNET_HW = 224
+RESNET_CLASSES = 1000
+RESNET_PARITY_B = 4
+RESNET_B = 256                       # bench.py:162's batch
+RESNET_RERUN_B = 32
+RESNET_LR, RESNET_MU = 0.1, 0.9
+RESNET_WARMUP, RESNET_STEPS = 2, 10
+RESNET_FLOPS_IMG = 3 * 2 * 4.09e9    # bench.py:158: 3 x 2 x 4.09 GMAC
+RESNET_FALL = 0.9
+# (i) resnet50 at B=4, 224 x 224 from one state, on the card and on the
+# CPU port, in float64 and in fp32 (TF32 off). In float64 the two devices
+# compute the same function (measured: every gradient within 1.3e-8 in
+# norm, no ReLU input on the other side of 0): logits to 1e-9 of the
+# largest, gradients, updates and running statistics to 1e-6, the loss
+# (fp32 from the float64 logits) to 1e-6. In fp32 the eval logits to 1e-3
+# of the largest, the loss to 1e-4, running statistics to 1e-4 (fp32 batch
+# sums over 2e5-3e6 values a channel); but a ReLU input within fp32
+# rounding of 0 takes the other side of the kink (measured: 111 of 38.4 M
+# inputs on the card against the float64 run, 1,107 on the CPU, whose
+# oneDNN convolutions round more), which moves every gradient below it:
+# the card's fp32 gradients are 2.1% from its float64 ones in norm
+# (median; 2.8% at worst), the CPU's 6.7% (8.7%). So gradients and
+# updates are held in norm to 5e-2 of the card's float64 run and to
+# 1.5e-1 of the CPU's fp32 run.
+RESNET_TOL = dict(f64_logit=1e-9, f64=1e-6, logit=1e-3, loss_rtol=1e-4,
+                  stat=(1e-4, 1e-4), grad_vs_f64=5e-2, grad_vs_cpu=1.5e-1)
+# bf16 auto_cast top-1 against fp32 over B=256 random images of 1000
+# random classes; the bf16 logits are ~1% off
+RESNET_TOP1_MIN = 0.80
+CONV_NET_B = 16
+CONV_NET_TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def resnet_state(model, seed):
+    """Numpy weights and running statistics for every name of the model:
+    conv weights N(0, sqrt(2 / fan_in)) (the model's own initializer),
+    norm scales 1 + N(0, 0.1) and shifts N(0, 0.1), running means
+    N(0, 0.1) and variances U(0.5, 1.5) (not 0 and 1), fc N(0, 0.01)."""
+    from paddle_tpu_torch.jit import state_of
+    rng = np.random.default_rng(seed)
+    named = state_of(model)
+    norms = {n[:-len("._mean")] for n in named if n.endswith("._mean")}
+    state = {}
+    for name, t in named.items():
+        shape = tuple(t.shape)
+        z = rng.standard_normal(shape, dtype=np.float32)
+        prefix, _, leaf = name.rpartition(".")
+        if prefix in norms and leaf == "_variance":
+            state[name] = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        elif prefix in norms:
+            state[name] = 1.0 + 0.1 * z if leaf == "weight" else 0.1 * z
+        elif len(shape) == 4:
+            state[name] = z * np.float32(math.sqrt(2.0 / np.prod(shape[1:])))
+        else:
+            state[name] = 0.01 * z
+    return state
+
+
+def resnet_batch(b, device, seed=0):
+    """bench.py's batch: images from np.random.RandomState(seed), then the
+    labels."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, (b, 1)).astype(np.int64)
+    return ((torch.from_numpy(x).to(device),),
+            (torch.from_numpy(y).to(device),))
+
+
+def resnet_model(state, device):
+    from paddle_tpu_torch.jit import load_reference_state
+    from paddle_tpu_torch.models.resnet import resnet50
+    model = resnet50(num_classes=RESNET_CLASSES, device=device)
+    load_reference_state(model, state)
+    return model
+
+
+def resnet_step(model, amp_dtype=None):
+    from paddle_tpu_torch import optimizer as T
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    opt = T.Momentum(RESNET_LR, RESNET_MU)
+    step = TrainStep(model, lambda logits, label: F.cross_entropy(
+        logits, label, reduction="mean"), opt, amp_dtype=amp_dtype)
+    return step, opt
+
+
+def norm_rel(got, want):
+    """|got - want| / |want| in the 2-norm, in float64."""
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm().clamp_min(
+        1e-30))
+
+
+def resnet_parity_run(state, where, dtype):
+    """resnet50 in ``dtype`` on ``where`` from ``state``: eval logits, then
+    one TrainStep with Momentum(0.1, 0.9) on B=4; the loss, every gradient
+    (the velocity after one step from 0), every parameter and running
+    statistic after, and the sign of every ReLU input of the step's
+    forward, all on the CPU."""
+    from paddle_tpu_torch.nn.layers_lib import ReLU
+    model = resnet_model(state, where).to(dtype)
+    (x,), labels = resnet_batch(RESNET_PARITY_B, where, RESNET_SEED)
+    inputs = (x.to(dtype),)
+    model.eval()
+    with torch.no_grad():
+        logits = model(*inputs).double().cpu()
+    signs = []
+    hooks = [m.register_forward_hook(
+        lambda m, args, out: signs.append((args[0] > 0).cpu()))
+        for m in model.modules() if isinstance(m, ReLU)]
+    step, opt = resnet_step(model)
+    loss = float(step(inputs, labels))
+    for h in hooks:
+        h.remove()
+    named = opt.named_parameters()
+    return dict(logits=logits, loss=loss, signs=signs,
+                grads={n: opt.accumulators(p)["velocity"].double().cpu()
+                       for n, p in named.items()},
+                params={n: p.detach().double().cpu()
+                        for n, p in named.items()},
+                stats={n: b.double().cpu() for n, b in
+                       model.named_buffers()})
+
+
+def parity_worst(a, b, before):
+    """Worst norm-relative gaps of gradients and of updates (after - before),
+    and the worst absolute gap of the running statistics."""
+    grad = max(norm_rel(a["grads"][n], b["grads"][n]) for n in b["grads"])
+    update = max(norm_rel(a["params"][n] - before[n],
+                          b["params"][n] - before[n]) for n in b["params"])
+    stat = max(float((a["stats"][n] - b["stats"][n]).abs().max())
+               for n in b["stats"])
+    return grad, update, stat
+
+
+def check_resnet_vs_cpu(device, state):
+    """(i) resnet50, B=4 at 224 x 224, on the card against the CPU port from
+    one state, in float64 and in fp32 (RESNET_TOL): eval logits, one
+    Momentum(0.1, 0.9) TrainStep's loss, every gradient, every running
+    statistic (moved) and every parameter after."""
+    cpu = torch.device("cpu")
+    runs = {(tag, dt): resnet_parity_run(state, w, dt)
+            for dt in (torch.float64, torch.float32)
+            for tag, w in (("card", device), ("cpu", cpu))}
+    before = {n: torch.from_numpy(state[n]).double() for n in
+              runs[("cpu", torch.float64)]["params"]}
+    g64, c64 = runs[("card", torch.float64)], runs[("cpu", torch.float64)]
+    g32, c32 = runs[("card", torch.float32)], runs[("cpu", torch.float32)]
+    for n in c64["stats"]:
+        if torch.equal(c64["stats"][n], torch.from_numpy(state[n]).double()):
+            fail(f"resnet step: running statistic {n} did not move")
+    lines = []
+    for label, a, b, logit_tol, loss_tol, grad_tol, stat_tol in (
+            ("float64 card vs CPU", g64, c64, RESNET_TOL["f64_logit"],
+             RESNET_TOL["f64"], RESNET_TOL["f64"], RESNET_TOL["f64"]),
+            ("fp32 card vs CPU", g32, c32, RESNET_TOL["logit"],
+             RESNET_TOL["loss_rtol"], RESNET_TOL["grad_vs_cpu"],
+             sum(RESNET_TOL["stat"])),
+            ("fp32 card vs float64 card", g32, g64, RESNET_TOL["logit"],
+             RESNET_TOL["loss_rtol"], RESNET_TOL["grad_vs_f64"],
+             sum(RESNET_TOL["stat"]))):
+        scale = float(b["logits"].abs().max())
+        logit = float((a["logits"] - b["logits"]).abs().max())
+        loss = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        grad, update, stat = parity_worst(a, b, before)
+        lines.append(f"{label}: logits {logit:.2e} (tol {logit_tol:g} x "
+                     f"{scale:.1f}), loss {a['loss']:.9f} vs "
+                     f"{b['loss']:.9f}, gradients {grad:.2e} and updates "
+                     f"{update:.2e} in norm (tol {grad_tol:g}), statistics "
+                     f"{stat:.2e} (tol {stat_tol:g})")
+        if logit > logit_tol * scale or loss > loss_tol or \
+                max(grad, update) > grad_tol or stat > stat_tol:
+            fail(f"resnet parity, {lines[-1]}")
+    flips = {k: sum(int((s != t).sum()) for s, t in
+                    zip(runs[k]["signs"], g64["signs"]))
+             for k in runs}
+    n_relu = sum(t.numel() for t in g64["signs"])
+    if flips[("cpu", torch.float64)]:
+        fail(f"resnet parity: float64 ReLU inputs differ in sign between "
+             f"the card and the CPU: {flips}")
+    say("resnet", f"(i) resnet50 B={RESNET_PARITY_B} {RESNET_HW}x{RESNET_HW}"
+        f", one Momentum({RESNET_LR}, {RESNET_MU}) step, "
+        f"{len(c64['grads'])} gradients, {len(c64['stats'])} running "
+        "statistics (moved), TF32 off; " + "; ".join(lines) + "; ReLU "
+        f"inputs on the other side of 0 from the card's float64 run: card "
+        f"fp32 {flips[('card', torch.float32)]}, CPU fp32 "
+        f"{flips[('cpu', torch.float32)]}, CPU float64 "
+        f"{flips[('cpu', torch.float64)]} of {n_relu}")
+
+
+def check_conv_net_static(device):
+    """(ii) the static conv -> batch_norm(relu) -> pool2d -> fc program:
+    one Momentum step on the card against the CPU port from one startup
+    state: the loss, every gradient, the moving statistics (moved, and
+    alike), each op lowered once."""
+    import collections
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.core.scope import Scope, load_reference_scope
+    main, startup, loss = build_conv_net(tpt)
+    startup.random_seed = RESNET_SEED
+    cpu_scope = Scope()
+    tpt.Executor("cpu").run(startup, scope=cpu_scope)
+    names = [v.name for v in main.persistable_vars()
+             if cpu_scope.has(v.name)]
+    state = {n: cpu_scope.find_var(n).numpy().copy() for n in names}
+    stats = [v.name for v in main.all_parameters() if not v.trainable]
+    grads = [n for n in main.global_block.vars if n.endswith("@GRAD")]
+    feed = conv_net_feed(CONV_NET_B, seed=RESNET_SEED)
+    out = []
+    for where in (device, "cpu"):
+        scope = Scope()
+        load_reference_scope(scope, state, where)
+        exe = tpt.Executor(where)
+        fetched = exe.run(main, feed=feed, fetch_list=[loss] + grads,
+                          scope=scope)
+        out.append((fetched, {n: scope.find_var(n).cpu().numpy()
+                              for n in names}, exe.lowered))
+    (fg, sg, lowered), (fc, sc, _) = out
+    want = collections.Counter(op.type for op in main.global_block.ops)
+    if lowered != want:
+        fail(f"static conv net: ops lowered {dict(lowered)}, program "
+             f"{dict(want)}")
+    for name, a, b in zip(["loss"] + grads, fg, fc):
+        if not np.allclose(a, b, **CONV_NET_TOL):
+            fail(f"static conv net: {name} card vs CPU off by "
+                 f"{np.abs(a - b).max()}")
+    for n in names:
+        if not np.allclose(sg[n], sc[n], **CONV_NET_TOL):
+            fail(f"static conv net: {n} after the step, card vs CPU off by "
+                 f"{np.abs(sg[n] - sc[n]).max()}")
+    moved = [n for n in stats if not np.array_equal(sg[n], state[n])]
+    if len(moved) != 2 or set(stats) & set(grads):
+        fail(f"static conv net: moving statistics {stats}, moved {moved}, "
+             "or a gradient target")
+    say("static", f"(ii) conv -> batch_norm(relu) -> pool2d -> fc program, "
+        f"B={CONV_NET_B}: one Momentum step on the card vs the CPU port, "
+        f"loss {float(fg[0]):.7f} vs {float(fc[0]):.7f}, {len(grads)} "
+        f"gradients and {len(names)} persistables within "
+        f"{CONV_NET_TOL['atol']:g} + {CONV_NET_TOL['rtol']:g}|ref|; moving "
+        f"statistics {stats} moved by up to "
+        f"{max(np.abs(sg[n] - state[n]).max() for n in stats):.4f}; ops "
+        f"lowered once each: {dict(lowered)}")
+
+
+RESNET_GROUPS = ("conv forward (cuDNN)", "conv data-gradient (cuDNN)",
+                 "conv weight-gradient (cuDNN)", "conv layout conversions",
+                 "batch-norm reductions",
+                 "batch-norm affine and elementwise",
+                 "ReLU and residual adds", "casts", "Momentum",
+                 "other (pooling, fc, loss)")
+
+
+def resnet_group(kernel, ranges):
+    """The RESNET_GROUPS group of a kernel, from its name and the names of
+    the ranges (torch ops and the phase's own annotations) that launched
+    it."""
+    low = kernel.lower()
+    if "momentum" in ranges:
+        return "Momentum"
+    if "batch_norm.fwd" in ranges or "batch_norm.bwd" in ranges:
+        return "batch-norm reductions" if "reduce" in low else \
+            "batch-norm affine and elementwise"
+    conv = [r for r in ranges if "convolution" in r]
+    if conv:
+        if "nchwtonhwc" in low or "nhwctonchw" in low or "transpose" in low:
+            return "conv layout conversions"
+        if any("backward" in r for r in conv):
+            return "conv weight-gradient (cuDNN)" if "wgrad" in low else \
+                "conv data-gradient (cuDNN)"
+        return "conv forward (cuDNN)"
+    if any(r in ranges for r in ("aten::relu", "aten::relu_",
+                                 "aten::threshold_backward", "aten::add",
+                                 "aten::add_", "aten::clamp_min")):
+        return "ReLU and residual adds"
+    if any(r in ranges for r in ("aten::_to_copy", "aten::copy_")):
+        return "casts"
+    return "other (pooling, fc, loss)"
+
+
+class ResnetRanges:
+    """Inside, batch norm's forward and backward (``_BatchNormTrain``) and
+    the optimizer's update run under ``torch.profiler.record_function``
+    ranges ("batch_norm.fwd", "batch_norm.bwd", "momentum"), so that the
+    profiler can put their kernels in their groups; the functions are as
+    they were on exit."""
+
+    NAMES = ("batch_norm.fwd", "batch_norm.bwd", "momentum")
+
+    def __init__(self, opt):
+        self.opt = opt
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from paddle_tpu_torch.nn import functional as F
+        cls = F._BatchNormTrain
+        self.saved = (cls, cls.forward, cls.backward)
+        fwd, bwd = cls.forward, cls.backward
+
+        def forward(ctx, *args):
+            with record_function("batch_norm.fwd"):
+                return fwd(ctx, *args)
+
+        def backward(ctx, *grads):
+            with record_function("batch_norm.bwd"):
+                return bwd(ctx, *grads)
+        cls.forward, cls.backward = staticmethod(forward), \
+            staticmethod(backward)
+        apply = self.opt._apply
+
+        def momentum(step):
+            with record_function("momentum"):
+                return apply(step)
+        self.opt._apply = momentum
+        return self
+
+    def __exit__(self, *exc):
+        cls, fwd, bwd = self.saved
+        cls.forward, cls.backward = staticmethod(fwd), staticmethod(bwd)
+        del self.opt._apply
+        return False
+
+
+def profile_resnet_step(fn, opt):
+    """One call of ``fn`` under torch.profiler, with ResnetRanges: (device
+    busy ms, kernels, ms by RESNET_GROUPS group, [ms, count] by kernel
+    name). Each kernel is put in a group by the ranges that launched it;
+    device time the profiler linked to no launching op is "unattributed".
+    The ranges also appear on the device's timeline; they are left out."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with ResnetRanges(opt), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in events):
+            break
+    else:
+        fail("three profiler traces of a resnet step held no device event")
+    busy, n_kernels, by_name = 0.0, 0, {}
+    for e in events:
+        # the ranges' own spans on the device's timeline are not kernels
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.name in ResnetRanges.NAMES:
+            continue
+        n_kernels += 1
+        t = e.time_range.elapsed_us() / 1e3
+        busy += t
+        ms_n = by_name.setdefault(e.name[:90], [0.0, 0])
+        ms_n[0] += t
+        ms_n[1] += 1
+    groups = {g: 0.0 for g in RESNET_GROUPS}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        ranges, up = set(), e
+        while up is not None:
+            ranges.add(up.name)
+            up = up.cpu_parent
+        for k in e.kernels:
+            groups[resnet_group(k.name, ranges)] += k.duration / 1e3
+    groups["unattributed"] = max(0.0, busy - sum(groups.values()))
+    return busy, n_kernels, groups, by_name
+
+
+def bn_input_elements(model, b):
+    """Elements a pass over every batch-norm input holds at batch ``b``,
+    from the shapes of one forward of one image."""
+    from paddle_tpu_torch.nn.layers_lib import BatchNorm2D
+    sizes = []
+    hooks = [m.register_forward_hook(
+        lambda m, args, out: sizes.append(args[0].numel()))
+        for m in model.modules() if isinstance(m, BatchNorm2D)]
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(resnet_batch(1, next(model.parameters()).device)[0][0])
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(sizes) * b
+
+
+def time_steps(step, batch, n):
+    times, losses = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return times, losses
+
+
+def resnet_main_path(device, state, card):
+    """(iii) the main path, bench.py's cell: resnet50, B=256 (halved while
+    it does not fit), 224 x 224, 1000 classes, bf16 TrainStep with
+    Momentum(0.1, 0.9) on one batch from np.random.RandomState(0); 2
+    warm-up steps, then 10 timed, the kernels' counts set to 0 just before
+    and read just after. Returns (batch, counts, step, model, opt)."""
+    b = RESNET_B
+    while True:
+        try:
+            model = resnet_model(state, device)
+            step, opt = resnet_step(model, "bfloat16")
+            batch = resnet_batch(b, device)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            warm = [float(step(*batch)) for _ in range(RESNET_WARMUP)]
+            times, losses = time_steps(step, batch, RESNET_STEPS)
+            counts = read_counts()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if b <= 32:
+                raise
+            say("resnet", f"B={b} does not fit on the card: halved to "
+                f"{b // 2}")
+            model = step = opt = batch = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            b //= 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = warm + losses
+    # at lr 0.1 without warmup on one repeated batch the loss falls by a
+    # fifth in 4-11 steps and then jumps (7.04 -> 5.55 -> 9.18 at step 12
+    # on an H100), alike with cuDNN's batch norm in place of the port's and
+    # in fp32: falling means a step a tenth below the first
+    if not all(math.isfinite(v) for v in losses) or \
+            not min(losses[1:]) < RESNET_FALL * losses[0]:
+        fail(f"resnet main path: losses not finite or not falling: {losses}")
+    if any(counts.values()):
+        fail(f"resnet main path launched a kernel of another path: {counts}")
+    ms = 1e3 * float(np.median(times))
+    flops = RESNET_FLOPS_IMG * b
+    mfu = flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    say("resnet", f"(iii) main path: resnet50 B={b} {RESNET_HW}x{RESNET_HW} "
+        f"bf16 TrainStep Momentum({RESNET_LR}, {RESNET_MU}), "
+        f"torch.backends.cudnn.deterministic = "
+        f"{torch.backends.cudnn.deterministic}, benchmark = "
+        f"{torch.backends.cudnn.benchmark}; losses " +
+        " ".join(f"{v:.5f}" for v in losses) + f"; the seven kernels' "
+        f"launches {sum(counts.values())} (no kernel on this path: "
+        f"convolution is cuDNN's, batch norm and pooling torch ops)")
+    busy, n_kernels, groups, by_name = profile_resnet_step(
+        lambda: step(*batch), opt)
+    idle = max(0.0, 1.0 - busy / ms)
+    say("times", f"resnet50 train step B={b} bf16: eager {ms:.2f} ms median "
+        f"of {RESNET_STEPS}, {b / ms * 1e3:.1f} images/s, MFU {mfu:.4f} "
+        f"({flops / 1e12:.3f} TFLOP a step at 989 TFLOP/s); device busy "
+        f"{busy:.2f} ms in {n_kernels} kernels, idle share {idle:.3f}; peak "
+        f"memory {peak:.2f} GiB  [{card}]")
+    bn_elems = bn_input_elements(model, b)
+    # forward reads x and writes y; backward reads x and dy, writes dx
+    bn_bound, _ = bound_ms(5 * bn_elems * 2, 0.0, torch.bfloat16)
+    bn_ms = groups["batch-norm reductions"] + \
+        groups["batch-norm affine and elementwise"]
+    say("profile", "resnet50 step device time: " + ", ".join(
+        f"{g} {t:.2f} ms ({t / busy:.1%})" for g, t in groups.items()) +
+        f"  [{card}]")
+    say("profile", f"resnet50 batch norm: {bn_ms:.2f} ms a step over "
+        f"{bn_elems / 1e9:.3f} G input elements ({bn_elems * 2 / 1e9:.2f} GB "
+        f"a pass in bf16, {bn_elems / b / 1e6:.2f} M an image); bytes bound "
+        f"{bn_bound:.2f} ms (x, y, dy, dx once each at 3.35 TB/s)  [{card}]")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
+    say("profile", "resnet50 step top kernels: " + "; ".join(
+        f"{name} {t:.2f} ms x{n}" for name, (t, n) in top) + f"  [{card}]")
+    return batch, counts, step, model, opt, ms
+
+
+def check_resnet_rerun(device, state):
+    """Two bf16 steps at B=32 from the same state, twice, under
+    torch.backends.cudnn.deterministic = True: the losses, running
+    statistics and parameters equal bit for bit."""
+    runs = []
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):
+            model = resnet_model(state, device)
+            step, _ = resnet_step(model, "bfloat16")
+            batch = resnet_batch(RESNET_RERUN_B, device, 1)
+            losses = [float(step(*batch)) for _ in range(2)]
+            runs.append((losses, {n: t.detach().clone() for n, t in
+                                  model.state_dict().items()}))
+            del model, step
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (l1, s1), (l2, s2) = runs
+    diff = [n for n in s1 if not torch.equal(s1[n], s2[n])]
+    if l1 != l2 or diff:
+        fail(f"resnet rerun: losses {l1} vs {l2}, {len(diff)} tensors "
+             f"differ: {diff[:4]}")
+    say("resnet", f"rerun: two bf16 steps at B={RESNET_RERUN_B} from one "
+        "state, twice, under torch.backends.cudnn.deterministic = True: "
+        f"losses {l1} both times, {len(s1)} parameters and running "
+        "statistics equal bit for bit")
+
+
+def resnet_serving(model, card):
+    """(iv) eval forward at the main path's batch under bf16 auto_cast:
+    eager ms (median of 20), images/s, device ms from a CUDA-graph replay;
+    bf16 top-1 against fp32."""
+    from paddle_tpu_torch import amp
+    x = resnet_batch(RESNET_B, next(model.parameters()).device)[0][0]
+    model.eval()
+
+    def forward(bf16):
+        with torch.no_grad(), amp.auto_cast(enable=bf16):
+            return model(x)
+    top32 = forward(False).argmax(-1)
+    top16 = forward(True).argmax(-1)
+    agree = float((top32 == top16).float().mean())
+    if agree < RESNET_TOP1_MIN:
+        fail(f"resnet eval: bf16 top-1 agrees with fp32 at {agree}")
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * float(np.median(times))
+    dev = device_ms([lambda: forward(True)], reps=3)
+    say("times", f"(iv) resnet50 eval forward B={RESNET_B} bf16 auto_cast: "
+        f"{ms:.2f} ms median of 20, {RESNET_B / ms * 1e3:.1f} images/s; "
+        f"device {dev:.2f} ms from a CUDA graph "
+        f"({RESNET_B / dev * 1e3:.1f} images/s), idle share "
+        f"{max(0.0, 1.0 - dev / ms):.3f}; bf16 top-1 agrees with fp32 at "
+        f"{agree:.4f} (min {RESNET_TOP1_MIN})  [{card}]")
+
+
+def time_bn_yardstick(device, card, shape=(256, 256, 56, 56)):
+    """(v) one stage-1 batch norm, training, forward and backward, bf16 x:
+    the port's batch norm against torch.nn.functional.batch_norm (cuDNN's,
+    timed here only), beside the bytes bound."""
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator(device=device).manual_seed(RESNET_SEED)
+    c = shape[1]
+    x = torch.randn(shape, device=device, generator=gen,
+                    dtype=torch.bfloat16).requires_grad_()
+    dy = torch.randn(shape, device=device, generator=gen,
+                     dtype=torch.bfloat16)
+    w = torch.ones(c, device=device, requires_grad=True)
+    bias = torch.zeros(c, device=device, requires_grad=True)
+    mean = torch.zeros(c, device=device)
+    var = torch.ones(c, device=device)
+
+    def port():
+        y = F.batch_norm_op(x, w, bias, mean, var)[0]
+        torch.autograd.grad(y, (x, w, bias), dy)
+
+    def cudnn():
+        y = torch.nn.functional.batch_norm(x, mean.clone(), var.clone(), w,
+                                           bias, training=True)
+        torch.autograd.grad(y, (x, w, bias), dy)
+    port_ms = profiled_ms(port)
+    lib_ms = profiled_ms(cudnn)
+    bound, _ = bound_ms(5 * x.numel() * 2, 0.0, torch.bfloat16)
+    say("times", f"(v) batch norm {list(shape)} bf16, training forward + "
+        f"backward: the port {port_ms:.3f} ms, "
+        f"torch.nn.functional.batch_norm (cuDNN) {lib_ms:.3f} ms, bytes "
+        f"bound {bound:.3f} ms  [{card}]")
+    return port_ms, lib_ms, bound
+
+
+def time_channels_last(device, state, card, b):
+    """(v) the main path's step with the model and input in
+    torch.channels_last (logical shapes NCHW): eager ms, median of 10."""
+    model = resnet_model(state, device).to(memory_format=torch.channels_last)
+    step, _ = resnet_step(model, "bfloat16")
+    (x,), labels = resnet_batch(b, device)
+    batch = ((x.contiguous(memory_format=torch.channels_last),), labels)
+    time_steps(step, batch, RESNET_WARMUP)
+    times, losses = time_steps(step, batch, RESNET_STEPS)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"resnet channels_last: losses not finite: {losses}")
+    ms = 1e3 * float(np.median(times))
+    say("times", f"(v) resnet50 train step B={b} bf16 in channels_last: "
+        f"{ms:.2f} ms median of {RESNET_STEPS}, {b / ms * 1e3:.1f} "
+        f"images/s  [{card}]")
+    return ms
+
+
+def run_resnet(device, card):
+    """Phase 9: ResNet-50 on the card."""
+    t0 = time.perf_counter()
+    from paddle_tpu_torch.models.resnet import resnet50
+    state = resnet_state(resnet50(num_classes=RESNET_CLASSES,
+                                  device="cpu"), RESNET_SEED)
+    check_resnet_vs_cpu(device, state)
+    check_conv_net_static(device)
+    torch.cuda.empty_cache()
+    batch, counts, step, model, opt, ms = resnet_main_path(device, state,
+                                                           card)
+    b = batch[0][0].shape[0]
+    resnet_serving(model, card)
+    del batch, step, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_resnet_rerun(device, state)
+    time_bn_yardstick(device, card)
+    cl_ms = time_channels_last(device, state, card, b)
+    say("times", f"(v) resnet50 step NCHW {ms:.2f} ms vs channels_last "
+        f"{cl_ms:.2f} ms at B={b}  [{card}]")
+    torch.cuda.empty_cache()
+    say("resnet", f"phase done in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -3946,8 +4608,13 @@ def main() -> int:
     # just after
     paged_err, gen_recs, paged_times = run_generation(device, card)
 
-    # -- 9. records: launches are the serving, training, recipe, static and
-    # generation runs
+    # -- 9. ResNet-50: the main path's counts (no kernel of the seven runs
+    # on it) set to 0 just before its run, read just after
+    torch.cuda.empty_cache()
+    run_resnet(device, card)
+
+    # -- 10. records: launches are the serving, training, recipe, static
+    # and generation runs
     ln_rec = ln_times[(4096, 768, torch.float32)]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]

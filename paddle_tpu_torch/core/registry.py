@@ -19,10 +19,9 @@ import torch
 Arrays = Dict[str, List[Any]]  # slot -> list of tensors
 LowerFn = Callable[["LowerCtx", Arrays, Dict[str, Any]], Arrays]
 
-# the queues of ROADMAP.md that hold the ops not lowered yet: ResNet-50's
-# batch norm (A3), the op families of the long tail (A8), and A2b for
-# every other op of the static path
-_A3_OPS = frozenset(("batch_norm", "sync_batch_norm", "fused_bn_activation"))
+# the queues of ROADMAP.md that hold the ops not lowered yet: the op
+# families of the long tail (A8), and A2b for every other op of the
+# static path
 _A8_PREFIXES = ("sequence_", "fusion_", "lstm", "gru", "rnn", "beam_search",
                 "detection", "yolo", "roi_", "prior_box", "multiclass_nms",
                 "anchor_generator", "box_", "generate_proposals", "fake_",
@@ -34,8 +33,6 @@ _A8_PREFIXES = ("sequence_", "fusion_", "lstm", "gru", "rnn", "beam_search",
 
 def queue_of(op_type: str) -> str:
     """The ``ROADMAP.md`` queue that ports ``op_type``."""
-    if op_type in _A3_OPS:
-        return "A3"
     if op_type.startswith(_A8_PREFIXES):
         return "A8"
     return "A2b"

@@ -45,7 +45,9 @@ def functional_call(layer: Layer, state: Mapping[str, torch.Tensor], *args,
     """Run ``layer`` with its parameters and buffers taken from ``state``
     (name -> tensor; a name it lacks keeps the layer's own) and return
     ``(outputs, new_state)``, ``new_state`` being every parameter and
-    buffer after the call. The layer is left as it was found: its tensors,
+    buffer after the call: in training mode, batch norm's running
+    statistics moved by the batch. The tensors of ``state`` are not
+    changed, and the layer is left as it was found: its tensors,
     its train/eval mode and the port's generators. ``rng`` fixes the
     randomness of the call: a seed, or a ``torch.Generator`` that serves
     draws on its device (see ``layers.helper.generator_scope``). Autograd
@@ -53,6 +55,13 @@ def functional_call(layer: Layer, state: Mapping[str, torch.Tensor], *args,
     from .layers.helper import generator_scope
     named = _named_state(layer)
     given = {n: state[n] for n in named if n in state}
+    # buffers (batch norm's running statistics) enter as copies: a layer
+    # that moves one in place (training batch norm) moves the copy, which
+    # new_state returns, and neither the caller's tensor nor the layer's
+    # own changes
+    buffers = {n for n, _ in layer.named_buffers()}
+    given.update({n: given.get(n, t).clone() for n, t in named.items()
+                  if n in buffers})
     modes = [(m, m.training) for m in layer.modules()]
     try:
         layer.train(training)
@@ -64,8 +73,6 @@ def functional_call(layer: Layer, state: Mapping[str, torch.Tensor], *args,
     finally:
         for m, mode in modes:
             m.training = mode
-    # the port's layers update no parameter or buffer by assignment, so
-    # after the call each name still holds what it held before it
     return out, {n: given.get(n, t) for n, t in named.items()}
 
 
@@ -144,17 +151,23 @@ def load_reference_opt_state(target, opt_state: Mapping[str, Mapping[
     ``_eager_spec``, converted to numpy) into the optimizer's accumulators,
     by the parameter names that ``TrainStep`` bound to it. ``target`` is
     the optimizer, or the port's ``TrainStep``, which also takes the JAX
-    ``TrainStep._lr_step`` as ``lr_step``. Raises on a missing or extra
-    name or accumulator, or a shape that differs; nothing is copied unless
-    everything agrees."""
+    ``TrainStep._lr_step`` as ``lr_step``, and skips the entries of the
+    model's buffers (the JAX optimizer's frozen parameters). Raises on a
+    missing or extra name or accumulator, or a shape that differs;
+    nothing is copied unless everything agrees."""
     step = target if isinstance(target, TrainStep) else None
     optimizer = step.optimizer if step is not None else target
     if lr_step is not None and step is None:
         raise ValueError("load_reference_opt_state: lr_step belongs to a "
                          "TrainStep; pass the TrainStep")
     own = optimizer.named_parameters()
+    # the JAX optimizer also holds the model's frozen state (batch norm's
+    # running statistics), whose accumulators no update moves; the port
+    # keeps those as buffers, outside the optimizer
+    frozen = set() if step is None else \
+        {n for n, _ in step.model.named_buffers()}
     missing = sorted(set(own) - set(opt_state))
-    extra = sorted(set(opt_state) - set(own))
+    extra = sorted(set(opt_state) - set(own) - frozen)
     if missing or extra:
         raise KeyError(f"load_reference_opt_state: names differ; missing "
                        f"{missing}, unexpected {extra}")
@@ -288,7 +301,16 @@ class TrainStep:
 
     With ``grad_accum_steps=k`` the batch is cut into k slices along dim
     0; their gradients are summed and multiplied by 1/k before the update,
-    and the loss is the mean of theirs, as in the JAX package. ``mesh``,
+    and the loss is the mean of theirs, as in the JAX package.
+
+    The forward moves batch norm's running statistics (the model's
+    buffers) in place by the ``batch_norm`` op's contract, momentum old +
+    (1 - momentum) batch. The JAX ``TrainStep`` leaves them where they
+    were (it files them as parameters, so the step returns none:
+    ``ROADMAP.md`` C4); its eager loop and its executor move them, and so
+    does the port. Under ``grad_accum_steps=k`` each microbatch moves them
+    from the step's starting values and the last microbatch's are kept,
+    the JAX step's semantics for the buffers it returns. ``mesh``,
     ``plan``, ``param_rules`` and ``batch_spec`` (the sharded step) are not
     ported yet and raise."""
 
@@ -331,8 +353,16 @@ class TrainStep:
         self.model.train()
         k = self.grad_accum_steps
         self.optimizer.clear_grad()
+        buffers = list(self.model.buffers())
+        start = [b.clone() for b in buffers] if k > 1 else []
         losses = []
         for i in range(k):
+            if i:
+                # each microbatch moves the running statistics from the
+                # step's starting ones; the last one's are kept
+                with torch.no_grad():
+                    for b, b0 in zip(buffers, start):
+                        b.copy_(b0)
             loss = self._loss(_microbatch(inputs, k, i),
                               _microbatch(labels, k, i))
             loss.backward()

@@ -1,4 +1,6 @@
-"""Graph-building layer functions of the static path.
+"""Graph-building layer functions of the static path: ``fc``, the conv
+net's ``conv2d``, ``pool2d`` and ``batch_norm``, the BERT-shaped
+program's, and the unary and binary op builders.
 
 Counterparts of the ``paddle_tpu/layers/nn.py`` functions whose ops the
 port lowers: each appends the same ops, slots, attrs and parameters (the
@@ -14,10 +16,10 @@ import numpy as np
 
 from ..core import dtypes
 from ..core.program import VarDesc, default_main_program
-from .helper import Constant, LayerHelper
+from .helper import Constant, LayerHelper, Normal, ParamAttr
 
-__all__ = ["data", "fc", "layer_norm", "relu", "sigmoid", "tanh", "gelu",
-           "exp", "sqrt", "abs", "square", "log", "softsign", "erf",
+__all__ = ["data", "fc", "conv2d", "pool2d", "batch_norm", "layer_norm",
+           "relu", "sigmoid", "tanh", "gelu", "exp", "sqrt", "abs", "square", "log", "softsign", "erf",
            "softmax", "softmax_with_cross_entropy", "mean", "concat",
            "reshape", "transpose", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_max",
@@ -59,6 +61,103 @@ def fc(input: VarDesc, size: int, num_flatten_dims: int = 1,
                          attrs={"axis": num_flatten_dims})
         pre = tmp
     return helper.append_activation(pre, act)
+
+
+def _pair(v) -> list:
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+def conv2d(input: VarDesc, num_filters: int, filter_size, stride=1,
+           padding=0, dilation=1, groups: int = 1, param_attr=None,
+           bias_attr=None, act: Optional[str] = None,
+           data_format: str = "NCHW", name: Optional[str] = None) -> VarDesc:
+    """conv2d + elementwise_add of the bias on the channel axis +
+    activation; the filter [num_filters, C / groups, kh, kw] drawn from
+    N(0, sqrt(2 / fan_in))."""
+    helper = LayerHelper("conv2d", name)
+    filter_size = _pair(filter_size)
+    c_in = input.shape[1] if data_format == "NCHW" else input.shape[-1]
+    fan_in = (c_in // groups) * int(np.prod(filter_size))
+    w = helper.create_parameter(
+        param_attr, [num_filters, c_in // groups] + filter_size, input.dtype,
+        default_initializer=Normal(0.0, math.sqrt(2.0 / fan_in)))
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("conv2d",
+                     inputs={"Input": [input.name], "Filter": [w.name]},
+                     outputs={"Output": [out.name]},
+                     attrs={"strides": _pair(stride),
+                            "paddings": _pair(padding),
+                            "dilations": _pair(dilation), "groups": groups,
+                            "data_format": data_format})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        tmp = helper.create_tmp_variable(input.dtype)
+        helper.append_op("elementwise_add",
+                         inputs={"X": [out.name], "Y": [b.name]},
+                         outputs={"Out": [tmp.name]},
+                         attrs={"axis": 1 if data_format == "NCHW" else 3})
+        out = tmp
+    return helper.append_activation(out, act)
+
+
+def pool2d(input: VarDesc, pool_size=2, pool_type: str = "max",
+           pool_stride=1, pool_padding=0, global_pooling: bool = False,
+           ceil_mode: bool = False, exclusive: bool = True,
+           name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("pool2d", name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("pool2d", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"ksize": _pair(pool_size),
+                            "pooling_type": pool_type,
+                            "strides": _pair(pool_stride),
+                            "paddings": _pair(pool_padding),
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode,
+                            "exclusive": exclusive,
+                            "adaptive": False})
+    return out
+
+
+def batch_norm(input: VarDesc, act: Optional[str] = None,
+               is_test: bool = False, momentum: float = 0.9,
+               epsilon: float = 1e-5, param_attr=None, bias_attr=None,
+               data_layout: str = "NCHW", moving_mean_name=None,
+               moving_variance_name=None, use_global_stats: bool = False,
+               name: Optional[str] = None) -> VarDesc:
+    """batch_norm + activation. The moving mean (0) and variance (1) are
+    non-trainable, stop_gradient parameters (never gradient targets), and
+    the op writes MeanOut and VarianceOut to their own names, so a
+    training step leaves the moved statistics in the scope."""
+    helper = LayerHelper("batch_norm", name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(param_attr, [c], input.dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [c], input.dtype, is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name or helper.unique_name("mean"),
+                  initializer=Constant(0.0), trainable=False),
+        [c], input.dtype)
+    var = helper.create_parameter(
+        ParamAttr(name=moving_variance_name or helper.unique_name("var"),
+                  initializer=Constant(1.0), trainable=False),
+        [c], input.dtype)
+    y = helper.create_tmp_variable(input.dtype)
+    saved_mean = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    saved_var = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input.name], "Scale": [scale.name],
+                "Bias": [bias.name], "Mean": [mean.name],
+                "Variance": [var.name]},
+        outputs={"Y": [y.name], "MeanOut": [mean.name],
+                 "VarianceOut": [var.name], "SavedMean": [saved_mean.name],
+                 "SavedVariance": [saved_var.name]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(y, act)
 
 
 def layer_norm(input: VarDesc, scale: bool = True, shift: bool = True,

@@ -1,11 +1,12 @@
 """Activation ops: the one-input table of ``paddle_tpu/ops/activation.py``
-:29 and ``gelu`` :87, in torch."""
+:29, ``relu6`` :59 and ``gelu`` :87, in torch."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from ..core.registry import register_op
+from ..nn import functional as _F
 from .common import one
 
 
@@ -54,6 +55,11 @@ def _simple(name, fn):
 
 for _n, _f in _SIMPLE.items():
     _simple(_n, _f)
+
+
+@register_op("relu6", inputs=("X",))
+def _relu6(ctx, ins, attrs):
+    return one(_F.relu6(ins["X"][0], attrs.get("threshold", 6.0)))
 
 
 @register_op("gelu", inputs=("X",))

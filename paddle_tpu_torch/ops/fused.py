@@ -1,6 +1,8 @@
-"""``multihead_matmul``: the fused QKV projection and attention.
+"""``multihead_matmul``, the fused QKV projection and attention, and
+``fused_bn_activation``.
 
-Counterpart of ``paddle_tpu/ops/fused.py`` :24, the op that the
+``multihead_matmul`` is the counterpart of ``paddle_tpu/ops/fused.py``
+:24, the op that the
 ``multihead_matmul_fuse`` pass (``core/passes.py``) puts in place of an
 attention subgraph. Input [B, S, H] is projected by W ([H, 3, H] or
 [H, 3H]) and Bias into packed q, k, v, whose heads are strided views
@@ -15,6 +17,9 @@ on the CPU (the kernels' plain versions).
 from __future__ import annotations
 
 import math
+
+import torch
+import torch.nn.functional as F
 
 from ..core.registry import register_op
 from ..kernels import flash_attention as _fa
@@ -53,3 +58,22 @@ def _multihead_matmul(ctx, ins, attrs):
                                   v.transpose(1, 2), bias=bias,
                                   sm_scale=scale).transpose(1, 2)
     return one(out.reshape(b, s, h3 // 3))
+
+
+_BN_ACTS = {"relu": torch.relu, "swish": F.silu,
+            # jax.nn.gelu's default: the tanh approximation
+            "gelu": lambda v: F.gelu(v, approximate="tanh"),
+            "": lambda v: v}
+
+
+@register_op("fused_bn_activation",
+             inputs=("X", "Scale", "Bias", "Mean", "Variance"),
+             outputs=("Y", "MeanOut", "VarianceOut", "SavedMean",
+                      "SavedVariance"))
+def _fused_bn_act(ctx, ins, attrs):
+    """``paddle_tpu/ops/fused.py`` :71: the ``batch_norm`` op, then
+    ``act_type`` on Y."""
+    from .nn import _batch_norm
+    outs = _batch_norm(ctx, ins, attrs)
+    outs["Y"] = [_BN_ACTS[attrs.get("act_type", "relu")](outs["Y"][0])]
+    return outs

@@ -1,7 +1,14 @@
-"""Neural-net ops: ``softmax``, ``softmax_with_cross_entropy`` and
-``layer_norm``.
+"""Neural-net ops: ``conv2d``, ``depthwise_conv2d``, ``pool2d``,
+``softmax``, ``softmax_with_cross_entropy``, ``layer_norm``,
+``batch_norm`` and ``sync_batch_norm``.
 
-Counterparts of ``paddle_tpu/ops/nn.py`` :210, :252 and :415. The
+Counterparts of ``paddle_tpu/ops/nn.py`` :50, :62, :184, :210, :252,
+:415, :445 and :994. Convolution, pooling and batch norm are the
+functions of ``nn/functional.py`` (``conv``, ``pool``,
+``batch_norm_op``), so that the dygraph and the static path share one
+implementation; the convolution is cuDNN's on the card, as the JAX
+package leaves it to XLA, and batch norm and pooling are torch ops
+that follow the JAX formulas. The
 ``layer_norm`` route is the JAX lowering's (:423-430) with the card in
 the TPU's place: a CUDA tensor normalized over its trailing axis with
 both Scale and Bias goes to the fused kernel
@@ -21,6 +28,39 @@ from ..core.registry import register_op
 from ..kernels import layer_norm as _ln_kernel
 from ..nn import functional as _F
 from .common import one
+
+
+def _conv_lowering(ctx, ins, attrs, groups):
+    out = _F.conv(ins["Input"][0], ins["Filter"][0],
+                  attrs.get("strides", [1, 1]), attrs.get("paddings", [0, 0]),
+                  attrs.get("dilations", [1, 1]), groups,
+                  attrs.get("data_format", "NCHW"))
+    return {"Output": [out]}
+
+
+@register_op("conv2d", inputs=("Input", "Filter"), outputs=("Output",))
+def _conv2d(ctx, ins, attrs):
+    return _conv_lowering(ctx, ins, attrs, attrs.get("groups", 1))
+
+
+@register_op("depthwise_conv2d", inputs=("Input", "Filter"),
+             outputs=("Output",))
+def _depthwise_conv2d(ctx, ins, attrs):
+    # groups default to the input's channels (dim 1, as in JAX)
+    return _conv_lowering(ctx, ins, attrs,
+                          attrs.get("groups", ins["Input"][0].shape[1]))
+
+
+@register_op("pool2d", inputs=("X",))
+def _pool2d(ctx, ins, attrs):
+    return one(_F.pool(ins["X"][0], attrs.get("ksize", [2, 2]),
+                       attrs.get("strides", [1, 1]),
+                       attrs.get("paddings", [0, 0]),
+                       attrs.get("pooling_type", "max"),
+                       attrs.get("ceil_mode", False),
+                       attrs.get("exclusive", True),
+                       attrs.get("adaptive", False),
+                       attrs.get("global_pooling", False)))
 
 
 @register_op("softmax", inputs=("X",))
@@ -91,3 +131,32 @@ def _layer_norm(ctx, ins, attrs):
     lead = math.prod(x.shape[:axis])
     return {"Y": [y], "Mean": [mean.reshape(lead)],
             "Variance": [var.reshape(lead)]}
+
+
+_BN_OUTS = ("Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance")
+
+
+@register_op("batch_norm", inputs=("X", "Scale", "Bias", "Mean", "Variance"),
+             outputs=_BN_OUTS)
+def _batch_norm(ctx, ins, attrs):
+    # is_test (the attr or the context) normalizes by the running
+    # statistics, as use_global_stats does; MeanOut and VarianceOut are
+    # new tensors, which the static path writes to the statistics' names
+    is_test = attrs.get("is_test", False) or ctx.is_test
+    outs = _F.batch_norm_op(
+        ins["X"][0], ins["Scale"][0], ins["Bias"][0], ins["Mean"][0],
+        ins["Variance"][0], attrs.get("momentum", 0.9),
+        attrs.get("epsilon", 1e-5),
+        attrs.get("use_global_stats", False) or is_test,
+        attrs.get("data_layout", "NCHW"))
+    return {slot: [v] for slot, v in zip(_BN_OUTS, outs)}
+
+
+@register_op("sync_batch_norm",
+             inputs=("X", "Scale", "Bias", "Mean", "Variance"),
+             outputs=_BN_OUTS)
+def _sync_batch_norm(ctx, ins, attrs):
+    # on one device the cross-rank batch norm is batch_norm, as in the JAX
+    # package; its reduction across ranks belongs to the distributed
+    # runtime (ROADMAP.md A6)
+    return _batch_norm(ctx, ins, attrs)

@@ -259,7 +259,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "          'paddle_tpu_torch.ops.random', 'paddle_tpu_torch.ops.nn',\n"
         "          'paddle_tpu_torch.ops.fused',\n"
         "          'paddle_tpu_torch.ops.optimizers',\n"
-        "          'paddle_tpu_torch.layers.nn', 'paddle_tpu_torch.static'):\n"
+        "          'paddle_tpu_torch.layers.nn', 'paddle_tpu_torch.static',\n"
+        "          'paddle_tpu_torch.models.resnet',\n"
+        "          'paddle_tpu_torch.models.lenet',\n"
+        "          'paddle_tpu_torch.models.vision_zoo'):\n"
         "    assert n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -171,6 +171,101 @@ for _name in ("sigmoid", "logsigmoid", "exp", "relu", "tanh", "tanh_shrink",
                                                            "tanh")
                                               else _pos((3, 7))]}, {})
 
+
+# the vision path's ops (ResNet's conv, pool and batch norm, MobileNet's
+# depthwise conv and relu6), on fp32 inputs; bf16 batch norm is held in
+# tests/test_torch_vision.py
+def _conv_case(x_shape, w_shape, **attrs):
+    return ("conv2d", {"Input": [_rand(x_shape)],
+                       "Filter": [_rand(w_shape, 1) * 0.3]}, attrs)
+
+
+def _bn_ins(x_shape, c):
+    return {"X": [_rand(x_shape) * 2 + 0.5], "Scale": [_pos((c,), 1) + 0.5],
+            "Bias": [_rand((c,), 2)], "Mean": [_rand((c,), 3) * 0.1],
+            "Variance": [_pos((c,), 4) + 0.5]}
+
+
+OP_CASES.update({
+    "conv2d_stride_pad": _conv_case((2, 3, 9, 7), (4, 3, 3, 3),
+                                    strides=[2, 1], paddings=[1, 2]),
+    "conv2d_pad4_asym": _conv_case((2, 3, 8, 8), (4, 3, 3, 2),
+                                   paddings=[1, 0, 2, 1]),
+    "conv2d_pad4_sym": _conv_case((2, 3, 6, 6), (4, 3, 3, 3),
+                                  paddings=[1, 1, 2, 2]),
+    "conv2d_dilation": _conv_case((2, 3, 9, 9), (4, 3, 3, 3),
+                                  dilations=[2, 2], paddings=[2, 2]),
+    "conv2d_groups": _conv_case((2, 4, 7, 7), (6, 2, 3, 3), groups=2,
+                                paddings=[1, 1]),
+    "conv2d_nhwc": _conv_case((2, 7, 6, 3), (4, 3, 3, 3),
+                              data_format="NHWC", paddings=[1, 1],
+                              strides=[2, 2]),
+    "depthwise_conv2d": ("depthwise_conv2d",
+                         {"Input": [_rand((2, 4, 7, 7))],
+                          "Filter": [_rand((4, 1, 3, 3), 1)]},
+                         {"paddings": [1, 1], "strides": [2, 2]}),
+    "pool2d_max_resnet": ("pool2d", {"X": [_rand((2, 3, 9, 9))]},
+                          {"ksize": [3, 3], "strides": [2, 2],
+                           "paddings": [1, 1], "pooling_type": "max"}),
+    "pool2d_max_ceil": ("pool2d", {"X": [_rand((2, 3, 7, 8))]},
+                        {"ksize": [3, 3], "strides": [2, 2],
+                         "paddings": [0, 0], "pooling_type": "max",
+                         "ceil_mode": True}),
+    "pool2d_avg_exclusive_pad": ("pool2d", {"X": [_rand((2, 3, 7, 7))]},
+                                 {"ksize": [3, 3], "strides": [2, 2],
+                                  "paddings": [1, 1], "pooling_type": "avg"}),
+    "pool2d_avg_inclusive_pad": ("pool2d", {"X": [_rand((2, 3, 7, 7))]},
+                                 {"ksize": [3, 3], "strides": [2, 2],
+                                  "paddings": [1, 1], "pooling_type": "avg",
+                                  "exclusive": False}),
+    "pool2d_avg_ceil_exclusive": ("pool2d", {"X": [_rand((2, 3, 7, 8))]},
+                                  {"ksize": [3, 3], "strides": [2, 2],
+                                   "paddings": [1, 1], "pooling_type": "avg",
+                                   "ceil_mode": True}),
+    "pool2d_avg_ceil_inclusive": ("pool2d", {"X": [_rand((2, 3, 7, 8))]},
+                                  {"ksize": [2, 3], "strides": [2, 2],
+                                   "pooling_type": "avg", "ceil_mode": True,
+                                   "exclusive": False}),
+    "pool2d_adaptive_avg": ("pool2d", {"X": [_rand((2, 3, 8, 6))]},
+                            {"ksize": [4, 3], "pooling_type": "avg",
+                             "adaptive": True}),
+    "pool2d_adaptive_avg_nondivisible": ("pool2d",
+                                         {"X": [_rand((2, 3, 5, 7))]},
+                                         {"ksize": [3, 3],
+                                          "pooling_type": "avg",
+                                          "adaptive": True}),
+    "pool2d_adaptive_max": ("pool2d", {"X": [_rand((2, 3, 8, 6))]},
+                            {"ksize": [2, 3], "pooling_type": "max",
+                             "adaptive": True}),
+    "pool2d_global_avg": ("pool2d", {"X": [_rand((2, 3, 5, 7))]},
+                          {"pooling_type": "avg", "global_pooling": True}),
+    "pool2d_global_max": ("pool2d", {"X": [_rand((2, 3, 5, 7))]},
+                          {"pooling_type": "max", "global_pooling": True}),
+    "batch_norm_train": ("batch_norm", _bn_ins((4, 3, 5, 5), 3),
+                         {"momentum": 0.9, "epsilon": 1e-5}),
+    "batch_norm_train_nhwc": ("batch_norm", _bn_ins((4, 5, 5, 3), 3),
+                              {"momentum": 0.8, "epsilon": 1e-3,
+                               "data_layout": "NHWC"}),
+    "batch_norm_is_test": ("batch_norm", _bn_ins((4, 3, 5, 5), 3),
+                           {"is_test": True}),
+    "batch_norm_global_stats_nhwc": ("batch_norm", _bn_ins((4, 5, 5, 3), 3),
+                                     {"use_global_stats": True,
+                                      "data_layout": "NHWC"}),
+    "batch_norm_2d": ("batch_norm", _bn_ins((6, 4), 4), {}),
+    "sync_batch_norm": ("sync_batch_norm", _bn_ins((4, 3, 5, 5), 3),
+                        {"momentum": 0.9}),
+    "fused_bn_relu": ("fused_bn_activation", _bn_ins((4, 3, 5, 5), 3),
+                      {"act_type": "relu"}),
+    "fused_bn_swish": ("fused_bn_activation", _bn_ins((4, 3, 5, 5), 3),
+                       {"act_type": "swish"}),
+    "fused_bn_gelu_is_test": ("fused_bn_activation",
+                              _bn_ins((4, 3, 5, 5), 3),
+                              {"act_type": "gelu", "is_test": True}),
+    "relu6": ("relu6", {"X": [_rand((3, 7)) * 5]}, {}),
+    "relu6_threshold": ("relu6", {"X": [_rand((3, 7)) * 5]},
+                        {"threshold": 2.5}),
+})
+
 OPT_CASES = {
     "sgd": ("sgd", {"Param": [_rand((4, 3))], "Grad": [_rand((4, 3), 1)],
                     "LearningRate": [np.float32(0.1)]}, {}),
@@ -364,7 +459,7 @@ def test_unported_op_raises_naming_its_queue():
     blk.create_var("x", shape=[2, 3])
     blk.create_var("y", shape=[2, 3])
     for op, queue in (("dropout", "A2b"), ("lookup_table_v2", "A2b"),
-                      ("batch_norm", "A3"), ("sequence_pool", "A8")):
+                      ("conv2d_transpose", "A2b"), ("sequence_pool", "A8")):
         blk.ops = []
         blk.append_op(op, {"X": ["x"]}, {"Out": ["y"]})
         with pytest.raises(NotImplementedError, match=queue):
@@ -429,6 +524,8 @@ BUILDS = {
                          lambda: _tool_dense_port(3, 16)),
     "verify_recipe": (lambda: _verify_recipe(jpt),
                       lambda: _verify_recipe(tpt)),
+    "conv_net": (lambda: chip_smoke.build_conv_net(jpt, hw=8, filters=4),
+                 lambda: chip_smoke.build_conv_net(tpt, hw=8, filters=4)),
 }
 for _k, _opt in DENSE_OPTS.items():
     BUILDS["dense_" + _k] = (lambda o=_opt: _dense_chain(jpt, o),
@@ -685,6 +782,47 @@ def test_one_lowering_per_op_per_step(carried_runs, form):
         assert r["paths"] == (["reference"] * L, ["composed"] * 2 * L)
     assert r["lowered"]["backward"] == 1 and r["lowered"]["adam"] == \
         len(r["program"].all_parameters())
+
+
+def test_conv_net_two_steps_match_jax():
+    """The static conv -> batch_norm(relu) -> pool2d -> fc program, two
+    Momentum steps from one carried scope: the losses, the moving
+    statistics (which the op writes back to their own names: moved, and
+    never gradient targets) and the parameters against the JAX executor;
+    each op lowered once a step."""
+    cfg = dict(hw=8, filters=4)
+    jm, js, jloss = chip_smoke.build_conv_net(jpt, **cfg)
+    tm = chip_smoke.build_conv_net(tpt, **cfg)[0]
+    scope = JScope()
+    exe = jpt.Executor()
+    js.random_seed = 3
+    exe.run(js, scope=scope)
+    names = [v.name for v in jm.persistable_vars() if scope.has(v.name)]
+    state = {n: np.asarray(scope.find_var(n)) for n in names}
+    tscope = TScope()
+    load_reference_scope(tscope, state, "cpu")
+    texe = Executor("cpu")
+    stats = [v.name for v in jm.all_parameters() if not v.trainable]
+    assert len(stats) == 2
+    backward = next(op for op in tm.global_block.ops
+                    if op.type == "backward")
+    assert not set(stats) & set(backward.attr("parameter_list"))
+    for i in range(2):
+        feed = chip_smoke.conv_net_feed(4, hw=8, seed=i)
+        want = exe.run(jm, feed=feed, fetch_list=[jloss.name],
+                       scope=scope)[0]
+        got = texe.run(tm, feed=feed, fetch_list=[jloss.name],
+                       scope=tscope)[0]
+        # an fp32 scalar of ~2.3 through one conv, norm and fc
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        types = collections.Counter(op.type for op in tm.global_block.ops)
+        assert texe.lowered == types
+    for n in names:
+        want = np.asarray(scope.find_var(n))
+        np.testing.assert_allclose(tscope.find_var(n).numpy(), want,
+                                   atol=1e-5, rtol=1e-5, err_msg=n)
+        if n in stats:
+            assert not np.array_equal(want, state[n]), n
 
 
 def test_parameters_are_leaves_and_carry_no_graph():
