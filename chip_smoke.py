@@ -136,7 +136,29 @@ Phases, each printing its lines; any failure exits nonzero:
    eval forward at B=256: images/s, CUDA-graph device ms, top-1 against
    fp32; (v) a stage-1 batch norm against cuDNN's (timed only) and the
    step in ``channels_last``;
-10. one JSON line of kernel records, the card line, and last the result
+10. Paddle Inference ("[inference]" lines), the seventh main path: the
+   BERT-base encoder of Paddle 1.8's static BertModel (``BertConfig()``'s
+   widths, 12 layers; ``build_bert_encoder``) built with the port's
+   ``layers``, weights from a numpy seed, saved by ``io.save_inference_
+   model`` and served by ``inference.create_predictor``: (i) fp32 with the
+   pass pipeline on, the card against the CPU port at B=2, and off against
+   on; (ii) one eager forward at B=8, counts set to 0 before and read
+   after: 12 flash and 25 layer-norm forward launches with the pipeline on,
+   0 and 25 off, "flash" and "kernel" path logs only; (v) the main path:
+   a ``PredictorPool`` over a ``pow2:32`` ladder, its warmup capturing one
+   CUDA graph a bucket (largest first, one shared pool), then 4 client
+   threads x 32 requests of 1-8 rows with lengths 16-128 under the mask,
+   counts set to 0 before the warmup and read after the traffic (each
+   bucket's cold run and capture; replays launch from the graph), each
+   answer against the request alone; (iii) requests of 3, 8 and 17 rows
+   against their exact-shape eager runs, each bucket's replay bitwise
+   against the eager run of its bucket, and one replay's kernels counted
+   from a profiler trace (12 flash, 25 layer-norm forward); (iv)
+   ``enable_bf16`` against fp32 in relative norm, on the bf16 instances;
+   (vi) times: eager, replay and device ms at B=1, 8 and 32 in fp32 and
+   bf16, the pool's requests/s, rows/s, latency p50/p95 and idle share,
+   peak memory, and the two kernels at this path's calls;
+11. one JSON line of kernel records, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -4449,6 +4471,533 @@ def run_resnet(device, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: Paddle Inference (io, Predictor, shape buckets, PredictorPool)
+# ---------------------------------------------------------------------------
+
+# BertConfig()'s widths (Paddle 1.8's static BERT, bert.py BertModel)
+INFER_CFG = dict(layers_n=12, H=768, heads=12, FF=3072, vocab=30522,
+                 max_pos=512, types=2, S=128)
+INFER_SEED = 777
+INFER_FEEDS = ("src_ids", "pos_ids", "sent_ids", "input_mask")
+
+
+def build_bert_encoder(pt, layers_n=12, H=768, heads=12, FF=3072,
+                       vocab=30522, max_pos=512, types=2, S=128,
+                       dropout=0.1):
+    """BERT's encoder as Paddle 1.8's static BertModel builds it, with
+    package ``pt``'s layers (the port here; the tests also pass the JAX
+    package): three lookup_table embeddings of [B, S, 1] int64 ids summed,
+    layer_norm(begin_norm_axis=2) and upscale_in_train dropout; the
+    [B, 1, 1, S] input_mask made the additive key bias by scale(10000,
+    bias -1, before the scale); then post-LN layers of
+    multi_head_attention, dropout, residual and layer_norm, fc(gelu) to FF
+    and fc back to H, dropout, residual and layer_norm, with the reshapes
+    of tools/check_backward_replay.py:89-121. Returns (main, startup,
+    the [B, S, H] sequence output)."""
+    layers = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        ids = [layers.data(n, [S, 1], dtype="int64")
+               for n in INFER_FEEDS[:3]]
+        mask = layers.data("input_mask", [1, 1, S])
+        emb = None
+        for x, rows, name in zip(ids, (vocab, max_pos, types),
+                                 ("word_embedding", "pos_embedding",
+                                  "sent_embedding")):
+            e = layers.embedding(x, size=[rows, H],
+                                 param_attr=pt.ParamAttr(name=name))
+            emb = e if emb is None else layers.elementwise_add(emb, e)
+        h = layers.dropout(
+            layers.layer_norm(emb, begin_norm_axis=2), dropout,
+            dropout_implementation="upscale_in_train")
+        bias = layers.scale(mask, scale=10000.0, bias=-1.0,
+                            bias_after_scale=False)
+        for _ in range(layers_n):
+            a = layers.dropout(
+                layers.multi_head_attention(h, heads, attn_mask=bias),
+                dropout, dropout_implementation="upscale_in_train")
+            h = layers.reshape(layers.layer_norm(
+                layers.elementwise_add(a, h), begin_norm_axis=2), [-1, S, H])
+            f = layers.fc(layers.reshape(
+                layers.fc(h, FF, act="gelu", num_flatten_dims=2),
+                [-1, S, FF]), H, num_flatten_dims=2)
+            f = layers.dropout(f, dropout,
+                               dropout_implementation="upscale_in_train")
+            h = layers.reshape(layers.layer_norm(
+                layers.elementwise_add(f, h), begin_norm_axis=2), [-1, S, H])
+    return main, startup, h
+
+
+def bert_encoder_state(main, seed=INFER_SEED):
+    """Numpy values of every parameter of the program: N(0, 0.02) like
+    BERT's initializer_range, layer-norm scales 1 + N(0, 0.1) and shifts
+    N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    state = {}
+    for v in main.all_parameters():
+        z = rng.standard_normal(tuple(v.shape), dtype=np.float32)
+        if v.name.startswith("layer_norm."):
+            state[v.name] = (1.0 if ".w_" in v.name else 0.0) + 0.1 * z
+        else:
+            state[v.name] = 0.02 * z
+    return state
+
+
+def bert_encoder_feed(b, cfg=INFER_CFG, seed=INFER_SEED + 1, lo=None):
+    """Feeds of ``b`` rows: random ids, positions 0..S-1, sentence 0 then
+    1, and a mask of row lengths drawn from ``lo``..S (all S when lo is
+    None)."""
+    rng = np.random.default_rng(seed)
+    s = cfg["S"]
+    src = rng.integers(0, cfg["vocab"], (b, s, 1))
+    pos = np.broadcast_to(np.arange(s)[None, :, None], (b, s, 1)).copy()
+    sent = (np.arange(s)[None, :, None] >= s // 2).repeat(b, 0)
+    lens = np.full(b, s) if lo is None else rng.integers(lo, s + 1, b)
+    mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.float32)
+    return [src.astype(np.int64), pos.astype(np.int64),
+            sent.astype(np.int64), mask[:, None, None, :]]
+
+
+# the phase's request shapes: (iii) requests against their exact-shape
+# eager runs, (vi) the timed batches
+INFER_LADDER = "pow2:32"
+INFER_REQUEST_ROWS = (3, 8, 17)
+INFER_TIME_B = (1, 8, 32)
+INFER_CPU_B = 2
+# (iv) bf16 against fp32 in relative norm: 12 layers of bf16 activations
+INFER_BF16_REL = 2e-2
+# (v) the pool: client threads x requests of 1-8 rows, lengths 16-128
+POOL_THREADS, POOL_PER_THREAD = 4, 32
+POOL_ROWS, POOL_MIN_LEN = (1, 8), 16
+
+
+def infer_counts():
+    """(flash forward, layer-norm forward) launches and the two path
+    logs."""
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.kernels import layer_norm as LN
+    attn, ln = static_paths()
+    return FA.launches, LN.launches, attn, ln
+
+
+def reset_infer_counts():
+    reset_counts()
+    reset_static_logs()
+
+
+def bucket_graph(pred, b):
+    """The captured graph of a predictor's bucket of ``b`` rows."""
+    for sig, entry in pred._graphs.items():
+        if dict((n, shape) for n, shape, _ in sig)["src_ids"][0] == b:
+            return entry
+    fail(f"[inference] no graph captured for bucket {b}")
+
+
+def graph_device_ms(entry, reps=10):
+    """Device time of one replay of a captured bucket, CUDA events around
+    ``reps`` replays."""
+    entry.graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        entry.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile_replay(fn, lead=64):
+    """One call of ``fn`` under torch.profiler, after ``lead`` spin
+    kernels (~4 ms) in the same trace: after the earlier phases' traces a
+    session loses its first activity records (2 memcpys after the ResNet
+    phase, a layer norm of the replay after all of them), and the spins
+    take that loss. Returns (device events after the last spin, their busy ms,
+    [ms, count] by name)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead):
+            torch.cuda._sleep(100000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spins = [e.time_range.start for e in dev if "spin_kernel" in e.name]
+    if not spins:
+        fail("[inference] a profiler trace held none of its lead kernels")
+    after = [e for e in dev if e.time_range.start > max(spins)]
+    by_name = {}
+    for e in after:
+        ms_n = by_name.setdefault(e.name[:90], [0.0, 0])
+        ms_n[0] += e.time_range.elapsed_us() / 1e3
+        ms_n[1] += 1
+    return len(after), sum(v[0] for v in by_name.values()), by_name
+
+
+def host_ms(fn, reps=5):
+    """Median host ms of ``fn`` (each call ends in a copy to the host)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def rel_norm(got, want):
+    return float(np.linalg.norm((got - want).ravel()) /
+                 max(np.linalg.norm(want.ravel()), 1e-30))
+
+
+def check_close(what, got, want, tol=CPU_TOL):
+    err = float(np.abs(got - want).max())
+    if not np.all(np.abs(got - want) <= tol["atol"] + tol["rtol"] *
+                  np.abs(want)):
+        fail(f"[inference] {what}: max error {err} (tol {tol['atol']:g} + "
+             f"{tol['rtol']:g}|ref|)")
+    return err
+
+
+def pool_requests(seed=INFER_SEED + 2):
+    rng = np.random.default_rng(seed)
+    return [bert_encoder_feed(int(rng.integers(POOL_ROWS[0],
+                                               POOL_ROWS[1] + 1)),
+                              seed=seed * 1000 + i, lo=POOL_MIN_LEN)
+            for i in range(POOL_THREADS * POOL_PER_THREAD)]
+
+
+def drive_pool(pool, reqs):
+    """Every request through ``pool`` from POOL_THREADS client threads:
+    (answers, latencies in ms, wall s)."""
+    import threading
+    outs, lat = [None] * len(reqs), [0.0] * len(reqs)
+    errors = []
+
+    def client(t):
+        try:
+            for i in range(t, len(reqs), POOL_THREADS):
+                t0 = time.perf_counter()
+                outs[i] = pool.run(reqs[i], timeout=300)[0]
+                lat[i] = 1e3 * (time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(POOL_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return outs, lat, wall
+
+
+def time_infer_kernels(device, card):
+    """The two kernels at this path's calls, B=8 S=128: the layer-norm
+    forward over [1024, 768] (fp32, and bf16 with bf16 scale and shift)
+    and the flash forward on the packed projection's q, k, v views
+    [8,12,128,64] with the [8,1,1,128] key bias, fp32 and bf16; kernel,
+    bound, plain version and library call."""
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.kernels import layer_norm as LN
+    b, s, h, d = 8, INFER_CFG["S"], INFER_CFG["heads"], 64
+    hid = h * d
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        per = b * s * hid * (4 if dtype == torch.float32 else 2)
+
+        def ln_make(i):
+            x, g, bt = ln_inputs(b * s, hid, dtype, device, 700 + i)
+            return x, g.to(dtype), bt.to(dtype)
+        sets = copies(ln_make, per)
+        ms = device_ms([lambda x=x: LN.layer_norm_fwd(*x) for x in sets])
+        plain_ms = device_ms([lambda x=x: LN.layer_norm_reference(*x)
+                              for x in sets])
+        lib_ms = device_ms([lambda x=x: torch.nn.functional.layer_norm(
+            x[0], (hid,), x[1], x[2], 1e-5) for x in sets])
+        bms, by = bound_ms(*ln_work(sets[0][0], sets[0][1]), dtype)
+        rec[("ln", dtype)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  bound_ms=bms, bound_by=by)
+        say("times", f"[inference] layer_norm fwd [{b * s}x{hid}] "
+            f"{str(dtype)[6:]}: kernel {ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}), plain {plain_ms:.4f} ms, F.layer_norm {lib_ms:.4f} ms"
+            f"  [{card}]")
+
+        def fa_make(i):
+            g = torch.Generator().manual_seed(800 + i)
+            qkv = torch.randn(b, s, 3, h, d, generator=g).to(dtype).to(device)
+            bias = padding_bias(b, s, device, 900 + i, lo=POOL_MIN_LEN)
+            return (qkv[:, :, 0].transpose(1, 2), qkv[:, :, 1].transpose(1, 2),
+                    qkv[:, :, 2].transpose(1, 2), bias)
+        sets = copies(fa_make, 3 * per)
+        ms = device_ms([lambda x=x: FA.flash_attention_fwd(*x) for x in sets])
+        plain_ms = device_ms([lambda x=x: FA.attention_reference(*x)
+                              for x in sets])
+        lib_ms = device_ms([lambda x=x: torch.nn.functional
+                            .scaled_dot_product_attention(
+                                x[0], x[1], x[2], attn_mask=x[3] > -1.0,
+                                scale=1.0 / math.sqrt(d)) for x in sets])
+        bms, by = bound_ms(*attn_work(sets[0][0], sets[0][1], sets[0][3],
+                                      False), dtype)
+        rec[("flash", dtype)] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, bound_ms=bms,
+                                     bound_by=by)
+        say("times", f"[inference] flash fwd {str(dtype)[6:]} "
+            f"[{b},{h},{s},{d}] packed views, bias [B,1,1,S]: kernel "
+            f"{ms:.4f} ms, bound {bms:.4f} ms ({by}), plain {plain_ms:.4f} "
+            f"ms, SDPA {lib_ms:.4f} ms  [{card}]")
+        del sets
+    return rec
+
+
+def run_inference(device, card):
+    """Phase 10: the BERT-base encoder bundle through io, Predictor, shape
+    buckets as CUDA graphs and PredictorPool. Returns the main path's
+    launches, (flash forward, layer-norm forward): the pool's warmup
+    (each bucket's cold eager run and capture) and its traffic, counts set
+    to 0 just before and read just after."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import inference as TI
+    from paddle_tpu_torch import serving as TS
+    from paddle_tpu_torch.core.scope import load_reference_scope
+    from paddle_tpu_torch.monitor import reset_all, stat_get, timer_get
+    t_phase = time.perf_counter()
+    n_layers = INFER_CFG["layers_n"]
+    n_ln = 2 * n_layers + 1
+    torch.cuda.reset_peak_memory_stats()
+    main_prog, _, out = build_bert_encoder(pt, **INFER_CFG)
+    state = bert_encoder_state(main_prog)
+    scope = pt.Scope()
+    load_reference_scope(scope, state, "cpu")
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    pt.save_inference_model(tmp.name, list(INFER_FEEDS), [out],
+                            pt.Executor("cpu"), main_program=main_prog,
+                            scope=scope)
+    del scope, state
+    say("inference", f"BERT-base encoder {INFER_CFG} built with the port's "
+        f"layers ({len(main_prog.global_block.ops)} ops), weights from numpy "
+        f"seed {INFER_SEED}, saved by io.save_inference_model in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def predictor(ir=True, bf16=False, buckets=None, cpu=False):
+        cfg = TI.Config(tmp.name)
+        if cpu:
+            cfg.disable_gpu()
+        else:
+            cfg.enable_use_gpu(device_id=device.index or 0)
+        cfg.switch_ir_optim(ir)
+        if bf16:
+            cfg.enable_bf16()
+        if buckets:
+            cfg.switch_shape_bucketing(True, buckets=buckets)
+        return TI.create_predictor(cfg)
+
+    # (i) fp32 with the pipeline on: the card against the CPU port; off
+    # against on, on the card
+    p_on, p_off, p_cpu = predictor(), predictor(ir=False), \
+        predictor(cpu=True)
+    ops = [op.type for op in p_on.program.global_block.ops]
+    if ops.count("multihead_matmul") != n_layers or \
+            ops.count("fused_embedding_eltwise_layernorm") != 1 or \
+            "dropout" in ops or "lookup_table" in ops:
+        fail(f"[inference] the pass pipeline left {sorted(set(ops))}")
+    feed2 = bert_encoder_feed(INFER_CPU_B, lo=POOL_MIN_LEN)
+    got = p_on.run(feed2)[0]
+    want = p_cpu.run(feed2)[0]
+    if got.shape != (INFER_CPU_B, INFER_CFG["S"], INFER_CFG["H"]) or \
+            not np.isfinite(got).all():
+        fail(f"[inference] output {got.shape}, finite {np.isfinite(got).all()}")
+    e_cpu = check_close("fp32 card vs CPU port", got, want)
+    e_off = check_close("fp32 ir_optim off vs on, card",
+                        p_off.run(feed2)[0], got)
+    del p_cpu
+    say("inference", f"(i) fp32 B={INFER_CPU_B}: card vs CPU port max error "
+        f"{e_cpu:.3e}, ir_optim off vs on {e_off:.3e} (tol CPU_TOL); "
+        f"max |out| {float(np.abs(want).max()):.3f}; {len(ops)} ops after the "
+        f"passes ({len(p_off.program.global_block.ops)} without)")
+
+    # (ii) launches in one eager forward
+    feed8 = bert_encoder_feed(8, lo=POOL_MIN_LEN)
+    for name, pred, flash in (("on", p_on, n_layers), ("off", p_off, 0)):
+        reset_infer_counts()
+        pred.run(feed8)
+        torch.cuda.synchronize()
+        fa, ln, attn, lnp = infer_counts()
+        if (fa, ln) != (flash, n_ln) or attn != ["flash"] * flash or \
+                lnp != ["kernel"] * n_ln:
+            fail(f"[inference] ir_optim {name}: launches flash {fa}, layer "
+                 f"norm {ln}, paths {sorted(set(attn))} x {len(attn)}, "
+                 f"{sorted(set(lnp))} x {len(lnp)}; expected {flash} and "
+                 f"{n_ln}")
+        say("inference", f"(ii) one eager forward B=8, ir_optim {name}: flash "
+            f"{fa}, layer norm {ln} launches; path logs {len(attn)} x "
+            f"'flash', {len(lnp)} x 'kernel'")
+
+    # (v) the main path: PredictorPool over a bucketed Config, warmed up
+    # (every bucket captured, largest first), then the clients' traffic;
+    # counts set to 0 just before and read just after
+    reqs = pool_requests()
+    ladder = TI.parse_bucket_ladder(INFER_LADDER)
+    reset_all()
+    reset_infer_counts()
+    cfg = TI.Config(tmp.name)
+    cfg.enable_use_gpu(device_id=device.index or 0)
+    cfg.switch_shape_bucketing(True, buckets=INFER_LADDER)
+    pool = TS.serve(cfg, max_batch=max(ladder), batch_timeout_ms=2.0)
+    t0 = time.perf_counter()
+    report = pool.warmup([f[:1] for f in reqs[0]])
+    t_warm = time.perf_counter() - t0
+    outs, lat, wall = drive_pool(pool, reqs)
+    torch.cuda.synchronize()
+    fa, ln, attn, lnp = infer_counts()
+    main_counts = (fa, ln)
+    captures = stat_get("STAT_predictor_graph_capture")
+    replays = stat_get("STAT_predictor_graph_replay")
+    batches = stat_get("STAT_serving_batches")
+    want_fa, want_ln = 2 * len(ladder) * n_layers, 2 * len(ladder) * n_ln
+    if (fa, ln) != (want_fa, want_ln) or captures != len(ladder) or \
+            replays != batches or set(attn) != {"flash"} or \
+            set(lnp) != {"kernel"} or stat_get("STAT_predictor_bucket_cold"):
+        fail(f"[inference] pool: launches {fa}/{ln} (expected {want_fa}/"
+             f"{want_ln}: each bucket's cold run and capture), captures "
+             f"{captures}, replays {replays} for {batches} batches")
+    p_b = pool.predictor
+    errs = [check_close(f"pool request {i}", o, p_on.run(r)[0])
+            for i, (o, r) in enumerate(zip(outs, reqs))]
+    rows = sum(r[0].shape[0] for r in reqs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("inference", f"(v) main path: PredictorPool ({INFER_LADDER}, "
+        f"max_batch {max(ladder)}) warmup captured {int(captures)} graphs "
+        "largest first in " + ", ".join(
+            f"b{k} {v['seconds']:.2f}" for k, v in report.items()) +
+        f" s ({t_warm:.1f} s); {POOL_THREADS} threads x {POOL_PER_THREAD} "
+        f"requests ({rows} rows) in {int(batches)} batches, "
+        f"{int(replays)} graph replays; launches flash {fa}, layer norm {ln} "
+        f"(the warmup's cold runs and captures: replays launch from the "
+        f"graph); every answer against the request alone, max error "
+        f"{max(errs):.3e}; peak memory {peak:.2f} GiB")
+
+    # (iii) the ladder: requests against their exact-shape eager runs,
+    # each bucket's replay against its eager run, one replay profiled
+    worst = []
+    for b in INFER_REQUEST_ROWS:
+        f = bert_encoder_feed(b, seed=INFER_SEED + 10 + b, lo=POOL_MIN_LEN)
+        worst.append(check_close(f"{b} rows bucketed vs exact",
+                                 p_b.run(f)[0], p_on.run(f)[0]))
+    diffs = {}
+    for b in ladder:
+        f = bert_encoder_feed(b, seed=INFER_SEED + 50 + b, lo=POOL_MIN_LEN)
+        r0 = stat_get("STAT_predictor_graph_replay")
+        got = p_b.run(f)[0]
+        if stat_get("STAT_predictor_graph_replay") != r0 + 1:
+            fail(f"[inference] bucket {b}: the run was not a replay")
+        diffs[b] = float(np.abs(got - p_on.run(f)[0]).max())
+    if any(diffs.values()):
+        fail(f"[inference] replays differ from their eager buckets: {diffs}")
+    reset_infer_counts()
+    n_k, busy, by_name = profile_replay(lambda: p_b.run(feed8))
+    fa, ln, _, _ = infer_counts()
+    k_fa = sum(c for n, (_, c) in by_name.items() if "flash_fwd" in n)
+    k_ln = sum(c for n, (_, c) in by_name.items() if "layer_norm_fwd" in n)
+    if (k_fa, k_ln) != (n_layers, n_ln) or (fa, ln) != (0, 0):
+        fail(f"[inference] one replay's trace: {k_fa} flash and {k_ln} "
+             f"layer-norm forward kernels (expected {n_layers}, {n_ln}); "
+             f"Python counts {fa}/{ln}")
+    say("inference", f"(iii) {INFER_LADDER} at S={INFER_CFG['S']}: requests "
+        f"of {INFER_REQUEST_ROWS} rows vs their exact-shape eager runs max "
+        f"error {max(worst):.3e}; each replay vs the eager run of its bucket "
+        f"max difference " + ", ".join(f"b{b} {d:g}" for b, d in
+                                      diffs.items()) +
+        f"; one B=8 replay's profile: {n_k} kernels, {k_fa} flash forward, "
+        f"{k_ln} layer-norm forward, device busy {busy:.3f} ms")
+
+    # (iv) bf16 against fp32 on the bf16 instances; without the pipeline
+    # the bf16 scores meet the fp32 key bias and promote, as jnp promotes
+    # them, so the norms after the first attention take fp32 rows of bf16
+    # parameters
+    p_e16 = predictor(bf16=True)
+    want = p_on.run(feed8)[0]
+    for label, pred, flash, dtypes in (
+            ("on", p_e16, {"bfloat16"}, {"bfloat16"}),
+            ("off", predictor(ir=False, bf16=True), set(),
+             {"bfloat16", "float32"})):
+        reset_infer_counts()
+        with LaunchDtypes() as seen:
+            got16 = pred.run(feed8)[0]
+        fa, ln, _, _ = infer_counts()
+        rel = rel_norm(got16, want)
+        if (fa, ln) != (n_layers if flash else 0, n_ln) or \
+                seen.seen["flash_attention_fwd"] != flash or \
+                seen.seen["layer_norm_fwd"] != dtypes or \
+                not rel <= INFER_BF16_REL or got16.dtype != np.float32:
+            fail(f"[inference] bf16, ir_optim {label}: launches {fa}/{ln} "
+                 f"on {seen.seen}, relative norm {rel:.3e}")
+        say("inference", f"(iv) enable_bf16 B=8, ir_optim {label}, vs fp32: "
+            f"relative norm {rel:.3e} (tol {INFER_BF16_REL:g}); flash {fa} "
+            f"and layer norm {ln} launches on {sorted(flash)} and "
+            f"{sorted(dtypes)} instances; the fetch widened to "
+            f"{got16.dtype}")
+
+    # (vi) times
+    p_b16 = predictor(bf16=True, buckets=INFER_LADDER)
+    p_b16.warmup_buckets([f[:1] for f in feed8])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for label, pe, pb in (("fp32", p_on, p_b), ("bf16", p_e16, p_b16)):
+        for b in INFER_TIME_B:
+            f = bert_encoder_feed(b, seed=INFER_SEED + 90 + b,
+                                  lo=POOL_MIN_LEN)
+            eager = host_ms(lambda: pe.run(f))
+            replay = host_ms(lambda: pb.run(f))
+            dev = graph_device_ms(bucket_graph(pb, b))
+            say("times", f"[inference] Predictor.run {label} B={b} "
+                f"S={INFER_CFG['S']}: eager {eager:.2f} ms, graph replay "
+                f"{replay:.2f} ms, device {dev:.3f} ms, "
+                f"{b * INFER_CFG['S'] / replay * 1e3:.0f} tokens/s replayed"
+                f"  [{card}]")
+    reset_all()
+    outs, lat, wall = drive_pool(pool, reqs)
+    batches = stat_get("STAT_serving_batches")
+    batch_p50 = timer_get("TIMER_serving_batch_us")["p50"] / 1e3
+    # the device's busy time over the same traffic, from a profiled run;
+    # the idle share is taken against the unprofiled run's wall time (the
+    # profiler slows the host) and, as a bound, the profiled run's
+    t0 = time.perf_counter()
+    busy, n_k, _, _ = profile_step(lambda: drive_pool(pool, reqs))
+    wall_p = time.perf_counter() - t0
+    lat_s = sorted(lat)
+    say("times", f"[inference] PredictorPool fp32, {len(reqs)} requests "
+        f"({rows} rows, lengths {POOL_MIN_LEN}-{INFER_CFG['S']}) from "
+        f"{POOL_THREADS} threads: {len(reqs) / wall:.1f} requests/s, "
+        f"{rows / wall:.1f} rows/s, latency p50 "
+        f"{lat_s[len(lat_s) // 2]:.2f} ms, p95 "
+        f"{lat_s[int(0.95 * (len(lat_s) - 1))]:.2f} ms, "
+        f"{int(batches)} batches, batch p50 {batch_p50:.2f} ms; device "
+        f"busy {busy:.1f} ms in {n_k} kernels (profiled run of "
+        f"{1e3 * wall_p:.1f} ms), idle share "
+        f"{max(0.0, 1 - busy / (1e3 * wall)):.3f} of the unprofiled "
+        f"{1e3 * wall:.1f} ms ({max(0.0, 1 - busy / (1e3 * wall_p)):.3f} of "
+        f"the profiled run); peak memory {peak:.2f} GiB with "
+        f"{len(p_b._graphs) + len(p_b16._graphs)} graphs  [{card}]")
+    pool.close()
+    kernel_times = time_infer_kernels(device, card)
+    del pool, p_b, p_b16, p_on, p_off, p_e16
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    say("inference", f"phase done in {time.perf_counter() - t_phase:.1f} s")
+    return main_counts, kernel_times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -4613,8 +5162,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_resnet(device, card)
 
-    # -- 10. records: launches are the serving, training, recipe, static
-    # and generation runs
+    # -- 10. Paddle Inference: the pool's main path counts set to 0 just
+    # before its warmup, read just after its traffic
+    torch.cuda.empty_cache()
+    (infer_fa, infer_ln), _ = run_inference(device, card)
+
+    # -- 11. records: launches are the serving, training, recipe, static,
+    # generation and inference runs
     ln_rec = ln_times[(4096, 768, torch.float32)]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]
@@ -4626,7 +5180,8 @@ def main() -> int:
              launches=ln_total + train_counts["layer_norm_fwd"] +
              recipe_counts["layer_norm_fwd"] +
              static_counts["layer_norm_fwd"] + sum(
-                 r["counts"]["layer_norm"] for r in gen_recs.values()),
+                 r["counts"]["layer_norm"] for r in gen_recs.values()) +
+             infer_ln,
              max_abs_err=ln_err[(4096, 768, torch.float32, 1e-12)],
              **ln_rec),
         dict(name="layer_norm_bwd", route="cuda",
@@ -4642,7 +5197,7 @@ def main() -> int:
              replaces="paddle_tpu/kernels/flash_attention.py:207",
              launches=fa_total + train_counts["flash_attention_fwd"] +
              recipe_counts["flash_attention_fwd"] +
-             static_counts["flash_attention_fwd"],
+             static_counts["flash_attention_fwd"] + infer_fa,
              max_abs_err=fa_err[(*fa_key, "contiguous")], **fa_rec),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",

@@ -12,7 +12,10 @@ model or an ``Executor`` raises unless the caller asks for "cpu"
 The static-graph surface of ``paddle_tpu`` (``Program``,
 ``program_guard``, ``Executor``, the scope, ``append_backward``) is
 re-exported here, as the JAX package does; ``layers`` builds programs and
-``optimizer`` minimizes them.
+``optimizer`` minimizes them. ``io`` saves and loads parameters and
+inference bundles in the JAX package's format, ``inference`` serves a
+bundle (``Config``, ``create_predictor``) and ``serving`` batches
+concurrent requests onto a Predictor (``PredictorPool``).
 """
 from .device import get_device, set_device  # noqa: F401
 from .layers.helper import ParamAttr, seed  # noqa: F401
@@ -22,3 +25,8 @@ from .core.program import (Program, default_main_program,  # noqa: F401
                            default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from . import layers, optimizer, static  # noqa: F401
+from . import io  # noqa: F401
+from .io import (load, load_dygraph, load_inference_model,  # noqa: F401
+                 load_params, load_persistables, save, save_dygraph,
+                 save_inference_model, save_params, save_persistables)
+from . import inference, serving  # noqa: F401

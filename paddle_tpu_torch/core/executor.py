@@ -56,6 +56,18 @@ def _as_feed(v, device: torch.device) -> torch.Tensor:
     return v.to(device)
 
 
+def as_numpy(v) -> np.ndarray:
+    """A fetched value as a numpy array; bf16 widens to float32, which is
+    exact (numpy has no bfloat16: the JAX package returns ml_dtypes
+    arrays, which the port does not depend on)."""
+    if not isinstance(v, torch.Tensor):
+        return np.asarray(v)
+    v = v.detach()
+    if v.dtype == torch.bfloat16:
+        v = v.float()
+    return v.cpu().numpy()
+
+
 def _is_float(t) -> bool:
     return isinstance(t, torch.Tensor) and t.is_floating_point()
 
@@ -76,8 +88,9 @@ class Executor:
             fetch_list: Optional[Sequence] = None,
             scope: Optional[Scope] = None, return_numpy=True,
             use_program_cache: bool = True):
-        """Run one step. ``return_numpy`` True returns numpy arrays, False
-        the tensors on the device."""
+        """Run one step. ``return_numpy`` True returns numpy arrays (bf16
+        widened to float32, ``as_numpy``), False the tensors on the
+        device."""
         if program is not None and not isinstance(program, Program):
             raise NotImplementedError(
                 f"Executor.run({type(program).__name__}): compiled and "
@@ -90,28 +103,8 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         fetch_names = [f.name if isinstance(f, VarDesc) else str(f)
                        for f in (fetch_list or [])]
+        env, state, ctx = self.bind(program, feed, scope)
         persistable = {v.name for v in program.persistable_vars()}
-        env: Dict[str, Any] = {}
-        for n in sorted(persistable):
-            v = scope.find_var(n)
-            if v is None:
-                continue
-            if isinstance(v, torch.Tensor) and v.device != self.device:
-                v = v.to(self.device)
-                scope.set(n, v)
-            env[n] = v
-        state = dict(env)
-        for n, v in (feed or {}).items():
-            env[n] = _as_feed(v, self.device)
-        gen = scope.find_var(RNG_VAR)
-        if gen is None:
-            seed = program.random_seed
-            if seed is None:
-                self._seed_counter += 1
-                seed = self._seed_counter
-            gen = torch.Generator().manual_seed(int(seed))
-            scope.set(RNG_VAR, gen)
-        ctx = LowerCtx(self.device, generator=gen)
         self.lowered = collections.Counter()
         self._run_block(program, env, ctx)
         for n, v in env.items():
@@ -126,9 +119,38 @@ class Executor:
             v = env[n]
             fetches.append(v.detach() if isinstance(v, torch.Tensor) else v)
         if return_numpy:
-            fetches = [v.cpu().numpy() if isinstance(v, torch.Tensor)
-                       else np.asarray(v) for v in fetches]
+            fetches = [as_numpy(v) for v in fetches]
         return fetches
+
+    def bind(self, program: Program, feed: Optional[Dict[str, Any]],
+             scope: Scope):
+        """(env, state, ctx) of one run: the environment of the program's
+        persistables from the scope (moved to the device once) and the
+        feeds as tensors on it, the persistables as they were bound, and
+        the lowering context with the scope's generator. The Predictor
+        binds static feed buffers here and captures ``_run_block`` over
+        the environment in a CUDA graph."""
+        env: Dict[str, Any] = {}
+        for v in program.persistable_vars():
+            val = scope.find_var(v.name)
+            if val is None:
+                continue
+            if isinstance(val, torch.Tensor) and val.device != self.device:
+                val = val.to(self.device)
+                scope.set(v.name, val)
+            env[v.name] = val
+        state = dict(env)
+        for n, v in (feed or {}).items():
+            env[n] = _as_feed(v, self.device)
+        gen = scope.find_var(RNG_VAR)
+        if gen is None:
+            seed = program.random_seed
+            if seed is None:
+                self._seed_counter += 1
+                seed = self._seed_counter
+            gen = torch.Generator().manual_seed(int(seed))
+            scope.set(RNG_VAR, gen)
+        return env, state, LowerCtx(self.device, generator=gen)
 
     def _run_block(self, program: Program, env: Dict[str, Any],
                    ctx: LowerCtx) -> None:

@@ -1,12 +1,24 @@
 """Program passes: named Program -> Program rewrites.
 
 Counterpart of ``paddle_tpu/core/passes.py``: ``register_pass``,
-``apply_pass``, ``list_passes`` and the ``multihead_matmul_fuse`` pass,
-which puts one ``multihead_matmul`` op (``ops/fused.py``, the flash
-kernels on the card) in place of each attention subgraph that
-``layers.multi_head_attention`` builds. A pass rewrites in place and
-returns the program: run it on a clone to keep the original. The JAX
-package's other passes raise naming ``ROADMAP.md`` A2b.
+``apply_pass``, ``list_passes`` and the passes of the inference
+pipeline (``inference.GpuPassStrategy``):
+- ``test_prune`` (:66), the forward-only ``clone(for_test=True)``;
+- ``drop_dropout_eval`` (:73): a test-mode dropout goes, its consumers
+  rewired to its input (``upscale_in_train``) or fed by a
+  ``scale(1 - p)`` in its place (``downgrade_in_infer``);
+- ``fuse_elewise_add_act`` (:106), a marker that rewrites nothing, as in
+  the JAX package (the port has no fused add + activation kernel yet:
+  ``ROADMAP.md`` A1d item 3);
+- ``embedding_eltwise_layernorm_fuse`` (:139): N lookups summed and
+  normalized become one ``fused_embedding_eltwise_layernorm`` op (the
+  layer-norm kernel on the card);
+- ``multihead_matmul_fuse``, which puts one ``multihead_matmul`` op (the
+  flash kernels on the card) in place of each attention subgraph that
+  ``layers.multi_head_attention`` builds.
+A pass rewrites in place and returns the program (``test_prune`` returns
+a new one): run it on a clone to keep the original. ``amp_rewrite``
+raises naming ``ROADMAP.md`` A2b.
 """
 from __future__ import annotations
 
@@ -17,8 +29,7 @@ from .program import OpDesc, Program
 PassFn = Callable[[Program, dict], Program]
 
 _PASSES: Dict[str, PassFn] = {}
-_NOT_PORTED = ("amp_rewrite", "test_prune", "drop_dropout_eval",
-               "fuse_elewise_add_act", "embedding_eltwise_layernorm_fuse")
+_NOT_PORTED = ("amp_rewrite",)
 
 
 def register_pass(name: str):
@@ -49,6 +60,119 @@ def list_passes():
 def _producer_map(ops):
     return {n: op for op in ops for names in op.outputs.values()
             for n in names}
+
+
+def _consumer_counts(ops):
+    cnt: Dict[str, int] = {}
+    for op in ops:
+        for names in op.inputs.values():
+            for n in names:
+                cnt[n] = cnt.get(n, 0) + 1
+    return cnt
+
+
+@register_pass("test_prune")
+def _test_prune(program: Program, attrs: dict) -> Program:
+    return program.clone(for_test=True)
+
+
+@register_pass("drop_dropout_eval")
+def _drop_dropout(program: Program, attrs: dict) -> Program:
+    for blk in program.blocks:
+        rename: Dict[str, str] = {}
+        kept = []
+        for op in blk.ops:
+            if op.type == "dropout":
+                src = rename.get(op.input("X")[0], op.input("X")[0])
+                dst = op.output("Out")[0]
+                if op.attr("dropout_implementation",
+                           "downgrade_in_infer") == "upscale_in_train":
+                    rename[dst] = src
+                    continue
+                p = float(op.attr("dropout_prob", 0.5))
+                kept.append(OpDesc("scale", {"X": [src]}, {"Out": [dst]},
+                                   {"scale": 1.0 - p, "bias": 0.0}))
+                continue
+            for slot, names in op.inputs.items():
+                op.inputs[slot] = [rename.get(n, n) for n in names]
+            kept.append(op)
+        blk.ops = kept
+    return program
+
+
+@register_pass("fuse_elewise_add_act")
+def _fuse_add_act(program: Program, attrs: dict) -> Program:
+    return program
+
+
+@register_pass("embedding_eltwise_layernorm_fuse")
+def _emb_ln_fuse(program: Program, attrs: dict) -> Program:
+    """A layer_norm over the trailing axis of a rank-3 sum (begin_norm_axis
+    2, with Scale and Bias) of at least two lookups becomes one
+    fused_embedding_eltwise_layernorm op. Unfused stay: a lookup with a
+    padding_idx (the fused op zeroes no row), an intermediate with a
+    second consumer or in attrs["protected"] (fetch targets), and a norm
+    whose Mean or Variance is consumed or protected (the fused op has no
+    such outputs)."""
+    blk = program.global_block
+    protected = set(attrs.get("protected", ()))
+
+    def rewrite_one() -> bool:
+        ops = blk.ops
+        prod = _producer_map(ops)
+        cnt = _consumer_counts(ops)
+
+        def fusible(name):
+            return cnt.get(name, 0) == 1 and name not in protected
+
+        def leaves(name, acc):
+            # the (ids, table, op) of each lookup under the add tree of
+            # ``name`` (ids None for an add), or None
+            op = prod.get(name)
+            if op is None or not fusible(name):
+                return None
+            if op.type in ("lookup_table", "lookup_table_v2"):
+                if op.attr("padding_idx", -1) not in (-1, None):
+                    return None
+                acc.append((op.input("Ids")[0], op.input("W")[0], op))
+                return acc
+            if op.type == "elementwise_add":
+                for side in (op.input("X")[0], op.input("Y")[0]):
+                    if leaves(side, acc) is None:
+                        return None
+                acc.append((None, None, op))
+                return acc
+            return None
+
+        for ln in ops:
+            if ln.type != "layer_norm" or \
+                    ln.attr("begin_norm_axis", 1) != 2 or \
+                    not ln.input("Scale") or not ln.input("Bias"):
+                continue
+            stats = ln.output("Mean") + ln.output("Variance")
+            if any(cnt.get(n, 0) > 0 or n in protected for n in stats):
+                continue
+            acc = leaves(ln.input("X")[0], [])
+            lookups = [(i, w) for i, w, _ in (acc or []) if i is not None]
+            if acc is None or len(lookups) < 2:
+                continue
+            dead = {id(op) for _, _, op in acc} | {id(ln)}
+            fused = OpDesc(
+                "fused_embedding_eltwise_layernorm",
+                {"Ids": [i for i, _ in lookups],
+                 "Embs": [w for _, w in lookups],
+                 "Scale": ln.input("Scale"), "Bias": ln.input("Bias")},
+                {"Out": ln.output("Y")},
+                {"epsilon": ln.attr("epsilon", 1e-5)})
+            idx = next(i for i, op in enumerate(ops) if id(op) == id(ln))
+            blk.ops = [op for op in ops[:idx] if id(op) not in dead] + \
+                [fused] + [op for op in ops[idx + 1:] if id(op) not in dead]
+            return True
+        return False
+
+    while rewrite_one():
+        pass
+    return program
 
 
 def _match_proj(prod, t_op, input_name=None):

@@ -2,8 +2,9 @@
 defaults.
 
 Counterpart of ``paddle_tpu/flags.py`` (``set_flags``, ``get_flag``).
-Only the flags that a ported path reads live here; a later slice adds its
-own. An unknown name raises in ``set_flags``, as in the reference.
+Only the flags that a ported path reads live here (generation, the
+Predictor and its pool, dropout and the embedding gradient); a later
+slice adds its own. An unknown name raises in ``set_flags``, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,6 +26,20 @@ _DEFS: Dict[str, Any] = {
     # KV pool dtype: "auto" follows the weight quantization mode, which
     # the port does not have yet, so it resolves to "fp32"
     "FLAGS_generation_kv_quant": "auto",
+    # the Predictor's shape buckets (inference.py): comma-separated sizes
+    # or "pow2:N"; a bucketed signature is one CUDA graph on the card
+    "FLAGS_predictor_shape_buckets": "pow2:128",
+    # PredictorPool (serving.py): coalesced-row cap, how long the batcher
+    # holds an under-full batch, the bounded request-queue depth
+    "FLAGS_predictor_max_batch": 32,
+    "FLAGS_predictor_batch_timeout_ms": 2.0,
+    "FLAGS_predictor_queue_depth": 256,
+    # what the JAX dropout backward stores ("xla", "u8", "seed"); the
+    # port's dropout gives the same Out and Mask under each value
+    "FLAGS_dropout_storage": "xla",
+    # the JAX package's one-hot embedding gradient; the port sums the
+    # same rows with its fixed-order gradient (nn/functional.py) either way
+    "FLAGS_embedding_onehot_grad": True,
 }
 
 _values: Dict[str, Any] = dict(_DEFS)

@@ -32,16 +32,12 @@ from typing import Dict, Optional
 from .. import tracing as _tr
 from ..flags import get_flag
 from ..monitor import gauge_set, stat_add
-from ..serving import (DeadlineBurned, PoolRestarted, ServingQueueFull,
-                       _Future, _WorkerCrash)
+from ..serving import (MAX_RESTARTS, RESTART_BACKOFF_S, DeadlineBurned,
+                       PoolRestarted, ServingQueueFull, _Future,
+                       _WorkerCrash)
 from .engine import GenerationEngine, GenerationRequest
 
 __all__ = ["GenerationPool"]
-
-# the supervisor's restart budget and first backoff (the reference's
-# FLAGS_pool_max_restarts and FLAGS_pool_restart_backoff_ms defaults)
-_MAX_RESTARTS = 3
-_RESTART_BACKOFF_S = 0.05
 
 
 class GenerationPool:
@@ -226,13 +222,13 @@ class GenerationPool:
                 if self._ok_since_restart:
                     restarts = 0
                 self._ok_since_restart = False
-                if restarts >= _MAX_RESTARTS:
+                if restarts >= MAX_RESTARTS:
                     stat_add("STAT_generation_restart_exhausted")
                     self._enter_failed(cause)
                     return
                 restarts += 1
                 stat_add("STAT_generation_restarts")
-                time.sleep(_RESTART_BACKOFF_S * min(2 ** (restarts - 1), 32))
+                time.sleep(RESTART_BACKOFF_S * min(2 ** (restarts - 1), 32))
                 self._healthy = True
 
     def _fail_inflight(self, cause: BaseException) -> None:

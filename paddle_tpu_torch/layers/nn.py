@@ -1,6 +1,8 @@
 """Graph-building layer functions of the static path: ``fc``, the conv
 net's ``conv2d``, ``pool2d`` and ``batch_norm``, the BERT-shaped
-program's, and the unary and binary op builders.
+program's, the BERT inference program's (``embedding``, ``dropout``,
+``scale``), the common ops' (``cast``, ``clip``, the ``reduce_*``
+family), and the unary and binary op builders.
 
 Counterparts of the ``paddle_tpu/layers/nn.py`` functions whose ops the
 port lowers: each appends the same ops, slots, attrs and parameters (the
@@ -16,9 +18,12 @@ import numpy as np
 
 from ..core import dtypes
 from ..core.program import VarDesc, default_main_program
-from .helper import Constant, LayerHelper, Normal, ParamAttr
+from .helper import Constant, LayerHelper, Normal, ParamAttr, Xavier
 
-__all__ = ["data", "fc", "conv2d", "pool2d", "batch_norm", "layer_norm",
+__all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
+           "layer_norm", "dropout", "scale", "clip", "cast", "reduce_sum",
+           "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
+           "reduce_any", "reduce_all",
            "relu", "sigmoid", "tanh", "gelu", "exp", "sqrt", "abs", "square", "log", "softsign", "erf",
            "softmax", "softmax_with_cross_entropy", "mean", "concat",
            "reshape", "transpose", "elementwise_add", "elementwise_sub",
@@ -61,6 +66,27 @@ def fc(input: VarDesc, size: int, num_flatten_dims: int = 1,
                          attrs={"axis": num_flatten_dims})
         pre = tmp
     return helper.append_activation(pre, act)
+
+
+def embedding(input: VarDesc, size: Sequence[int], is_sparse: bool = False,
+              is_distributed: bool = False, padding_idx: Optional[int] = None,
+              param_attr=None, dtype="float32",
+              name: Optional[str] = None) -> VarDesc:
+    """A lookup_table over a [size[0], size[1]] table (Xavier by
+    default); Ids [..., 1]. ``is_sparse`` and ``is_distributed`` are
+    recorded as attrs: the gradient is dense, as in the JAX package."""
+    helper = LayerHelper("embedding", name)
+    w = helper.create_parameter(param_attr, list(size), dtype,
+                                default_initializer=Xavier())
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op("lookup_table",
+                     inputs={"W": [w.name], "Ids": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"padding_idx": -1 if padding_idx is None
+                            else padding_idx,
+                            "is_sparse": is_sparse,
+                            "is_distributed": is_distributed})
+    return out
 
 
 def _pair(v) -> list:
@@ -186,6 +212,19 @@ def layer_norm(input: VarDesc, scale: bool = True, shift: bool = True,
     return helper.append_activation(y, act)
 
 
+def dropout(x: VarDesc, dropout_prob: float, is_test: bool = False,
+            dropout_implementation: str = "downgrade_in_infer",
+            name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("dropout", name)
+    out = helper.create_tmp_variable(x.dtype)
+    mask = helper.create_tmp_variable(x.dtype, stop_gradient=True)
+    helper.append_op("dropout", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "Mask": [mask.name]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "dropout_implementation": dropout_implementation})
+    return out
+
+
 def _unary(op_type):
     def f(x: VarDesc, name: Optional[str] = None, **attrs) -> VarDesc:
         helper = LayerHelper(op_type, name)
@@ -246,6 +285,32 @@ def mean(x: VarDesc, name: Optional[str] = None) -> VarDesc:
     return out
 
 
+def _reduce_layer(op_type):
+    def f(x: VarDesc, dim=None, keep_dim: bool = False,
+          name: Optional[str] = None) -> VarDesc:
+        helper = LayerHelper(op_type, name)
+        out = helper.create_tmp_variable(x.dtype)
+        attrs = {"keep_dim": keep_dim}
+        if dim is None:
+            attrs["reduce_all"] = True
+        else:
+            attrs["dim"] = [dim] if isinstance(dim, int) else list(dim)
+        helper.append_op(op_type, inputs={"X": [x.name]},
+                         outputs={"Out": [out.name]}, attrs=attrs)
+        return out
+    f.__name__ = op_type
+    return f
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
+reduce_any = _reduce_layer("reduce_any")
+reduce_all = _reduce_layer("reduce_all")
+
+
 def concat(input, axis: int = 0, name: Optional[str] = None) -> VarDesc:
     helper = LayerHelper("concat", name)
     out = helper.create_tmp_variable(input[0].dtype)
@@ -271,6 +336,15 @@ def transpose(x: VarDesc, perm, name: Optional[str] = None) -> VarDesc:
     helper.append_op("transpose2", inputs={"X": [x.name]},
                      outputs={"Out": [out.name], "XShape": [xshape.name]},
                      attrs={"axis": list(perm)})
+    return out
+
+
+def cast(x: VarDesc, dtype) -> VarDesc:
+    helper = LayerHelper("cast")
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op("cast", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"out_dtype": dtypes.convert_dtype(dtype)})
     return out
 
 
@@ -315,6 +389,28 @@ def mul(x: VarDesc, y: VarDesc, x_num_col_dims: int = 1,
                      outputs={"Out": [out.name]},
                      attrs={"x_num_col_dims": x_num_col_dims,
                             "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def scale(x: VarDesc, scale: float = 1.0, bias: float = 0.0,
+          bias_after_scale: bool = True,
+          name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("scale", name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("scale", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"scale": scale, "bias": bias,
+                            "bias_after_scale": bias_after_scale})
+    return out
+
+
+def clip(x: VarDesc, min: float, max: float,  # noqa: A002
+         name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("clip", name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("clip", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"min": min, "max": max})
     return out
 
 

@@ -1,5 +1,5 @@
-"""``multihead_matmul``, the fused QKV projection and attention, and
-``fused_bn_activation``.
+"""``multihead_matmul``, the fused QKV projection and attention,
+``fused_embedding_eltwise_layernorm`` and ``fused_bn_activation``.
 
 ``multihead_matmul`` is the counterpart of ``paddle_tpu/ops/fused.py``
 :24, the op that the
@@ -13,6 +13,13 @@ kernels take (forward, dQ and dK/dV through ``FlashAttentionFunction``),
 "composed" for another head dim on the card (the JAX lowering's
 ``flash_attention`` composes the shapes its kernel refuses), "reference"
 on the CPU (the kernels' plain versions).
+
+``fused_embedding_eltwise_layernorm`` (``paddle_tpu/ops/fused.py`` :54),
+which ``embedding_eltwise_layernorm_fuse`` puts in place of BERT's
+embedding block, sums N lookups and normalizes the sum over its trailing
+axis with the layer-norm forward kernel on a CUDA tensor and its plain
+version on the CPU, logged in the layer-norm path log as "kernel" or
+"reference".
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import torch.nn.functional as F
 
 from ..core.registry import register_op
 from ..kernels import flash_attention as _fa
+from ..kernels import layer_norm as _ln
+from ..nn import functional as _F
 from ..nn import transformer as _tr
 from .common import one
 
@@ -58,6 +67,24 @@ def _multihead_matmul(ctx, ins, attrs):
                                   v.transpose(1, 2), bias=bias,
                                   sm_scale=scale).transpose(1, 2)
     return one(out.reshape(b, s, h3 // 3))
+
+
+@register_op("fused_embedding_eltwise_layernorm",
+             inputs=("Ids", "Embs", "Scale", "Bias"),
+             non_diff_inputs=("Ids",))
+def _fused_emb_ln(ctx, ins, attrs):
+    # Ids [B, S] or [B, S, 1]
+    total = None
+    for ids, emb in zip(ins["Ids"], ins["Embs"]):
+        v = _F.embedding(ids.reshape(ids.shape[:2]), emb)
+        total = v if total is None else total + v
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    if total.device.type == "meta":  # shape inference: the plain math
+        return one(_ln.layer_norm_reference(total, scale, bias, eps)[0])
+    _F._LN_PATH_LOG.append("kernel" if _ln._on_kernel_device(total)
+                           else "reference")
+    return one(_ln.layer_norm(total, scale, bias, eps))
 
 
 _BN_ACTS = {"relu": torch.relu, "swish": F.silu,

@@ -2,7 +2,9 @@
 
 Counterparts of ``paddle_tpu/ops/math.py`` :18, :49 and :103. The
 products go to ``torch.matmul`` (cuBLAS on the card), as the JAX package
-leaves them to XLA.
+leaves them to XLA; operands of two float dtypes promote first, as
+``jnp.matmul`` promotes them (a bf16 Predictor's attention without the
+fuse pass multiplies fp32 probabilities by bf16 values).
 """
 from __future__ import annotations
 
@@ -14,10 +16,17 @@ from ..core.registry import register_op
 from .common import one
 
 
+def _promoted(x, y):
+    if x.dtype != y.dtype:
+        dtype = torch.promote_types(x.dtype, y.dtype)
+        x, y = x.to(dtype), y.to(dtype)
+    return x, y
+
+
 @register_op("matmul", inputs=("X", "Y"))
 def _matmul(ctx, ins, attrs):
     # transpose_X/transpose_Y/alpha, batched over the leading dims
-    x, y = ins["X"][0], ins["Y"][0]
+    x, y = _promoted(ins["X"][0], ins["Y"][0])
     alpha = attrs.get("alpha", 1.0)
     if x.dim() == 1 and y.dim() == 1:
         out = torch.dot(x, y)
@@ -36,7 +45,7 @@ def _matmul(ctx, ins, attrs):
 def _mul(ctx, ins, attrs):
     # flattens X to 2-D at x_num_col_dims and Y at y_num_col_dims, then one
     # product: the fc building block
-    x, y = ins["X"][0], ins["Y"][0]
+    x, y = _promoted(ins["X"][0], ins["Y"][0])
     xn = attrs.get("x_num_col_dims", 1)
     yn = attrs.get("y_num_col_dims", 1)
     xshape = tuple(x.shape)

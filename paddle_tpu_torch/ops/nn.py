@@ -1,9 +1,17 @@
 """Neural-net ops: ``conv2d``, ``depthwise_conv2d``, ``pool2d``,
 ``softmax``, ``softmax_with_cross_entropy``, ``layer_norm``,
-``batch_norm`` and ``sync_batch_norm``.
+``batch_norm``, ``sync_batch_norm``, ``dropout``, ``lookup_table`` and
+``lookup_table_v2``.
 
 Counterparts of ``paddle_tpu/ops/nn.py`` :50, :62, :184, :210, :252,
-:415, :445 and :994. Convolution, pooling and batch norm are the
+:415, :445, :994, :655, :851 and :866. The lookups are
+``nn/functional.py`` ``embedding``, whose gradient sums the rows of each
+id in one fixed order; the JAX package's ``FLAGS_embedding_onehot_grad``
+only picks a TPU formulation of that same sum, so either value gives the
+port's one. ``dropout`` draws its keep mask from the executor's CPU
+generator (``LowerCtx.rng``); ``FLAGS_dropout_storage`` only picks what
+the JAX backward stores, and the port's Out and Mask are the same under
+each value. Convolution, pooling and batch norm are the
 functions of ``nn/functional.py`` (``conv``, ``pool``,
 ``batch_norm_op``), so that the dygraph and the static path share one
 implementation; the convolution is cuDNN's on the card, as the JAX
@@ -115,8 +123,13 @@ def _layer_norm(ctx, ins, attrs):
     if x.device.type != "meta":  # shape inference logs nothing
         _F._LN_PATH_LOG.append(route)
     if route == "kernel":
-        y, mean, var = _ln_kernel.layer_norm_with_stats(
-            x, ins["Scale"][0], ins["Bias"][0], eps)
+        scale, bias = ins["Scale"][0], ins["Bias"][0]
+        if not _ln_kernel.takes(x.dtype, x.shape[-1], scale.dtype,
+                                bias.dtype):
+            # an fp32 norm of bf16 parameters (a bf16 Predictor's program
+            # where a promoted residual meets them): widened, exactly
+            scale, bias = scale.float(), bias.float()
+        y, mean, var = _ln_kernel.layer_norm_with_stats(x, scale, bias, eps)
         return {"Y": [y], "Mean": [mean], "Variance": [var]}
     red = tuple(range(axis, x.dim()))
     mean = torch.mean(x, dim=red, keepdim=True)
@@ -160,3 +173,47 @@ def _sync_batch_norm(ctx, ins, attrs):
     # package; its reduction across ranks belongs to the distributed
     # runtime (ROADMAP.md A6)
     return _batch_norm(ctx, ins, attrs)
+
+
+@register_op("dropout", inputs=("X",), outputs=("Out", "Mask"),
+             is_random=True)
+def _dropout(ctx, ins, attrs):
+    # is_test: the identity under upscale_in_train, x (1 - p) under
+    # downgrade_in_infer; p = 0 draws nothing
+    x = ins["X"][0]
+    p = attrs.get("dropout_prob", 0.5)
+    is_test = attrs.get("is_test", False) or ctx.is_test
+    upscale = attrs.get("dropout_implementation",
+                        "downgrade_in_infer") == "upscale_in_train"
+    if is_test or p <= 0.0:
+        out = x if upscale or p <= 0.0 else x * (1.0 - p)
+        return {"Out": [out], "Mask": [torch.ones_like(x)]}
+    keep = (torch.rand(tuple(x.shape), generator=ctx.rng())
+            < 1.0 - p).to(x.device)
+    mask = keep.to(x.dtype)
+    if upscale:
+        out = torch.where(keep, x / max(1.0 - p, 1e-12),
+                          torch.zeros_like(x))
+    else:
+        out = x * mask
+    return {"Out": [out], "Mask": [mask]}
+
+
+def _lookup(w, ids, padding_idx):
+    return _F.embedding(ids, w, None if padding_idx == -1 else padding_idx)
+
+
+@register_op("lookup_table", inputs=("W", "Ids"), non_diff_inputs=("Ids",))
+def _lookup_table(ctx, ins, attrs):
+    # Ids [..., 1]: the trailing 1 is squeezed; a padding_idx row is 0
+    w, ids = ins["W"][0], ins["Ids"][0]
+    if ids.dim() and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    return one(_lookup(w, ids, attrs.get("padding_idx", -1)))
+
+
+@register_op("lookup_table_v2", inputs=("W", "Ids"),
+             non_diff_inputs=("Ids",))
+def _lookup_table_v2(ctx, ins, attrs):
+    return one(_lookup(ins["W"][0], ins["Ids"][0],
+                       attrs.get("padding_idx", -1)))

@@ -3,11 +3,13 @@
 Counterpart of the part of ``paddle_tpu/tracing.py`` that the generation
 engine and pool call. ``begin(kind)`` opens a :class:`RequestTrace`;
 the engine stamps stages (submit, admit, prefill_start, first_token,
-done) and events (preempt, replay, prefix hits), and
+done) and events (preempt, replay, prefix hits), the Predictor pool
+stages (submit, admit, batch_join, dispatch, execute, fetch, done), and
 ``token()`` observes ``TIMER_<kind>_ttft_us`` on a request's first token
 and ``TIMER_<kind>_tpot_us`` between later ones. ``finish()`` observes
 the stage-interval timers (generation: queue_wait, decode, total) and,
-for a request with a deadline, ``STAT_<kind>_deadline_missed``. The
+for a request with a deadline, ``STAT_<kind>_deadline_missed``; ``note``
+attaches fields (a serving request's rows). The
 recent and exemplar rings, tenant and model labels and ``/tracez`` are
 not ported yet (``ROADMAP.md`` A7).
 """
@@ -24,6 +26,14 @@ _NEXT_ID = itertools.count(1)
 # (label, from_stage, to_stage): finish() observes TIMER_<kind>_<label>_us
 # for each interval whose two stages happened (the last occurrence)
 _DECOMP: Dict[str, Tuple[Tuple[str, str, str], ...]] = {
+    "serving": (
+        ("admit", "submit", "admit"),
+        ("batch_join", "admit", "batch_join"),
+        ("dispatch", "batch_join", "dispatch"),
+        ("execute", "dispatch", "execute"),
+        ("fetch", "execute", "fetch"),
+        ("total", "submit", "done"),
+    ),
     "generation": (
         ("queue_wait", "submit", "prefill_start"),
         ("decode", "first_token", "done"),
@@ -78,6 +88,10 @@ class RequestTrace:
             timer_observe(f"TIMER_{self.kind}_tpot_us",
                           (now - self.t_last_token) * 1e6)
         self.t_last_token = now
+
+    def note(self, **fields: Any) -> None:
+        """Attach fields (rows, finish reason, ...)."""
+        self.fields.update(fields)
 
     def last_stage(self) -> Optional[str]:
         return self.stages[-1][0]

@@ -458,7 +458,7 @@ def test_unported_op_raises_naming_its_queue():
     blk = prog.global_block
     blk.create_var("x", shape=[2, 3])
     blk.create_var("y", shape=[2, 3])
-    for op, queue in (("dropout", "A2b"), ("lookup_table_v2", "A2b"),
+    for op, queue in (("top_k", "A2b"), ("one_hot", "A2b"),
                       ("conv2d_transpose", "A2b"), ("sequence_pool", "A8")):
         blk.ops = []
         blk.append_op(op, {"X": ["x"]}, {"Out": ["y"]})
