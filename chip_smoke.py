@@ -158,7 +158,41 @@ Phases, each printing its lines; any failure exits nonzero:
    (vi) times: eager, replay and device ms at B=1, 8 and 32 in fp32 and
    bf16, the pool's requests/s, rows/s, latency p50/p95 and idle share,
    peak memory, and the two kernels at this path's calls;
-11. one JSON line of kernel records, the card line, and last the result
+11. static-graph training ("[static-train]" lines), the eighth main path:
+   (i) Fluid's MNIST LeNet (``examples/fluid_mnist.py``'s network through
+   the port's ``fluid``, B=64) under ``CUDAPlace(0)``: one step against
+   ``CPUPlace()`` (loss, every ``@GRAD``, every persistable after), then
+   ten Adam steps on the MNIST reader's synthetic corpus through
+   ``DataFeeder``, the loss falling, the accuracy fetched, each op lowered
+   once a step; (ii) three steps on LeNet of each newly ported update rule
+   (Lamb, LarsMomentum, Adagrad, DecayedAdagrad, Adamax, Adadelta,
+   centered RMSProp, Ftrl, DpSGD), of ``LookaheadOptimizer(SGD, k=2)``
+   and of AdamW and Lamb under ``GradientClipByGlobalNorm(1.0)``,
+   ``L2Decay`` and a warmup into ``PolynomialDecay``, card against CPU
+   port: loss, lr, every (clipped) gradient and every persistable after
+   each step; (iii) form (d): the BERT-shaped program of phase 7 with
+   ``begin_norm_axis=2``, ``multihead_matmul_fuse`` on its forward, then
+   ``contrib.mixed_precision.decorate(Adam(1e-4),
+   AutoMixedPrecisionLists(custom_white_list=["multihead_matmul"]))``:
+   one bf16 and one fp16 step against the CPU port's run of it (B=2) and
+   against the card's fp32 form (c) (B=8), in gradient norm, with a wrong
+   variant (fp16 from a loss scale of 1, whose backward underflows) shown
+   to fail the tolerances; the main path: ten bf16 steps at B=8 S=128
+   with counts set to 0 before and read after: 12 flash forward, dQ and
+   dK/dV launches on bf16 and 24 layer-norm forward and backward on
+   float32 rows a step, no forward input copied, all-"flash" and
+   all-"kernel" path logs, falling losses, a bitwise rerun; (iv) fp16 with
+   dynamic loss scaling: ten steps from 2^15 on the fp16 instances, and a
+   run from a scale at which the backward overflows (2^32 up), card and
+   CPU port: zeroed gradients, update ops still run, the scale and
+   counters by the rule and equal across the two; (v) (d) with recompute
+   segments at each layer's output against (d) without: loss and every
+   gradient bitwise, the launches (the flash forward and the norms'
+   forward again in the backward), the peak memory of each; (vi) times:
+   step ms, device ms, kernels and idle share of (c) fp32, (d) bf16, (d)
+   fp16 and (d) with recompute; the bf16 and fp16 flash forward, dQ and
+   dK/dV at [8,12,128,64] against their bound and SDPA;
+12. one JSON line of kernel records, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -2722,16 +2756,13 @@ STATIC_FUSED_TOL = FLASH_BWD_TOL[torch.float32]
 VERIFY_STEPS = 5
 
 
-def build_bert_shaped(pt, layers_n=12, H=768, FF=3072, heads=12, S=128,
-                      norm_axis=1):
-    """The program of tools/check_backward_replay.py:89 built with package
-    ``pt``'s layers (the port here; the tests also pass the JAX package):
-    L layers of multi_head_attention, residual, layer_norm, an FFN of two
-    fc (gelu), residual, layer_norm; the mean as the loss; Adam(STATIC_LR).
-    ``norm_axis`` is the norms' begin_norm_axis: 1 (the tool's, over
-    S x H) or 2 (the trailing axis). Returns (main, startup, loss)."""
+def build_bert_forward(pt, layers_n=12, H=768, FF=3072, heads=12, S=128,
+                       norm_axis=1):
+    """The forward of build_bert_shaped: (main, startup, loss, the output
+    var of each layer, the reshaped second layer_norm)."""
     layers = pt.layers
     main, startup = pt.Program(), pt.Program()
+    outs = []
     with pt.program_guard(main, startup):
         h = layers.data("x", [S, H])
         for _ in range(layers_n):
@@ -2745,7 +2776,22 @@ def build_bert_shaped(pt, layers_n=12, H=768, FF=3072, heads=12, S=128,
             h = layers.reshape(layers.layer_norm(
                 layers.elementwise_add(f, h), begin_norm_axis=norm_axis),
                 [-1, S, H])
+            outs.append(h)
         loss = layers.mean(h)
+    return main, startup, loss, outs
+
+
+def build_bert_shaped(pt, layers_n=12, H=768, FF=3072, heads=12, S=128,
+                      norm_axis=1):
+    """The program of tools/check_backward_replay.py:89 built with package
+    ``pt``'s layers (the port here; the tests also pass the JAX package):
+    L layers of multi_head_attention, residual, layer_norm, an FFN of two
+    fc (gelu), residual, layer_norm; the mean as the loss; Adam(STATIC_LR).
+    ``norm_axis`` is the norms' begin_norm_axis: 1 (the tool's, over
+    S x H) or 2 (the trailing axis). Returns (main, startup, loss)."""
+    main, startup, loss, _ = build_bert_forward(pt, layers_n, H, FF, heads,
+                                                S, norm_axis)
+    with pt.program_guard(main, startup):
         pt.optimizer.Adam(STATIC_LR).minimize(loss, startup_program=startup,
                                               program=main)
     return main, startup, loss
@@ -3035,42 +3081,40 @@ class GcClock:
         gc.callbacks.remove(self._tick)
 
 
-def time_static(forms, states, device, card, reps=10):
-    """Each form at B=8, the three built first and timed in turns: eager
-    step ms (host clock, synchronised, median of ``reps``, and the range),
-    the host ms spent in the garbage collector during those steps
-    (GcClock), device busy ms and kernels a step (torch.profiler), the
-    idle share, and the flash and layer-norm launches a step."""
+def time_runs(runs, card, phase, reps=10):
+    """Each StaticRun of ``runs`` (by label), built first and timed in
+    turns: eager step ms (host clock, synchronised, median of ``reps``,
+    and the range), the host ms spent in the garbage collector during those
+    steps (GcClock), device busy ms and kernels a step (torch.profiler),
+    the idle share, and the flash and layer-norm launches a step."""
     n_layers = STATIC_CFG["layers_n"]
-    runs = {form: StaticRun(forms[form], states[form], device, STATIC_B)
-            for form in ("a", "b", "c")}
     for run in runs.values():
         for _ in range(2):
             run.step()
     torch.cuda.synchronize()
-    times = {form: [] for form in runs}
-    gc_ms = {form: 0.0 for form in runs}
-    gc_n = {form: [0, 0, 0] for form in runs}
+    times = {label: [] for label in runs}
+    gc_ms = {label: 0.0 for label in runs}
+    gc_n = {label: [0, 0, 0] for label in runs}
     for _ in range(reps):
-        for form, run in runs.items():
+        for label, run in runs.items():
             with GcClock() as clock:
                 t0 = time.perf_counter()
                 run.step()
                 torch.cuda.synchronize()
-                times[form].append(time.perf_counter() - t0)
-            gc_ms[form] += clock.ms
-            gc_n[form] = [a + b for a, b in zip(gc_n[form], clock.counts)]
-    for form, run in runs.items():
-        ms = 1e3 * float(np.median(times[form]))
-        lo, hi = 1e3 * min(times[form]), 1e3 * max(times[form])
+                times[label].append(time.perf_counter() - t0)
+            gc_ms[label] += clock.ms
+            gc_n[label] = [a + b for a, b in zip(gc_n[label], clock.counts)]
+    for label, run in runs.items():
+        ms = 1e3 * float(np.median(times[label]))
+        lo, hi = 1e3 * min(times[label]), 1e3 * max(times[label])
         reset_counts()
         busy, n_kernels, groups, _ = profile_step(run.step)
         counts = read_counts()
         idle = max(0.0, 1.0 - busy / ms)
-        say("static", f"times ({form}) BERT-shaped {n_layers} layers "
-            f"B={STATIC_B} S={STATIC_CFG['S']} fp32: step {ms:.2f} ms median "
-            f"of {reps} (in turns; {lo:.2f}-{hi:.2f}), garbage collector "
-            f"{gc_ms[form] / reps:.2f} ms a step ({gc_n[form]} collections "
+        say(phase, f"times {label} BERT-shaped {n_layers} layers "
+            f"B={STATIC_B} S={STATIC_CFG['S']}: step {ms:.2f} ms median of "
+            f"{reps} (in turns; {lo:.2f}-{hi:.2f}), garbage collector "
+            f"{gc_ms[label] / reps:.2f} ms a step ({gc_n[label]} collections "
             f"by generation in the {reps}), device busy {busy:.2f} ms in "
             f"{n_kernels} kernels, idle share {idle:.3f}; flash "
             f"{counts['flash_attention_fwd']}/"
@@ -3079,6 +3123,13 @@ def time_static(forms, states, device, card, reps=10):
             f"{counts['layer_norm_fwd']}/{counts['layer_norm_bwd']} a step; "
             + ", ".join(f"{g} {t:.2f} ms" for g, t in groups.items()) +
             f"  [{card}]")
+
+
+def time_static(forms, states, device, card, reps=10):
+    """Each form at B=8 in fp32, timed in turns (time_runs)."""
+    runs = {f"({form}) fp32": StaticRun(forms[form], states[form], device,
+                                        STATIC_B) for form in ("a", "b", "c")}
+    time_runs(runs, card, "static", reps)
     del runs
     torch.cuda.empty_cache()
 
@@ -4998,6 +5049,745 @@ def run_inference(device, card):
     return main_counts, kernel_times
 
 
+# ---------------------------------------------------------------------------
+# phase 11: static-graph training
+# ---------------------------------------------------------------------------
+
+# form (d): form (c)'s forward, multihead_matmul_fuse on it, then static
+# mixed precision with the fused attention on the white list
+AMP_WHITE = ("multihead_matmul",)
+
+
+def amp_form(pt, dtype="bfloat16", cfg=STATIC_CFG, recompute=False,
+             init_loss_scaling=None, unfreeze_packed=False,
+             seed=STATIC_SEED):
+    """Form (d) built with package ``pt``: build_bert_forward with
+    begin_norm_axis 2, multihead_matmul_fuse on the forward-only program,
+    then ``contrib.mixed_precision.decorate(Adam(STATIC_LR),
+    AutoMixedPrecisionLists(custom_white_list=AMP_WHITE),
+    dest_dtype=dtype)``
+    minimized: dynamic loss scaling for float16 only, from
+    ``init_loss_scaling`` (2^15 when None). ``recompute`` sets the backward
+    op's remat_segments from checkpoints at each layer's output, as
+    ``append_backward(checkpoints=)`` records them (decorate's minimize
+    takes no checkpoints). ``unfreeze_packed`` clears the stop_gradient
+    that the JAX package's fuse pass puts on the packed weights and biases
+    (ROADMAP.md C2), so that both packages train them. Returns (main,
+    startup, loss name) and the names of the loss scale and of the
+    good/bad step counters (None without dynamic scaling)."""
+    import importlib
+    passes = importlib.import_module(pt.__name__ + ".core.passes")
+    backward = importlib.import_module(pt.__name__ + ".core.backward")
+    mp = pt.contrib.mixed_precision
+    main, startup, loss, outs = build_bert_forward(pt, **cfg, norm_axis=2)
+    startup.random_seed = seed
+    main = passes.apply_pass(main, "multihead_matmul_fuse")
+    if unfreeze_packed:
+        for v in main.global_block.vars.values():
+            if v.name.startswith("mha_fuse_") and "_xs_" not in v.name:
+                v.stop_gradient = False
+    kw = {} if init_loss_scaling is None else dict(
+        init_loss_scaling=init_loss_scaling)
+    opt = mp.decorate(pt.optimizer.Adam(STATIC_LR),
+                      mp.AutoMixedPrecisionLists(custom_white_list=list(
+                          AMP_WHITE)), dest_dtype=dtype, **kw)
+    with pt.program_guard(main, startup):
+        opt.minimize(loss, startup_program=startup, program=main)
+    if recompute:
+        op = next(op for op in main.global_block.ops
+                  if op.type == "backward")
+        op.attrs["remat_segments"] = backward._segments_from_checkpoints(
+            main.global_block, outs)
+    persist = [v.name for v in main.persistable_vars()]
+    counter = (lambda prefix: next((n for n in persist
+                                    if n.startswith(prefix)), None))
+    return (main, startup, loss.name), dict(
+        scale=opt.get_loss_scaling(), good=counter("good_steps"),
+        bad=counter("bad_steps"))
+
+
+# Fluid's MNIST LeNet: examples/fluid_mnist.py at its own widths and batch
+LENET_B = 64
+LENET_STEPS = 10
+LENET_LR = 1e-3
+LENET_SEED = 42
+# the update rules and the recipe on LeNet, card against the CPU port:
+# steps a rule, each step's loss, lr, gradients (after the clip where
+# there is one), and every persistable after it
+RULE_STEPS = 3
+# LeNet in fp32 on the card (cuDNN's convolutions, TF32 off) against the
+# CPU port: the loss within 1e-5 relative; each gradient within STEP_TOL
+# (1e-4 of its max plus 1e-4 relative, a floor of 1e-5 of the largest
+# gradient); each persistable after a step within 2.5 lr of the CPU's
+# and, per tensor, its change within RULE_UPDATE_RTOL of the CPU's change
+# in the 2-norm (UPDATE_RTOL's rule). Moment-free rules (SGD, Lookahead's
+# sync) move by lr g, the adaptive ones by ~lr whatever |g|. The lr var is
+# held exactly: both sides compute it from the same integer step.
+RULE_UPDATE_RTOL = UPDATE_RTOL
+# form (d) against the CPU port's run of the same program and against the
+# card's fp32 form (c): the loss within AMP_LOSS_RTOL and the gradients
+# within AMP_GRAD_REL of their dtype in the 2-norm over all of them (less
+# the key biases, whose exact gradient is 0). Two runs of one bf16 program
+# in other orders differ by bf16 rounding steps wherever an intermediate
+# lands on another side of one. Measured on the card (my chip run, PR 13
+# call 1, H100 at 700 W): bf16 against the CPU port 0.0033 (B=2), against
+# (c) 0.0061 (B=8); fp16 against (c) 0.00075. The wrong variant that must
+# fail both dtypes' tolerances in both comparisons: form (d) in fp16 with
+# its loss scale started at 1, so that the fp16 backward underflows (the
+# mean's gradient is 1/(B S H), 1.3e-6 at B=8, below fp16's normal
+# range). On the CPU at this width and 2 layers it measured 0.0198 from
+# the scaled fp16 run at B=2 and 0.112 at B=8, against 2.7e-4 and 2.5e-4
+# for the scaled run from (c).
+AMP_GRAD_REL = {"bfloat16": 1e-2, "float16": 2e-3}
+AMP_LOSS_RTOL = 1e-2
+# fp16 with dynamic loss scaling: ten steps from 2^15; then a run from a
+# loss scale at which the fp16 backward overflows (2^32, raised to 2^36 and
+# 2^40 if a step does not), OVERFLOW_STEPS steps at B=OVERFLOW_B on the card
+# and on the CPU port: two overflows halve the scale
+# (decr_every_n_nan_or_inf 2). The CPU port's fp16 step of the 12 layers
+# is slow on the card's host (my chip runs, PR 13: 140.8 s for three steps
+# at B=2 on both sides in call 2, 113.0 s for two in call 4).
+OVERFLOW_STEPS = 2
+OVERFLOW_B = 1
+
+
+def lenet_network(fluid, img, label):
+    """examples/fluid_mnist.py's ``network`` (:18-30) over the ``fluid``
+    namespace it is given."""
+    conv1 = fluid.nets.simple_img_conv_pool(
+        img, num_filters=20, filter_size=5, pool_size=2, pool_stride=2,
+        act="relu")
+    conv2 = fluid.nets.simple_img_conv_pool(
+        conv1, num_filters=50, filter_size=5, pool_size=2,
+        pool_stride=2, act="relu")
+    pred = fluid.layers.fc(conv2, 10, act="softmax")
+    loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
+    acc = fluid.layers.accuracy(pred, label)
+    return loss, acc
+
+
+def build_lenet(fluid, opt=None, seed=LENET_SEED):
+    """The example's program: [1, 28, 28] images and int64 labels through
+    ``lenet_network``, minimized by ``opt(fluid)`` (Adam(1e-3) by
+    default). Returns (main, startup, loss name), the accuracy var and the
+    optimizer."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", [1, 28, 28])
+        label = fluid.layers.data("label", [1], dtype="int64")
+        loss, acc = lenet_network(fluid, img, label)
+        optimizer = (opt or (lambda f: f.optimizer.Adam(LENET_LR)))(fluid)
+        optimizer.minimize(loss, startup_program=startup, program=main)
+    return (main, startup, loss.name), acc, optimizer
+
+
+def lenet_feeds(b, n, fluid=None, datasets=None):
+    """The first ``n`` batches of the MNIST reader's synthetic corpus, as
+    the example feeds them: reader.batch, each sample reshaped to [1, 28,
+    28], DataFeeder."""
+    if fluid is None:
+        from paddle_tpu_torch import datasets, fluid
+    feeder = fluid.DataFeeder(["img", "label"])
+    feeds = []
+    for batch in fluid.io.batch(datasets.mnist.train(), b)():
+        feeds.append(feeder.feed([
+            (np.asarray(x, np.float32).reshape(1, 28, 28),
+             np.asarray([y], np.int64)) for x, y in batch]))
+        if len(feeds) == n:
+            break
+    return feeds
+
+
+def program_steps(form, state, device, feeds, fetch=(), steps=1, keep=None):
+    """``steps`` steps of (main, startup, loss) on ``device`` from a numpy
+    state: each step's loss and ``fetch`` (CPU tensors) and every
+    persistable after it (those named in ``keep`` when given); and the
+    executor."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import load_reference_scope
+    main, _, loss = form
+    scope = pt.Scope()
+    load_reference_scope(scope, state, device)
+    exe = pt.Executor(device)
+    out = []
+    for i in range(steps):
+        vals = exe.run(main, feed=feeds[i % len(feeds)],
+                       fetch_list=[loss, *fetch], scope=scope,
+                       return_numpy=False)
+        out.append(dict(
+            loss=float(vals[0]),
+            fetch={n: v.detach().cpu() for n, v in zip(fetch, vals[1:])},
+            after={v.name: scope.find_var(v.name).detach().cpu().clone()
+                   for v in main.persistable_vars()
+                   if (keep is None or v.name in keep) and
+                   isinstance(scope.find_var(v.name), torch.Tensor)}))
+    return out, exe
+
+
+def hold_steps(label, card, cpu, state, lr):
+    """Each step of ``card`` against ``cpu`` (program_steps' records): the
+    loss, every fetched value (the lr exactly, gradients at STEP_TOL) and
+    every persistable after it (2.5 lr; float tensors' changes within
+    RULE_UPDATE_RTOL in norm). Returns the worst shares of the
+    tolerances."""
+    worst = dict(grad=0.0, param=0.0, update=0.0)
+    for i, (g, c) in enumerate(zip(card, cpu)):
+        if not math.isfinite(g["loss"]) or abs(g["loss"] - c["loss"]) > \
+                1e-5 * abs(c["loss"]) + 1e-7:
+            fail(f"{label} step {i + 1}: loss {g['loss']} on the card, "
+                 f"{c['loss']} on the CPU port")
+        fetched = c["fetch"]
+        top = max([float(t.abs().max()) for n, t in fetched.items()
+                   if t.is_floating_point() and t.dim()] + [0.0])
+        for n, want in fetched.items():
+            got = g["fetch"][n]
+            if not want.is_floating_point() or not want.dim():
+                if not torch.equal(got, want):
+                    fail(f"{label} step {i + 1}: {n} {got} on the card, "
+                         f"{want} on the CPU port")
+                continue
+            atol = STEP_TOL["grad_rel"] * float(want.abs().max()) + \
+                STEP_TOL["grad_floor"] * top
+            e, ok = max_err(got, want, atol, STEP_TOL["grad_rel"])
+            worst["grad"] = max(worst["grad"], e / max(atol, 1e-30))
+            if not ok:
+                fail(f"{label} step {i + 1}: {n} differs by {e} (max "
+                     f"|ref| {float(want.abs().max())})")
+        before = cpu[i - 1]["after"] if i else {
+            n: torch.from_numpy(np.array(v)) for n, v in state.items()}
+        for n, want in c["after"].items():
+            got = g["after"][n]
+            if not want.is_floating_point():
+                if not torch.equal(got, want):
+                    fail(f"{label} step {i + 1}: {n} {got} on the card, "
+                         f"{want} on the CPU port")
+                continue
+            e, ok = max_err(got, want, 2.5 * lr, 0.0)
+            worst["param"] = max(worst["param"], e / (2.5 * lr))
+            if not ok:
+                fail(f"{label} step {i + 1}: {n} after the step differs by "
+                     f"{e} (tol 2.5 lr)")
+            if n not in before or ".k_b_" in n:
+                continue
+            gb = card[i - 1]["after"][n] if i else before[n]
+            d_g = got.double() - gb.double()
+            d_c = want.double() - before[n].double()
+            if float(d_c.norm()) == 0.0 and float(d_g.norm()) == 0.0:
+                continue
+            rel = float((d_g - d_c).norm()) / max(float(d_c.norm()), 1e-30)
+            worst["update"] = max(worst["update"], rel / RULE_UPDATE_RTOL)
+            if not rel <= RULE_UPDATE_RTOL:
+                fail(f"{label} step {i + 1}: the change of {n} is {rel:.3e} "
+                     f"of its norm away (tol {RULE_UPDATE_RTOL:g})")
+    return worst
+
+
+def check_lenet(device, card):
+    """(1) LeNet through the port's fluid under CUDAPlace(0) at B=64: one
+    step against the CPU port (loss, every @GRAD, every persistable
+    after), then LENET_STEPS Adam steps on the corpus, each op lowered
+    once a step, the loss falling and the accuracy fetched."""
+    from paddle_tpu_torch import fluid
+    form, acc, _ = build_lenet(fluid)
+    main = form[0]
+    state = static_state(form[1], fluid.CPUPlace())
+    feeds = lenet_feeds(LENET_B, LENET_STEPS)
+    grads = [n for n in main.global_block.vars if n.endswith("@GRAD")]
+    place = fluid.CUDAPlace(0)
+    g, _ = program_steps(form, state, place, feeds, grads)
+    c, _ = program_steps(form, state, fluid.CPUPlace(), feeds, grads)
+    worst = hold_steps("static-train LeNet", g, c, state, LENET_LR)
+    say("static-train", f"LeNet (examples/fluid_mnist.py) on CUDAPlace(0) "
+        f"vs CPUPlace(), B={LENET_B}: loss {g[0]['loss']:.7f} / "
+        f"{c[0]['loss']:.7f}; {len(grads)} @GRAD at {worst['grad']:.3f} of "
+        f"STEP_TOL; persistables within {worst['param']:.3f} of 2.5 lr, "
+        f"changes at {worst['update']:.3f} of {RULE_UPDATE_RTOL:g}")
+    import collections
+    runs, exe = program_steps(form, state, place, feeds, [acc.name],
+                              steps=LENET_STEPS)
+    losses = [r["loss"] for r in runs]
+    accs = [float(r["fetch"][acc.name]) for r in runs]
+    want = collections.Counter(op.type for op in main.global_block.ops)
+    if exe.lowered != want:
+        fail(f"LeNet: lowerings {dict(exe.lowered)} against the program's "
+             f"ops {dict(want)}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"LeNet on the card: losses {losses}")
+    say("static-train", f"LeNet {LENET_STEPS} Adam({LENET_LR:g}) steps on "
+        f"the synthetic MNIST corpus, B={LENET_B}, {card}: losses "
+        + " ".join(f"{v:.4f}" for v in losses) + "; accuracy "
+        + " ".join(f"{v:.3f}" for v in accs) + f"; each of the "
+        f"{len(main.global_block.ops)} ops lowered once a step")
+
+
+def rule_optimizers():
+    """{name: (opt(fluid), lr)}: the nine newly ported update rules, the
+    Lookahead wrapper and the two recipes (clip, decay, warmup into a
+    polynomial decay)."""
+    def recipe(which):
+        def make(fluid):
+            O = fluid.optimizer
+            sched = O.LinearLrWarmup(
+                O.PolynomialDecay(1e-3, decay_steps=20,
+                                  end_learning_rate=0.0), warmup_steps=2,
+                start_lr=1e-4, end_lr=1e-3)
+            clip = fluid.clip.GradientClipByGlobalNorm(1.0)
+            reg = fluid.regularizer.L2Decay(1e-4)
+            if which == "adamw":
+                return O.AdamW(sched, weight_decay=0.01, grad_clip=clip,
+                               regularization=reg)
+            return O.Lamb(sched, lamb_weight_decay=0.01, grad_clip=clip,
+                          regularization=reg)
+        return make
+    return {
+        "lamb": (lambda f: f.optimizer.Lamb(1e-3), 1e-3),
+        "lars_momentum": (lambda f: f.optimizer.LarsMomentum(
+            0.1, lars_weight_decay=5e-4), 0.1),
+        "adagrad": (lambda f: f.optimizer.Adagrad(1e-2), 1e-2),
+        "decayed_adagrad": (lambda f: f.optimizer.DecayedAdagrad(1e-2),
+                            1e-2),
+        "adamax": (lambda f: f.optimizer.Adamax(1e-3), 1e-3),
+        "adadelta": (lambda f: f.optimizer.Adadelta(1.0), 1e-2),
+        "rmsprop_centered": (lambda f: f.optimizer.RMSProp(
+            1e-3, momentum=0.9, centered=True), 1e-2),
+        "ftrl": (lambda f: f.optimizer.Ftrl(1e-2, l1=1e-4, l2=1e-4), 1e-2),
+        "dpsgd": (lambda f: f.optimizer.DpSGD(1e-2, clip=1.0,
+                                              batch_size=64.0, sigma=1.0),
+                  1e-2),
+        "lookahead_sgd_k2": (lambda f: f.optimizer.LookaheadOptimizer(
+            f.optimizer.SGD(0.1), alpha=0.5, k=2), 0.1),
+        "adamw_clip_l2_warmup_poly": (recipe("adamw"), 1e-3),
+        "lamb_clip_l2_warmup_poly": (recipe("lamb"), 1e-3),
+    }
+
+
+def check_rules(device):
+    """(2) RULE_STEPS steps of each of rule_optimizers() on LeNet, card
+    against CPU port."""
+    from paddle_tpu_torch import fluid
+    feeds = lenet_feeds(LENET_B, RULE_STEPS)
+    for name, (make, lr) in rule_optimizers().items():
+        form, _, opt = build_lenet(fluid, make)
+        blk = form[0].global_block
+        inner = getattr(opt, "inner_optimizer", opt)
+        clipped = [n for n in blk.vars if n.endswith("@CLIP")]
+        fetch = [inner._lr_name] + (clipped or [
+            n for n in blk.vars if n.endswith("@GRAD")])
+        state = static_state(form[1], fluid.CPUPlace())
+        g, _ = program_steps(form, state, fluid.CUDAPlace(0), feeds, fetch,
+                             RULE_STEPS)
+        c, _ = program_steps(form, state, fluid.CPUPlace(), feeds, fetch,
+                             RULE_STEPS)
+        worst = hold_steps(f"static-train {name}", g, c, state, lr)
+        ops = sorted({op.type for op in blk.ops[
+            next(i for i, op in enumerate(blk.ops)
+                 if op.type == "backward") + 1:]})
+        say("static-train", f"{name}: {RULE_STEPS} steps on the card vs the "
+            "CPU port: losses " + " ".join(f"{r['loss']:.6f}" for r in g) +
+            ", lr " + " ".join(f"{float(r['fetch'][inner._lr_name]):.3e}"
+                               for r in g) +
+            f"; {len(fetch) - 1} {'clipped ' if clipped else ''}gradients "
+            f"at {worst['grad']:.3f} of STEP_TOL, {len(g[0]['after'])} "
+            f"persistables within {worst['param']:.3f} of 2.5 lr, changes "
+            f"at {worst['update']:.3f} of {RULE_UPDATE_RTOL:g}; ops after "
+            f"the backward: {', '.join(ops)}")
+
+
+def grad_gap(a, b):
+    """(the 2-norm of a - b over every gradient but the key biases,
+    relative to b's; the loss's relative difference)."""
+    num = den = 0.0
+    for n, want in b["grads"].items():
+        if ".k_b_" in n:
+            continue
+        num += float(((a["grads"][n].double() - want.double()) ** 2).sum())
+        den += float((want.double() ** 2).sum())
+    return math.sqrt(num / den), abs(a["loss"] - b["loss"]) / abs(b["loss"])
+
+
+def one_step(form, state, device, b):
+    """One step of a form: its loss and every @GRAD on the CPU."""
+    run = StaticRun(form, state, device, b)
+    vals = run.step(grads=True)
+    out = dict(loss=float(vals[0]),
+               grads={n: v.float().cpu() for n, v in zip(run.grads,
+                                                         vals[1:])})
+    del run
+    return out
+
+
+def check_amp_step(forms, states, device):
+    """(3) one step of (d) in bf16 and in fp16 on the card against the CPU
+    port at B=2 and against the card's fp32 (c) at B=8; the wrong variant
+    (fp16 from a loss scale of 1) against both, which must fail both
+    dtypes' tolerances."""
+    import paddle_tpu_torch as pt
+    cpu = torch.device("cpu")
+    wrong, _ = amp_form(pt, "float16", init_loss_scaling=1.0)
+    w_state = static_state(wrong[1], device)
+    gaps = {}
+    for dtype, key in (("bfloat16", "d"), ("float16", "d16")):
+        card = one_step(forms[key], states[key], device, STATIC_CPU_B)
+        ref = one_step(forms[key], states[key], cpu, STATIC_CPU_B)
+        gaps[f"(d) {dtype} card vs CPU port, B={STATIC_CPU_B}"] = (
+            dtype, grad_gap(card, ref))
+    w_card = one_step(wrong, w_state, device, STATIC_CPU_B)
+    gaps[f"wrong variant card vs (d) float16 CPU port, B={STATIC_CPU_B}"] = (
+        None, grad_gap(w_card, ref))
+    del card, ref, w_card
+    c8 = one_step(forms["c"], states["c"], device, STATIC_B)
+    for dtype, key in (("bfloat16", "d"), ("float16", "d16")):
+        run = one_step(forms[key], states[key], device, STATIC_B)
+        gaps[f"(d) {dtype} vs (c) on the card, B={STATIC_B}"] = (
+            dtype, grad_gap(run, c8))
+    run = one_step(wrong, w_state, device, STATIC_B)
+    gaps[f"wrong variant vs (c) on the card, B={STATIC_B}"] = (
+        None, grad_gap(run, c8))
+    del c8, run
+    for what, (dtype, (g, l)) in gaps.items():
+        if dtype is None:
+            say("static-train", f"one step, {what}: gradients {g:.5f} of "
+                f"their norm, loss {l:.2e} relative (must fail the bf16 "
+                f"{AMP_GRAD_REL['bfloat16']:g} and the fp16 "
+                f"{AMP_GRAD_REL['float16']:g})")
+            if g <= max(AMP_GRAD_REL.values()):
+                fail(f"static-train: {what} is within a tolerance ({g}): "
+                     "the check cannot see the variant")
+            continue
+        tol = AMP_GRAD_REL[dtype]
+        say("static-train", f"one step, {what}: gradients {g:.5f} of their "
+            f"norm, loss {l:.2e} relative (tol {tol:g} and "
+            f"{AMP_LOSS_RTOL:g})")
+        if g > tol or l > AMP_LOSS_RTOL:
+            fail(f"static-train: {what} off by {g} (gradients), {l} (loss)")
+    say("static-train", "the wrong variant: form (d) in fp16 with its loss "
+        "scale started at 1, whose backward underflows")
+    torch.cuda.empty_cache()
+
+
+def amp_run(form, state, device, b, steps, extra=()):
+    """``steps`` steps of a form at batch ``b``, counts set to 0 just before
+    and read just after: losses, counts, path logs, launch dtypes, the
+    parameters after, and ``extra`` persistables (scale, counters) after
+    each step."""
+    run = StaticRun(form, state, device, b)
+    reset_counts()
+    reset_static_logs()
+    losses, seq = [], []
+    with LaunchDtypes() as seen:
+        for _ in range(steps):
+            losses.append(run.step()[0])
+            seq.append([run.scope.find_var(n).item() for n in extra])
+        torch.cuda.synchronize()
+    counts, paths = read_counts(), static_paths()
+    return dict(losses=[float(x) for x in losses], counts=counts,
+                paths=paths, dtypes=seen.seen, params=run.params(),
+                seq=seq)
+
+
+def amp_expect(n_layers, recompute=False):
+    """Launches a step of form (d): each layer's flash forward, dQ and
+    dK/dV and its two norms' forward and backward; recompute runs each
+    layer's forward again in the backward (its flash forward and its two
+    norms' forward)."""
+    again = 2 if recompute else 1
+    return dict(layer_norm_fwd=2 * n_layers * again,
+                layer_norm_bwd=2 * n_layers,
+                flash_attention_fwd=n_layers * again,
+                flash_attention_bwd_dq=n_layers,
+                flash_attention_bwd_dkv=n_layers,
+                flash_attention_fwd_copies=0)
+
+
+def check_amp_run(run, label, dtype, steps, recompute=False):
+    n_layers = STATIC_CFG["layers_n"]
+    per = amp_expect(n_layers, recompute)
+    want = {k: v * steps for k, v in per.items()}
+    attn, ln = run["paths"]
+    if run["counts"] != want:
+        fail(f"{label}: launches {run['counts']}, want {want}")
+    if attn != ["flash"] * (per["flash_attention_fwd"] * steps) or \
+            ln != ["kernel"] * (per["layer_norm_fwd"] * steps):
+        fail(f"{label}: path logs {sorted(set(attn))} x {len(attn)}, "
+             f"{sorted(set(ln))} x {len(ln)}")
+    dt = run["dtypes"]
+    if dt["flash_attention_fwd"] != {dtype} or \
+            dt["flash_attention_bwd"] != {dtype}:
+        fail(f"{label}: the flash kernels ran on {dt}, want {dtype}")
+    if dt["layer_norm_fwd"] != {"float32"} or \
+            dt["layer_norm_bwd"] != {"float32"}:
+        fail(f"{label}: the layer norms ran on {dt}, want float32 rows")
+    losses = run["losses"]
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"{label}: losses not finite or not falling: {losses}")
+    return per
+
+
+def check_overflow(device, state_of):
+    """(4) fp16 from a loss scale at which the backward overflows, at
+    B=OVERFLOW_B on the card and on the CPU port: each overflow step's
+    gradients are zero and its update ops still run (the beta powers
+    advance); the scale and the good/bad counters follow
+    update_loss_scaling's rule and equal the CPU port's sequence."""
+    import paddle_tpu_torch as pt
+    cpu = torch.device("cpu")
+    for exp in OVERFLOW_EXPONENTS:
+        form, names = amp_form(pt, "float16", init_loss_scaling=2.0 ** exp)
+        main = form[0]
+        found = next(n for n in main.global_block.vars
+                     if n.startswith("found_inf"))
+        grad = next(n for n in main.global_block.vars
+                    if n.endswith("@GRAD"))
+        b1p = next(n for n in main.global_block.vars
+                   if n.endswith("@Adam@beta1_pow"))
+        state = state_of(form)
+        feeds = [static_feed(OVERFLOW_B)]
+        fetch = [found, grad]
+        keep = (names["scale"], names["good"], names["bad"], b1p)
+        out = {}
+        for key, where in (("card", device), ("cpu", cpu)):
+            out[key], _ = program_steps(form, state, where, feeds, fetch,
+                                        OVERFLOW_STEPS, keep)
+        g = out["card"]
+        flags = [bool(r["fetch"][found]) for r in g]
+        if any(flags):
+            break
+    else:
+        fail(f"fp16 overflow: no step overflowed from 2^"
+             f"{OVERFLOW_EXPONENTS[-1]}")
+    seq = {w: [(float(r["after"][names["scale"]]),
+                int(r["after"][names["good"]]),
+                int(r["after"][names["bad"]])) for r in runs]
+           for w, runs in out.items()}
+    if seq["card"] != seq["cpu"]:
+        fail(f"fp16 overflow: scale/good/bad {seq['card']} on the card, "
+             f"{seq['cpu']} on the CPU port")
+    rule = expected_scales(2.0 ** exp, flags + [False], 1000, 2)[1:]
+    if [s for s, _, _ in seq["card"]] != rule:
+        fail(f"fp16 overflow: scales {seq['card']} against the rule {rule}")
+    for i, r in enumerate(g):
+        if flags[i] and float(r["fetch"][grad].abs().max()) != 0.0:
+            fail(f"fp16 overflow step {i + 1}: {grad} not zeroed")
+        if abs(float(r["after"][b1p]) - 0.9 ** (i + 2)) > 1e-6:
+            fail(f"fp16 overflow step {i + 1}: {b1p} "
+                 f"{float(r['after'][b1p])}, want 0.9^{i + 2}: the update "
+                 "did not run")
+    say("static-train", f"fp16 overflow run from 2^{exp} at "
+        f"B={OVERFLOW_B}: found_inf {flags}; scale/good/bad after each "
+        f"step {seq['card']} on the card and on the CPU port, the rule's "
+        f"scales {rule}; each overflow step's gradients zero and Adam's "
+        "beta powers advanced (the update ops ran)")
+
+
+def check_static_recompute(forms, states, device):
+    """(5) (d) with recompute segments against (d) without, one step each
+    at B=8 on the card: loss and every gradient, the launches, and the
+    peak memory of each."""
+    out = {}
+    for key in ("d", "d_remat"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = StaticRun(forms[key], states["d"], device, STATIC_B)
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        vals = run.step(grads=True)
+        torch.cuda.synchronize()
+        out[key] = dict(loss=vals[0].float().cpu(), counts=read_counts(),
+                        grads={n: v.cpu() for n, v in zip(run.grads,
+                                                          vals[1:])},
+                        peak=torch.cuda.max_memory_allocated() - base,
+                        recomputed=dict(run.exe.recomputed))
+        del run, vals
+    a, b = out["d"], out["d_remat"]
+    n_layers = STATIC_CFG["layers_n"]
+    if b["counts"] != amp_expect(n_layers, recompute=True) or \
+            a["counts"] != amp_expect(n_layers):
+        fail(f"recompute: launches {b['counts']} (without: {a['counts']})")
+    same = torch.equal(a["loss"], b["loss"]) and all(
+        torch.equal(a["grads"][n], b["grads"][n]) for n in a["grads"])
+    worst = max(float((a["grads"][n].float() - b["grads"][n].float())
+                      .abs().max()) for n in a["grads"])
+    if not same:
+        fail(f"recompute: loss {float(b['loss'])} / {float(a['loss'])}, "
+             f"gradients off by up to {worst}: not bitwise")
+    say("static-train", f"(d) bf16 with recompute segments (checkpoints at "
+        f"each layer's output) vs without, B={STATIC_B}: loss and all "
+        f"{len(a['grads'])} gradients bitwise equal; launches a step "
+        + ", ".join(f"{k} {v}" for k, v in b["counts"].items()) +
+        f" (without: flash fwd {a['counts']['flash_attention_fwd']}, "
+        f"layer norm fwd {a['counts']['layer_norm_fwd']}); ops re-run in the "
+        f"backward {sum(b['recomputed'].values())}; step memory peak "
+        f"{b['peak'] / 2**20:.1f} MiB with, {a['peak'] / 2**20:.1f} MiB "
+        "without (above the state)")
+    return {k: v["peak"] for k, v in out.items()}
+
+
+def time_flash_static(device, card):
+    """The bf16 and fp16 flash forward, dQ and dK/dV at form (d)'s call,
+    [8, 12, 128, 64] with no bias: kernel, bound, plain version, and SDPA's
+    forward and backward in the same dtype."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    b, h, s, d = STATIC_B, STATIC_CFG["heads"], STATIC_CFG["S"], \
+        STATIC_CFG["H"] // STATIC_CFG["heads"]
+    scale = 1.0 / math.sqrt(d)
+    records = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        sets = copies(lambda i: attn_inputs(b, h, s, s, d, dtype, device,
+                                            700 + i),
+                      3 * b * h * s * d * 2)
+        ms = device_ms([lambda x=x: FA.flash_attention_fwd(*x, None)
+                        for x in sets])
+        plain_ms = device_ms([lambda x=x: FA.attention_reference(
+            *x, None) for x in sets])
+        lib_ms = device_ms([lambda x=x: torch.nn.functional
+                            .scaled_dot_product_attention(*x, scale=scale)
+                            for x in sets])
+        nbytes, flops = attn_work(sets[0][0], sets[0][1], None, False)
+        bms, by = bound_ms(nbytes, flops, dtype)
+        name = str(dtype)[6:]
+        records[(name, "fwd")] = dict(ms=ms, plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound_ms=bms,
+                                      bound_by=by)
+        say("times", f"static {name} flash fwd [{b},{h},{s},{d}]: kernel "
+            f"{ms:.4f} ms, bound {bms:.4f} ms ({by}), plain {plain_ms:.4f} "
+            f"ms, SDPA {lib_ms:.4f} ms  [{card}]")
+        q, k, v, do = attn_grad_inputs(b, h, s, s, d, dtype, device,
+                                       "contiguous", 710)
+        o, lse = FA._launch_fwd(q, k, v, None, False, scale, None, None, 1.0)
+        args, grads, held = FA.bwd_args(do, q, k, v, o, lse, None, False,
+                                        scale, None, None, 1.0)
+        fns = {w: FA.bwd_kernel(w) for w in ("dq", "dkv")}
+        fns["dq"](*args, _build.stream_ptr(device))
+        ms = {w: device_ms([lambda f=f: f(*args, _build.stream_ptr(device))])
+              for w, f in fns.items()}
+        plain_ms = device_ms([lambda: FA.attention_backward_reference(
+            do, q, k, v, o, lse, None, False, scale, None, 1.0)], reps=3)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, scale=scale)
+        lib_ms = profiled_ms(lambda: torch.autograd.grad(
+            out, (ql, kl, vl), do, retain_graph=True))
+        for w in ("dq", "dkv"):
+            nbytes, flops = bwd_work(q, k, None, w)
+            bms, by = bound_ms(nbytes, flops, dtype)
+            records[(name, w)] = dict(ms=ms[w], plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound_ms=bms,
+                                      bound_by=by)
+            say("times", f"static {name} flash_bwd_{w} [{b},{h},{s},{d}]: "
+                f"kernel {ms[w]:.4f} ms, bound {bms:.4f} ms ({by}), plain "
+                f"backward {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms"
+                f"  [{card}]")
+        del held, grads, out, ql, kl, vl, sets
+    torch.cuda.empty_cache()
+    return records
+
+
+def run_static_train(device, card):
+    """Phase 11. Returns the main path's launch counts: STATIC_STEPS steps
+    of form (d) in bf16."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.passes import apply_pass
+    n_layers = STATIC_CFG["layers_n"]
+    t0 = time.perf_counter()
+    check_lenet(device, card)
+    check_rules(device)
+    say("static-train", f"LeNet and the update rules in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    c_main, c_startup, c_loss = build_bert_shaped(pt, **STATIC_CFG,
+                                                  norm_axis=2)
+    c_startup.random_seed = STATIC_SEED
+    forms = {"c": (apply_pass(c_main, "multihead_matmul_fuse"), c_startup,
+                   c_loss.name)}
+    names = {}
+    forms["d"], names["d"] = amp_form(pt, "bfloat16")
+    forms["d16"], names["d16"] = amp_form(pt, "float16")
+    forms["d_remat"], _ = amp_form(pt, "bfloat16", recompute=True)
+    states = {k: static_state(forms[k][1], device) for k in ("c", "d", "d16")}
+    shared = [n for n in states["c"] if n in states["d"] and "@" not in n]
+    if any(not np.array_equal(states["c"][n], states["d"][n])
+           for n in shared):
+        fail("static-train: forms (c) and (d) from one seed drew different "
+             "weights")
+    segs = next(op for op in forms["d_remat"][0].global_block.ops
+                if op.type == "backward").attr("remat_segments")
+    say("static-train", f"form (d) {STATIC_CFG}: ops "
+        + ", ".join(f"({k}) {len(v[0].global_block.ops)}"
+                    for k, v in forms.items()) +
+        f"; {len(segs)} recompute segments; built and started from seed "
+        f"{STATIC_SEED} in {time.perf_counter() - t0:.1f} s; {len(shared)} "
+        "weights equal across (c) and (d)")
+
+    t0 = time.perf_counter()
+    check_amp_step(forms, states, device)
+    say("static-train", f"one-step checks in {time.perf_counter() - t0:.1f} "
+        "s")
+
+    # the main path: ten bf16 steps of (d), counts set to 0 just before
+    t0 = time.perf_counter()
+    run = amp_run(forms["d"], states["d"], device, STATIC_B, STATIC_STEPS)
+    per = check_amp_run(run, "static-train (d) bf16 main path", "bfloat16",
+                        STATIC_STEPS)
+    again = amp_run(forms["d"], states["d"], device, STATIC_B, STATIC_STEPS)
+    diff = max(float((run["params"][n] - again["params"][n]).abs().max())
+               for n in run["params"])
+    if again["losses"] != run["losses"] or diff != 0.0:
+        fail(f"static-train (d) rerun: losses {again['losses']} against "
+             f"{run['losses']}, parameters off by up to {diff}")
+    say("static-train", f"(d) bf16 main path, {STATIC_STEPS} steps at "
+        f"B={STATIC_B}: losses " + " ".join(f"{v:.8f}" for v in
+                                            run["losses"]) +
+        "; launches a step " + ", ".join(f"{k} {v}" for k, v in per.items())
+        + f"; flash on {sorted(run['dtypes']['flash_attention_fwd'])}, "
+        f"layer norms on {sorted(run['dtypes']['layer_norm_fwd'])}; path "
+        f"logs {len(run['paths'][0])} x 'flash', {len(run['paths'][1])} x "
+        "'kernel'; a rerun from the same state is bitwise equal")
+    counts = run["counts"]
+    del run, again
+    torch.cuda.empty_cache()
+
+    n16 = names["d16"]
+    run = amp_run(forms["d16"], states["d16"], device, STATIC_B,
+                  STATIC_STEPS, (n16["scale"], n16["good"], n16["bad"]))
+    check_amp_run(run, "static-train (d) fp16", "float16", STATIC_STEPS)
+    say("static-train", f"(d) fp16 with dynamic loss scaling from 2^15, "
+        f"{STATIC_STEPS} steps at B={STATIC_B}: losses "
+        + " ".join(f"{v:.8f}" for v in run["losses"]) + "; scale/good/bad "
+        f"after each step {run['seq']}; flash on "
+        f"{sorted(run['dtypes']['flash_attention_fwd'])}, layer norms on "
+        f"{sorted(run['dtypes']['layer_norm_fwd'])}")
+    del run
+    torch.cuda.empty_cache()
+    say("static-train", f"bf16 and fp16 runs in {time.perf_counter() - t0:.1f}"
+        " s")
+    t0 = time.perf_counter()
+    check_overflow(device, lambda form: static_state(form[1], device))
+    say("static-train", f"overflow run in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    peaks = check_static_recompute(forms, states, device)
+    timed = {"(c) fp32": StaticRun(forms["c"], states["c"], device,
+                                   STATIC_B),
+             "(d) bf16": StaticRun(forms["d"], states["d"], device,
+                                   STATIC_B),
+             "(d) fp16": StaticRun(forms["d16"], states["d16"], device,
+                                   STATIC_B),
+             "(d) bf16 recompute": StaticRun(forms["d_remat"], states["d"],
+                                             device, STATIC_B)}
+    time_runs(timed, card, "static-train")
+    del timed
+    torch.cuda.empty_cache()
+    flash = time_flash_static(device, card)
+    say("static-train", f"recompute and times in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts, flash, peaks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -5167,8 +5957,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     (infer_fa, infer_ln), _ = run_inference(device, card)
 
-    # -- 11. records: launches are the serving, training, recipe, static,
-    # generation and inference runs
+    # -- 11. static-graph training: the main path's counts (ten bf16 steps
+    # of form (d)) set to 0 just before its run, read just after
+    torch.cuda.empty_cache()
+    train_static_counts, _, _ = run_static_train(device, card)
+
+    # -- 12. records: launches are the serving, training, recipe, static,
+    # generation, inference and static-training runs
     ln_rec = ln_times[(4096, 768, torch.float32)]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]
@@ -5179,7 +5974,8 @@ def main() -> int:
              replaces="paddle_tpu/kernels/layer_norm.py:33",
              launches=ln_total + train_counts["layer_norm_fwd"] +
              recipe_counts["layer_norm_fwd"] +
-             static_counts["layer_norm_fwd"] + sum(
+             static_counts["layer_norm_fwd"] +
+             train_static_counts["layer_norm_fwd"] + sum(
                  r["counts"]["layer_norm"] for r in gen_recs.values()) +
              infer_ln,
              max_abs_err=ln_err[(4096, 768, torch.float32, 1e-12)],
@@ -5189,7 +5985,8 @@ def main() -> int:
              replaces="paddle_tpu/kernels/layer_norm.py:46",
              launches=train_counts["layer_norm_bwd"] +
              recipe_counts["layer_norm_bwd"] +
-             static_counts["layer_norm_bwd"],
+             static_counts["layer_norm_bwd"] +
+             train_static_counts["layer_norm_bwd"],
              max_abs_err=ln_bwd_err[(16384, 768, torch.float32)],
              **ln_bwd_times[(16384, 768, torch.float32)]),
         dict(name="flash_attention_fwd", route="cuda",
@@ -5197,14 +5994,16 @@ def main() -> int:
              replaces="paddle_tpu/kernels/flash_attention.py:207",
              launches=fa_total + train_counts["flash_attention_fwd"] +
              recipe_counts["flash_attention_fwd"] +
-             static_counts["flash_attention_fwd"] + infer_fa,
+             static_counts["flash_attention_fwd"] +
+             train_static_counts["flash_attention_fwd"] + infer_fa,
              max_abs_err=fa_err[(*fa_key, "contiguous")], **fa_rec),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:364",
              launches=train_counts["flash_attention_bwd_dq"] +
              recipe_counts["flash_attention_bwd_dq"] +
-             static_counts["flash_attention_bwd_dq"],
+             static_counts["flash_attention_bwd_dq"] +
+             train_static_counts["flash_attention_bwd_dq"],
              max_abs_err=fa_bwd_err[(0, "dq")],
              **fa_bwd_times[(*bwd_key, "dq")]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
@@ -5212,7 +6011,8 @@ def main() -> int:
              replaces="paddle_tpu/kernels/flash_attention.py:413",
              launches=train_counts["flash_attention_bwd_dkv"] +
              recipe_counts["flash_attention_bwd_dkv"] +
-             static_counts["flash_attention_bwd_dkv"],
+             static_counts["flash_attention_bwd_dkv"] +
+             train_static_counts["flash_attention_bwd_dkv"],
              max_abs_err=max(fa_bwd_err[(0, "dk")], fa_bwd_err[(0, "dv")]),
              **fa_bwd_times[(*bwd_key, "dkv")]),
         dict(name="paged_attention", route="cuda",

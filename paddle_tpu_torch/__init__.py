@@ -15,9 +15,12 @@ re-exported here, as the JAX package does; ``layers`` builds programs and
 ``optimizer`` minimizes them. ``io`` saves and loads parameters and
 inference bundles in the JAX package's format, ``inference`` serves a
 bundle (``Config``, ``create_predictor``) and ``serving`` batches
-concurrent requests onto a Predictor (``PredictorPool``).
+concurrent requests onto a Predictor (``PredictorPool``). ``contrib``
+holds static mixed precision, and ``fluid`` is the Paddle 1.8 namespace
+(with the places ``CPUPlace``, ``CUDAPlace`` and ``TPUPlace``).
 """
-from .device import get_device, set_device  # noqa: F401
+from .device import (CPUPlace, CUDAPlace, TPUPlace,  # noqa: F401
+                     get_device, set_device)
 from .layers.helper import ParamAttr, seed  # noqa: F401
 from .core.backward import append_backward, gradients  # noqa: F401
 from .core.executor import Executor  # noqa: F401
@@ -30,3 +33,4 @@ from .io import (load, load_dygraph, load_inference_model,  # noqa: F401
                  load_params, load_persistables, save, save_dygraph,
                  save_inference_model, save_params, save_persistables)
 from . import inference, serving  # noqa: F401
+from . import contrib, fluid  # noqa: F401

@@ -4,8 +4,10 @@ Counterpart of ``paddle_tpu/core/backward.py``: one ``backward`` meta-op
 appended to the program, with the gradient vars ``<name>@GRAD``. The
 port's executor lowers it as one ``torch.autograd.grad`` call over the
 forward that already ran (``core/executor.py``), not as a replay.
-Recompute segments (``checkpoints=``) are not ported (``ROADMAP.md``
-A2b).
+``checkpoints=`` gives recompute segments, carried as op-index ranges in
+the op's ``remat_segments`` attr as in the JAX package
+(``_segments_from_checkpoints``); the executor runs each range under
+``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -31,11 +33,8 @@ def append_backward(loss, parameter_list: Optional[Sequence] = None,
                     ) -> List[Tuple[VarDesc, VarDesc]]:
     """Append the backward meta-op computing d(loss * loss_scale)/d(param)
     for every trainable float parameter (or ``parameter_list``, less
-    ``no_grad_set``); returns [(param, grad)]."""
-    if checkpoints:
-        raise NotImplementedError(
-            "append_backward(checkpoints=): recompute segments are not "
-            "ported yet (ROADMAP.md A2b)")
+    ``no_grad_set``); returns [(param, grad)]. ``checkpoints`` (vars or
+    names) end recompute segments."""
     program = program or default_main_program()
     block = program.global_block
     no_grad = {_var_name(v) for v in (no_grad_set or set())}
@@ -46,6 +45,8 @@ def append_backward(loss, parameter_list: Optional[Sequence] = None,
                   if v.trainable and not v.stop_gradient]
     params = [p for p in params if p not in no_grad
               and dtypes.is_float(block.var(p).dtype)]
+    segments = _segments_from_checkpoints(block, checkpoints) \
+        if checkpoints else []
     grad_names = []
     for p in params:
         pv = block.var(p)
@@ -58,7 +59,8 @@ def append_backward(loss, parameter_list: Optional[Sequence] = None,
         ins["LossScale"] = [loss_scale_var]
     block.append_op(BACKWARD_OP, inputs=ins, outputs={"Grads": grad_names},
                     attrs={"parameter_list": params,
-                           "loss_scale": loss_scale, "remat_segments": []})
+                           "loss_scale": loss_scale,
+                           "remat_segments": segments})
     return [(block.var(p), block.var(p + GRAD_SUFFIX)) for p in params]
 
 
@@ -95,3 +97,19 @@ def gradients(targets, inputs, target_gradients=None,
                     attrs={"parameter_list": input_names, "loss_scale": 1.0,
                            "remat_segments": []})
     return grads
+
+
+def _segments_from_checkpoints(block, checkpoints) -> List[List[int]]:
+    """Checkpoint vars as [start, end) op-index segments, each ending just
+    after the op that produces a checkpoint, as in the JAX package
+    (``paddle_tpu/core/backward.py:119``); a segment of one op is
+    dropped."""
+    names = [_var_name(c) for c in checkpoints]
+    boundaries = [i + 1 for i, op in enumerate(block.ops)
+                  if any(n in op.output_names() for n in names)]
+    segments, start = [], 0
+    for b in sorted(set(boundaries)):
+        if b - start > 1:
+            segments.append([start, b])
+        start = b
+    return segments

@@ -22,10 +22,25 @@ runs once with autograd recording, the ``backward`` op is one
 outputs into the scope's tensors in place. ``lowered`` counts each op
 type's lowerings in the last run: each op of the program once.
 
+Recompute segments (the backward op's ``remat_segments``, from
+``append_backward(checkpoints=)``) run each op range as one
+``torch.utils.checkpoint`` call (non-reentrant): the forward keeps only
+the segment's inputs and the outputs that later ops, the fetches or the
+scope need, and the backward runs the range again
+before the one autograd pass goes through it. A re-run is counted in
+``recomputed``, not in ``lowered``, and writes no persistable in place
+(the first run did). The random ops draw from the executor's explicit
+generator, which ``checkpoint`` does not restore, so a segment puts the
+generator back at the state it started from before it runs again and
+returns it to where it was after: a dropout inside a segment draws the
+same mask twice, and the gradients equal those without checkpoints. As in
+the JAX package, a program whose gradient targets include an
+intermediate var runs without its segments.
+
 Left out, raising where the JAX signature has them: ``CompiledProgram``
 and mesh plans (``ROADMAP.md`` A6), the program cache and AOT, lazy
-``FetchHandle`` fetches, ``train_from_dataset`` and recompute segments
-(A2b), and telemetry (A7).
+``FetchHandle`` fetches and ``train_from_dataset`` (A2b), and telemetry
+(A7).
 """
 from __future__ import annotations
 
@@ -34,6 +49,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from .. import ops  # noqa: F401  (registers the lowerings)
@@ -80,8 +96,10 @@ class Executor:
     def __init__(self, place=None):
         self.device = _device.resolve(place)
         self._seed_counter = 0
-        # op type -> lowerings in the last run
+        # op type -> lowerings in the last run, and re-runs of recompute
+        # segments' ops in its backward
         self.lowered: collections.Counter = collections.Counter()
+        self.recomputed: collections.Counter = collections.Counter()
 
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, Any]] = None,
@@ -106,7 +124,8 @@ class Executor:
         env, state, ctx = self.bind(program, feed, scope)
         persistable = {v.name for v in program.persistable_vars()}
         self.lowered = collections.Counter()
-        self._run_block(program, env, ctx)
+        self.recomputed = collections.Counter()
+        self._run_block(program, env, ctx, keep=set(fetch_names))
         for n, v in env.items():
             if n in persistable and v is not state.get(n):
                 scope.set(n, v.detach() if isinstance(v, torch.Tensor)
@@ -153,10 +172,12 @@ class Executor:
         return env, state, LowerCtx(self.device, generator=gen)
 
     def _run_block(self, program: Program, env: Dict[str, Any],
-                   ctx: LowerCtx) -> None:
+                   ctx: LowerCtx, keep=frozenset()) -> None:
         """Lower every op of the global block once: with autograd
-        recording up to the last ``backward`` op, under ``no_grad``
-        after it."""
+        recording up to the last ``backward`` op (its recompute segments
+        under ``checkpoint``, each keeping of the vars it writes only those
+        that a later op reads, the persistables and ``keep``, the
+        fetches), under ``no_grad`` after it."""
         ops_ = program.global_block.ops
         last_bwd = max((i for i, op in enumerate(ops_)
                         if op.type == BACKWARD_OP), default=-1)
@@ -168,18 +189,67 @@ class Executor:
                         mid.add(n)
                     elif _is_float(env[n]) and not env[n].requires_grad:
                         env[n] = env[n].detach().requires_grad_(True)
+        seg_end = {} if mid or last_bwd < 0 else {
+            s: e for s, e in ops_[last_bwd].attr("remat_segments", [])}
+        persistable = {v.name for v in program.persistable_vars()} \
+            if seg_end else set()
         with torch.enable_grad():
-            for i, op in enumerate(ops_[:last_bwd + 1]):
+            i = 0
+            while i <= last_bwd:
+                op = ops_[i]
                 if op.type == BACKWARD_OP:
                     self._lower_backward(op, env, retain=i < last_bwd)
+                    i += 1
+                elif i in seg_end:
+                    later = {n for op_ in ops_[seg_end[i]:]
+                             for n in op_.input_names()}
+                    self._run_segment(program, ops_[i:seg_end[i]], env, ctx,
+                                      later | persistable | set(keep))
+                    i = seg_end[i]
                 else:
                     self._lower_one(program, op, env, ctx, mid)
+                    i += 1
         with torch.no_grad():
             for op in ops_[last_bwd + 1:]:
                 self._lower_one(program, op, env, ctx)
 
+    def _run_segment(self, program: Program, seg_ops, env: Dict[str, Any],
+                     ctx: LowerCtx, needed) -> None:
+        """One recompute segment as a ``checkpoint`` call over the vars it
+        reads; the vars it writes that are ``needed`` enter ``env``, and
+        the rest are freed (the backward makes them again)."""
+        ins = sorted({n for op in seg_ops for n in op.input_names()
+                      if n in env})
+        outs = sorted({n for op in seg_ops for n in op.output_names()
+                       if n in needed})
+        gen = ctx._generator
+        start = gen.get_state() if gen is not None else None
+        runs = []
+
+        def segment(*vals):
+            again = bool(runs)
+            runs.append(1)
+            resume = None
+            if again and gen is not None:
+                resume = gen.get_state()
+                gen.set_state(start)
+            local = dict(env)
+            local.update(zip(ins, vals))
+            try:
+                for op in seg_ops:
+                    self._lower_one(program, op, local, ctx, again=again)
+            finally:
+                if resume is not None:
+                    gen.set_state(resume)
+            return tuple(local[n] for n in outs)
+
+        env.update(zip(outs, checkpoint(segment, *[env[n] for n in ins],
+                                         use_reentrant=False)))
+
     def _lower_one(self, program: Program, op: OpDesc, env: Dict[str, Any],
-                   ctx: LowerCtx, mid=frozenset()) -> None:
+                   ctx: LowerCtx, mid=frozenset(), again=False) -> None:
+        """Lower one op into ``env``; ``again`` marks a recompute
+        segment's re-run, which writes no persistable in place."""
         opdef = REGISTRY.get(op.type)
         ins = {slot: [env[n] for n in names]
                for slot, names in op.inputs.items() if names}
@@ -189,7 +259,7 @@ class Executor:
             e.add_note(f"while lowering op {op.type!r} "
                        f"(in={op.inputs}, out={op.outputs})")
             raise
-        self.lowered[op.type] += 1
+        (self.recomputed if again else self.lowered)[op.type] += 1
         block = program.global_block
         for slot, names in op.outputs.items():
             vals = outs.get(slot)
@@ -201,7 +271,7 @@ class Executor:
                     f"{slot} but {len(names)} outputs declared")
             target = opdef.inplace_map.get(slot)
             for j, (n, v) in enumerate(zip(names, vals)):
-                if target is not None:
+                if target is not None and not again:
                     # an update op: write into the input's tensor
                     dst = ins[target][j]
                     dst.detach().copy_(v)
@@ -223,10 +293,6 @@ class Executor:
         """d(loss * scale) / d(each of parameter_list) by one autograd
         pass over the forward that ran; a target the loss does not reach
         gets zeros, as ``jax.grad`` gives."""
-        if op.attr("remat_segments"):
-            raise NotImplementedError(
-                "backward with remat_segments: recompute segments are not "
-                "ported yet (ROADMAP.md A2b)")
         names = list(op.attr("parameter_list", []))
         loss = env[op.input("Loss")[0]]
         if loss.dim() != 0:

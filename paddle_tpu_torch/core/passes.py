@@ -16,9 +16,11 @@ pipeline (``inference.GpuPassStrategy``):
 - ``multihead_matmul_fuse``, which puts one ``multihead_matmul`` op (the
   flash kernels on the card) in place of each attention subgraph that
   ``layers.multi_head_attention`` builds.
+- ``amp_rewrite`` (:53), the casts of static mixed precision
+  (``contrib/mixed_precision.py`` ``rewrite_program``): attrs ``dtype``
+  (bfloat16 by default) and ``amp_lists``.
 A pass rewrites in place and returns the program (``test_prune`` returns
-a new one): run it on a clone to keep the original. ``amp_rewrite``
-raises naming ``ROADMAP.md`` A2b.
+a new one): run it on a clone to keep the original.
 """
 from __future__ import annotations
 
@@ -29,7 +31,6 @@ from .program import OpDesc, Program
 PassFn = Callable[[Program, dict], Program]
 
 _PASSES: Dict[str, PassFn] = {}
-_NOT_PORTED = ("amp_rewrite",)
 
 
 def register_pass(name: str):
@@ -43,9 +44,6 @@ def register_pass(name: str):
 
 def apply_pass(program: Program, name: str, **attrs) -> Program:
     """Apply one registered pass; returns the rewritten Program."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"pass {name!r} is not ported yet (ROADMAP.md A2b)")
     if name not in _PASSES:
         raise KeyError("unknown pass %r (have: %s)"
                        % (name, sorted(_PASSES)))
@@ -69,6 +67,16 @@ def _consumer_counts(ops):
             for n in names:
                 cnt[n] = cnt.get(n, 0) + 1
     return cnt
+
+
+@register_pass("amp_rewrite")
+def _amp_pass(program: Program, attrs: dict) -> Program:
+    from ..contrib.mixed_precision import (AutoMixedPrecisionLists,
+                                           rewrite_program)
+    rewrite_program(program, attrs.get("amp_lists") or
+                    AutoMixedPrecisionLists(),
+                    dest_dtype=attrs.get("dtype", "bfloat16"))
+    return program
 
 
 @register_pass("test_prune")

@@ -5,6 +5,13 @@ device is ``"gpu"``: code that is not told otherwise runs on the CUDA
 card, and raises a ``RuntimeError`` when there is none. It never falls
 back to the CPU silently; a caller that wants the CPU asks for ``"cpu"``
 (``set_device("cpu")`` or ``device="cpu"``), as the tests do.
+
+The places of Paddle 1.8 (``CPUPlace()``, ``CUDAPlace(n)``, and
+``TPUPlace``, which names the accelerator as the JAX package's
+``CUDAPlace = TPUPlace`` alias does) name a device wherever one is taken
+(``Executor(place)``): ``CPUPlace`` is the CPU and ``CUDAPlace(n)`` card
+n. This differs on purpose from the JAX package, whose places are tags
+that XLA's placement ignores (``ROADMAP.md`` §C).
 """
 from __future__ import annotations
 
@@ -14,7 +21,27 @@ import torch
 
 _DEVICE = "gpu"
 
-DeviceLike = Union[str, torch.device, None]
+DeviceLike = Union[str, torch.device, "CPUPlace", "CUDAPlace", None]
+
+
+class CPUPlace:
+    """The CPU."""
+
+    def __str__(self) -> str:
+        return "cpu"
+
+
+class CUDAPlace:
+    """CUDA card ``device_id``."""
+
+    def __init__(self, device_id: int = 0):
+        self.device_id = int(device_id)
+
+    def __str__(self) -> str:
+        return f"gpu:{self.device_id}"
+
+
+TPUPlace = CUDAPlace  # the accelerator, as the JAX package aliases it
 
 
 def _parse(device: Union[str, torch.device]) -> torch.device:

@@ -1,7 +1,8 @@
 """Graph-building layer functions of the static path: ``fc``, the conv
 net's ``conv2d``, ``pool2d`` and ``batch_norm``, the BERT-shaped
 program's, the BERT inference program's (``embedding``, ``dropout``,
-``scale``), the common ops' (``cast``, ``clip``, the ``reduce_*``
+``scale``), Fluid's MNIST LeNet's (``cross_entropy``, ``accuracy`` and
+``topk``), the common ops' (``cast``, ``clip``, the ``reduce_*``
 family), and the unary and binary op builders.
 
 Counterparts of the ``paddle_tpu/layers/nn.py`` functions whose ops the
@@ -25,7 +26,8 @@ __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
            "reduce_any", "reduce_all",
            "relu", "sigmoid", "tanh", "gelu", "exp", "sqrt", "abs", "square", "log", "softsign", "erf",
-           "softmax", "softmax_with_cross_entropy", "mean", "concat",
+           "softmax", "softmax_with_cross_entropy", "cross_entropy",
+           "accuracy", "topk", "mean", "concat",
            "reshape", "transpose", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_max",
            "elementwise_min", "elementwise_pow", "matmul", "mul",
@@ -275,6 +277,56 @@ def softmax_with_cross_entropy(logits: VarDesc, label: VarDesc,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def cross_entropy(input: VarDesc, label: VarDesc, soft_label: bool = False,
+                  ignore_index: int = -100,
+                  name: Optional[str] = None) -> VarDesc:
+    """The cross entropy of probabilities ``input`` (a softmax's output)
+    against ``label``."""
+    helper = LayerHelper("cross_entropy", name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("cross_entropy",
+                     inputs={"X": [input.name], "Label": [label.name]},
+                     outputs={"Y": [out.name]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
+def topk(input: VarDesc, k: int, name: Optional[str] = None):
+    """(values, int64 indices) of the k largest along the last axis."""
+    helper = LayerHelper("top_k", name)
+    out = helper.create_tmp_variable(input.dtype)
+    idx = helper.create_tmp_variable("int64", stop_gradient=True)
+    helper.append_op("top_k", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name], "Indices": [idx.name]},
+                     attrs={"k": k})
+    return out, idx
+
+
+def accuracy(input: VarDesc, label: VarDesc, k: int = 1,
+             name: Optional[str] = None) -> VarDesc:
+    """fluid.layers.accuracy: top_k, then the share of rows whose label is
+    among the k ids."""
+    helper = LayerHelper("accuracy", name)
+    topk_out = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    topk_idx = helper.create_tmp_variable("int64", stop_gradient=True)
+    helper.append_op("top_k", inputs={"X": [input.name]},
+                     outputs={"Out": [topk_out.name],
+                              "Indices": [topk_idx.name]},
+                     attrs={"k": k})
+    acc = helper.create_tmp_variable("float32", stop_gradient=True)
+    correct = helper.create_tmp_variable("int32", stop_gradient=True)
+    total = helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op("accuracy",
+                     inputs={"Out": [topk_out.name],
+                             "Indices": [topk_idx.name],
+                             "Label": [label.name]},
+                     outputs={"Accuracy": [acc.name],
+                              "Correct": [correct.name],
+                              "Total": [total.name]})
+    return acc
 
 
 def mean(x: VarDesc, name: Optional[str] = None) -> VarDesc:

@@ -1,6 +1,8 @@
-"""Dense math ops: ``matmul``, ``mul``, ``mean``.
+"""Dense math ops: ``matmul``, ``mul``, ``mean``, ``sum``,
+``squared_l2_norm`` and ``increment``.
 
-Counterparts of ``paddle_tpu/ops/math.py`` :18, :49 and :103. The
+Counterparts of ``paddle_tpu/ops/math.py`` :18, :49, :103, :87, :236 and
+:250. The
 products go to ``torch.matmul`` (cuBLAS on the card), as the JAX package
 leaves them to XLA; operands of two float dtypes promote first, as
 ``jnp.matmul`` promotes them (a bf16 Predictor's attention without the
@@ -61,6 +63,30 @@ def _mul(ctx, ins, attrs):
 @register_op("mean", inputs=("X",))
 def _mean(ctx, ins, attrs):
     return one(torch.mean(ins["X"][0]))
+
+
+@register_op("sum", inputs=("X",))
+def _sum(ctx, ins, attrs):
+    # the N inputs added in order, promoting as jnp does
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return one(out)
+
+
+@register_op("squared_l2_norm", inputs=("X",))
+def _squared_l2_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    return one(torch.sum(x * x))
+
+
+@register_op("increment", inputs=("X",))
+def _increment(ctx, ins, attrs):
+    # X's dtype kept: a float step on an integer counter adds its integer
+    x = ins["X"][0]
+    step = attrs.get("step", 1.0)
+    return one(x + (step if x.is_floating_point() else int(step)))
 
 
 @register_op("sum_of_sums", inputs=("X",))

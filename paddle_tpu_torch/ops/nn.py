@@ -1,10 +1,13 @@
 """Neural-net ops: ``conv2d``, ``depthwise_conv2d``, ``pool2d``,
-``softmax``, ``softmax_with_cross_entropy``, ``layer_norm``,
-``batch_norm``, ``sync_batch_norm``, ``dropout``, ``lookup_table`` and
+``softmax``, ``cross_entropy``, ``cross_entropy2``,
+``softmax_with_cross_entropy``, ``layer_norm``, ``batch_norm``,
+``sync_batch_norm``, ``dropout``, ``lookup_table`` and
 ``lookup_table_v2``.
 
-Counterparts of ``paddle_tpu/ops/nn.py`` :50, :62, :184, :210, :252,
-:415, :445, :994, :655, :851 and :866. The lookups are
+Counterparts of ``paddle_tpu/ops/nn.py`` :50, :62, :184, :210, :220,
+:241, :252, :415, :445, :994, :655, :851 and :866. ``cross_entropy``
+takes probabilities (a softmax's output) and adds 1e-12 inside the log,
+as the JAX op does. The lookups are
 ``nn/functional.py`` ``embedding``, whose gradient sums the rows of each
 id in one fixed order; the JAX package's ``FLAGS_embedding_onehot_grad``
 only picks a TPU formulation of that same sum, so either value gives the
@@ -35,8 +38,9 @@ import torch
 from ..core.registry import register_op
 from ..kernels import layer_norm as _ln_kernel
 from ..nn import functional as _F
-from .common import one
+from .common import one, xshape
 
+_CE_EPS = 1e-12
 
 def _conv_lowering(ctx, ins, attrs, groups):
     out = _F.conv(ins["Input"][0], ins["Filter"][0],
@@ -74,6 +78,39 @@ def _pool2d(ctx, ins, attrs):
 @register_op("softmax", inputs=("X",))
 def _softmax(ctx, ins, attrs):
     return one(torch.softmax(ins["X"][0], dim=attrs.get("axis", -1)))
+
+
+def _hard_label(x, label):
+    """A hard label as [..., 1] int64 indices into x's last axis (its
+    trailing 1 squeezed first when it has x's rank)."""
+    return (label.squeeze(-1) if label.dim() == x.dim() else label
+            ).unsqueeze(-1).long()
+
+
+@register_op("cross_entropy", inputs=("X", "Label"), outputs=("Y",),
+             non_diff_inputs=("Label",))
+def _cross_entropy(ctx, ins, attrs):
+    x, label = ins["X"][0], ins["Label"][0]
+    if attrs.get("soft_label", False):
+        return {"Y": [-torch.sum(label * torch.log(x + _CE_EPS), dim=-1,
+                                 keepdim=True)]}
+    lbl = _hard_label(x, label)
+    ignored = lbl == attrs.get("ignore_index", -100)
+    # an ignored label reads class 0 and is zeroed after (the JAX gather
+    # fills out-of-range reads, whose gradient it drops)
+    picked = torch.gather(x, -1, torch.where(ignored, torch.zeros_like(lbl),
+                                             lbl))
+    loss = -torch.log(picked + _CE_EPS)
+    return {"Y": [torch.where(ignored, torch.zeros_like(loss), loss)]}
+
+
+@register_op("cross_entropy2", inputs=("X", "Label"),
+             outputs=("Y", "XShape", "MatchX"), non_diff_inputs=("Label",))
+def _cross_entropy2(ctx, ins, attrs):
+    x, label = ins["X"][0], ins["Label"][0]
+    picked = torch.gather(x, -1, _hard_label(x, label))
+    return {"Y": [-torch.log(picked + _CE_EPS)], "XShape": [xshape(x)],
+            "MatchX": [picked]}
 
 
 @register_op("softmax_with_cross_entropy", inputs=("Logits", "Label"),

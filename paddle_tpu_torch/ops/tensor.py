@@ -1,6 +1,10 @@
-"""Tensor ops: ``reshape2``, ``transpose2``, ``concat``, ``fill_constant``.
+"""Tensor ops: ``reshape2``, ``transpose2``, ``concat``, ``top_k``,
+``fill_constant`` and ``assign``.
 
-Counterparts of ``paddle_tpu/ops/tensor.py`` :45, :59, :71 and :420.
+Counterparts of ``paddle_tpu/ops/tensor.py`` :45, :59, :71, :379, :420
+and :450. ``assign`` copies: the executor keeps a persistable's tensor
+as the scope's storage, so an assigned var (Lookahead's slow copy of a
+parameter) must not share it.
 """
 from __future__ import annotations
 
@@ -51,8 +55,21 @@ def _concat(ctx, ins, attrs):
     return one(torch.cat(ins["X"], dim=attrs.get("axis", 0)))
 
 
+@register_op("top_k", inputs=("X",), outputs=("Out", "Indices"),
+             non_diff_inputs=("Indices",))
+def _top_k(ctx, ins, attrs):
+    # the k largest along the last axis, largest first
+    vals, idx = torch.topk(ins["X"][0], attrs["k"], dim=-1, sorted=True)
+    return {"Out": [vals], "Indices": [idx]}
+
+
 @register_op("fill_constant", inputs=(), no_grad=True)
 def _fill_constant(ctx, ins, attrs):
     return one(torch.full(tuple(attrs["shape"]), attrs["value"],
                           dtype=to_torch_dtype(attrs.get("dtype", "float32")),
                           device=ctx.device))
+
+
+@register_op("assign", inputs=("X",))
+def _assign(ctx, ins, attrs):
+    return one(ins["X"][0].clone())

@@ -1,10 +1,11 @@
-"""Optimizers of the port: the dygraph side of ``paddle_tpu/optimizer``.
+"""Optimizers of the port: ``paddle_tpu/optimizer``'s eager and static
+sides.
 
 The exports of ``paddle_tpu/optimizer/__init__.py`` under the same names
 and aliases: the learning-rate schedulers (``lr_scheduler.py``), the
-gradient clips, the regularizers, every optimizer with an eager side,
-``DpSGD`` (whose update raises, ``ROADMAP.md`` A2b), the parameter
-averages and ``LookaheadOptimizer`` (static only, A2b).
+gradient clips, the regularizers, every optimizer (``DpSGD`` static only,
+as in the JAX package), the parameter averages (eager only; their static
+side is ``ROADMAP.md`` A2b) and ``LookaheadOptimizer`` (static only).
 ``DGCMomentumOptimizer``, ``PipelineOptimizer`` and ``RecomputeOptimizer``
 belong to the distributed runtime and raise (A6).
 """

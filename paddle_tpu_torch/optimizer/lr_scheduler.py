@@ -19,16 +19,21 @@ divides, so ``_div`` divides by a filled tensor. ``Piecewise`` and
 does.
 
 The classes keep the JAX package's names and arguments. ``lr_at(step)``
-is the eager side of each; ``_build`` (the static Program side) is not
-ported (``ROADMAP.md`` A2b). ``ReduceLROnPlateau`` keeps its state on the
-host as the reference does: ``step(metric)`` changes ``learning_rate``,
-which the next optimizer step reads.
+is the eager side of each; ``_build`` is the static Program side, as in
+the JAX package: a persistable integer step var filled with 0 in the
+startup program, and one ``lr_schedule`` op (``ops/optimizers.py``) that
+computes the learning rate var from it and advances it by one.
+``ReduceLROnPlateau`` keeps its state on the host as the reference does:
+``step(metric)`` changes ``learning_rate``, which the next optimizer step
+reads.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+STEP_VAR = "@lr_global_step@"
 
 __all__ = ["lr_schedule", "LRScheduler", "ExponentialDecay",
            "NaturalExpDecay", "InverseTimeDecay", "PolynomialDecay",
@@ -141,10 +146,25 @@ class LRScheduler:
         0-d tensor on its device."""
         return lr_schedule(self._attrs(), step)
 
-    def _build(self, program, startup):
-        raise NotImplementedError(
-            f"{type(self).__name__}: the static Program side of the "
-            "schedulers is not ported yet (ROADMAP.md A2b)")
+    def _build(self, program, startup) -> str:
+        """Append the schedule to ``program`` (its step's fill to
+        ``startup``); returns the name of the learning-rate var."""
+        block = program.global_block
+        step_name = program._unique_name(STEP_VAR)
+        lr_name = program._unique_name("@lr@")
+        for prog in (program, startup):
+            prog.global_block.create_var(step_name, shape=(), dtype="int64",
+                                         persistable=True,
+                                         stop_gradient=True)
+        block.create_var(lr_name, shape=(), dtype="float32",
+                         stop_gradient=True, persistable=True)
+        startup.global_block.append_op(
+            "fill_constant", inputs={}, outputs={"Out": [step_name]},
+            attrs={"shape": [], "value": 0, "dtype": "int64"})
+        block.append_op("lr_schedule", inputs={"Step": [step_name]},
+                        outputs={"Out": [lr_name], "StepOut": [step_name]},
+                        attrs=self._attrs())
+        return lr_name
 
 
 class ExponentialDecay(LRScheduler):

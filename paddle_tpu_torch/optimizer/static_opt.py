@@ -3,10 +3,12 @@ with its eager contract and its static side, the update rules, and the
 parameter averages.
 
 Counterparts of ``paddle_tpu/optimizer/static_opt.py`` (each class's
-eager ``step`` / ``minimize`` / ``eager_apply``) with the update rules of
-its op lowerings ``paddle_tpu/ops/optimizers.py`` written out in torch, in
-the same order of operations, under the accumulator names of each class's
-``_eager_spec``. ``Optimizer.step()`` is, as in the JAX package:
+eager ``step`` / ``minimize`` / ``eager_apply``). The eager step of a
+class runs its update op's lowering (``ops/optimizers.py``, the JAX
+formulas in the same order of operations) on each parameter, under the
+accumulator names of the JAX class's ``_eager_spec``; Lamb and
+LarsMomentum take their norms for all the parameters at once instead.
+``Optimizer.step()`` is, as in the JAX package:
 
     clip (one global norm for ``GradientClipByGlobalNorm``), cast each
     gradient to its parameter's dtype, regularize, update; then the step
@@ -24,26 +26,29 @@ the learning rate is a float32 0-d tensor (a fill, or a schedule of the
 step, ``lr_scheduler.py``), and the reductions that XLA fuses into one
 pass over all gradients (the global norm, Lamb's and LARS's norms) are
 ``torch._foreach_*`` calls, so they do not add a launch a parameter. The
-elementwise rules stay per parameter, in the lowerings' order. The JAX
-update is no Pallas kernel, so none is written here.
+JAX update is no Pallas kernel, so none is written here.
 
 ``weight_decay=`` on the base class is ``L2Decay`` (added to the
 gradient); on ``AdamW`` it is the decoupled decay of the ``adamw`` op.
 
 The static side (``minimize`` on a Program's loss var,
 ``apply_gradients``, ``set_lr``) is the JAX package's: ``minimize``
-appends the ``backward`` op, the learning rate is a persistable float32
-var filled in the startup program, each accumulator a persistable var
-``<param>@<optimizer name>@<accumulator>`` filled there, and each
-parameter gets one update op (``ops/optimizers.py``). SGD, Momentum, Adam
-and AdamW have it.
+appends the ``backward`` op, then ``apply_gradients`` the clip's ops
+(``GradientClipBy*.apply``), each parameter's regularizer ops
+(``L2Decay``/``L1Decay.apply``) and one update op a parameter
+(``ops/optimizers.py``); the learning rate is a persistable float32 var
+filled in the startup program, or a scheduler's ``lr_schedule`` op
+(``lr_scheduler.py``), and each accumulator a persistable var
+``<param>@<optimizer name>@<accumulator>`` filled there. Every update
+rule has it. ``LookaheadOptimizer`` is static only, as in the reference:
+its slow weights follow the fast ones through a branchless gate of
+elementwise ops.
 
 Not ported, and raising ``NotImplementedError`` that names the queue
-(``ROADMAP.md`` A2b): the static side of the other classes, of the clips,
-the regularizers and the schedulers (``grad_clip`` or ``regularization``
-on a Program, ``apply``, ``_build``), ``LookaheadOptimizer``, which is
-static only, ``DpSGD``'s ``dpsgd`` update, and ``SelectedRows``
-gradients (with ``core/selected_rows.py``).
+(``ROADMAP.md`` A2b): the static side of the parameter averages
+(``ExponentialMovingAverage``, ``ModelAverage``) and ``SelectedRows``
+gradients (with ``core/selected_rows.py``). ``DpSGD`` has no eager step,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -80,8 +85,18 @@ def _norms(tensors) -> torch.Tensor:
 
 
 class GradClipBase:
-    def apply(self, block, params_grads):
-        raise NotImplementedError(f"{type(self).__name__}.apply: {_STATIC}")
+    """A clip's static side, ``apply(block, params_grads)``: the ops that
+    clip each gradient into ``<grad>@CLIP``, appended to ``block``;
+    returns [(param, clipped grad var)]."""
+
+    def _clipped(self, block, params_grads, op_type, attrs):
+        out = []
+        for p, g in params_grads:
+            clipped = block.create_var(g.name + "@CLIP", stop_gradient=True)
+            block.append_op(op_type, inputs={"X": [g.name]},
+                            outputs={"Out": [clipped.name]}, attrs=attrs)
+            out.append((p, clipped))
+        return out
 
 
 class GradientClipByValue(GradClipBase):
@@ -91,6 +106,10 @@ class GradientClipByValue(GradClipBase):
     def __init__(self, max, min=None):
         self.max = max
         self.min = -max if min is None else min
+
+    def apply(self, block, params_grads):
+        return self._clipped(block, params_grads, "clip",
+                             {"min": self.min, "max": self.max})
 
     def eager_apply(self, pgs):
         """[(param, grad)] -> [(param, clipped grad)]."""
@@ -109,6 +128,10 @@ class GradientClipByNorm(GradClipBase):
     def __init__(self, clip_norm):
         self.clip_norm = clip_norm
 
+    def apply(self, block, params_grads):
+        return self._clipped(block, params_grads, "clip_by_norm",
+                             {"max_norm": self.clip_norm})
+
     def eager_apply(self, pgs):
         if not pgs:
             return []
@@ -126,6 +149,42 @@ class GradientClipByGlobalNorm(GradClipBase):
 
     def __init__(self, clip_norm):
         self.clip_norm = clip_norm
+
+    def apply(self, block, params_grads):
+        """squared_l2_norm of each gradient, their sum, its sqrt, and each
+        gradient times clip_norm / max(global norm, clip_norm)."""
+        def var(name):
+            return block.create_var(name, stop_gradient=True).name
+
+        sq_names = []
+        for _, g in params_grads:
+            sq = var(g.name + "@SQN")
+            block.append_op("squared_l2_norm", inputs={"X": [g.name]},
+                            outputs={"Out": [sq]})
+            sq_names.append(sq)
+        total = var("@global_norm_sq@" + params_grads[0][1].name)
+        block.append_op("sum", inputs={"X": sq_names},
+                        outputs={"Out": [total]})
+        gnorm = var(total + "@SQRT")
+        block.append_op("sqrt", inputs={"X": [total]},
+                        outputs={"Out": [gnorm]})
+        denom, cn = var(total + "@DEN"), var(total + "@CN")
+        block.append_op("fill_constant", inputs={}, outputs={"Out": [cn]},
+                        attrs={"shape": [], "value": float(self.clip_norm),
+                               "dtype": "float32"})
+        block.append_op("elementwise_max", inputs={"X": [gnorm], "Y": [cn]},
+                        outputs={"Out": [denom]})
+        factor = var(total + "@FACTOR")
+        block.append_op("elementwise_div", inputs={"X": [cn], "Y": [denom]},
+                        outputs={"Out": [factor]})
+        out = []
+        for p, g in params_grads:
+            clipped = block.create_var(g.name + "@CLIP", stop_gradient=True)
+            block.append_op("elementwise_mul",
+                            inputs={"X": [g.name], "Y": [factor]},
+                            outputs={"Out": [clipped.name]})
+            out.append((p, clipped))
+        return out
 
     def factor(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The clip factor, a float32 0-d tensor on the gradients' device."""
@@ -147,8 +206,19 @@ class L2Decay:
     def __init__(self, regularization_coeff: float = 0.0):
         self.coeff = regularization_coeff
 
+    def _summed(self, block, g, term):
+        out = block.create_var(g.name + "@REG", stop_gradient=True)
+        block.append_op("sum", inputs={"X": [g.name, term]},
+                        outputs={"Out": [out.name]})
+        return out
+
     def apply(self, block, p, g):
-        raise NotImplementedError(f"{type(self).__name__}.apply: {_STATIC}")
+        """The ops of grad + coeff * param, into ``<grad>@REG``."""
+        scaled = block.create_var(g.name + "@L2", stop_gradient=True)
+        block.append_op("scale", inputs={"X": [p.name]},
+                        outputs={"Out": [scaled.name]},
+                        attrs={"scale": self.coeff})
+        return self._summed(block, g, scaled.name)
 
     def eager_apply(self, params: List[torch.Tensor],
                     grads: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -160,6 +230,16 @@ class L2Decay:
 
 class L1Decay(L2Decay):
     """fluid.regularizer.L1Decay: grad + coeff * sign(param)."""
+
+    def apply(self, block, p, g):
+        sg = block.create_var(g.name + "@SIGN", stop_gradient=True)
+        block.append_op("sign", inputs={"X": [p.name]},
+                        outputs={"Out": [sg.name]})
+        scaled = block.create_var(g.name + "@L1", stop_gradient=True)
+        block.append_op("scale", inputs={"X": [sg.name]},
+                        outputs={"Out": [scaled.name]},
+                        attrs={"scale": self.coeff})
+        return self._summed(block, g, scaled.name)
 
     def eager_apply(self, params, grads):
         return torch._foreach_add(grads, torch._foreach_mul(
@@ -319,8 +399,9 @@ class Optimizer:
         return key
 
     def _append_optimize_op(self, block, param, grad, lr, program, startup):
-        raise NotImplementedError(f"{self._name}.minimize on a Program: "
-                                  f"{_STATIC}")
+        """Append the update op of (param, grad) at learning rate var
+        ``lr``, with its accumulators' vars and their fills."""
+        raise NotImplementedError
 
     # -- the update -------------------------------------------------------
     # the update op the static side appends, and its accumulator slots as
@@ -339,12 +420,14 @@ class Optimizer:
         into ``state``."""
         from .. import ops  # noqa: F401  (registers the lowerings)
         from ..core.registry import REGISTRY
+        opdef = REGISTRY.get(self._op_type)
         ins = {"Param": [param], "Grad": [grad], "LearningRate": [lr]}
         ins.update({slot: [state[key]] for slot, key in self._op_slots})
-        outs = REGISTRY.get(self._op_type).lower(None, ins, self._op_attrs())
+        outs = opdef.lower(None, ins, self._op_attrs())
         param.copy_(outs["ParamOut"][0])
+        out_of = {slot: out for out, slot in opdef.inplace_map.items()}
         for slot, key in self._op_slots:
-            state[key] = outs[slot + "Out"][0]
+            state[key] = outs[out_of[slot]][0]
 
     def _update_all(self, params, grads, lrs) -> None:
         for p, g in zip(params, grads):
@@ -409,16 +492,18 @@ class Optimizer:
         return None, []
 
     def apply_gradients(self, params_grads, program=None, startup=None):
-        """Append one update op a (param, grad) pair to ``program`` and
-        the learning rate's and accumulators' initializers to
-        ``startup``."""
-        if self.grad_clip is not None or self.regularization is not None:
-            raise NotImplementedError(
-                f"{self._name}: grad_clip or regularization on a Program: "
-                f"{_STATIC}")
+        """Append the clip's and the regularizer's ops and one update op a
+        (param, grad) pair to ``program``, and the learning rate's and
+        accumulators' initializers to ``startup``; returns the pairs as
+        updated (the clipped, regularized gradient vars)."""
         program = program or default_main_program()
         startup = startup or default_startup_program()
         block = program.global_block
+        if self.grad_clip is not None:
+            params_grads = self.grad_clip.apply(block, params_grads)
+        if self.regularization is not None:
+            params_grads = [(p, _as_var(block, self.regularization.apply(
+                block, p, _as_var(block, g)))) for p, g in params_grads]
         lr = self._create_global_learning_rate(program, startup)
         for p, g in params_grads:
             self._append_optimize_op(block, _as_var(block, p),
@@ -499,7 +584,10 @@ class Momentum(Optimizer):
 
 
 class LarsMomentum(Optimizer):
-    """The ``lars_momentum`` op: a local rate from ||p|| and ||g||."""
+    """The ``lars_momentum`` op: a local rate from ||p|| and ||g||. The
+    eager step takes every norm in one ``_foreach_norm`` pass."""
+
+    _op_type = "lars_momentum"
 
     def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
                  lars_weight_decay=0.0005, **kw):
@@ -510,6 +598,19 @@ class LarsMomentum(Optimizer):
 
     def _accumulator_spec(self):
         return [("velocity", 0.0, False)]
+
+    def _op_attrs(self):
+        return {"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                "lars_weight_decay": self._lars_weight_decay}
+
+    def _append_optimize_op(self, block, param, grad, lr, program, startup):
+        vel = self._add_accumulator("velocity", param, program, startup)
+        block.append_op(
+            "lars_momentum",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "Velocity": [vel], "LearningRate": [lr]},
+            outputs={"ParamOut": [param.name], "VelocityOut": [vel]},
+            attrs=self._op_attrs())
 
     def _update_all(self, params, grads, lrs):
         mu, coeff, wd = (self._momentum, self._lars_coeff,
@@ -580,15 +681,19 @@ class AdamW(Adam):
 
 class Lamb(Adam):
     """The ``lamb`` op: the Adam direction plus decay, scaled by the trust
-    ratio ||p|| / ||update|| over the whole tensor."""
+    ratio ||p|| / ||update|| over the whole tensor. The eager step takes
+    the trust ratios of all the parameters in one ``_foreach_norm``
+    pass."""
+
+    _op_type = "lamb"
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, **kw):
         super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
         self._weight_decay = lamb_weight_decay
 
-    # the lamb lowering is not ported: no static side yet
-    _append_optimize_op = Optimizer._append_optimize_op
+    def _op_attrs(self):
+        return dict(super()._op_attrs(), weight_decay=self._weight_decay)
 
     def _update_all(self, params, grads, lrs):
         b1, b2, eps, wd = (self._beta1, self._beta2, self._epsilon,
@@ -614,8 +719,22 @@ class Lamb(Adam):
             state["beta2_pow"] = state["beta2_pow"] * b2
 
 
+def _moment_op(block, op_type, param, grad, mom, lr, attrs):
+    """The update op of the adagrad family: Param, Grad, Moment and
+    LearningRate in; ParamOut and MomentOut written back."""
+    block.append_op(
+        op_type,
+        inputs={"Param": [param.name], "Grad": [grad.name],
+                "Moment": [mom], "LearningRate": [lr]},
+        outputs={"ParamOut": [param.name], "MomentOut": [mom]},
+        attrs=attrs)
+
+
 class Adagrad(Optimizer):
     """The ``adagrad`` op."""
+
+    _op_type = "adagrad"
+    _op_slots = (("Moment", "moment"),)
 
     def __init__(self, learning_rate, epsilon=1e-6,
                  initial_accumulator_value=0.0, **kw):
@@ -626,14 +745,21 @@ class Adagrad(Optimizer):
     def _accumulator_spec(self):
         return [("moment", self._init_value, False)]
 
-    def _update(self, param, grad, lr, state):
-        m = state["moment"] + grad * grad
-        param.copy_(param - lr * grad / (torch.sqrt(m) + self._epsilon))
-        state["moment"] = m
+    def _op_attrs(self):
+        return {"epsilon": self._epsilon}
+
+    def _append_optimize_op(self, block, param, grad, lr, program, startup):
+        mom = self._add_accumulator("moment", param, program, startup,
+                                    fill_value=self._init_value)
+        _moment_op(block, self._op_type, param, grad, mom, lr,
+                   self._op_attrs())
 
 
 class DecayedAdagrad(Optimizer):
     """The ``decayed_adagrad`` op."""
+
+    _op_type = "decayed_adagrad"
+    _op_slots = (("Moment", "moment"),)
 
     def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
         super().__init__(learning_rate, **kw)
@@ -642,15 +768,21 @@ class DecayedAdagrad(Optimizer):
     def _accumulator_spec(self):
         return [("moment", 0.0, False)]
 
-    def _update(self, param, grad, lr, state):
-        d = self._decay
-        m = d * state["moment"] + (1 - d) * grad * grad
-        param.copy_(param - lr * grad / (torch.sqrt(m) + self._epsilon))
-        state["moment"] = m
+    def _op_attrs(self):
+        return {"decay": self._decay, "epsilon": self._epsilon}
+
+    def _append_optimize_op(self, block, param, grad, lr, program, startup):
+        mom = self._add_accumulator("moment", param, program, startup)
+        _moment_op(block, self._op_type, param, grad, mom, lr,
+                   self._op_attrs())
 
 
 class Adamax(Optimizer):
     """The ``adamax`` op."""
+
+    _op_type = "adamax"
+    _op_slots = (("Moment", "moment"), ("InfNorm", "inf_norm"),
+                 ("Beta1Pow", "beta1_pow"))
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -661,19 +793,30 @@ class Adamax(Optimizer):
         return [("moment", 0.0, False), ("inf_norm", 0.0, False),
                 ("beta1_pow", self._beta1, True)]
 
-    def _update(self, param, grad, lr, state):
-        b1, b2 = self._beta1, self._beta2
-        m = b1 * state["moment"] + (1 - b1) * grad
-        inf = torch.maximum(b2 * state["inf_norm"],
-                            torch.abs(grad) + self._epsilon)
-        b1p = state["beta1_pow"]
-        param.copy_(param - (lr / (1 - b1p)) * m / inf)
-        state["moment"], state["inf_norm"] = m, inf
-        state["beta1_pow"] = b1p * b1
+    def _op_attrs(self):
+        return {"beta1": self._beta1, "beta2": self._beta2,
+                "epsilon": self._epsilon}
+
+    def _append_optimize_op(self, block, param, grad, lr, program, startup):
+        mom = self._add_accumulator("moment", param, program, startup)
+        inf = self._add_accumulator("inf_norm", param, program, startup)
+        b1p = self._add_accumulator("beta1_pow", param, program, startup,
+                                    fill_value=self._beta1, shape=())
+        block.append_op(
+            "adamax",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "LearningRate": [lr], "Moment": [mom], "InfNorm": [inf],
+                    "Beta1Pow": [b1p]},
+            outputs={"ParamOut": [param.name], "MomentOut": [mom],
+                     "InfNormOut": [inf], "Beta1PowOut": [b1p]},
+            attrs=self._op_attrs())
 
 
 class Adadelta(Optimizer):
     """The ``adadelta`` op (it takes no learning rate)."""
+
+    _op_type = "adadelta"
+    _op_slots = (("AvgSquaredGrad", "asg"), ("AvgSquaredUpdate", "asu"))
 
     def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
         super().__init__(learning_rate, **kw)
@@ -682,17 +825,29 @@ class Adadelta(Optimizer):
     def _accumulator_spec(self):
         return [("asg", 0.0, False), ("asu", 0.0, False)]
 
-    def _update(self, param, grad, lr, state):
-        rho, eps = self._rho, self._epsilon
-        asg = rho * state["asg"] + (1 - rho) * grad * grad
-        update = -torch.sqrt((state["asu"] + eps) / (asg + eps)) * grad
-        state["asu"] = rho * state["asu"] + (1 - rho) * update * update
-        state["asg"] = asg
-        param.copy_(param + update)
+    def _op_attrs(self):
+        return {"rho": self._rho, "epsilon": self._epsilon}
+
+    def _append_optimize_op(self, block, param, grad, lr, program, startup):
+        asg = self._add_accumulator("avg_squared_grad", param, program,
+                                    startup)
+        asu = self._add_accumulator("avg_squared_update", param, program,
+                                    startup)
+        block.append_op(
+            "adadelta",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "AvgSquaredGrad": [asg], "AvgSquaredUpdate": [asu]},
+            outputs={"ParamOut": [param.name], "AvgSquaredGradOut": [asg],
+                     "AvgSquaredUpdateOut": [asu]},
+            attrs=self._op_attrs())
 
 
 class RMSProp(Optimizer):
     """The ``rmsprop`` op, centered or not."""
+
+    _op_type = "rmsprop"
+    _op_slots = (("MeanSquare", "mean_square"), ("MeanGrad", "mean_grad"),
+                 ("Moment", "moment"))
 
     def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
                  centered=False, **kw):
@@ -704,24 +859,30 @@ class RMSProp(Optimizer):
         return [("mean_square", 0.0, False), ("mean_grad", 0.0, False),
                 ("moment", 0.0, False)]
 
-    def _update(self, param, grad, lr, state):
-        rho, eps = self._rho, self._epsilon
-        ms = rho * state["mean_square"] + (1 - rho) * grad * grad
-        if self._centered:
-            mg = rho * state["mean_grad"] + (1 - rho) * grad
-            denom = ms - mg * mg + eps
-        else:
-            mg = state["mean_grad"]
-            denom = ms + eps
-        mom = self._momentum * state["moment"] + lr * grad / torch.sqrt(
-            denom)
-        param.copy_(param - mom)
-        state["mean_square"], state["mean_grad"] = ms, mg
-        state["moment"] = mom
+    def _op_attrs(self):
+        return {"decay": self._rho, "epsilon": self._epsilon,
+                "momentum": self._momentum, "centered": self._centered}
+
+    def _append_optimize_op(self, block, param, grad, lr, program, startup):
+        ms = self._add_accumulator("mean_square", param, program, startup)
+        mg = self._add_accumulator("mean_grad", param, program, startup)
+        mom = self._add_accumulator("momentum", param, program, startup)
+        block.append_op(
+            "rmsprop",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "MeanSquare": [ms], "MeanGrad": [mg], "Moment": [mom],
+                    "LearningRate": [lr]},
+            outputs={"ParamOut": [param.name], "MomentOut": [mom],
+                     "MeanSquareOut": [ms], "MeanGradOut": [mg]},
+            attrs=self._op_attrs())
 
 
 class Ftrl(Optimizer):
     """The ``ftrl`` op."""
+
+    _op_type = "ftrl"
+    _op_slots = (("SquaredAccumulator", "squared"),
+                 ("LinearAccumulator", "linear"))
 
     def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
         super().__init__(learning_rate, **kw)
@@ -730,36 +891,40 @@ class Ftrl(Optimizer):
     def _accumulator_spec(self):
         return [("squared", 0.0, False), ("linear", 0.0, False)]
 
-    def _update(self, param, grad, lr, state):
-        sq, power = state["squared"], self._lr_power
-        new_sq = sq + grad * grad
-        if power == -0.5:
-            root_new = torch.sqrt(new_sq)
-            sigma = (root_new - torch.sqrt(sq)) / lr
-        else:
-            root_new = torch.pow(new_sq, -power)
-            sigma = (root_new - torch.pow(sq, -power)) / lr
-        lin = state["linear"] + grad - sigma * param
-        x = self._l2 + root_new / lr
-        pre = torch.clamp(lin, -self._l1, self._l1) - lin
-        param.copy_(pre / x)
-        state["squared"], state["linear"] = new_sq, lin
+    def _op_attrs(self):
+        return {"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power}
+
+    def _append_optimize_op(self, block, param, grad, lr, program, startup):
+        sq = self._add_accumulator("squared", param, program, startup)
+        lin = self._add_accumulator("linear", param, program, startup)
+        block.append_op(
+            "ftrl",
+            inputs={"Param": [param.name], "SquaredAccumulator": [sq],
+                    "LinearAccumulator": [lin], "Grad": [grad.name],
+                    "LearningRate": [lr]},
+            outputs={"ParamOut": [param.name], "SquaredAccumOut": [sq],
+                     "LinearAccumOut": [lin]},
+            attrs=self._op_attrs())
 
 
 class DpSGD(Optimizer):
-    """DpSGD: the class and its arguments. Its update is the ``dpsgd``
-    lowering, which comes with the static side; ``step()`` raises as the
-    JAX package's eager step does."""
+    """The ``dpsgd`` op: SGD on the gradient clipped to norm ``clip``
+    plus Gaussian noise of scale ``sigma clip / batch_size``. Static only:
+    ``step()`` raises, as the JAX package's eager step does."""
 
     def __init__(self, learning_rate, clip=10.0, batch_size=16.0, sigma=1.0,
                  **kw):
         super().__init__(learning_rate, **kw)
         self._clip, self._batch_size, self._sigma = clip, batch_size, sigma
 
-    def _accumulator_spec(self):
-        raise NotImplementedError(
-            "DpSGD has no eager implementation; its dpsgd update comes "
-            "with the static side (ROADMAP.md A2b)")
+    def _append_optimize_op(self, block, param, grad, lr, program, startup):
+        block.append_op(
+            "dpsgd",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "LearningRate": [lr]},
+            outputs={"ParamOut": [param.name]},
+            attrs={"clip": self._clip, "batch_size": self._batch_size,
+                   "sigma": self._sigma})
 
 
 SGDOptimizer = SGD
@@ -920,9 +1085,15 @@ class ModelAverage(_Swap):
 
 
 class LookaheadOptimizer:
-    """fluid.optimizer.LookaheadOptimizer: static only in the reference
-    (its dygraph minimize raises), so ``minimize`` raises here until the
-    static side is ported (``ROADMAP.md`` A2b)."""
+    """fluid.optimizer.LookaheadOptimizer: the inner optimizer advances
+    the fast parameters every step; every k steps the slow parameters
+    catch up, slow += alpha (fast - slow), and the fast ones reset to
+    them. At step 1 the slow parameters are re-based to the once-updated
+    fast ones (the reference Switch's first case), and only that case
+    runs. The sync is branchless, as in the JAX package: 0/1 gates from
+    ``increment``, ``elementwise_mod``, ``equal`` and ``cast`` scale the
+    elementwise updates. Static only: under dygraph ``minimize`` raises
+    the JAX package's RuntimeError."""
 
     def __init__(self, inner_optimizer, alpha=0.5, k=5):
         if inner_optimizer is None:
@@ -939,5 +1110,92 @@ class LookaheadOptimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, program=None):
-        raise NotImplementedError(f"LookaheadOptimizer is static only; "
-                                  f"{_STATIC}")
+        if not isinstance(loss, VarDesc):
+            raise RuntimeError(
+                "In dygraph, don't support LookaheadOptimizer "
+                "(reference optimizer.py:4885)")
+        result = self.inner_optimizer.minimize(
+            loss, startup_program=startup_program, program=program,
+            parameter_list=parameter_list, no_grad_set=no_grad_set)
+        program = program or default_main_program()
+        startup = startup_program or default_startup_program()
+        block, sblock = program.global_block, startup.global_block
+
+        params = [v.name for v in program.all_parameters()]
+        for name in params:
+            fast = block.var(name)
+            for blk in (block, sblock):
+                blk.create_var(name + "@SLOW", shape=list(fast.shape),
+                               dtype=fast.dtype, persistable=True,
+                               stop_gradient=True)
+            # the slow weights start as a copy of the initialised fast ones
+            sblock.append_op("assign", inputs={"X": [name]},
+                             outputs={"Out": [name + "@SLOW"]})
+        step = program._unique_name("lookahead_step")
+        for blk in (block, sblock):
+            blk.create_var(step, shape=(), dtype="int32", persistable=True,
+                           stop_gradient=True)
+        sblock.append_op("fill_constant", inputs={}, outputs={"Out": [step]},
+                         attrs={"shape": [], "value": 0, "dtype": "int32"})
+
+        def tmp(suffix, shape=(), dtype="float32"):
+            name = program._unique_name("lookahead_" + suffix)
+            block.create_var(name, shape=list(shape), dtype=dtype,
+                             stop_gradient=True)
+            return name
+
+        def op(type_, out, attrs=None, **ins):
+            block.append_op(type_, inputs={k: [v] for k, v in ins.items()},
+                            outputs={"Out": [out]}, attrs=attrs or {})
+            return out
+
+        def fill(suffix, value):
+            return op("fill_constant", tmp(suffix, dtype="int32"),
+                      {"shape": [], "value": value, "dtype": "int32"})
+
+        op("increment", step, {"step": 1}, X=step)
+        k_name, zero = fill("k", self.k), fill("zero", 0)
+        mod = op("elementwise_mod", tmp("mod", dtype="int32"), X=step,
+                 Y=k_name)
+        sync = op("equal", tmp("sync", dtype="bool"), X=mod, Y=zero)
+        # the first case of the reference's Switch: at step 1 the slow
+        # weights re-base, and the periodic sync is gated off
+        one = fill("one", 1)
+        is_step1 = op("equal", tmp("is_step1", dtype="bool"), X=step, Y=one)
+        gates = {}  # param dtype -> (step-1 gate, sync gate)
+        for name in params:
+            fast = block.var(name)
+            slow, dtype, shape = name + "@SLOW", fast.dtype, fast.shape
+            if dtype not in gates:
+                g = op("cast", tmp("gate_" + str(dtype), dtype=dtype),
+                       {"out_dtype": dtype}, X=sync)
+                g1 = op("cast", tmp("gate1_" + str(dtype), dtype=dtype),
+                        {"out_dtype": dtype}, X=is_step1)
+                not_g1 = op("scale", tmp("notgate1_" + str(dtype),
+                                         dtype=dtype),
+                            {"scale": -1.0, "bias": 1.0}, X=g1)
+                g2 = op("elementwise_mul", tmp("syncgate_" + str(dtype),
+                                               dtype=dtype), X=g, Y=not_g1)
+                gates[dtype] = (g1, g2)
+            gate1, gate = gates[dtype]
+            # step 1: slow = fast (gated re-base)
+            d0 = op("elementwise_sub", tmp(name + "_d0", shape, dtype),
+                    X=name, Y=slow)
+            a0 = op("elementwise_mul", tmp(name + "_a0", shape, dtype),
+                    X=d0, Y=gate1)
+            op("elementwise_add", slow, X=slow, Y=a0)
+            # slow' = slow + gate alpha (fast - slow)
+            diff = op("elementwise_sub", tmp(name + "_diff", shape, dtype),
+                      X=name, Y=slow)
+            scaled = op("scale", tmp(name + "_scaled", shape, dtype),
+                        {"scale": self.alpha}, X=diff)
+            gated = op("elementwise_mul", tmp(name + "_gated", shape, dtype),
+                       X=scaled, Y=gate)
+            op("elementwise_add", slow, X=slow, Y=gated)
+            # fast' = fast + gate (slow' - fast), slow' where gated
+            diff2 = op("elementwise_sub", tmp(name + "_diff2", shape, dtype),
+                       X=slow, Y=name)
+            gated2 = op("elementwise_mul",
+                        tmp(name + "_gated2", shape, dtype), X=diff2, Y=gate)
+            op("elementwise_add", name, X=name, Y=gated2)
+        return result

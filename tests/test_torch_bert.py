@@ -264,7 +264,15 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "          'paddle_tpu_torch.layers.nn', 'paddle_tpu_torch.static',\n"
         "          'paddle_tpu_torch.models.resnet',\n"
         "          'paddle_tpu_torch.models.lenet',\n"
-        "          'paddle_tpu_torch.models.vision_zoo'):\n"
+        "          'paddle_tpu_torch.models.vision_zoo',\n"
+        "          'paddle_tpu_torch.fluid',\n"
+        "          'paddle_tpu_torch.fluid.layers',\n"
+        "          'paddle_tpu_torch.fluid.nets',\n"
+        "          'paddle_tpu_torch.fluid.data_feeder',\n"
+        "          'paddle_tpu_torch.contrib.mixed_precision',\n"
+        "          'paddle_tpu_torch.ops.amp',\n"
+        "          'paddle_tpu_torch.ops.metrics',\n"
+        "          'paddle_tpu_torch.datasets', 'paddle_tpu_torch.reader'):\n"
         "    assert n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -425,8 +425,15 @@ def test_fuse_pass_guards(name):
 
 
 def test_amp_rewrite_still_raises_naming_a2b():
-    with pytest.raises(NotImplementedError, match="A2b"):
-        tpasses.apply_pass(_encoder(tpt)[0], "amp_rewrite")
+    """The amp_rewrite pass, ported now, rewrites the encoder program as the
+    JAX pass does: the same ops (its casts, each just before its consumer)
+    and the same vars and dtypes, for bf16 and fp16."""
+    for dtype in ("bfloat16", "float16"):
+        want = japply(_encoder(jpt)[0], "amp_rewrite", dtype=dtype)
+        got = tpasses.apply_pass(_encoder(tpt)[0], "amp_rewrite",
+                                 dtype=dtype)
+        assert got.to_dict() == want.to_dict()
+        assert [op.type for op in got.global_block.ops].count("cast") > 0
 
 
 # ---------------------------------------------------------------------------

@@ -266,6 +266,86 @@ OP_CASES.update({
                         {"threshold": 2.5}),
 })
 
+
+
+def _probs(shape, seed=0):
+    p = _pos(shape, seed)
+    return p / p.sum(-1, keepdims=True)
+
+
+# the ops of the static-training slice: Fluid's LeNet and the recipe
+# (cross entropy of probabilities, top_k, the comparisons, the clips' and
+# regularizers' ops, Lookahead's increment and assign) and the loss
+# scaling of static mixed precision
+OP_CASES.update({
+    "cross_entropy_hard_ignore": ("cross_entropy",
+                                  {"X": [_probs((5, 7))],
+                                   "Label": [np.array([[1], [6], [-100], [0],
+                                                       [3]], np.int64)]},
+                                  {"ignore_index": -100}),
+    "cross_entropy_hard_1d": ("cross_entropy", {"X": [_probs((4, 6))],
+                                                "Label": [np.array(
+                                                    [5, 0, 2, 1], np.int64)]},
+                              {}),
+    "cross_entropy_soft": ("cross_entropy", {"X": [_probs((4, 6))],
+                                             "Label": [_probs((4, 6), 1)]},
+                           {"soft_label": True}),
+    "cross_entropy2": ("cross_entropy2", {"X": [_probs((2, 3, 5))],
+                                          "Label": [np.array(
+                                              [[[4], [0], [2]], [[1], [3],
+                                                                 [4]]],
+                                              np.int64)]}, {}),
+    "top_k": ("top_k", {"X": [_rand((3, 9))]}, {"k": 3}),
+    "top_k_3d": ("top_k", {"X": [_rand((2, 3, 6), 1)]}, {"k": 1}),
+    "assign": ("assign", {"X": [_rand((3, 4))]}, {}),
+    "sign": ("sign", {"X": [_rand((3, 5))]}, {}),
+    "clip_by_norm_clips": ("clip_by_norm", {"X": [_rand((4, 5))]},
+                           {"max_norm": 1.0}),
+    "clip_by_norm_keeps": ("clip_by_norm", {"X": [_rand((4, 5)) * 0.01]},
+                           {"max_norm": 1.0}),
+    "sum_three": ("sum", {"X": [_rand((2, 3)), _rand((2, 3), 1),
+                                _rand((2, 3), 2)]}, {}),
+    "squared_l2_norm": ("squared_l2_norm", {"X": [_rand((3, 4, 5))]}, {}),
+    "increment_float": ("increment", {"X": [np.float32(1.5)]},
+                        {"step": 2.0}),
+    "increment_int": ("increment", {"X": [np.array(4, np.int32)]},
+                      {"step": 1.0}),
+    "check_finite_and_unscale": ("check_finite_and_unscale",
+                                 {"X": [_rand((3, 4)) * 64,
+                                        _rand((5,), 1) * 64],
+                                  "Scale": [np.float32(64.0)]}, {}),
+    "update_loss_scaling_found": ("update_loss_scaling",
+                                  {"X": [_rand((3, 4))],
+                                   "FoundInfinite": [np.array(True)],
+                                   "PrevLossScaling": [np.float32(1024.0)],
+                                   "InGoodSteps": [np.array(5, np.int32)],
+                                   "InBadSteps": [np.array(1, np.int32)]},
+                                  {"decr_every_n_nan_or_inf": 2}),
+    "update_loss_scaling_incr": ("update_loss_scaling",
+                                 {"X": [_rand((3, 4))],
+                                  "FoundInfinite": [np.array(False)],
+                                  "PrevLossScaling": [np.float32(1024.0)],
+                                  "InGoodSteps": [np.array(2, np.int32)],
+                                  "InBadSteps": [np.array(1, np.int32)]},
+                                 {"incr_every_n_steps": 3,
+                                  "incr_ratio": 2.0}),
+    "zero_on_found_infinite": ("zero_on_found_infinite",
+                               {"X": [_rand((3, 4)), _rand((2,), 1)],
+                                "FoundInfinite": [np.array(True)]}, {}),
+    "zero_on_found_infinite_clean": ("zero_on_found_infinite",
+                                     {"X": [_rand((3, 4))],
+                                      "FoundInfinite": [np.array(False)]},
+                                     {}),
+})
+for _name in ("equal", "not_equal", "less_than", "less_equal",
+              "greater_than", "greater_equal"):
+    OP_CASES[_name] = (_name, {"X": [np.array([[1, 2, 3], [4, 5, 6]],
+                                              np.int32)],
+                               "Y": [np.array([2, 2, 6], np.int32)]}, {})
+OP_CASES["equal_axis0_float"] = ("equal", {"X": [np.array(
+    [[1.0, 2.0], [3.0, 3.0]], np.float32)], "Y": [np.array(
+        [1.0, 3.0], np.float32)]}, {"axis": 0})
+
 OPT_CASES = {
     "sgd": ("sgd", {"Param": [_rand((4, 3))], "Grad": [_rand((4, 3), 1)],
                     "LearningRate": [np.float32(0.1)]}, {}),
@@ -289,6 +369,49 @@ for _op, _extra in (("adam", {}), ("adamw", {"coeff": 0.05})):
                             "Beta1Pow": [np.float32(0.9 ** 3)],
                             "Beta2Pow": [np.float32(0.999 ** 3)]},
                       dict(beta1=0.9, beta2=0.999, epsilon=1e-8, **_extra))
+
+
+# the rest of the update rules, on one [4, 3] parameter
+_PG = {"Param": [_rand((4, 3))], "Grad": [_rand((4, 3), 1)]}
+_LR = {"LearningRate": [np.float32(0.05)]}
+_ACC = (lambda seed: np.abs(_rand((4, 3), seed)) * 0.1 + 0.01)
+OPT_CASES.update({
+    "adamax": ("adamax", dict(_PG, **_LR, Moment=[_rand((4, 3), 2) * 0.1],
+                              InfNorm=[_ACC(3)], Beta1Pow=[np.float32(0.81)]),
+               {"beta1": 0.9, "beta2": 0.99, "epsilon": 1e-8}),
+    "adagrad": ("adagrad", dict(_PG, **_LR, Moment=[_ACC(2)]),
+                {"epsilon": 1e-6}),
+    "decayed_adagrad": ("decayed_adagrad", dict(_PG, **_LR,
+                                                Moment=[_ACC(2)]),
+                        {"decay": 0.9, "epsilon": 1e-6}),
+    "adadelta": ("adadelta", dict(_PG, AvgSquaredGrad=[_ACC(2)],
+                                  AvgSquaredUpdate=[_ACC(3)]),
+                 {"rho": 0.9, "epsilon": 1e-6}),
+    "rmsprop": ("rmsprop", dict(_PG, **_LR, MeanSquare=[_ACC(2)],
+                                MeanGrad=[_rand((4, 3), 3) * 0.01],
+                                Moment=[_rand((4, 3), 4) * 0.1]),
+                {"decay": 0.9, "epsilon": 1e-6, "momentum": 0.5}),
+    "rmsprop_centered": ("rmsprop", dict(_PG, **_LR, MeanSquare=[_ACC(2)],
+                                         MeanGrad=[_rand((4, 3), 3) * 0.01],
+                                         Moment=[_rand((4, 3), 4) * 0.1]),
+                         {"decay": 0.9, "epsilon": 1e-6, "momentum": 0.5,
+                          "centered": True}),
+    "ftrl": ("ftrl", dict(_PG, **_LR, SquaredAccumulator=[_ACC(2)],
+                          LinearAccumulator=[_rand((4, 3), 3) * 0.1]),
+             {"l1": 0.01, "l2": 0.02}),
+    "ftrl_power": ("ftrl", dict(_PG, **_LR, SquaredAccumulator=[_ACC(2)],
+                                LinearAccumulator=[_rand((4, 3), 3) * 0.1]),
+                   {"l1": 0.01, "l2": 0.02, "lr_power": -0.3}),
+    "lamb": ("lamb", dict(_PG, **_LR, Moment1=[_rand((4, 3), 2) * 0.1],
+                          Moment2=[_ACC(3)], Beta1Pow=[np.float32(0.9 ** 2)],
+                          Beta2Pow=[np.float32(0.999 ** 2)]),
+             {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6,
+              "weight_decay": 0.01}),
+    "lars_momentum": ("lars_momentum", dict(_PG, **_LR,
+                                            Velocity=[_rand((4, 3), 2)]),
+                      {"mu": 0.9, "lars_coeff": 0.001,
+                       "lars_weight_decay": 0.0005}),
+})
 
 
 def _jax_lower(op, ins, attrs):
@@ -458,7 +581,7 @@ def test_unported_op_raises_naming_its_queue():
     blk = prog.global_block
     blk.create_var("x", shape=[2, 3])
     blk.create_var("y", shape=[2, 3])
-    for op, queue in (("top_k", "A2b"), ("one_hot", "A2b"),
+    for op, queue in (("proximal_gd", "A2b"), ("one_hot", "A2b"),
                       ("conv2d_transpose", "A2b"), ("sequence_pool", "A8")):
         blk.ops = []
         blk.append_op(op, {"X": ["x"]}, {"Out": ["y"]})
@@ -589,19 +712,31 @@ def test_passes_protected_and_unported():
     types = collections.Counter(op.type for op in kept.global_block.ops)
     assert types["multihead_matmul"] == SMALL["layers_n"] - 1
     assert "multihead_matmul_fuse" in tpasses.list_passes()
-    with pytest.raises(NotImplementedError, match="A2b"):
-        tpasses.apply_pass(main.clone(), "amp_rewrite")
+    # amp_rewrite, ported now, rewrites as the JAX pass does
+    jmain = _jax_bert()[0]
+    lists = dict(amp_lists=None, dtype="bfloat16")
+    got = tpasses.apply_pass(main.clone(), "amp_rewrite", **lists)
+    want = japply_pass(jmain.clone(), "amp_rewrite", **lists)
+    assert got.to_dict() == want.to_dict()
+    assert "amp_rewrite" in tpasses.list_passes()
     with pytest.raises(KeyError):
         tpasses.apply_pass(main.clone(), "no_such_pass")
 
 
 @pytest.mark.parametrize("name", ["bert_shaped", "bert_fused",
-                                  "verify_recipe"])
+                                  "verify_recipe", "bert_amp_bf16",
+                                  "bert_amp_fp16"])
 def test_json_round_trip_jax_port_jax_runs_in_jax(name):
     """JAX program -> JSON -> port Program -> JSON -> JAX Program: the JSON
     is unchanged, and the result runs in the JAX package as the
-    original does."""
-    if name == "verify_recipe":
+    original does. bert_amp_*: form (d), the fused program under static
+    mixed precision (cast vars, bf16/fp16 dtypes, the loss-scaling ops)."""
+    if name.startswith("bert_amp"):
+        (jm, js, loss), _ = chip_smoke.amp_form(
+            jpt, "bfloat16" if name.endswith("bf16") else "float16",
+            cfg=SMALL)
+        feed = chip_smoke.static_feed(B, SMALL)
+    elif name == "verify_recipe":
         jm, js, loss = _verify_recipe(jpt)
         rng = np.random.default_rng(0)
         feed = {"x": rng.standard_normal((8, 4)).astype(np.float32),
@@ -624,8 +759,8 @@ def test_json_round_trip_jax_port_jax_runs_in_jax(name):
         exe = jpt.Executor()
         startup.random_seed = 3
         exe.run(startup, scope=scope)
-        outs.append([exe.run(main, feed=feed, fetch_list=[loss.name],
-                             scope=scope)[0] for _ in range(2)])
+        outs.append([exe.run(main, feed=feed, fetch_list=[getattr(
+            loss, "name", loss)], scope=scope)[0] for _ in range(2)])
     np.testing.assert_array_equal(np.array(outs[0]), np.array(outs[1]))
 
 
@@ -1027,22 +1162,34 @@ def test_clone_for_test_keeps_the_forward():
 
 
 def test_what_stays_unported_on_a_program_raises_naming_a2b():
-    def prog_with(opt, **kw):
-        main, startup = tpt.Program(), tpt.Program()
-        with tpt.program_guard(main, startup):
-            loss = tpt.layers.mean(tpt.layers.fc(
-                tpt.layers.data("x", [4]), 3))
-            opt(**kw).minimize(loss)
-    with pytest.raises(NotImplementedError, match="A2b"):
-        prog_with(lambda: T.Lamb(0.1))
-    with pytest.raises(NotImplementedError, match="A2b"):
-        prog_with(lambda: T.Adam(0.1, grad_clip=T.GradientClipByGlobalNorm(
-            1.0)))
-    with pytest.raises(NotImplementedError, match="A2b"):
-        prog_with(lambda: T.SGD(0.1, regularization=T.L2Decay(1e-4)))
-    with pytest.raises(NotImplementedError, match="A2b"):
-        prog_with(lambda: T.SGD(T.PolynomialDecay(0.1, 10)))
-    with pytest.raises(NotImplementedError, match="A2b"):
-        tpt.append_backward(None, checkpoints=["x"])
+    """Lazy fetches still raise naming A2b; the other parts of this list
+    are ported now, and each builds what the JAX package builds."""
+    def prog_with(pt, opt, **kw):
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            loss = pt.layers.mean(pt.layers.fc(
+                pt.layers.data("x", [4]), 3))
+            opt(pt.optimizer, **kw).minimize(loss)
+        return main, startup
+    for make in (lambda O: O.Lamb(0.1),
+                 lambda O: O.Adam(0.1, grad_clip=O.GradientClipByGlobalNorm(
+                     1.0)),
+                 lambda O: O.SGD(0.1, regularization=O.L2Decay(1e-4)),
+                 lambda O: O.SGD(O.PolynomialDecay(0.1, 10))):
+        got, want = prog_with(tpt, make), prog_with(jpt, make)
+        assert got[0].to_dict() == want[0].to_dict()
+        assert got[1].to_dict() == want[1].to_dict()
+    segments = []
+    for pt in (tpt, jpt):
+        main = pt.Program()
+        with pt.program_guard(main, pt.Program()):
+            h = pt.layers.data("x", [4])
+            outs = []
+            for _ in range(2):
+                h = pt.layers.fc(h, 4, act="tanh")
+                outs.append(h)
+            pt.append_backward(pt.layers.mean(h), checkpoints=outs)
+        segments.append(main.global_block.ops[-1].attr("remat_segments"))
+    assert segments[0] == segments[1] == [[0, 3], [3, 6]]
     with pytest.raises(NotImplementedError, match="A2b"):
         Executor("cpu").run(tpt.Program(), return_numpy="lazy")

@@ -539,20 +539,11 @@ def _not_ported():
             make()
         finally:
             p.grad = None
-    sched = T.PolynomialDecay(0.1, 10)
     return {
-        "clip_apply": ("A2b", lambda: T.GradientClipByGlobalNorm(1.0).apply(
-            None, [])),
-        "regularizer_apply": ("A2b", lambda: T.L2Decay(0.1).apply(
-            None, None, None)),
-        "scheduler_build": ("A2b", lambda: sched._build(None, None)),
         "average_on_a_scope": ("A2b", lambda: T.ExponentialMovingAverage(
             parameters=[p]).update(scope=object())),
         "average_of_a_program": ("A2b", lambda: T.ModelAverage(
             0.1).update()),
-        "lookahead": ("A2b", lambda: T.LookaheadOptimizer(
-            T.SGD(0.1, parameters=[p])).minimize(torch.zeros(()))),
-        "dpsgd_step": ("A2b", lambda: T.DpSGD(0.1, parameters=[p]).step()),
         "selected_rows_step": ("A2b", lambda: sparse_step(
             lambda: T.SGD(0.1, parameters=[p]).step())),
         "selected_rows_scaler": ("A2b", lambda: sparse_step(
@@ -567,6 +558,63 @@ def test_what_is_not_ported_raises_naming_its_queue(what):
     queue, call = _not_ported()[what]
     with pytest.raises(NotImplementedError, match=queue):
         call()
+
+
+def _static_piece(pt, what):
+    """One of the parts that raised before the static-training slice, as
+    the package ``pt`` does it: the program it builds, or the error it
+    raises."""
+    O = pt.optimizer
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", [4])
+        loss = pt.layers.mean(pt.layers.fc(x, 3))
+        pgs = pt.append_backward(loss)
+        blk = main.global_block
+        if what == "clip_apply":
+            O.GradientClipByGlobalNorm(1.0).apply(blk, pgs)
+        elif what == "regularizer_apply":
+            for p_, g in pgs:
+                O.L2Decay(0.1).apply(blk, p_, g)
+        elif what == "scheduler_build":
+            O.PolynomialDecay(0.1, 10)._build(main, startup)
+    return main.to_dict(), startup.to_dict()
+
+
+def _raised(call):
+    try:
+        call()
+    except Exception as e:  # noqa: BLE001 - the error is what is compared
+        return type(e).__name__, str(e)
+    return None
+
+
+@pytest.mark.parametrize("what", ["clip_apply", "dpsgd_step", "lookahead",
+                                  "regularizer_apply", "scheduler_build"])
+def test_what_was_not_ported_does_what_the_jax_package_does(what):
+    """The static sides of the clips, regularizers and schedulers append
+    the JAX package's ops; Lookahead's dygraph minimize and DpSGD's eager
+    step raise the JAX package's error (both are static only)."""
+    import paddle_tpu as jpt
+    import paddle_tpu_torch as tpt
+    from paddle_tpu.dygraph import to_tensor
+    if what in ("clip_apply", "regularizer_apply", "scheduler_build"):
+        assert _static_piece(tpt, what) == _static_piece(jpt, what)
+        return
+    tp = torch.nn.Parameter(torch.zeros(4, 2))
+    tp.grad = torch.ones(4, 2)
+    jp = to_tensor(np.zeros((4, 2), np.float32))
+    if what == "lookahead":
+        calls = [lambda m=m, p=p, loss=loss: m.optimizer.LookaheadOptimizer(
+            m.optimizer.SGD(0.1, parameters=[p])).minimize(loss)
+            for m, p, loss in ((tpt, tp, torch.zeros(())),
+                               (jpt, jp, to_tensor(np.zeros(()))))]
+    else:
+        calls = [lambda m=m, p=p: m.optimizer.DpSGD(0.1,
+                                                    parameters=[p]).step()
+                 for m, p in ((tpt, tp), (jpt, jp))]
+    got, want = (_raised(c) for c in calls)
+    assert want is not None and got == want
 
 
 def test_optimizer_step_and_clear_grad():
