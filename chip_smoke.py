@@ -5129,8 +5129,8 @@ RULE_UPDATE_RTOL = UPDATE_RTOL
 # within AMP_GRAD_REL of their dtype in the 2-norm over all of them (less
 # the key biases, whose exact gradient is 0). Two runs of one bf16 program
 # in other orders differ by bf16 rounding steps wherever an intermediate
-# lands on another side of one. Measured on the card (my chip run, PR 13
-# call 1, H100 at 700 W): bf16 against the CPU port 0.0033 (B=2), against
+# lands on another side of one. Measured on one H100 at 700 W: bf16
+# against the CPU port 0.0033 (B=2), against
 # (c) 0.0061 (B=8); fp16 against (c) 0.00075. The wrong variant that must
 # fail both dtypes' tolerances in both comparisons: form (d) in fp16 with
 # its loss scale started at 1, so that the fp16 backward underflows (the
@@ -5145,8 +5145,8 @@ AMP_LOSS_RTOL = 1e-2
 # 2^40 if a step does not), OVERFLOW_STEPS steps at B=OVERFLOW_B on the card
 # and on the CPU port: two overflows halve the scale
 # (decr_every_n_nan_or_inf 2). The CPU port's fp16 step of the 12 layers
-# is slow on the card's host (my chip runs, PR 13: 140.8 s for three steps
-# at B=2 on both sides in call 2, 113.0 s for two in call 4).
+# is slow on the card's host (measured beside one H100: 140.8 s for three
+# steps at B=2 on both sides, 113.0 s for two).
 OVERFLOW_STEPS = 2
 OVERFLOW_B = 1
 

@@ -273,7 +273,7 @@ def _probs(shape, seed=0):
     return p / p.sum(-1, keepdims=True)
 
 
-# the ops of the static-training slice: Fluid's LeNet and the recipe
+# the ops of static-graph training: Fluid's LeNet and the recipe
 # (cross entropy of probabilities, top_k, the comparisons, the clips' and
 # regularizers' ops, Lookahead's increment and assign) and the loss
 # scaling of static mixed precision

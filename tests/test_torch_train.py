@@ -561,7 +561,7 @@ def test_what_is_not_ported_raises_naming_its_queue(what):
 
 
 def _static_piece(pt, what):
-    """One of the parts that raised before the static-training slice, as
+    """One of the parts of static-graph training that once raised, as
     the package ``pt`` does it: the program it builds, or the error it
     raises."""
     O = pt.optimizer
