@@ -204,24 +204,45 @@ def _l2(t: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(t * t))
 
 
+def lamb_direction(p, g, m1, m2, b1p, b2p, b1, b2, eps, wd):
+    """Lamb's elementwise half: the moments after the step and the update
+    direction, the Adam direction plus decay. The ``lamb`` op and the
+    eager ``Lamb`` share it and differ only in how they take the norms."""
+    m1o = b1 * m1 + (1 - b1) * g
+    m2o = b2 * m2 + (1 - b2) * g * g
+    update = (m1o / (1 - b1p)) / (torch.sqrt(m2o / (1 - b2p)) + eps) + \
+        wd * p
+    return m1o, m2o, update
+
+
+def lamb_trust(p_norm, u_norm):
+    """The trust ratio ||p|| / ||update||, 1 where either norm is 0."""
+    one_ = torch.ones_like(p_norm)
+    return torch.where(p_norm > 0, torch.where(u_norm > 0, p_norm / u_norm,
+                                               one_), one_)
+
+
+def lars_velocity(p, g, v, lr, p_norm, g_norm, mu, coeff, wd, eps=0.0):
+    """LARS's velocity after the step from the norms of p and g: the
+    layer-wise local rate lr coeff ||p|| / (||g|| + wd ||p|| + eps). The
+    ``lars_momentum`` op and the eager ``LarsMomentum`` share it."""
+    local_lr = lr * coeff * p_norm / (g_norm + wd * p_norm + eps)
+    return mu * v + local_lr * (g + wd * p)
+
+
 @register_op("lamb", inputs=_ADAM_IN, outputs=_ADAM_OUT, no_grad=True,
              inplace_map=_ADAM_INPLACE)
 def _lamb(ctx, ins, attrs):
-    # the Adam direction plus decay, scaled by the trust ratio
-    # ||p|| / ||update|| over the whole tensor
+    # the Adam direction plus decay, scaled by the trust ratio over the
+    # whole tensor
     p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
     b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
     b1 = attrs.get("beta1", 0.9)
     b2 = attrs.get("beta2", 0.999)
-    m1o = b1 * ins["Moment1"][0] + (1 - b1) * g
-    m2o = b2 * ins["Moment2"][0] + (1 - b2) * g * g
-    update = (m1o / (1 - b1p)) / (torch.sqrt(m2o / (1 - b2p))
-                                  + attrs.get("epsilon", 1e-6)) + \
-        attrs.get("weight_decay", 0.01) * p
-    p_norm, u_norm = _l2(p), _l2(update)
-    one_ = torch.ones_like(p_norm)
-    trust = torch.where(p_norm > 0, torch.where(u_norm > 0, p_norm / u_norm,
-                                                one_), one_)
+    m1o, m2o, update = lamb_direction(
+        p, g, ins["Moment1"][0], ins["Moment2"][0], b1p, b2p, b1, b2,
+        attrs.get("epsilon", 1e-6), attrs.get("weight_decay", 0.01))
+    trust = lamb_trust(_l2(p), _l2(update))
     return {"ParamOut": [p - lr * trust * update], "Moment1Out": [m1o],
             "Moment2Out": [m2o], "Beta1PowOut": [b1p * b1],
             "Beta2PowOut": [b2p * b2]}
@@ -232,15 +253,12 @@ def _lamb(ctx, ins, attrs):
              outputs=("ParamOut", "VelocityOut"), no_grad=True,
              inplace_map={"ParamOut": "Param", "VelocityOut": "Velocity"})
 def _lars_momentum(ctx, ins, attrs):
-    # a layer-wise local rate from ||p|| and ||g||
     p, g, v, lr = (ins["Param"][0], ins["Grad"][0], ins["Velocity"][0],
                    ins["LearningRate"][0])
-    coeff = attrs.get("lars_coeff", 0.001)
     wd = attrs.get("lars_weight_decay", 0.0005)
-    p_norm, g_norm = _l2(p), _l2(g)
-    local_lr = lr * coeff * p_norm / (g_norm + wd * p_norm
-                                      + attrs.get("epsilon", 0.0))
-    v_out = attrs.get("mu", 0.9) * v + local_lr * (g + wd * p)
+    v_out = lars_velocity(p, g, v, lr, _l2(p), _l2(g), attrs.get("mu", 0.9),
+                          attrs.get("lars_coeff", 0.001), wd,
+                          attrs.get("epsilon", 0.0))
     return {"ParamOut": [p - v_out], "VelocityOut": [v_out]}
 
 

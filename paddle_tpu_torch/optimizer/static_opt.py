@@ -61,6 +61,7 @@ from ..core.backward import append_backward
 from ..core.program import (VarDesc, default_main_program,
                             default_startup_program)
 from ..core.scope import global_scope
+from ..ops.optimizers import lamb_direction, lamb_trust, lars_velocity
 from .lr_scheduler import LRScheduler, _div
 
 _STATIC = "this static Program side of the optimizers is not ported yet " \
@@ -613,14 +614,13 @@ class LarsMomentum(Optimizer):
             attrs=self._op_attrs())
 
     def _update_all(self, params, grads, lrs):
-        mu, coeff, wd = (self._momentum, self._lars_coeff,
-                         self._lars_weight_decay)
         p_norms = _norms(params).float().unbind()
         g_norms = _norms(grads).float().unbind()
         for p, g, pn, gn in zip(params, grads, p_norms, g_norms):
             state = self.accumulators(p)
-            local_lr = lrs[p.device] * coeff * pn / (gn + wd * pn)
-            v = mu * state["velocity"] + local_lr * (g + wd * p)
+            v = lars_velocity(p, g, state["velocity"], lrs[p.device], pn, gn,
+                              self._momentum, self._lars_coeff,
+                              self._lars_weight_decay)
             p.copy_(p - v)
             state["velocity"] = v
 
@@ -696,22 +696,18 @@ class Lamb(Adam):
         return dict(super()._op_attrs(), weight_decay=self._weight_decay)
 
     def _update_all(self, params, grads, lrs):
-        b1, b2, eps, wd = (self._beta1, self._beta2, self._epsilon,
-                           self._weight_decay)
+        b1, b2 = self._beta1, self._beta2
         updates = []
         for p, g in zip(params, grads):
             state = self.accumulators(p)
-            m1 = b1 * state["moment1"] + (1 - b1) * g
-            m2 = b2 * state["moment2"] + (1 - b2) * g * g
-            m1_hat = m1 / (1 - state["beta1_pow"])
-            m2_hat = m2 / (1 - state["beta2_pow"])
-            updates.append(m1_hat / (torch.sqrt(m2_hat) + eps) + wd * p)
-            state["moment1"], state["moment2"] = m1, m2
+            state["moment1"], state["moment2"], update = lamb_direction(
+                p, g, state["moment1"], state["moment2"],
+                state["beta1_pow"], state["beta2_pow"], b1, b2,
+                self._epsilon, self._weight_decay)
+            updates.append(update)
         # the trust ratios of all the parameters at once
-        p_norm = _norms(params).float()
-        u_norm = _norms(updates).float()
-        trust = torch.where(p_norm > 0, torch.where(
-            u_norm > 0, p_norm / u_norm, 1.0), 1.0).unbind()
+        trust = lamb_trust(_norms(params).float(),
+                           _norms(updates).float()).unbind()
         for p, u, t in zip(params, updates, trust):
             state = self._accumulators[p]
             p.copy_(p - lrs[p.device] * t * u)

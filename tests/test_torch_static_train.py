@@ -193,13 +193,31 @@ def test_rewritten_dtypes_are_those_meta_inference_gives():
 
 # bf16 (fp16) on both sides, other orders of the same rounded ops: the
 # loss within 1e-3 relative; the gradients within AMP_GRAD_REL in the
-# 2-norm over all of them (chip_smoke.py's measure; the port against the
-# JAX package measured 1e-3 to 2e-3 at full width); Adam's three updates
-# per tensor within AMP_UPDATE_REL of the JAX update's norm and each
-# parameter within 2 lr a step (Adam moves ~lr whatever |g|, and a small
-# gradient's sign may differ)
-AMP_GRAD_REL = {"bfloat16": 2e-2, "float16": 4e-3}
+# 2-norm over all of them, and the last layer's within AMP_LAST_REL
+# (chip_smoke.py's measures, grad_gap and last_layer_grads); Adam's three
+# updates per tensor within AMP_UPDATE_REL of the JAX update's norm and
+# each parameter within 2 lr a step (Adam moves ~lr whatever |g|, and a
+# small gradient's sign may differ). The gradient limits lie between the
+# port's step and two controls that must fail them, the same step in fp32
+# (form (c)) and chip_smoke.norm_cast_variant (the norms on bf16 rows).
+# Measured here at SMALL, B=2, all gradients / the last layer's: bf16 step
+# 1.18e-3 / 4.7e-4, fp32 control 2.44e-3 / 1.87e-3, variant 1.06e-2 /
+# 8.1e-3; fp16 step 1.48e-4 / 6.8e-5, fp32 control 2.95e-4 / 2.23e-4,
+# variant 1.13e-3 / 8.6e-4.
+AMP_GRAD_REL = {"bfloat16": 1.7e-3, "float16": 2.1e-4}
+AMP_LAST_REL = {"bfloat16": 1e-3, "float16": 1.25e-4}
 AMP_UPDATE_REL = {"bfloat16": 5e-2, "float16": 1e-2}
+
+
+def _first_step(form, state, feed, fetch):
+    """One step of a port program from the JAX state (its startup run
+    first for the persistables the state lacks): the fetched values."""
+    main, startup, loss = form
+    scope, exe = TScope(), Executor("cpu")
+    exe.run(startup, scope=scope)
+    load_reference_scope(scope, {n: v for n, v in state.items()
+                                 if n in main.global_block.vars}, "cpu")
+    return exe.run(main, feed=feed, fetch_list=[loss] + fetch, scope=scope)
 
 
 @pytest.fixture(scope="module", params=["bfloat16", "float16"])
@@ -233,18 +251,34 @@ def amp_runs(request):
         texe.run(tm, feed=feed, scope=tscope)
         t_seq.append([float(tscope.find_var(n)) for n in counters])
     t_after = _persistables(tscope, tm, port=True)
+    variant, _ = chip_smoke.norm_cast_variant(tpt, dtype, SMALL)
+    controls = {
+        "fp32": _first_step(chip_smoke.static_forms(SMALL)["c"], state, feed,
+                            grads),
+        "norm_cast_variant": _first_step(variant, state, feed, grads)}
     return dict(dtype=dtype, grads=grads, j_first=j_first, t_first=t_first,
                 j_after=j_after, t_after=t_after, state=state, j_seq=j_seq,
-                t_seq=t_seq, paths=paths, lowered=lowered, program=tm)
+                t_seq=t_seq, paths=paths, lowered=lowered, program=tm,
+                controls=controls, variant=variant[0],
+                last=chip_smoke.last_layer_grads(tm))
+
+
+def _gaps(r, fetched):
+    """(all gradients, the last layer's) of a step against the JAX one."""
+    got = dict(zip(r["grads"], fetched[1:]))
+    want = {n: _np(g) for n, g in zip(r["grads"], r["j_first"][1:])}
+    return tuple(_grad_gap([got[n] for n in names], [want[n] for n in names],
+                           names) for names in (r["grads"], r["last"]))
 
 
 def test_amp_step_loss_and_grads_match_jax(amp_runs):
     r = amp_runs
     got, want = float(r["t_first"][0]), float(r["j_first"][0])
     assert abs(got - want) <= 1e-3 * abs(want)
-    gap = _grad_gap(r["t_first"][1:], [_np(g) for g in r["j_first"][1:]],
-                    r["grads"])
+    gap, last = _gaps(r, r["t_first"])
     assert gap <= AMP_GRAD_REL[r["dtype"]], gap
+    assert last <= AMP_LAST_REL[r["dtype"]], last
+    assert chip_smoke.amp_program_faults(r["program"], r["dtype"]) == []
     for g in r["t_first"][1:]:
         assert g.dtype == np.float32 and np.isfinite(g).all()
     # the fused attention on the flash route's plain versions, the norms
@@ -255,12 +289,29 @@ def test_amp_step_loss_and_grads_match_jax(amp_runs):
         op.type for op in r["program"].global_block.ops)
 
 
+@pytest.mark.parametrize("control", ["fp32", "norm_cast_variant"])
+def test_amp_step_limits_reject_the_controls(amp_runs, control):
+    """The gradient limits of test_amp_step_loss_and_grads_match_jax
+    fail the same step in fp32 and the variant whose norms take bf16
+    (fp16) rows; the program guard names the variant."""
+    r = amp_runs
+    gap, last = _gaps(r, r["controls"][control])
+    assert gap > AMP_GRAD_REL[r["dtype"]], gap
+    assert last > AMP_LAST_REL[r["dtype"]], last
+    if control == "norm_cast_variant":
+        faults = chip_smoke.amp_program_faults(r["variant"], r["dtype"])
+        assert len(faults) == 2 * SMALL["layers_n"], faults
+        assert all(f.startswith("layer_norm reads ") for f in faults)
+
+
 def test_amp_three_steps_params_and_scaling_match_jax(amp_runs):
     r = amp_runs
     assert r["t_seq"] == r["j_seq"]
     if r["dtype"] == "float16":
         assert r["t_seq"] == [[2.0 ** 15, 1, 0], [2.0 ** 15, 2, 0],
-                              [2.0 ** 15, 3, 0]]
+                              [2.0 ** 15, 3, 0]] == [
+            list(t) for t in chip_smoke.scaling_after(2.0 ** 15,
+                                                      [False] * 3)]
     for n, want in r["j_after"].items():
         got = r["t_after"][n]
         if n not in r["state"] or not np.issubdtype(want.dtype, np.floating):
@@ -307,7 +358,8 @@ def test_fp16_overflow_steps_match_jax():
         seqs[1].append([float(np.asarray(scope.find_var(n)))
                         for n in counters])
     assert seqs[0] == seqs[1] == [[2.0 ** 40, 0, 1], [2.0 ** 39, 0, 0],
-                                  [2.0 ** 39, 0, 1]]
+                                  [2.0 ** 39, 0, 1]] == [
+        list(t) for t in chip_smoke.scaling_after(2.0 ** 40, [True] * 3)]
     t_after = _persistables(tscope, tm, port=True)
     for n, want in _persistables(scope, jm, port=False).items():
         np.testing.assert_allclose(t_after[n], want, err_msg=n, **F32_TOL)
