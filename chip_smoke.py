@@ -192,7 +192,30 @@ Phases, each printing its lines; any failure exits nonzero:
    step ms, device ms, kernels and idle share of (c) fp32, (d) bf16, (d)
    fp16 and (d) with recompute; the bf16 and fp16 flash forward, dQ and
    dK/dV at [8,12,128,64] against their bound and SDPA;
-12. one JSON line of kernel records, the card line, and last the result
+12. sparse embeddings, LoD feeds, lazy fetches and static control flow
+   ("[sparse-cf]" lines), the ninth and tenth main paths, neither of
+   which launches one of the seven kernels (no Pallas kernel lies on
+   them): (i) Wide&Deep at ``WideDeep()``'s widths (100,000 x 16 sparse
+   table, 26 slots, 13 dense features, fc 400-400-400) at B=1024, ids
+   Zipf(1.2): one Adam step on the card against the CPU port (loss, every
+   gradient, the table's merged SelectedRows, every parameter after),
+   three steps each of SGD, Momentum, Adagrad, AdamW and Lamb, fp16
+   ``GradScaler`` with an overflow step and a step whose unscaled sparse
+   values are held in norm; the main path: 20 Adam steps, counts set to 0
+   before and read after, never densifying the table, its untouched rows
+   bitwise unchanged, a bitwise rerun; times, unique rows and the bytes
+   the lazy update touches; (ii) the two-layer LSTM language model of
+   Zaremba et al. 2014 ("medium": vocab 10,000, hidden 650, 35 steps,
+   batch 20, dropout 0.5) through ``layers.StaticRNN``: one step against
+   the CPU port with the same dropout masks, the main path of ten steps
+   with lazy fetches (counts set to 0 before, read after) against an
+   eager-fetch run, one sync a read, a static ExponentialMovingAverage
+   applied to one eval pass, times with op lowerings and host syncs a
+   step; (iii) the programs of ``tests/test_control_flow.py``
+   (``CF_CASES``) on the card against the CPU port and their expected
+   values, with their host reads, and three LeNet steps of
+   ``proximal_gd``, ``proximal_adagrad`` and a static ``ModelAverage``;
+13. one JSON line of kernel records, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -5905,6 +5928,889 @@ def run_static_train(device, card):
     return counts, flash, peaks
 
 
+# -- phase 12: sparse embeddings, LoD feeds, lazy fetches, control flow
+
+# the "medium" LSTM language model of Zaremba et al. 2014 (arXiv:1409.2329),
+# the configuration of Paddle's static PTB model
+LM_CFG = dict(vocab=10000, hidden=650, layers_n=2, steps=35, batch=20,
+              dropout=0.5, init=0.05, clip=5.0, lr=1.0)
+LM_SEED = 1409
+LM_STEPS = 10
+
+
+def build_lstm_lm(pt, vocab=10000, hidden=650, layers_n=2, steps=35,
+                  batch=20, dropout=0.5, init=0.05, clip=5.0, lr=1.0):
+    """A layers_n-layer LSTM language model through ``layers.StaticRNN``
+    with package ``pt``'s public ``layers``: ids [steps, batch, 1], an
+    embedding [vocab, hidden], each cell an fc of [x ; h] to 4 hidden
+    ``split`` into the gates i, f, g, o (sigmoid, sigmoid, tanh, sigmoid),
+    c = f c + i g, h = o tanh(c); dropout (upscale in train) on the
+    embedding and on each layer's output; a softmax projection to vocab,
+    the mean of ``softmax_with_cross_entropy`` over the steps x batch
+    labels, ``SGD(lr)`` under ``GradientClipByGlobalNorm(clip)``; every
+    weight U(-init, init). Returns (main, startup, loss)."""
+    L = pt.layers
+    uni = L.Uniform(-init, init)
+
+    def attr(name):
+        return pt.ParamAttr(name=name, initializer=uni)
+
+    def drop(v):
+        return L.dropout(v, dropout,
+                         dropout_implementation="upscale_in_train") \
+            if dropout else v
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = L.data("x", [steps, batch, 1], dtype="int64",
+                   append_batch_size=False)
+        y = L.data("y", [steps * batch, 1], dtype="int64",
+                   append_batch_size=False)
+        emb = drop(L.embedding(x, [vocab, hidden],
+                               param_attr=attr("embedding")))
+        zeros = [(L.fill_constant([batch, hidden], "float32", 0.0),
+                  L.fill_constant([batch, hidden], "float32", 0.0))
+                 for _ in range(layers_n)]
+        rnn = L.StaticRNN()
+        with rnn.step():
+            inp = rnn.step_input(emb)
+            for i in range(layers_n):
+                h_prev = rnn.memory(init=zeros[i][0])
+                c_prev = rnn.memory(init=zeros[i][1])
+                gates = L.fc(L.concat([inp, h_prev], axis=1), 4 * hidden,
+                             param_attr=attr(f"lstm{i}.w"),
+                             bias_attr=attr(f"lstm{i}.b"))
+                g_i, g_f, g_g, g_o = L.split(gates, 4, axis=1)
+                c = L.elementwise_add(
+                    L.elementwise_mul(L.sigmoid(g_f), c_prev),
+                    L.elementwise_mul(L.sigmoid(g_i), L.tanh(g_g)))
+                h = L.elementwise_mul(L.sigmoid(g_o), L.tanh(c))
+                rnn.update_memory(h_prev, h)
+                rnn.update_memory(c_prev, c)
+                inp = drop(h)
+            rnn.step_output(inp)
+        out = L.reshape(rnn(), [steps * batch, hidden])
+        logits = L.fc(out, vocab, param_attr=attr("softmax.w"),
+                      bias_attr=attr("softmax.b"))
+        loss = L.mean(L.softmax_with_cross_entropy(logits, y))
+        pt.optimizer.SGD(lr, grad_clip=pt.optimizer.GradientClipByGlobalNorm(
+            clip)).minimize(loss, startup_program=startup, program=main)
+    return main, startup, loss
+
+
+def lm_feeds(n, vocab=10000, steps=35, batch=20, seed=LM_SEED):
+    """n consecutive windows of a token stream made from ``seed``: Zipf
+    (a=1.2) ids folded into the vocabulary, so that there is a unigram
+    law to learn; x the window, y the next token."""
+    rng = np.random.default_rng(seed)
+    total = n * steps * batch + batch
+    stream = ((rng.zipf(1.2, total) - 1) % vocab).astype(np.int64)
+    stream = stream.reshape(batch, -1)           # batch rows of text
+    feeds = []
+    for k in range(n):
+        win = stream[:, k * steps:(k + 1) * steps + 1]
+        feeds.append({"x": win[:, :-1].T.reshape(steps, batch, 1).copy(),
+                      "y": win[:, 1:].T.reshape(steps * batch, 1).copy()})
+    return feeds
+
+
+# the programs of tests/test_control_flow.py, each built with package
+# ``pt``'s public layers: (main, startup, [fetch vars])
+
+def cf_while_sum(pt):
+    """while i < 10: s += i; i += 1."""
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        i = L.fill_constant([1], "int64", 0)
+        n = L.fill_constant([1], "int64", 10)
+        s = L.fill_constant([1], "float32", 0.0)
+        cond_v = L.less_than(i, n)
+        w = L.While(cond_v)
+        with w.block():
+            L.assign(L.elementwise_add(s, L.cast(i, "float32")), s)
+            L.increment(i, 1.0)
+            L.assign(L.less_than(i, n), cond_v)
+        out = L.assign(s)
+    return main, startup, [out, i]
+
+
+def cf_while_feed(pt):
+    """x <- x / 2 while max(x) > 1, x fed."""
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = L.data("x", [4])
+        limit = L.fill_constant([1], "float32", 1.0)
+        cond_v = L.greater_than(L.reshape(L.reduce_max(x), [1]), limit)
+        w = L.While(cond_v)
+        with w.block():
+            L.assign(L.scale(x, 0.5), x)
+            L.assign(L.greater_than(L.reshape(L.reduce_max(x), [1]),
+                                    limit), cond_v)
+        out = L.assign(x)
+    return main, startup, [out]
+
+
+def cf_cond(pt):
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = L.data("x", [2])
+        flag = L.data("flag", [1], dtype="bool")
+        out = L.cond(flag, lambda: L.scale(x, 2.0), lambda: L.scale(x, -1.0))
+    return main, startup, [out]
+
+
+def cf_cond_multi(pt):
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = L.data("x", [2])
+        flag = L.data("flag", [1], dtype="bool")
+        outs = L.cond(flag, lambda: (L.scale(x, 1.0), L.scale(x, 2.0)),
+                      lambda: (L.scale(x, 3.0), L.scale(x, 4.0)))
+    return main, startup, list(outs)
+
+
+def cf_cond_grad(pt):
+    """d mean(cond(flag, 2x, 5x)) / dx through the branch taken."""
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = L.data("x", [2])
+        x.stop_gradient = False
+        flag = L.data("flag", [1], dtype="bool")
+        y = L.cond(flag, lambda: L.scale(x, 2.0), lambda: L.scale(x, 5.0))
+        grads = pt.gradients([L.mean(y)], [x])
+    return main, startup, grads
+
+
+def cf_arrays(pt):
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = L.data("x", [3])
+        i0 = L.fill_constant([1], "int64", 0)
+        i1 = L.fill_constant([1], "int64", 1)
+        arr = L.array_write(L.scale(x, 1.0), i0)
+        L.array_write(L.scale(x, 10.0), i1, array=arr)
+        outs = [L.array_length(arr), L.array_read(arr, i0),
+                L.array_read(arr, i1)]
+    return main, startup, outs
+
+
+def cf_print_assert(pt, bound=100.0):
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = L.data("x", [2])
+        y = L.Print(x, message="cf_print_assert:")
+        L.Assert(L.less_than(L.reduce_sum(y, keep_dim=True),
+                             L.fill_constant([1], "float32", bound)))
+        out = L.scale(y, 2.0)
+    return main, startup, [out]
+
+
+def cf_while_loop(pt):
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        i = L.fill_constant([1], value=0, dtype="int64")
+        s = L.fill_constant([1], value=0, dtype="int64")
+        i, s = L.while_loop(
+            lambda i, s: L.less_than(i, L.fill_constant([1], value=5,
+                                                        dtype="int64")),
+            lambda i, s: [L.elementwise_add(i, L.fill_constant(
+                [1], value=1, dtype="int64")), L.elementwise_add(s, i)],
+            [i, s])
+    return main, startup, [i, s]
+
+
+def cf_case_switch(pt):
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = L.data("x", [1])
+        zero = L.fill_constant([1], value=0.0, dtype="float32")
+        out = L.case([(L.less_than(x, zero),
+                       lambda: L.elementwise_mul(x, x))],
+                     default=lambda: L.elementwise_add(x, x))
+        idx = L.data("idx", [1], dtype="int64")
+        sw = L.switch_case(idx, {0: lambda: L.elementwise_add(x, x),
+                                 1: lambda: L.elementwise_mul(x, x)},
+                           default=lambda: L.elementwise_sub(x, x))
+    return main, startup, [out, sw]
+
+
+def cf_switch(pt):
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        step = L.data("step", [1])
+        lr = L.fill_constant([1], value=0.0, dtype="float32")
+        thresh = L.fill_constant([1], value=10.0, dtype="float32")
+        with L.Switch() as switch:
+            with switch.case(L.less_than(step, thresh)):
+                L.assign(L.fill_constant([1], value=0.1, dtype="float32"),
+                         lr)
+            with switch.default():
+                L.assign(L.fill_constant([1], value=0.01, dtype="float32"),
+                         lr)
+    return main, startup, [lr]
+
+
+def _f32(*rows):
+    return np.asarray(rows, np.float32)
+
+
+# name -> (builder, [(feed, the expected fetches)]) at the JAX tests' sizes
+CF_CASES = {
+    "while to n": (cf_while_sum, [({}, [_f32(45.0), np.array([10])])]),
+    "while with a feed": (cf_while_feed, [(
+        {"x": _f32([8.0, 2.0, 0.5, 7.9])}, [_f32([1.0, 0.25, 0.0625,
+                                                  0.9875])])]),
+    "cond": (cf_cond, [
+        ({"x": _f32([1.0, 3.0]), "flag": np.array([True])},
+         [_f32([2.0, 6.0])]),
+        ({"x": _f32([1.0, 3.0]), "flag": np.array([False])},
+         [_f32([-1.0, -3.0])])]),
+    "cond multi-output": (cf_cond_multi, [
+        ({"x": _f32([1.0, 1.0]), "flag": np.array([False])},
+         [_f32([3.0, 3.0]), _f32([4.0, 4.0])])]),
+    "cond gradient": (cf_cond_grad, [
+        ({"x": np.ones((2, 2), np.float32), "flag": np.array([True])},
+         [np.full((2, 2), 0.5, np.float32)]),
+        ({"x": np.ones((2, 2), np.float32), "flag": np.array([False])},
+         [np.full((2, 2), 1.25, np.float32)])]),
+    "arrays": (cf_arrays, [({"x": _f32([1.0, 2.0, 3.0])},
+                            [np.array([2]), _f32([1.0, 2.0, 3.0]),
+                             _f32([10.0, 20.0, 30.0])])]),
+    "Print/Assert": (cf_print_assert, [({"x": _f32([1.0, 1.0])},
+                                        [_f32([2.0, 2.0])])]),
+    "while_loop": (cf_while_loop, [({}, [np.array([5]), np.array([10])])]),
+    "case/switch_case": (cf_case_switch, [
+        ({"x": _f32([-3.0]), "idx": np.array([1])},
+         [_f32([9.0]), _f32([9.0])]),
+        ({"x": _f32([2.0]), "idx": np.array([5])},
+         [_f32([4.0]), _f32([0.0])])]),
+    "Switch": (cf_switch, [({"step": _f32([3.0])}, [np.float32([0.1])]),
+                           ({"step": _f32([30.0])}, [np.float32([0.01])])]),
+}
+
+
+def check_control_flow(device):
+    """(iii) each program of CF_CASES on the card and on the CPU port:
+    every fetch equal on the two (the branches and loops run the same
+    ops; the fp32 ones are exact scalings) and to the expected values;
+    the host reads a run. Returns the total host reads."""
+    import paddle_tpu_torch as pt
+    total = 0
+    for name, (build, runs) in CF_CASES.items():
+        main, startup, fetch = build(pt)
+        names = [v.name for v in fetch]
+        reads = []
+        for feed, want in runs:
+            outs = {}
+            for label, where in (("card", device), ("cpu", "cpu")):
+                exe, scope = pt.Executor(where), pt.Scope()
+                exe.run(startup, scope=scope)
+                outs[label] = exe.run(main, feed=feed, fetch_list=names,
+                                      scope=scope)
+                if label == "card":
+                    reads.append(exe.host_syncs)
+            for n, g, c, w in zip(names, outs["card"], outs["cpu"], want):
+                if not np.array_equal(g, c):
+                    fail(f"control flow {name}: {n} {g} on the card, {c} on "
+                         "the CPU port")
+                if not np.allclose(g, np.asarray(w).reshape(g.shape),
+                                   rtol=1e-6, atol=0):
+                    fail(f"control flow {name}: {n} {g}, expected {w}")
+        total += sum(reads)
+        say("sparse-cf", f"control flow {name}: {len(runs)} run(s), card "
+            f"= CPU port = expected; host reads a run {reads}")
+    return total
+
+
+# -- (i) Wide&Deep at the JAX model's widths
+WD_B = 1024
+WD_STEPS = 20
+WD_SEED = 4242
+WD_LR = 1e-3
+WD_RULE_STEPS = 3
+# one fp32 step, card (TF32 off) against the CPU port: the MLP's 3 GFLOP in
+# other orders; the loss within 1e-5 relative, each gradient at STEP_TOL
+# (1e-4 of its largest element + 1e-4 relative, a floor of 1e-5 of the
+# largest gradient), the table's merged rows exactly and its values at
+# STEP_TOL, every parameter after an Adam step within 2.5 lr (Adam moves a
+# weight ~lr whatever its gradient, so a near-0 gradient of another sign
+# lands 2 lr away). The other rules: SGD/Momentum/Adagrad/AdamW/Lamb each
+# at 2.5 lr of its own rate.
+WD_RULES = {"sgd": (lambda T, ps: T.SGD(0.1, parameters=ps), 0.1),
+            "momentum": (lambda T, ps: T.Momentum(0.1, momentum=0.9,
+                                                  parameters=ps), 0.1),
+            "adagrad": (lambda T, ps: T.Adagrad(0.01, parameters=ps), 0.01),
+            "adamw": (lambda T, ps: T.AdamW(1e-3, weight_decay=0.01,
+                                            parameters=ps), 1e-3),
+            "lamb": (lambda T, ps: T.Lamb(1e-3, parameters=ps), 1e-3)}
+WD_OVERFLOW_SCALE = 2.0 ** 32
+WD_SCALE = 2.0 ** 10
+# fp16 auto_cast, card against the CPU port: the table's gradient rows come
+# back through the MLP's four fp16 GEMMs forward and four backward, each
+# rounding its output once on each side in its own order (fp16 unit
+# roundoff 2^-11), so the unscaled values agree to 8 units in norm
+WD_FP16_REL = 8 * 2.0 ** -11
+
+
+def wd_batches(n, b=WD_B, slots=26, vocab=100000, dense_dim=13,
+               seed=WD_SEED):
+    """n batches: ids Zipf (a=1.2) folded into the table's rows, dense
+    features N(0, 1), labels 1 where a fixed random linear map of the
+    dense features is positive. numpy arrays."""
+    rng = np.random.default_rng(seed)
+    rule = rng.standard_normal(dense_dim).astype(np.float32)
+    out = []
+    for _ in range(n):
+        ids = ((rng.zipf(1.2, (b, slots)) - 1) % vocab).astype(np.int64)
+        dense = rng.standard_normal((b, dense_dim)).astype(np.float32)
+        label = (dense @ rule > 0).astype(np.float32)[:, None]
+        out.append((ids, dense, label))
+    return out
+
+
+def wd_model(state, device, cfg):
+    """WideDeep(**cfg) on ``device`` with a sparse table, its weights
+    ``state`` (numpy by name) through load_reference_state."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.jit import load_reference_state
+    from paddle_tpu_torch.models.wide_deep import WideDeep
+    table = nn.Embedding(cfg.get("sparse_feature_number", 100000),
+                         cfg.get("sparse_feature_dim", 16), sparse=True,
+                         device=device)
+    model = WideDeep(**cfg, distributed_embedding=table, device=device)
+    load_reference_state(model, state)
+    return model
+
+
+def wd_state(cfg, seed=WD_SEED):
+    """The weights of WideDeep(**cfg) as drawn under the port's seed, as
+    numpy arrays by name."""
+    from paddle_tpu_torch.jit import state_of
+    from paddle_tpu_torch.layers.helper import seed as port_seed
+    from paddle_tpu_torch.models.wide_deep import WideDeep
+    port_seed(seed)
+    return {n: t.detach().numpy().copy()
+            for n, t in state_of(WideDeep(**cfg, device="cpu")).items()}
+
+
+def wd_on(batch, device):
+    return tuple(torch.from_numpy(a).to(device) for a in batch)
+
+
+def wd_step(model, opt, batch, scaler=None, amp_dtype=None, keep=False):
+    """One step; the loss (a 0-d tensor) and, with ``keep``, the gradients
+    before the update: dense ones cloned, the table's merged
+    SelectedRows."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    ids, dense, label = batch
+    with amp.auto_cast(enable=amp_dtype is not None,
+                       dtype=amp_dtype or "bfloat16"):
+        logit = model(ids, dense)
+    loss = model.loss(logit.float(), label)
+    (scaler.scale(loss) if scaler is not None else loss).backward()
+    grads = None
+    if keep:
+        grads = {}
+        for n, p in model.named_parameters():
+            g = p.grad
+            grads[n] = SelectedRows.from_grad(g).merged() \
+                if g.layout == torch.sparse_coo else g.detach().clone()
+    if scaler is not None:
+        scaler.minimize(opt)
+    else:
+        opt.step()
+    opt.clear_grad()
+    return loss.detach(), grads
+
+
+def hold_tensor(label, got, want, atol, rtol=0.0):
+    e, ok = max_err(got.detach().cpu(), want.detach().cpu(), atol, rtol)
+    if not ok:
+        fail(f"{label}: off by {e} (atol {atol:g}, rtol {rtol:g})")
+    return e
+
+
+def hold_grads(label, got, want):
+    """Each gradient at STEP_TOL; a SelectedRows' rows exactly. Returns
+    the worst share of the tolerance."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+
+    def vals(g):
+        return g.values if isinstance(g, SelectedRows) else g
+    top = max(float(vals(g).abs().max()) for g in want.values())
+    worst = 0.0
+    for n, w in want.items():
+        g = got[n]
+        if isinstance(w, SelectedRows):
+            if not torch.equal(g.rows.cpu(), w.rows.cpu()):
+                fail(f"{label}: {n}'s merged rows differ")
+        w, g = vals(w), vals(g)
+        atol = STEP_TOL["grad_rel"] * float(w.abs().max()) + \
+            STEP_TOL["grad_floor"] * top
+        e = hold_tensor(f"{label} {n} gradient", g, w, atol,
+                        STEP_TOL["grad_rel"])
+        worst = max(worst, e / max(atol, 1e-30))
+    return worst
+
+
+def hold_params(label, got_model, want_model, lr):
+    want = dict(want_model.named_parameters())
+    return max(hold_tensor(f"{label} {n}", p, want[n], 2.5 * lr) /
+               (2.5 * lr) for n, p in got_model.named_parameters())
+
+
+def check_wd_vs_cpu(device, state, batches, cfg):
+    """(i) one Adam step and WD_RULE_STEPS of each WD_RULES optimizer, card
+    against the CPU port; the fp16 GradScaler run with an overflow step."""
+    from paddle_tpu_torch import optimizer as T
+    where = {"card": device, "cpu": torch.device("cpu")}
+    models = {k: wd_model(state, w, cfg) for k, w in where.items()}
+    opts = {k: T.Adam(WD_LR, parameters=list(m.parameters()))
+            for k, m in models.items()}
+    out = {k: wd_step(models[k], opts[k], wd_on(batches[0], w), keep=True)
+           for k, w in where.items()}
+    (lg, gg), (lc, gc) = out["card"], out["cpu"]
+    if abs(float(lg) - float(lc)) > STEP_TOL["loss_rtol"] * abs(float(lc)):
+        fail(f"Wide&Deep step: loss {float(lg)} on the card, {float(lc)} on "
+             "the CPU port")
+    gw = hold_grads("Wide&Deep step", gg, gc)
+    pw = hold_params("Wide&Deep step", models["card"], models["cpu"], WD_LR)
+    table = gc["embedding.weight"]
+    say("sparse-cf", f"Wide&Deep one Adam({WD_LR:g}) step at "
+        f"B={len(batches[0][0])}, card "
+        f"vs CPU port: loss {float(lg):.7f} / {float(lc):.7f}; gradients at "
+        f"{gw:.3f} of STEP_TOL, the table's merged SelectedRows of "
+        f"{int(table.valid().sum())} rows (of {table.rows.shape[0]} ids) "
+        f"equal in rows; parameters after within {pw:.3f} of 2.5 lr")
+    for name, (make, lr) in WD_RULES.items():
+        models = {k: wd_model(state, w, cfg) for k, w in where.items()}
+        opts = {k: make(T, list(m.parameters()))
+                for k, m in models.items()}
+        losses = {k: [] for k in models}
+        for i in range(WD_RULE_STEPS):
+            for k, w in where.items():
+                losses[k].append(float(wd_step(
+                    models[k], opts[k], wd_on(batches[i], w))[0]))
+            worst = hold_params(f"Wide&Deep {name} step {i + 1}",
+                                models["card"], models["cpu"], lr)
+        say("sparse-cf", f"Wide&Deep {name}: {WD_RULE_STEPS} steps card vs "
+            "CPU port, losses " + " ".join(f"{v:.6f}" for v in
+                                           losses["card"]) +
+            f"; parameters after each within {worst:.3f} of 2.5 lr")
+    check_wd_scaler(device, state, batches, cfg)
+
+
+def check_wd_scaler(device, state, batches, cfg):
+    """fp16 auto_cast with GradScaler: a step from WD_OVERFLOW_SCALE whose
+    fp16 backward overflows is skipped (every parameter and accumulator
+    bitwise unchanged, the scale halved by decr_every_n_nan_or_inf=1),
+    then a step from WD_SCALE unscales the sparse values (on each side
+    exactly: the scaled values over 2^10) and applies them: card against
+    the CPU port at WD_FP16_REL, with the values left scaled shown to fail
+    it."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import optimizer as T
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    after = {}
+    for side, w in (("card", device), ("cpu", torch.device("cpu"))):
+        model = wd_model(state, w, cfg)
+        opt = T.Adam(WD_LR, parameters=list(model.parameters()))
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        scaler = GradScaler(init_loss_scaling=WD_OVERFLOW_SCALE,
+                            decr_every_n_nan_or_inf=1)
+        wd_step(model, opt, wd_on(batches[0], w), scaler, "float16")
+        if not scaler._found_inf_last or \
+                scaler.get_scale() != WD_OVERFLOW_SCALE / 2:
+            fail(f"Wide&Deep fp16 on {w}: a step from 2^32 did not "
+                 f"overflow (scale {scaler.get_scale()})")
+        if any(not torch.equal(p.detach(), before[n])
+               for n, p in model.named_parameters()) or opt._accumulators:
+            fail(f"Wide&Deep fp16 on {w}: the skipped step changed the "
+                 "parameters or made accumulators")
+        scaler = GradScaler(init_loss_scaling=WD_SCALE)
+        ids, dense, label = wd_on(batches[1], w)
+        with amp.auto_cast(dtype="float16"):
+            logit = model(ids, dense)
+        scaler.scale(model.loss(logit.float(), label)).backward()
+        scaled = model.embedding.weight.grad._values().clone()
+        scaler.minimize(opt)  # unscales the gradients in place, then steps
+        if scaler._found_inf_last:
+            fail(f"Wide&Deep fp16 on {w}: the step from 2^10 overflowed")
+        grad = model.embedding.weight.grad
+        if not torch.equal(grad._values() * WD_SCALE, scaled):
+            fail(f"Wide&Deep fp16 on {w}: the table's values are not the "
+                 "scaled ones over 2^10")
+        after[side] = (model, SelectedRows.from_grad(grad).merged(),
+                       SelectedRows(grad._indices()[0], scaled,
+                                    grad.shape[0]).merged())
+    gm, gs, g_scaled = after["card"]
+    cm, cs, _ = after["cpu"]
+    if not torch.equal(gs.rows.cpu(), cs.rows.cpu()):
+        fail("Wide&Deep fp16: the unscaled table rows differ")
+
+    def rel(v):
+        return float((v.cpu().double() - cs.values.double()).norm()) / \
+            max(float(cs.values.double().norm()), 1e-30)
+    got, control = rel(gs.values), rel(g_scaled.values)
+    if not got <= WD_FP16_REL:
+        fail(f"Wide&Deep fp16: the unscaled table values differ by {got:.3e} "
+             f"of their norm (tol {WD_FP16_REL:.3e})")
+    if control <= WD_FP16_REL:
+        fail("Wide&Deep fp16: the values left scaled pass the tolerance")
+    pw = hold_params("Wide&Deep fp16 step", gm, cm, WD_LR)
+    say("sparse-cf", f"Wide&Deep fp16 GradScaler: from 2^32 the backward "
+        "overflows and the step is skipped on the card and the CPU port "
+        "(parameters bitwise unchanged, no accumulator made, scale halved); "
+        "from 2^10 the table's values are the scaled ones over 2^10 exactly "
+        f"on each side, and agree card vs CPU port to {got:.3e} of their "
+        f"norm (tol {WD_FP16_REL:.3e}; left scaled: {control:.3e}), "
+        f"parameters after within {pw:.3f} of 2.5 lr")
+
+
+def wd_main_path(device, state, batches, cfg, steps=WD_STEPS):
+    """(i) the main path: ``steps`` Adam(WD_LR) steps on the card cycling
+    over ``batches``, the kernels' counts set to 0 before and read after,
+    the sparse and densified update counts. Returns (losses, counts,
+    model, opt, sparse updates, densified updates)."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch import optimizer as T
+    model = wd_model(state, device, cfg)
+    opt = T.Adam(WD_LR, parameters=list(model.parameters()))
+    on = [wd_on(b, device) for b in batches]
+    monitor.reset_all()
+    reset_counts()
+    losses = [wd_step(model, opt, on[k % len(on)])[0] for k in range(steps)]
+    counts = read_counts()
+    losses = [float(v) for v in losses]
+    return (losses, counts, model, opt,
+            monitor.stat_get("STAT_optimizer_sparse_update"),
+            monitor.stat_get("STAT_optimizer_densified_update"))
+
+
+def run_wide_deep(device, card, cfg=None, b=WD_B, steps=WD_STEPS):
+    """Phase 12 (i). Returns the main path's kernel counts."""
+    cfg = dict(cfg or {})
+    t0 = time.perf_counter()
+    state = wd_state(cfg)
+    vocab = cfg.get("sparse_feature_number", 100000)
+    slots = cfg.get("num_sparse_slots", 26)
+    dim = cfg.get("sparse_feature_dim", 16)
+    batches = wd_batches(4, b, slots, vocab)
+    check_wd_vs_cpu(device, state, batches, cfg)
+    say("sparse-cf", f"Wide&Deep checks against the CPU port in "
+        f"{time.perf_counter() - t0:.1f} s")
+    losses, counts, model, opt, n_sparse, n_dense = wd_main_path(
+        device, state, batches, cfg, steps)
+    if any(counts.values()):
+        fail(f"Wide&Deep main path launched kernels: {counts}")
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        fail(f"Wide&Deep main path: losses {losses}")
+    if n_sparse != steps or n_dense != 0:
+        fail(f"Wide&Deep main path: {n_sparse} sparse and {n_dense} "
+             f"densified table updates in {steps} steps")
+    table = model.embedding.weight.detach().cpu()
+    touched = np.unique(np.concatenate(
+        [batches[k % len(batches)][0].ravel() for k in range(steps)]))
+    untouched = np.setdiff1d(np.arange(vocab), touched)
+    init = torch.from_numpy(state["embedding.weight"])
+    if not torch.equal(table[untouched], init[untouched]):
+        fail("Wide&Deep main path: a row never touched moved")
+    again = wd_main_path(device, state, batches, cfg, steps)
+    diff = max(float((p.detach() - q.detach()).abs().max()) for p, q in
+               zip(model.parameters(), again[2].parameters()))
+    if again[0] != losses or diff != 0.0:
+        fail(f"Wide&Deep rerun: losses {again[0]} against {losses}, "
+             f"parameters off by up to {diff}")
+    say("sparse-cf", f"Wide&Deep main path {cfg or 'WideDeep() defaults'}, "
+        f"B={b}, {steps} Adam({WD_LR:g}) steps over {len(batches)} "
+        "batches: losses " + " ".join(f"{v:.5f}" for v in losses) +
+        f"; {n_sparse:g} sparse table updates, {n_dense:g} densified; "
+        f"{len(untouched)} rows never touched bitwise unchanged; kernels "
+        f"launched {counts}; a rerun from the same seed is bitwise equal")
+    del again
+    # times: step ms on the host clock (synchronised, median of 10), the
+    # device busy ms of one profiled step, the rows a step touches
+    on = [wd_on(x, device) for x in batches]
+    for k in range(2):
+        wd_step(model, opt, on[k])
+    torch.cuda.synchronize()
+    times = []
+    for k in range(10):
+        t = time.perf_counter()
+        wd_step(model, opt, on[k % len(on)])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    ms = 1e3 * float(np.median(times))
+    busy, n_kernels, _, _ = profile_step(lambda: wd_step(model, opt, on[0]))
+    uniq = [len(np.unique(x[0])) for x in batches]
+    n_ids = b * slots
+    row = dim * 4
+    lazy = [u * row * 6 + n_ids * row for u in uniq]
+    dense = vocab * row * 7
+    say("sparse-cf", f"times Wide&Deep B={b}: step {ms:.2f} ms median of 10 "
+        f"({1e3 * min(times):.2f}-{1e3 * max(times):.2f}), device busy "
+        f"{busy:.3f} ms in {n_kernels} kernels, idle share "
+        f"{max(0.0, 1.0 - busy / ms):.3f}; unique rows a step {uniq} of "
+        f"{n_ids} ids; the lazy Adam update touches "
+        f"{np.mean(lazy) / 1e6:.2f} MB a step (p, m1, m2 read and written a "
+        f"row, the {n_ids} gradient rows read) against {dense / 1e6:.2f} MB "
+        f"for a dense Adam over the table  [{card}]")
+    return counts
+
+
+# -- (ii) the LSTM language model
+# one step, card against the CPU port, with the same dropout masks (both
+# draw from the executor's CPU generator): fp32 through 35 recurrent steps
+# and a 10000-way softmax in other orders. Loss within 1e-5 relative, each
+# @GRAD at STEP_TOL, each weight's change from the step within UPDATE_RTOL
+# of the CPU's in norm (SGD(1.0) moves a weight by its clipped gradient).
+LM_EMA_STEPS = 3
+
+
+def lm_run(form, state, device, feeds, steps, fetch=(), mode=True,
+           ema=None, keep=False):
+    """``steps`` steps of the LM program from ``state``: (executor, scope,
+    the loss of each step (a fetch as ``mode`` returns it), the fetches)
+    and, with ``keep``, each step's clone of the scope's weights."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import load_reference_scope
+    main, _, loss = form
+    scope, exe = pt.Scope(), pt.Executor(device)
+    load_reference_scope(scope, state, device)
+    out, kept = [], []
+    for k in range(steps):
+        vals = exe.run(main, feed=feeds[k % len(feeds)],
+                       fetch_list=[loss.name, *fetch], scope=scope,
+                       return_numpy=mode)
+        if ema is not None:
+            ema.update(scope, main)
+        out.append(vals)
+        if keep:
+            kept.append({n: scope.find_var(n).detach().clone()
+                         for n in fetch if scope.find_var(n) is not None})
+    return exe, scope, out, kept
+
+
+def run_lm(device, card, cfg=None, steps=LM_STEPS):
+    """Phase 12 (ii). Returns the main path's kernel counts."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import monitor
+    cfg = dict(LM_CFG if cfg is None else cfg)
+    t0 = time.perf_counter()
+    form = build_lstm_lm(pt, **cfg)
+    main, startup, loss = form
+    main.random_seed = LM_SEED
+    startup.random_seed = LM_SEED
+    state = static_state(startup, torch.device("cpu"))
+    feeds = lm_feeds(steps, cfg["vocab"], cfg["steps"], cfg["batch"])
+    params = [v.name for v in main.all_parameters()]
+    grads = [n + "@GRAD" for n in params]
+    cpu = torch.device("cpu")
+    (gexe, gscope, gout, _), (_, cscope, cout, _) = (
+        lm_run(form, state, w, feeds, 1, grads, mode=False)
+        for w in (device, cpu))
+    lg, lc = float(gout[0][0]), float(cout[0][0])
+    if not math.isfinite(lg) or abs(lg - lc) > 1e-5 * abs(lc):
+        fail(f"LM step: loss {lg} on the card, {lc} on the CPU port")
+    gw = hold_grads("LM step", dict(zip(grads, gout[0][1:])),
+                    dict(zip(grads, cout[0][1:])))
+    worst = 0.0
+    for n in params:
+        d_g = gscope.find_var(n).double().cpu() - torch.from_numpy(
+            state[n]).double()
+        d_c = cscope.find_var(n).double() - torch.from_numpy(
+            state[n]).double()
+        rel = float((d_g - d_c).norm()) / max(float(d_c.norm()), 1e-30)
+        worst = max(worst, rel / UPDATE_RTOL)
+        if not rel <= UPDATE_RTOL:
+            fail(f"LM step: the change of {n} is {rel:.3e} of its norm away")
+    n_ops = sum(gexe.lowered.values())
+    say("sparse-cf", f"LSTM LM {cfg} through StaticRNN, one step card vs CPU "
+        f"port with the same dropout masks: loss {lg:.6f} / {lc:.6f} "
+        f"(ln {cfg['vocab']} = {math.log(cfg['vocab']):.6f}); "
+        f"{len(grads)} @GRAD at {gw:.3f} of STEP_TOL; each weight's change "
+        f"within {worst:.3f} of {UPDATE_RTOL:g}; {n_ops} op lowerings a "
+        f"step, host reads {gexe.host_syncs}; in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del gscope, cscope
+
+    # the main path: lazy fetches, counts set to 0 before, read after
+    watch = "softmax.b"
+    monitor.reset_all()
+    reset_counts()
+    exe, scope, lazy, kept = lm_run(form, state, device, feeds, steps,
+                                    [watch], mode="lazy", keep=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    in_loop = monitor.stat_get("STAT_executor_sync")
+    losses = [float(h[0]) for h in lazy]
+    per_read = monitor.stat_get("STAT_executor_sync") - in_loop
+    own = all(np.array_equal(np.asarray(h[1]), kept[k][watch].cpu().numpy())
+              for k, h in enumerate(lazy))
+    if any(counts.values()):
+        fail(f"LM main path launched kernels: {counts}")
+    if in_loop != 0 or per_read != steps:
+        fail(f"LM lazy fetches: {in_loop} syncs in the loop, {per_read} for "
+             f"{steps} loss reads")
+    if not own:
+        fail("LM lazy fetches: a weight fetched lazily did not read its own "
+             "step's value")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < \
+            losses[0]:
+        fail(f"LM main path: losses {losses}")
+    monitor.reset_all()
+    _, _, eager, _ = lm_run(form, state, device, feeds, steps)
+    eager_losses = [float(v[0]) for v in eager]
+    if eager_losses != losses or \
+            monitor.stat_get("STAT_executor_sync") != steps:
+        fail(f"LM eager fetches: losses {eager_losses} against the lazy "
+             f"{losses}; {monitor.stat_get('STAT_executor_sync')} syncs")
+    say("sparse-cf", f"LSTM LM main path, {steps} SGD({cfg['lr']:g}) steps "
+        f"under GradientClipByGlobalNorm({cfg['clip']:g}) with lazy fetches: "
+        "losses " + " ".join(f"{v:.5f}" for v in losses) +
+        f"; 0 syncs in the loop, {per_read:g} for the {steps} loss reads; "
+        f"{watch} fetched lazily reads its own step's value; an eager-fetch "
+        f"run gives the same losses bitwise with one sync a run; kernels "
+        f"launched {counts}")
+
+    # a static ExponentialMovingAverage, updated each step, applied for one
+    # eval pass of the test clone and restored, card against CPU port
+    evals = {}
+    test = main.clone(for_test=True)
+    for label, w in (("card", device), ("cpu", cpu)):
+        ema = pt.optimizer.ExponentialMovingAverage(0.999)
+        exe, scope, _, _ = lm_run(form, state, w, feeds, LM_EMA_STEPS,
+                                  ema=ema)
+        before = {n: scope.find_var(n) for n in params}
+        with ema.apply(scope, main):
+            evals[label] = (float(exe.run(test, feed=feeds[0],
+                                           fetch_list=[loss.name],
+                                           scope=scope)[0]),
+                             scope.find_var(watch).cpu().clone())
+        if any(scope.find_var(n) is not before[n] for n in params):
+            fail(f"LM EMA on {w}: restore did not put the weights back")
+    (eg, sg), (ec, sc) = evals["card"], evals["cpu"]
+    if abs(eg - ec) > 1e-5 * abs(ec):
+        fail(f"LM EMA eval: loss {eg} on the card, {ec} on the CPU port")
+    e = hold_tensor("LM EMA shadow", sg, sc, 1e-6)
+    say("sparse-cf", f"LSTM LM static ExponentialMovingAverage(0.999) over "
+        f"{LM_EMA_STEPS} steps: eval loss with the shadows {eg:.6f} / "
+        f"{ec:.6f} (card / CPU port), {watch}'s shadow within {e:.2e}; "
+        "restored after")
+
+    # times
+    exe, scope, _, _ = lm_run(form, state, device, feeds, 2)
+
+    def step():
+        return exe.run(main, feed=feeds[0], fetch_list=[loss.name],
+                       scope=scope, return_numpy=False)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    ms = 1e3 * float(np.median(times))
+    busy, n_kernels, _, _ = profile_step(step)
+    say("sparse-cf", f"times LSTM LM: step {ms:.2f} ms median of 5 "
+        f"({1e3 * min(times):.2f}-{1e3 * max(times):.2f}), device busy "
+        f"{busy:.2f} ms in {n_kernels} kernels, idle share "
+        f"{max(0.0, 1.0 - busy / ms):.3f}; {sum(exe.lowered.values())} op "
+        f"lowerings a step, {exe.host_syncs} host syncs a step  [{card}]")
+    return counts
+
+
+# -- (iii) the structural ops, then three LeNet steps of the proximal rules
+# and a static ModelAverage, card against CPU port (hold_steps' tolerances)
+PROX_RULES = {"proximal_gd": (lambda f: f.optimizer.SGD(0.01), "sgd",
+                              0.01),
+              "proximal_adagrad": (lambda f: f.optimizer.Adagrad(
+                  0.01, initial_accumulator_value=0.1), "adagrad", 0.01)}
+
+
+def check_lenet_extras(device):
+    from paddle_tpu_torch import fluid
+    feeds = lenet_feeds(LENET_B, RULE_STEPS)
+    for name, (make, replaced, lr) in PROX_RULES.items():
+        form, _, _ = build_lenet(fluid, make)
+        for op in form[0].global_block.ops:
+            if op.type == replaced:
+                op.type = name
+                op.attrs.update(l1=1e-4, l2=1e-3)
+        state = static_state(form[1], fluid.CPUPlace())
+        g, exe = program_steps(form, state, fluid.CUDAPlace(0), feeds,
+                               steps=RULE_STEPS)
+        c, _ = program_steps(form, state, fluid.CPUPlace(), feeds,
+                             steps=RULE_STEPS)
+        worst = hold_steps(f"sparse-cf {name}", g, c, state, lr)
+        say("sparse-cf", f"LeNet {name}: {RULE_STEPS} steps card vs CPU "
+            "port, losses " + " ".join(f"{r['loss']:.6f}" for r in g) +
+            f"; {exe.lowered[name]} {name} ops a step; persistables within "
+            f"{worst['param']:.3f} of 2.5 lr, changes at "
+            f"{worst['update']:.3f} of {UPDATE_RTOL:g}")
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import load_reference_scope
+    form, _, _ = build_lenet(fluid)
+    main, startup, loss = form
+    state = static_state(startup, fluid.CPUPlace())
+    test = main.clone(for_test=True)
+    out = {}
+    for label, w in (("card", device), ("cpu", torch.device("cpu"))):
+        scope, exe = pt.Scope(), pt.Executor(w)
+        load_reference_scope(scope, state, w)
+        avg = pt.optimizer.ModelAverage(0.5, min_average_window=2,
+                                        max_average_window=2)
+        for k in range(RULE_STEPS):
+            exe.run(main, feed=feeds[k], fetch_list=[loss], scope=scope)
+            avg.update(scope, main)
+        with avg.apply(scope, main):
+            ev = float(exe.run(test, feed=feeds[0], fetch_list=[loss],
+                               scope=scope)[0])
+            ws = {v.name: scope.find_var(v.name).cpu().clone()
+                  for v in main.all_parameters()}
+        out[label] = (ev, ws)
+    (eg, wg), (ec, wc) = out["card"], out["cpu"]
+    if abs(eg - ec) > 1e-5 * abs(ec):
+        fail(f"LeNet ModelAverage eval: {eg} on the card, {ec} on the CPU")
+    worst = max(hold_tensor(f"ModelAverage {n}", wg[n], wc[n],
+                            2.5 * LENET_LR) for n in wc)
+    say("sparse-cf", f"LeNet static ModelAverage over {RULE_STEPS} Adam "
+        f"steps (window 2): eval loss with the averages {eg:.6f} / {ec:.6f}, "
+        f"averaged weights within {worst:.2e} (tol 2.5 lr)")
+
+
+def run_sparse_cf(device, card):
+    """Phase 12. Returns the kernel counts of its two main paths."""
+    t0 = time.perf_counter()
+    wd_counts = run_wide_deep(device, card)
+    torch.cuda.empty_cache()
+    say("sparse-cf", f"Wide&Deep in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_counts = run_lm(device, card)
+    torch.cuda.empty_cache()
+    say("sparse-cf", f"LSTM LM in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    reads = check_control_flow(device)
+    check_lenet_extras(device)
+    say("sparse-cf", f"control flow ({reads} host reads in all) and the "
+        f"LeNet rules in {time.perf_counter() - t0:.1f} s")
+    return wd_counts, lm_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -6079,8 +6985,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_static_counts, _, _ = run_static_train(device, card)
 
-    # -- 12. records: launches are the serving, training, recipe, static,
-    # generation, inference and static-training runs
+    # -- 12. sparse embeddings, LoD feeds, lazy fetches and control flow:
+    # the counts of its two main paths (Wide&Deep, the LSTM LM; no kernel
+    # of the seven lies on either) set to 0 just before each, read after
+    torch.cuda.empty_cache()
+    wd_counts, lm_counts = run_sparse_cf(device, card)
+    sparse_counts = {k: wd_counts[k] + lm_counts[k] for k in wd_counts}
+
+    # -- 13. records: launches are the serving, training, recipe, static,
+    # generation, inference, static-training and sparse/control-flow runs
     ln_rec = ln_times[(4096, 768, torch.float32)]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]
@@ -6092,7 +7005,8 @@ def main() -> int:
              launches=ln_total + train_counts["layer_norm_fwd"] +
              recipe_counts["layer_norm_fwd"] +
              static_counts["layer_norm_fwd"] +
-             train_static_counts["layer_norm_fwd"] + sum(
+             train_static_counts["layer_norm_fwd"] +
+             sparse_counts["layer_norm_fwd"] + sum(
                  r["counts"]["layer_norm"] for r in gen_recs.values()) +
              infer_ln,
              max_abs_err=ln_err[(4096, 768, torch.float32, 1e-12)],
@@ -6103,7 +7017,8 @@ def main() -> int:
              launches=train_counts["layer_norm_bwd"] +
              recipe_counts["layer_norm_bwd"] +
              static_counts["layer_norm_bwd"] +
-             train_static_counts["layer_norm_bwd"],
+             train_static_counts["layer_norm_bwd"] +
+             sparse_counts["layer_norm_bwd"],
              max_abs_err=ln_bwd_err[(16384, 768, torch.float32)],
              **ln_bwd_times[(16384, 768, torch.float32)]),
         dict(name="flash_attention_fwd", route="cuda",
@@ -6112,7 +7027,8 @@ def main() -> int:
              launches=fa_total + train_counts["flash_attention_fwd"] +
              recipe_counts["flash_attention_fwd"] +
              static_counts["flash_attention_fwd"] +
-             train_static_counts["flash_attention_fwd"] + infer_fa,
+             train_static_counts["flash_attention_fwd"] +
+             sparse_counts["flash_attention_fwd"] + infer_fa,
              max_abs_err=fa_err[(*fa_key, "contiguous")], **fa_rec),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -6120,7 +7036,8 @@ def main() -> int:
              launches=train_counts["flash_attention_bwd_dq"] +
              recipe_counts["flash_attention_bwd_dq"] +
              static_counts["flash_attention_bwd_dq"] +
-             train_static_counts["flash_attention_bwd_dq"],
+             train_static_counts["flash_attention_bwd_dq"] +
+             sparse_counts["flash_attention_bwd_dq"],
              max_abs_err=fa_bwd_err[(0, "dq")],
              **fa_bwd_times[(*bwd_key, "dq")]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
@@ -6129,7 +7046,8 @@ def main() -> int:
              launches=train_counts["flash_attention_bwd_dkv"] +
              recipe_counts["flash_attention_bwd_dkv"] +
              static_counts["flash_attention_bwd_dkv"] +
-             train_static_counts["flash_attention_bwd_dkv"],
+             train_static_counts["flash_attention_bwd_dkv"] +
+             sparse_counts["flash_attention_bwd_dkv"],
              max_abs_err=max(fa_bwd_err[(0, "dk")], fa_bwd_err[(0, "dv")]),
              **fa_bwd_times[(*bwd_key, "dkv")]),
         dict(name="paged_attention", route="cuda",

@@ -110,16 +110,14 @@ class GradScaler:
 
     @torch.no_grad()
     def _unscale_and_check(self, optimizer) -> bool:
-        """Divide every gradient by the scale in place; True when all are
-        finite. One flag on the gradients' device, read once."""
-        grads = [p.grad for p in optimizer._parameter_list or []
+        """Divide every gradient by the scale in place (a sparse one's
+        values, as the JAX package divides a SelectedRows'); True when all
+        are finite. One flag on the gradients' device, read once."""
+        grads = [p.grad if p.grad.layout == torch.strided else
+                 p.grad._values() for p in optimizer._parameter_list or []
                  if p.grad is not None]
         if not grads:
             return True
-        if any(g.layout != torch.strided for g in grads):
-            raise NotImplementedError(
-                "GradScaler: SelectedRows (sparse) gradients are not ported "
-                "yet (ROADMAP.md A2b)")
         # a true division, as the JAX package's g / scale
         torch._foreach_div_(grads, self._scale)
         found_inf = torch.zeros((), dtype=torch.float32,

@@ -37,10 +37,23 @@ same mask twice, and the gradients equal those without checkpoints. As in
 the JAX package, a program whose gradient targets include an
 intermediate var runs without its segments.
 
+The structural ops (``while``, ``conditional_block``,
+``cond_block_pair``, ``static_rnn`` and the tensor arrays) run their
+sub-blocks through ``_lower_one`` (``core/control_flow.py``); a predicate
+that one reads on the host is counted in ``host_syncs``, the reads of the
+last run.
+
+``return_numpy="lazy"`` returns ``FetchHandle`` objects
+(``core/fetch.py``) that read back on first use, and a fetch that shares
+its storage with a persistable (which later steps write in place) is
+handed over as a copy on its device, so that it keeps its step's value.
+``STAT_executor_sync`` (``monitor.py``) counts each first read of a lazy
+fetch and each run that fetches into numpy, as in the JAX package. A
+``LoDTensor`` feed is its packed buffer, as in the JAX package.
+
 Left out, raising where the JAX signature has them: ``CompiledProgram``
-and mesh plans (``ROADMAP.md`` A6), the program cache and AOT, lazy
-``FetchHandle`` fetches and ``train_from_dataset`` (A2b), and telemetry
-(A7).
+and mesh plans (``ROADMAP.md`` A6), the program cache and AOT and
+``train_from_dataset`` (A2b), and telemetry (A7).
 """
 from __future__ import annotations
 
@@ -52,8 +65,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
+from .. import monitor
 from .. import ops  # noqa: F401  (registers the lowerings)
 from .backward import BACKWARD_OP, GRAD_SUFFIX
+from .control_flow import LOWERINGS as _STRUCTURAL
+from .fetch import FetchHandle
+from .lod import LoDTensor
 from .program import OpDesc, Program, VarDesc, default_main_program
 from .registry import REGISTRY, LowerCtx
 from .scope import Scope, global_scope
@@ -65,6 +82,8 @@ def _as_feed(v, device: torch.device) -> torch.Tensor:
     """A feed as a tensor on ``device``; float64 becomes float32, as JAX
     with 64-bit types off runs it. Integer feeds keep int64 for
     indexing."""
+    if isinstance(v, LoDTensor):
+        v = np.asarray(v)
     if not isinstance(v, torch.Tensor):
         v = torch.from_numpy(np.ascontiguousarray(v))
     if v.dtype == torch.float64:
@@ -100,6 +119,8 @@ class Executor:
         # segments' ops in its backward
         self.lowered: collections.Counter = collections.Counter()
         self.recomputed: collections.Counter = collections.Counter()
+        # the predicates read on the host in the last run
+        self.host_syncs = 0
 
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, Any]] = None,
@@ -108,15 +129,11 @@ class Executor:
             use_program_cache: bool = True):
         """Run one step. ``return_numpy`` True returns numpy arrays (bf16
         widened to float32, ``as_numpy``), False the tensors on the
-        device."""
+        device, "lazy" a ``FetchHandle`` each."""
         if program is not None and not isinstance(program, Program):
             raise NotImplementedError(
                 f"Executor.run({type(program).__name__}): compiled and "
                 "mesh-planned programs are not ported yet (ROADMAP.md A6)")
-        if return_numpy == "lazy":
-            raise NotImplementedError(
-                "return_numpy='lazy' (FetchHandle) is not ported yet "
-                "(ROADMAP.md A2b)")
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
         fetch_names = [f.name if isinstance(f, VarDesc) else str(f)
@@ -125,6 +142,7 @@ class Executor:
         persistable = {v.name for v in program.persistable_vars()}
         self.lowered = collections.Counter()
         self.recomputed = collections.Counter()
+        self.host_syncs = 0
         self._run_block(program, env, ctx, keep=set(fetch_names))
         for n, v in env.items():
             if n in persistable and v is not state.get(n):
@@ -137,9 +155,23 @@ class Executor:
                                "produced it and it is not fed")
             v = env[n]
             fetches.append(v.detach() if isinstance(v, torch.Tensor) else v)
+        if return_numpy == "lazy":
+            held = {t.untyped_storage().data_ptr() for n, t in env.items()
+                    if n in persistable and isinstance(t, torch.Tensor)}
+            return [FetchHandle(v.clone() if isinstance(v, torch.Tensor)
+                                and v.untyped_storage().data_ptr() in held
+                                else v) for v in fetches]
         if return_numpy:
+            if any(isinstance(v, torch.Tensor) for v in fetches):
+                monitor.stat_add("STAT_executor_sync")
             fetches = [as_numpy(v) for v in fetches]
         return fetches
+
+    def _host_pred(self, x) -> bool:
+        """A structural op's predicate, read on the host (a sync on the
+        card), counted in ``host_syncs``."""
+        self.host_syncs += 1
+        return bool(x.reshape(()))
 
     def bind(self, program: Program, feed: Optional[Dict[str, Any]],
              scope: Scope):
@@ -250,6 +282,15 @@ class Executor:
                    ctx: LowerCtx, mid=frozenset(), again=False) -> None:
         """Lower one op into ``env``; ``again`` marks a recompute
         segment's re-run, which writes no persistable in place."""
+        if op.type in _STRUCTURAL:
+            try:
+                _STRUCTURAL[op.type](self, program, op, env, ctx)
+            except Exception as e:
+                e.add_note(f"while lowering op {op.type!r} "
+                           f"(in={op.inputs}, out={op.outputs})")
+                raise
+            (self.recomputed if again else self.lowered)[op.type] += 1
+            return
         opdef = REGISTRY.get(op.type)
         ins = {slot: [env[n] for n in names]
                for slot, names in op.inputs.items() if names}

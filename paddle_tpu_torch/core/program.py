@@ -244,6 +244,24 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self._block_stack[-1]]
 
+    class _BlockGuard:
+        def __init__(self, program: "Program", block: "Block"):
+            self._program = program
+            self._idx = block.idx
+
+        def __enter__(self):
+            self._program._block_stack.append(self._idx)
+            return self._program.blocks[self._idx]
+
+        def __exit__(self, *exc):
+            self._program._block_stack.pop()
+            return False
+
+    def block_guard(self, block: Block) -> "_BlockGuard":
+        """Build ops into ``block`` (a sub-block of a control-flow
+        layer) inside the ``with``."""
+        return Program._BlockGuard(self, block)
+
     def all_parameters(self) -> List[VarDesc]:
         return [v for b in self.blocks for v in b.vars.values()
                 if v.is_parameter]
@@ -291,7 +309,8 @@ class Program:
     def clone(self, for_test: bool = False) -> "Program":
         """Deep copy; with for_test=True only the forward section stays
         (the ops before the backward meta-op, the optimizer ops, which
-        write a Param in place, stripped) and is_test attrs are set."""
+        write a Param in place, stripped) and is_test attrs are set, in
+        every block (a control-flow op's sub-blocks too)."""
         prog = Program.from_dict(copy.deepcopy(self.to_dict()))
         prog.random_seed = self.random_seed
         if for_test:

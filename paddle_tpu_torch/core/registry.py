@@ -7,7 +7,10 @@ of a step; the ops that the JAX package wrote as Pallas kernels reach the
 port's CUDA kernels through their wrappers in ``kernels/``.
 
 An op the port has not lowered yet raises ``NotImplementedError`` naming
-its queue in ``ROADMAP.md`` (``queue_of``).
+its queue in ``ROADMAP.md`` (``queue_of``). The structural ops
+(``while``, ``conditional_block``, ``cond_block_pair``, ``static_rnn``,
+the tensor arrays) are not registered: the executor lowers them from
+``core/control_flow.py``, by name.
 """
 from __future__ import annotations
 

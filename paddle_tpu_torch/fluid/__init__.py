@@ -2,7 +2,9 @@
 
 Counterpart of ``paddle_tpu/fluid/``: Program, Executor and the scope,
 ``layers``, ``nets``, ``optimizer``, ``io``, ``regularizer``, ``clip``,
-``contrib`` (static mixed precision), ``DataFeeder`` and the places, so
+``contrib`` (static mixed precision), ``DataFeeder`` (ragged fields
+padded through ``LoDTensor``), ``LoDTensor``, ``lod_tensor``, ``input``
+(``embedding``, ``one_hot``) and the places, so
 that a Fluid static-graph program such as ``examples/fluid_mnist.py``
 runs on the port as written. ``CPUPlace()`` is the CPU and
 ``CUDAPlace(n)`` card n; ``Executor(place)`` runs there (the JAX
@@ -14,6 +16,7 @@ import torch
 
 from ..core.backward import append_backward, gradients  # noqa: F401
 from ..core.executor import Executor  # noqa: F401
+from ..core.lod import LoDTensor, LoDTensorArray  # noqa: F401
 from ..core.program import VarDesc as Variable  # noqa: F401
 from ..core.program import (Program, default_main_program,  # noqa: F401
                             default_startup_program, program_guard)
@@ -25,10 +28,13 @@ from ..io import (load, load_dygraph, load_inference_model,  # noqa: F401
                   save_persistables, set_program_state)
 from ..layers import data  # noqa: F401
 from ..layers.helper import ParamAttr  # noqa: F401
-from . import (clip, contrib, data_feeder, io, layers,  # noqa: F401
-               nets, optimizer, regularizer)
+from . import (clip, contrib, data_feeder, input, io,  # noqa: F401
+               layers, lod_tensor, nets, optimizer, regularizer)
 from ._not_ported import not_ported
 from .data_feeder import DataFeeder  # noqa: F401
+from .input import embedding, one_hot  # noqa: F401
+from .lod_tensor import (create_lod_tensor,  # noqa: F401
+                         create_random_int_lodtensor)
 
 
 def is_compiled_with_cuda() -> bool:
@@ -52,12 +58,9 @@ def device_count() -> int:
 # the names of paddle_tpu.fluid the port lacks, by ROADMAP.md queue
 _QUEUES = {
     "A2b": ("BuildStrategy", "CompiledProgram", "ExecutionStrategy",
-            "compiler", "LoDTensor", "LoDTensorArray", "lod_tensor",
-            "create_lod_tensor", "create_random_int_lodtensor",
-            "device_guard", "name_scope", "backward", "executor",
-            "framework", "core", "unique_name", "initializer",
-            "set_global_initializer", "WeightNormParamAttr", "embedding",
-            "one_hot", "input"),
+            "compiler", "device_guard", "name_scope", "backward",
+            "executor", "framework", "core", "unique_name", "initializer",
+            "set_global_initializer", "WeightNormParamAttr"),
     "A5": ("enable_dygraph", "disable_dygraph", "enable_static",
            "disable_static", "in_dygraph_mode", "dygraph"),
     "A6": ("ParallelExecutor", "parallel_executor", "DistributeTranspiler",

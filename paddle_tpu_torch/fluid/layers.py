@@ -1,5 +1,6 @@
 """``fluid.layers``: the port's layer builders (``paddle_tpu_torch/
-layers``) under the Fluid name. Another name raises
+layers``, those generated from the op registry among them) under the
+Fluid name. Another name raises
 ``NotImplementedError`` naming the queue of the op it would build
 (``core/registry.py`` ``queue_of``)."""
 from ..core.registry import queue_of
@@ -12,4 +13,8 @@ def __getattr__(name):
     if name.startswith("_"):
         raise AttributeError(f"module {__name__!r} has no attribute "
                              f"{name!r}")
-    raise not_ported(__name__, name, queue_of(name))
+    from .. import layers
+    try:
+        return getattr(layers, name)  # a builder of layers/auto.py
+    except AttributeError:
+        raise not_ported(__name__, name, queue_of(name)) from None

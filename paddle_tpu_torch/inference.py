@@ -26,7 +26,12 @@ eager, so the ladder bounds the number of graphs; on the CPU every run
 is eager. A capture that fails raises, naming the op that broke it; it
 never falls back to the eager path on the card. The kernels' launch
 counters and path logs are Python-side: they count the capture, not a
-replay.
+replay. A program that holds a structural op reading its predicate on
+the host (``while``, ``cond``, ``conditional_block``:
+``host_control_flow``) is never captured, since a graph would replay the
+branch of its capture: its buckets run eagerly on the card, each such run
+counted in ``STAT_predictor_graph_refused`` and logged as "eager" in
+``bucket_paths`` (a captured one as "graph").
 
 Fetches are numpy arrays; a bf16 fetch (``enable_bf16``) is widened to
 float32, which is exact (the JAX package returns ml_dtypes bfloat16
@@ -44,6 +49,7 @@ go with A7.
 """
 from __future__ import annotations
 
+import collections
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -52,6 +58,7 @@ import torch
 
 from . import device as _device
 from . import io as _io
+from .core.control_flow import HOST_PREDICATE_OPS
 from .core.executor import Executor, _as_feed, as_numpy
 from .core.passes import apply_pass
 from .core.scope import Scope
@@ -319,6 +326,16 @@ class Predictor:
         self._graphs: Dict[tuple, _BucketGraph] = {}
         self._graph_pool = None
         self._capture_stream = None
+        # a structural op that reads its predicate on the host (while,
+        # cond, conditional_block) cannot be captured: its branch would be
+        # frozen at the capture's; such a program's buckets run eagerly
+        self.host_control_flow = sorted({
+            op.type for blk in self.program.blocks for op in blk.ops
+            if op.type in HOST_PREDICATE_OPS})
+        # how each bucketed run went: "graph", or "eager" for a program
+        # with host_control_flow (the last 65536, as the path logs keep)
+        self.bucket_paths: "collections.deque[str]" = collections.deque(
+            maxlen=65536)
 
     def _cast_params_bf16(self):
         for v in self.program.list_vars():
@@ -442,7 +459,13 @@ class Predictor:
         # the /programz tag of the JAX package (program accounting) goes
         # with ROADMAP.md A7
         if self._graphs_on() and on_ladder:
-            outs = self._run_graph(sig, padded)
+            if self.host_control_flow:
+                stat_add("STAT_predictor_graph_refused")
+                self.bucket_paths.append("eager")
+                outs = self._eager(padded)
+            else:
+                self.bucket_paths.append("graph")
+                outs = self._run_graph(sig, padded)
         else:
             outs = self._eager(padded)
         if target != b:

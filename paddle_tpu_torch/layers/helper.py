@@ -2,16 +2,17 @@
 port's random generators.
 
 Counterpart of ``paddle_tpu/layers/helper.py``: ``ParamAttr``, the
-``Constant``, ``Normal`` and ``Xavier`` initializers and ``LayerHelper``
-(:151), which creates parameters (their initializer ops go into the
-startup program), temporary vars and ops on the default main program,
-inferring each op's output shapes as it is appended. An initializer is
-the op its ``desc`` names: the static path appends that op to the startup
-program, and the eager path (``__call__``) runs the op's lowering at
-once; either way it draws from an explicit ``torch.Generator`` on the
-CPU, in float32. The distributions are the JAX package's; the bits
-cannot be (JAX uses threefry, torch Philox), so a test that compares the
-two packages copies parameters across rather than re-drawing them.
+``Constant``, ``Normal``, ``Uniform`` and ``Xavier`` initializers and
+``LayerHelper`` (:151), which creates parameters (their initializer ops
+go into the startup program), temporary vars and ops on the default main
+program, inferring each op's output shapes as it is appended. An
+initializer is the op its ``desc`` names: the static path appends that
+op to the startup program, and the eager path (``__call__``) runs the
+op's lowering at once; either way it draws from an explicit
+``torch.Generator`` on the CPU, in float32. The distributions are the
+JAX package's; the bits cannot be (JAX uses threefry, torch Philox), so
+a test that compares the two packages copies parameters across rather
+than re-drawing them.
 
 The port keeps one explicit generator per device, and ``seed(s)`` seeds
 all of them: the CPU one (initializers, CPU dropout, and the seeds of
@@ -154,6 +155,19 @@ class Normal(Initializer):
                           "dtype": dtypes.convert_dtype(dtype)}}
 
 
+class Uniform(Initializer):
+    """U(low, high)."""
+
+    def __init__(self, low: float = -1.0, high: float = 1.0):
+        self.low, self.high = low, high
+
+    def desc(self, shape, dtype):
+        return {"type": "uniform_random",
+                "attrs": {"shape": list(shape), "min": self.low,
+                          "max": self.high,
+                          "dtype": dtypes.convert_dtype(dtype)}}
+
+
 class Xavier(Initializer):
     """XavierInitializer: fan-based uniform (the default) or normal."""
 
@@ -249,3 +263,19 @@ class LayerHelper:
         self.append_op(act, inputs={"X": [out.name]},
                        outputs={"Out": [act_out.name]})
         return act_out
+
+
+def append_with_new_outputs(op_type, inputs, attrs, outputs):
+    """Append ``op_type`` to the current block with new float32 vars as its
+    outputs (``outputs``: slot -> count), their shapes inferred, as the
+    JAX ``nn.functional._run``/``_run_multi`` build a dual-mode op in
+    static mode; ``inputs`` maps a slot to a list of vars. Returns slot ->
+    [vars]."""
+    helper = LayerHelper(op_type)
+    outs = {slot: [helper.create_tmp_variable() for _ in range(n)]
+            for slot, n in outputs.items()}
+    helper.append_op(op_type, inputs={k: [v.name for v in vs]
+                                      for k, vs in inputs.items() if vs},
+                     outputs={k: [v.name for v in vs]
+                              for k, vs in outs.items()}, attrs=attrs)
+    return outs

@@ -3,12 +3,18 @@ net's ``conv2d``, ``pool2d`` and ``batch_norm``, the BERT-shaped
 program's, the BERT inference program's (``embedding``, ``dropout``,
 ``scale``), Fluid's MNIST LeNet's (``cross_entropy``, ``accuracy`` and
 ``topk``), the common ops' (``cast``, ``clip``, the ``reduce_*``
-family), and the unary and binary op builders.
+family), the unary and binary op builders, and those of the control-flow
+programs and the recurrent language model: the comparisons, the logical
+ops, ``assign``, ``one_hot``, ``sums``, ``split``, ``slice``, ``stack``
+and ``unstack``.
 
 Counterparts of the ``paddle_tpu/layers/nn.py`` functions whose ops the
 port lowers: each appends the same ops, slots, attrs and parameters (the
 same names and shapes, in the same order) as the JAX function, through
-``LayerHelper``.
+``LayerHelper``. ``split``, ``slice``, ``stack`` and ``unstack`` are the
+static side of the JAX package's ``tensor`` functions, which its
+``layers`` re-exports (``layers/auto.py:215-228``); the port's ``layers``
+are static only, so these are too.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ import numpy as np
 
 from ..core import dtypes
 from ..core.program import VarDesc, default_main_program
-from .helper import Constant, LayerHelper, Normal, ParamAttr, Xavier
+from .helper import (Constant, LayerHelper, Normal, ParamAttr, Xavier,
+                     append_with_new_outputs)
 
 __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "layer_norm", "dropout", "scale", "clip", "cast", "reduce_sum",
@@ -31,7 +38,11 @@ __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "reshape", "transpose", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_max",
            "elementwise_min", "elementwise_pow", "matmul", "mul",
-           "fill_constant", "multi_head_attention"]
+           "fill_constant", "multi_head_attention", "less_than",
+           "less_equal", "greater_than", "greater_equal", "equal",
+           "not_equal", "logical_and", "logical_or", "logical_xor",
+           "assign", "one_hot", "sums", "split", "slice", "stack",
+           "unstack"]
 
 
 def data(name: str, shape: Sequence[int], dtype="float32",
@@ -509,3 +520,86 @@ def multi_head_attention(queries: VarDesc, num_heads: int,
         score = elementwise_add(score, attn_mask)
     ctx = matmul(softmax(score), vh)
     return reshape(transpose(ctx, [0, 2, 1, 3]), [0, 0, H])
+
+
+def _cmp(op_type):
+    def f(x: VarDesc, y: VarDesc, name: Optional[str] = None) -> VarDesc:
+        helper = LayerHelper(op_type, name)
+        out = helper.create_tmp_variable("bool", shape=x.shape)
+        helper.append_op(op_type, inputs={"X": [x.name], "Y": [y.name]},
+                         outputs={"Out": [out.name]})
+        return out
+    f.__name__ = op_type
+    return f
+
+
+less_than = _cmp("less_than")
+less_equal = _cmp("less_equal")
+greater_than = _cmp("greater_than")
+greater_equal = _cmp("greater_equal")
+equal = _cmp("equal")
+not_equal = _cmp("not_equal")
+logical_and = _cmp("logical_and")
+logical_or = _cmp("logical_or")
+logical_xor = _cmp("logical_xor")
+
+
+def assign(input: VarDesc, output: Optional[VarDesc] = None) -> VarDesc:
+    """Copy ``input`` into ``output`` (a new var when None)."""
+    helper = LayerHelper("assign")
+    if output is None:
+        output = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op("assign", inputs={"X": [input.name]},
+                     outputs={"Out": [output.name]})
+    return output
+
+
+def one_hot(input: VarDesc, depth: int, name: Optional[str] = None
+            ) -> VarDesc:
+    helper = LayerHelper("one_hot", name)
+    out = helper.create_tmp_variable("float32")
+    helper.append_op("one_hot", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"depth": depth})
+    return out
+
+
+def sums(input, name: Optional[str] = None) -> VarDesc:
+    helper = LayerHelper("sum", name)
+    out = helper.create_tmp_variable(input[0].dtype)
+    helper.append_op("sum", inputs={"X": [v.name for v in input]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def split(x: VarDesc, num_or_sections, axis: int = 0,
+          name: Optional[str] = None):
+    """``num_or_sections`` equal parts (an int) or parts of those sizes,
+    along ``axis``."""
+    if isinstance(num_or_sections, int):
+        n, attrs = num_or_sections, {"num": num_or_sections,
+                                     "axis": int(axis)}
+    else:
+        n = len(num_or_sections)
+        attrs = {"sections": list(num_or_sections), "axis": int(axis)}
+    return append_with_new_outputs("split", {"X": [x]}, attrs,
+                                   {"Out": n})["Out"]
+
+
+def slice(x: VarDesc, axes, starts, ends):  # noqa: A001
+    return append_with_new_outputs(
+        "slice", {"Input": [x]}, {"axes": list(axes), "starts":
+                                  list(starts), "ends": list(ends)},
+        {"Out": 1})["Out"][0]
+
+
+def stack(x, axis: int = 0, name: Optional[str] = None) -> VarDesc:
+    return append_with_new_outputs("stack", {"X": list(x)},
+                                   {"axis": int(axis)}, {"Y": 1})["Y"][0]
+
+
+def unstack(x: VarDesc, axis: int = 0, num: Optional[int] = None,
+            name: Optional[str] = None):
+    n = num if num is not None else x.shape[axis]
+    return append_with_new_outputs("unstack", {"X": [x]},
+                                   {"axis": int(axis), "num": int(n)},
+                                   {"Y": int(n)})["Y"]

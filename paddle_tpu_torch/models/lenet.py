@@ -1,8 +1,9 @@
 """LeNet-5 for MNIST (BASELINE config 1's model), the dygraph form.
 
 Counterpart of ``paddle_tpu/models/lenet.py``, with the same parameter
-names. The fluid book example of the same network belongs to the static
-path (``ROADMAP.md`` A2b).
+names. The fluid book example of the same network
+(``examples/fluid_mnist.py``) runs on the port's static path through
+``fluid``.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Functional ops of the port: plain functions on ``torch.Tensor``.
 
 Counterpart of the parts of ``paddle_tpu/nn/functional.py`` that BERT's
-forward and pretraining loss, and the vision models (convolution,
-pooling, batch norm, relu, relu6, flatten), use. Each follows the JAX
+forward and pretraining loss, the vision models (convolution, pooling,
+batch norm, relu, relu6, flatten) and Wide&Deep (a sparse embedding,
+``binary_cross_entropy_with_logits``) use, and ``one_hot``. Each follows the JAX
 package's op semantics (``ops/``): Paddle's ``[in, out]`` linear weight,
 ``lookup_table_v2``'s zeroed ``padding_idx`` rows, exact-erf gelu, the
 ``layer_norm`` op's fused-kernel route (any trailing-axis norm with both
@@ -73,15 +74,88 @@ class _Embedding(torch.autograd.Function):
                                           axis=0, unsafe=True)
 
 
+class _SparseEmbedding(torch.autograd.Function):
+    """Rows of weight, with the weight's gradient a sparse COO tensor of
+    (the flattened ids, the output's gradient rows), in id order, as
+    ``SelectedRows`` holds it (``paddle_tpu/dygraph/tape.py:521-563``).
+    Built unchecked: the ids are the forward's, and a bounds check would
+    read them back from the card."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.height = weight.shape[0]
+        return torch.nn.functional.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (ids,) = ctx.saved_tensors
+        rows = dy.reshape(-1, dy.shape[-1])
+        grad = torch.sparse_coo_tensor(
+            ids.reshape(1, -1), rows, (ctx.height, rows.shape[1]),
+            check_invariants=False)
+        return None, grad
+
+
 def embedding(x: torch.Tensor, weight: torch.Tensor,
-              padding_idx: Optional[int] = None) -> torch.Tensor:
+              padding_idx: Optional[int] = None,
+              sparse: bool = False) -> torch.Tensor:
     """``lookup_table_v2``: rows of weight; ids equal to padding_idx give 0.
-    Its gradient is the same from run to run (``_Embedding``)."""
-    out = _Embedding.apply(x.long(), weight)
-    if padding_idx is not None:
-        pad = padding_idx if padding_idx >= 0 else weight.shape[0] + padding_idx
+    Its gradient is the same from run to run (``_Embedding``). With
+    ``sparse`` and a leaf weight, the weight's gradient is sparse (a COO
+    tensor, ``core/selected_rows.py``), as the JAX package's is a
+    ``SelectedRows``; a weight that an op produced gets the dense one, as
+    there."""
+    pad = None if padding_idx is None else \
+        (padding_idx if padding_idx >= 0 else weight.shape[0] + padding_idx)
+    if sparse and weight.is_leaf:
+        from ..core.selected_rows import PADDING_ATTR
+        setattr(weight, PADDING_ATTR, pad)
+        out = _SparseEmbedding.apply(x.long(), weight)
+    else:
+        out = _Embedding.apply(x.long(), weight)
+    if pad is not None:
         out = out.masked_fill((x == pad).unsqueeze(-1), 0.0)
     return out
+
+
+def one_hot(x: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """paddle.nn.functional.one_hot (the ``one_hot_v2`` op): float32
+    [..., num_classes]; an id outside [0, num_classes) is a row of zeros,
+    as ``jax.nn.one_hot`` gives."""
+    return (x.unsqueeze(-1) ==
+            torch.arange(num_classes, device=x.device)).float()
+
+
+def sigmoid_cross_entropy_with_logits(x: torch.Tensor, label: torch.Tensor,
+                                      ignore_index: int = -100,
+                                      normalize: bool = False
+                                      ) -> torch.Tensor:
+    """The ``sigmoid_cross_entropy_with_logits`` op, in its stable form
+    max(x, 0) - x label + log1p(exp(-|x|)); a label equal to
+    ``ignore_index`` gives 0, and ``normalize`` divides by the count of
+    the others."""
+    loss = torch.clamp(x, min=0) - x * label + \
+        torch.log1p(torch.exp(-torch.abs(x)))
+    mask = label != ignore_index
+    loss = torch.where(mask, loss, torch.zeros_like(loss))
+    if normalize:
+        loss = loss / torch.clamp(mask.to(x.dtype).sum(), min=1.0)
+    return loss
+
+
+def binary_cross_entropy_with_logits(logit: torch.Tensor,
+                                     label: torch.Tensor,
+                                     reduction: str = "mean"
+                                     ) -> torch.Tensor:
+    """paddle.nn.functional.binary_cross_entropy_with_logits: the op's
+    loss, reduced by ``reduction`` ("mean", "sum" or "none")."""
+    loss = sigmoid_cross_entropy_with_logits(logit, label)
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
 
 
 # which layer-norm path ran, appended at the moment of routing, as the

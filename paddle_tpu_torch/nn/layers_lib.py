@@ -63,17 +63,22 @@ class Conv2D(Layer):
 
 
 class Embedding(Layer):
+    """A [num_embeddings, embedding_dim] table; ``sparse`` gives its weight
+    a sparse gradient (``F.embedding``)."""
+
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 padding_idx: Optional[int] = None, weight_attr=None,
-                 device=None):
+                 padding_idx: Optional[int] = None, sparse: bool = False,
+                 weight_attr=None, device=None):
         super().__init__(device)
         self._padding_idx = padding_idx
+        self._sparse = sparse
         self.weight = self.create_parameter(
             [num_embeddings, embedding_dim], attr=weight_attr,
             default_initializer=Normal(0.0, 1.0 / math.sqrt(embedding_dim)))
 
     def forward(self, x):
-        return F.embedding(x, self.weight, self._padding_idx)
+        return F.embedding(x, self.weight, self._padding_idx,
+                           sparse=self._sparse)
 
 
 class LayerNorm(Layer):

@@ -2,9 +2,10 @@
 
 Counterparts of the ``paddle_tpu/ops/`` lowerings that the static BERT-
 shaped program, the BERT inference program, the dense recipes, static
-mixed precision, Fluid's MNIST LeNet and the static update rules reach;
+mixed precision, Fluid's MNIST LeNet, the static update rules, the
+control-flow programs and the SelectedRows ops reach;
 every other op raises naming its ``ROADMAP.md`` queue
 (``core/registry.py``).
 """
-from . import (activation, amp, elementwise, fused, math,  # noqa: F401
-               metrics, nn, optimizers, random, reduce, tensor)
+from . import (activation, amp, controlflow, elementwise,  # noqa: F401
+               fused, math, metrics, nn, optimizers, random, reduce, tensor)

@@ -1,10 +1,11 @@
 """Elementwise binary ops (the add/sub/mul/div family), the comparisons
 (``equal``, ``not_equal``, ``less_than``, ``less_equal``,
-``greater_than``, ``greater_equal``), ``scale``, ``clip``,
+``greater_than``, ``greater_equal``), the logical ops (``logical_and``,
+``logical_or``, ``logical_xor``, ``logical_not``), ``scale``, ``clip``,
 ``clip_by_norm``, ``cast`` and ``sign``.
 
 Counterpart of ``paddle_tpu/ops/elementwise.py`` (:17-41, :43, :55,
-:69, :78, :83, :100-110); Y broadcasts to X from the ``axis`` attr
+:69, :78, :83, :100-110, :113-125); Y broadcasts to X from the ``axis`` attr
 (``common.bcast_y``), and mixed float dtypes promote as ``jnp`` promotes
 them (a bf16 tensor plus an fp32 one is fp32).
 """
@@ -63,6 +64,25 @@ def _make_cmp(name, fn):
 
 for _name, _fn in _CMP.items():
     _make_cmp(_name, _fn)
+
+_LOGICAL = {"logical_and": torch.logical_and, "logical_or": torch.logical_or,
+            "logical_xor": torch.logical_xor}
+
+
+def _make_logical(name, fn):
+    @register_op(name, inputs=("X", "Y"), no_grad=True)
+    def _op(ctx, ins, attrs, _fn=fn):
+        return one(_fn(ins["X"][0], ins["Y"][0]))
+    return _op
+
+
+for _name, _fn in _LOGICAL.items():
+    _make_logical(_name, _fn)
+
+
+@register_op("logical_not", inputs=("X",), no_grad=True)
+def _logical_not(ctx, ins, attrs):
+    return one(torch.logical_not(ins["X"][0]))
 
 
 @register_op("scale", inputs=("X",))

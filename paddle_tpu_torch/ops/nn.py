@@ -1,11 +1,11 @@
 """Neural-net ops: ``conv2d``, ``depthwise_conv2d``, ``pool2d``,
 ``softmax``, ``cross_entropy``, ``cross_entropy2``,
 ``softmax_with_cross_entropy``, ``layer_norm``, ``batch_norm``,
-``sync_batch_norm``, ``dropout``, ``lookup_table`` and
-``lookup_table_v2``.
+``sync_batch_norm``, ``dropout``, ``lookup_table``, ``lookup_table_v2``
+and ``sigmoid_cross_entropy_with_logits``.
 
 Counterparts of ``paddle_tpu/ops/nn.py`` :50, :62, :184, :210, :220,
-:241, :252, :415, :445, :994, :655, :851 and :866. ``cross_entropy``
+:241, :252, :415, :445, :994, :655, :851, :866 and :277. ``cross_entropy``
 takes probabilities (a softmax's output) and adds 1e-12 inside the log,
 as the JAX op does. The lookups are
 ``nn/functional.py`` ``embedding``, whose gradient sums the rows of each
@@ -254,3 +254,11 @@ def _lookup_table(ctx, ins, attrs):
 def _lookup_table_v2(ctx, ins, attrs):
     return one(_lookup(ins["W"][0], ins["Ids"][0],
                        attrs.get("padding_idx", -1)))
+
+
+@register_op("sigmoid_cross_entropy_with_logits", inputs=("X", "Label"),
+             non_diff_inputs=("Label",))
+def _sigmoid_ce(ctx, ins, attrs):
+    return one(_F.sigmoid_cross_entropy_with_logits(
+        ins["X"][0], ins["Label"][0], attrs.get("ignore_index", -100),
+        attrs.get("normalize", False)))

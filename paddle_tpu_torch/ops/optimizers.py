@@ -1,10 +1,11 @@
 """Update ops: ``sgd``, ``momentum``, ``adam``, ``adamw``, ``adamax``,
 ``adagrad``, ``decayed_adagrad``, ``adadelta``, ``rmsprop``, ``ftrl``,
-``lamb``, ``lars_momentum`` and ``dpsgd``, and the ``lr_schedule`` op of
-the static schedulers.
+``lamb``, ``lars_momentum``, ``dpsgd``, ``proximal_gd`` and
+``proximal_adagrad``, the ``average_accumulates`` op of ``ModelAverage``,
+and the ``lr_schedule`` op of the static schedulers.
 
 Counterparts of ``paddle_tpu/ops/optimizers.py`` :24, :31, :47, :71, :96,
-:118, :130, :144, :163, :192, :223, :255 and :274 and of
+:118, :130, :144, :163, :192, :223, :255, :274 and :289-350 and of
 ``paddle_tpu/optimizer/lr_scheduler.py`` :21, in the same order of
 operations. ``dpsgd`` draws its Gaussian noise from the executor's CPU
 generator (``LowerCtx.rng``) in float32 and moves it to the device, as
@@ -289,3 +290,62 @@ def _lr_schedule(ctx, ins, attrs):
     from ..optimizer.lr_scheduler import lr_schedule
     step = ins["Step"][0]
     return {"Out": [lr_schedule(attrs, step)], "StepOut": [step + 1]}
+
+
+def _proximal(prox, lr_t, l1, l2):
+    # the proximal step of an l1 and l2 penalty at rate lr_t
+    return torch.sign(prox) * torch.clamp(torch.abs(prox) - lr_t * l1,
+                                          min=0.0) / (1.0 + lr_t * l2)
+
+
+@register_op("proximal_gd", inputs=("Param", "Grad", "LearningRate"),
+             outputs=("ParamOut",), no_grad=True, inplace_map=_P)
+def _proximal_gd(ctx, ins, attrs):
+    p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
+    return {"ParamOut": [_proximal(p - lr * g, lr, attrs.get("l1", 0.0),
+                                   attrs.get("l2", 0.0))]}
+
+
+@register_op("proximal_adagrad",
+             inputs=("Param", "Moment", "Grad", "LearningRate"),
+             outputs=("ParamOut", "MomentOut"), no_grad=True,
+             inplace_map={"ParamOut": "Param", "MomentOut": "Moment"})
+def _proximal_adagrad(ctx, ins, attrs):
+    p, m, g, lr = (ins["Param"][0], ins["Moment"][0], ins["Grad"][0],
+                   ins["LearningRate"][0])
+    mo = m + g * g
+    lr_t = lr / torch.sqrt(mo)
+    return {"ParamOut": [_proximal(p - lr_t * g, lr_t, attrs.get("l1", 0.0),
+                                   attrs.get("l2", 0.0))],
+            "MomentOut": [mo]}
+
+
+@register_op("average_accumulates",
+             inputs=("Param", "SumAccum1", "SumAccum2", "SumAccum3",
+                     "NumAccum", "OldNumAccum", "NumUpdates"),
+             outputs=("SumAccum1Out", "SumAccum2Out", "SumAccum3Out",
+                      "NumAccumOut", "OldNumAccumOut", "NumUpdatesOut"),
+             no_grad=True,
+             inplace_map={"SumAccum1Out": "SumAccum1",
+                          "SumAccum2Out": "SumAccum2",
+                          "SumAccum3Out": "SumAccum3",
+                          "NumAccumOut": "NumAccum",
+                          "OldNumAccumOut": "OldNumAccum",
+                          "NumUpdatesOut": "NumUpdates"})
+def _average_accumulates(ctx, ins, attrs):
+    # as the JAX op computes it: sum_1 += param, and once the count passes
+    # max_average_window sum_1 folds into sum_2; sum_3 and the old count
+    # pass through (simpler than ModelAverage.update's own window rule)
+    p = ins["Param"][0]
+    s1, s2, s3 = (ins["SumAccum1"][0], ins["SumAccum2"][0],
+                  ins["SumAccum3"][0])
+    num, old_num, updates = (ins["NumAccum"][0], ins["OldNumAccum"][0],
+                             ins["NumUpdates"][0])
+    num_out = num + 1
+    s1o = s1 + p
+    overflow = num_out > attrs.get("max_average_window", 10000)
+    s2o = torch.where(overflow, s2 + s1o, s2)
+    s1o = torch.where(overflow, torch.zeros_like(s1o), s1o)
+    return {"SumAccum1Out": [s1o], "SumAccum2Out": [s2o],
+            "SumAccum3Out": [s3], "NumAccumOut": [num_out],
+            "OldNumAccumOut": [old_num], "NumUpdatesOut": [updates + 1]}

@@ -1,8 +1,10 @@
 """Tensor ops: ``reshape2``, ``transpose2``, ``concat``, ``top_k``,
-``fill_constant`` and ``assign``.
+``fill_constant``, ``assign``, ``split``, ``slice``, ``stack``,
+``unstack``, ``one_hot``, ``one_hot_v2`` and the SelectedRows ops
+``merge_selected_rows`` and ``get_tensor_from_selected_rows``.
 
-Counterparts of ``paddle_tpu/ops/tensor.py`` :45, :59, :71, :379, :420
-and :450. ``assign`` copies: the executor keeps a persistable's tensor
+Counterparts of ``paddle_tpu/ops/tensor.py`` :45, :59, :71, :379, :420,
+:450, :76, :135, :113, :118, :331, :340 and :639-652. ``assign`` copies: the executor keeps a persistable's tensor
 as the scope's storage, so an assigned var (Lookahead's slow copy of a
 parameter) must not share it.
 """
@@ -73,3 +75,78 @@ def _fill_constant(ctx, ins, attrs):
 @register_op("assign", inputs=("X",))
 def _assign(ctx, ins, attrs):
     return one(ins["X"][0].clone())
+
+
+@register_op("split", inputs=("X",))
+def _split(ctx, ins, attrs):
+    # ``sections`` sizes, or ``num`` equal parts, along ``axis``
+    x = ins["X"][0]
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections", [])
+    if sections:
+        return {"Out": list(torch.split(x, list(sections), dim=axis))}
+    return {"Out": list(torch.chunk(x, attrs.get("num", 0), dim=axis))}
+
+
+@register_op("slice", inputs=("Input",))
+def _slice(ctx, ins, attrs):
+    # starts and ends clamped into each axis as numpy slices are;
+    # ``decrease_axis`` drops those axes
+    x = ins["Input"][0]
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    out = x[tuple(idx)]
+    decrease = attrs.get("decrease_axis", [])
+    if decrease:
+        out = out.reshape([s for i, s in enumerate(out.shape)
+                           if i not in decrease])
+    return one(out)
+
+
+@register_op("stack", inputs=("X",), outputs=("Y",))
+def _stack(ctx, ins, attrs):
+    return {"Y": [torch.stack(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register_op("unstack", inputs=("X",), outputs=("Y",))
+def _unstack(ctx, ins, attrs):
+    return {"Y": list(torch.unbind(ins["X"][0], dim=attrs.get("axis", 0)))}
+
+
+@register_op("one_hot", inputs=("X",), no_grad=True)
+def _one_hot(ctx, ins, attrs):
+    # a trailing 1 of the ids is squeezed first
+    from ..nn.functional import one_hot
+    x = ins["X"][0]
+    return one(one_hot(x.squeeze(-1) if x.dim() and x.shape[-1] == 1
+                       else x, attrs["depth"]))
+
+
+@register_op("one_hot_v2", inputs=("X",), no_grad=True)
+def _one_hot_v2(ctx, ins, attrs):
+    from ..nn.functional import one_hot
+    return one(one_hot(ins["X"][0], attrs["depth"]))
+
+
+@register_op("merge_selected_rows", inputs=("X",), no_grad=True)
+def _merge_selected_rows(ctx, ins, attrs):
+    from ..core.selected_rows import SelectedRows
+    x = ins["X"][0]
+    if not isinstance(x, SelectedRows):
+        raise TypeError("merge_selected_rows needs a SelectedRows input, "
+                        f"not {type(x).__name__}")
+    return one(x.merged())
+
+
+@register_op("get_tensor_from_selected_rows", inputs=("X",), no_grad=True)
+def _get_tensor_from_selected_rows(ctx, ins, attrs):
+    from ..core.selected_rows import SelectedRows
+    x = ins["X"][0]
+    if not isinstance(x, SelectedRows):
+        raise TypeError("get_tensor_from_selected_rows needs a SelectedRows "
+                        f"input, not {type(x).__name__}")
+    return one(x.to_dense())

@@ -4,8 +4,8 @@ sides.
 The exports of ``paddle_tpu/optimizer/__init__.py`` under the same names
 and aliases: the learning-rate schedulers (``lr_scheduler.py``), the
 gradient clips, the regularizers, every optimizer (``DpSGD`` static only,
-as in the JAX package), the parameter averages (eager only; their static
-side is ``ROADMAP.md`` A2b) and ``LookaheadOptimizer`` (static only).
+as in the JAX package), the parameter averages (eager, or static on a
+Program's scope) and ``LookaheadOptimizer`` (static only).
 ``DGCMomentumOptimizer``, ``PipelineOptimizer`` and ``RecomputeOptimizer``
 belong to the distributed runtime and raise (A6).
 """

@@ -44,36 +44,66 @@ rule has it. ``LookaheadOptimizer`` is static only, as in the reference:
 its slow weights follow the fast ones through a branchless gate of
 elementwise ops.
 
-Not ported, and raising ``NotImplementedError`` that names the queue
-(``ROADMAP.md`` A2b): the static side of the parameter averages
-(``ExponentialMovingAverage``, ``ModelAverage``) and ``SelectedRows``
-gradients (with ``core/selected_rows.py``). ``DpSGD`` has no eager step,
-as in the JAX package.
+A parameter whose gradient is sparse (a COO tensor from
+``embedding(sparse=True)``) steps as a ``SelectedRows``
+(``core/selected_rows.py``), as in the JAX package (``step``, :324-376):
+the clips merge it first and take their norms over its values; the
+regularizer is skipped for it, with one warning; SGD, Momentum, Adam
+(lazy mode: the moments and the parameter of the touched rows only, the
+beta powers advancing once a step), AdamW and Adagrad update the touched
+rows only (``_sparse_update``); every other rule, Lamb among them (its
+trust ratio is a whole-tensor norm), densifies the gradient first.
+``STAT_optimizer_sparse_update`` and ``STAT_optimizer_densified_update``
+(``monitor.py``) count the two, a parameter a step. The sparse rules read
+and write the rows through ``safe_rows`` and ``scatter_rows``, which
+never index with the drop marker.
+
+The parameter averages work on a list of parameters (eager) or on a
+Program's parameters in a scope (``scope=``, ``program=``: static), as in
+the JAX package. ``DpSGD`` has no eager step, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from .. import monitor
 from ..core.backward import append_backward
 from ..core.program import (VarDesc, default_main_program,
                             default_startup_program)
 from ..core.scope import global_scope
+from ..core.selected_rows import (SelectedRows, padding_of, safe_rows,
+                                  scatter_rows)
 from ..ops.optimizers import lamb_direction, lamb_trust, lars_velocity
 from .lr_scheduler import LRScheduler, _div
 
-_STATIC = "this static Program side of the optimizers is not ported yet " \
-          "(ROADMAP.md A2b)"
+
+def _grad_of(p: torch.Tensor):
+    """p's gradient: a tensor, or a SelectedRows for a sparse one."""
+    g = p.grad
+    if g is not None and g.layout == torch.sparse_coo:
+        return SelectedRows.from_grad(g, padding_of(p))
+    return g
 
 
-def _dense(grads: Iterable[torch.Tensor]) -> None:
-    for g in grads:
-        if g.layout != torch.strided:
-            raise NotImplementedError(
-                "SelectedRows (sparse) gradients are not ported yet "
-                "(ROADMAP.md A2b, with core/selected_rows.py)")
+def _merged(g):
+    """A SelectedRows merged (the clips count each row once); a tensor as
+    it is."""
+    return g.merged() if isinstance(g, SelectedRows) else g
+
+
+def _operand(g) -> torch.Tensor:
+    """What a clip's norm reads: a SelectedRows' values (its marker slots
+    too, as the JAX package's ``_sr_sq_sum`` does), or the tensor."""
+    return g.values if isinstance(g, SelectedRows) else g
+
+
+def _with(g, value: torch.Tensor):
+    """g with its tensor (a SelectedRows' values) replaced by ``value``."""
+    return g.map_values(lambda _: value) if isinstance(g, SelectedRows) \
+        else value
 
 
 def _norms(tensors) -> torch.Tensor:
@@ -117,10 +147,10 @@ class GradientClipByValue(GradClipBase):
         if not pgs:
             return []
         ps, gs = zip(*pgs)
-        _dense(gs)
-        gs = torch._foreach_clamp_max(
-            torch._foreach_clamp_min(list(gs), self.min), self.max)
-        return list(zip(ps, gs))
+        gs = [_merged(g) for g in gs]
+        vals = torch._foreach_clamp_max(torch._foreach_clamp_min(
+            [_operand(g) for g in gs], self.min), self.max)
+        return [(p, _with(g, v)) for p, g, v in zip(ps, gs, vals)]
 
 
 class GradientClipByNorm(GradClipBase):
@@ -137,10 +167,11 @@ class GradientClipByNorm(GradClipBase):
         if not pgs:
             return []
         ps, gs = zip(*pgs)
-        _dense(gs)
-        factors = _div(self.clip_norm,
-                       torch.clamp(_norms(gs).float(), min=self.clip_norm))
-        return [(p, g * f) for p, g, f in zip(ps, gs, factors.unbind())]
+        gs = [_merged(g) for g in gs]
+        factors = _div(self.clip_norm, torch.clamp(
+            _norms([_operand(g) for g in gs]).float(), min=self.clip_norm))
+        return [(p, _with(g, _operand(g) * f))
+                for p, g, f in zip(ps, gs, factors.unbind())]
 
 
 class GradientClipByGlobalNorm(GradClipBase):
@@ -196,9 +227,10 @@ class GradientClipByGlobalNorm(GradClipBase):
         if not pgs:
             return []
         ps, gs = zip(*pgs)
-        _dense(gs)
-        gs = list(gs)
-        return list(zip(ps, torch._foreach_mul(gs, self.factor(gs))))
+        gs = [_merged(g) for g in gs]
+        vals = [_operand(g) for g in gs]
+        vals = torch._foreach_mul(vals, self.factor(vals))
+        return [(p, _with(g, v)) for p, g, v in zip(ps, gs, vals)]
 
 
 class L2Decay:
@@ -434,25 +466,56 @@ class Optimizer:
         for p, g in zip(params, grads):
             self._update(p, g, lrs[p.device], self.accumulators(p))
 
+    def _sparse_update(self, param: torch.Tensor, sr: SelectedRows,
+                       lr: torch.Tensor, state: Dict[str, torch.Tensor]
+                       ) -> bool:
+        """The row-sparse rule on a merged SelectedRows (its values in the
+        parameter's dtype): the touched rows of ``param`` and of its
+        accumulators written in place; False for a rule that has none
+        (the gradient is densified), the JAX ``_sparse_apply``'s None."""
+        return False
+
     @torch.no_grad()
     def _apply(self, step: int) -> None:
         """Clip, cast, regularize and update every parameter that has a
-        gradient, with the learning rate of ``step``."""
+        gradient, with the learning rate of ``step``; a sparse gradient
+        takes its class's row-sparse rule."""
         self._accumulator_spec()  # a class with no eager rule raises here
-        pgs = [(p, p.grad) for p in self.parameters if p.grad is not None]
-        _dense(g for _, g in pgs)
+        pgs = [(p, _grad_of(p)) for p in self.parameters
+               if p.grad is not None]
         if not pgs:
             return
         if self.grad_clip is not None:
             pgs = self.grad_clip.eager_apply(pgs)
-        params = [p for p, _ in pgs]
-        grads = [g.to(p.dtype) for p, g in pgs]
-        if self.regularization is not None:
-            grads = self.regularization.eager_apply(params, grads)
         lrs = {}
-        for p in params:
+        for p, _ in pgs:
             if p.device not in lrs:
                 lrs[p.device] = self._lr_on(p.device, step)
+        dense = []
+        for p, g in pgs:
+            if not isinstance(g, SelectedRows):
+                dense.append((p, g))
+                continue
+            if self.regularization is not None and \
+                    not getattr(self, "_warned_sparse_reg", False):
+                import warnings
+                warnings.warn(
+                    "regularization is skipped for SelectedRows (sparse) "
+                    "gradients, as the reference's "
+                    "append_regularization_ops skips them")
+                self._warned_sparse_reg = True
+            g = g.merged().map_values(lambda v, p=p: v.to(p.dtype))
+            if self._sparse_update(p, g, lrs[p.device], self.accumulators(p)):
+                monitor.stat_add("STAT_optimizer_sparse_update")
+                continue
+            monitor.stat_add("STAT_optimizer_densified_update")
+            dense.append((p, g.to_dense()))
+        if not dense:
+            return
+        params = [p for p, _ in dense]
+        grads = [g.to(p.dtype) for p, g in dense]
+        if self.regularization is not None:
+            grads = self.regularization.eager_apply(params, grads)
         self._update_all(params, grads, lrs)
 
     def step(self) -> None:
@@ -549,6 +612,12 @@ class SGD(Optimizer):
     def _accumulator_spec(self):
         return []
 
+    def _sparse_update(self, param, sr, lr, state):
+        # p[rows] += -(lr g)
+        scatter_rows(param, sr, param[safe_rows(sr)] +
+                     (-(lr.to(param.dtype) * sr.values)))
+        return True
+
     def _append_optimize_op(self, block, param, grad, lr, program, startup):
         block.append_op("sgd",
                         inputs={"Param": [param.name], "Grad": [grad.name],
@@ -573,6 +642,16 @@ class Momentum(Optimizer):
 
     def _op_attrs(self):
         return {"mu": self._momentum, "use_nesterov": self._use_nesterov}
+
+    def _sparse_update(self, param, sr, lr, state):
+        # v[rows] = mu v[rows] + g; p[rows] += -lr (g + mu v or v)
+        safe, g, mu = safe_rows(sr), sr.values, self._momentum
+        vg = mu * state["velocity"][safe] + g
+        step = (g + mu * vg) if self._use_nesterov else vg
+        scatter_rows(state["velocity"], sr, vg)
+        scatter_rows(param, sr, param[safe] +
+                     (-lr.to(param.dtype) * step))
+        return True
 
     def _append_optimize_op(self, block, param, grad, lr, program, startup):
         vel = self._add_accumulator("velocity", param, program, startup)
@@ -646,6 +725,25 @@ class Adam(Optimizer):
         return {"beta1": self._beta1, "beta2": self._beta2,
                 "epsilon": self._epsilon}
 
+    def _sparse_update(self, param, sr, lr, state, base=None):
+        """Lazy mode: the moments and the parameter of the touched rows
+        (from ``base``, the rows of the parameter, when given); the beta
+        powers advance once a step."""
+        safe, g = safe_rows(sr), sr.values
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        b1p, b2p = state["beta1_pow"], state["beta2_pow"]
+        m1g = b1 * state["moment1"][safe] + (1 - b1) * g
+        m2g = b2 * state["moment2"][safe] + (1 - b2) * g * g
+        lr_t = (lr * torch.sqrt(1 - b2p) / (1 - b1p)).to(param.dtype)
+        scatter_rows(state["moment1"], sr, m1g)
+        scatter_rows(state["moment2"], sr, m2g)
+        state["beta1_pow"] = b1p * b1
+        state["beta2_pow"] = b2p * b2
+        rows = param[safe] if base is None else base
+        scatter_rows(param, sr, rows + (-lr_t * m1g /
+                                        (torch.sqrt(m2g) + eps)))
+        return True
+
     def _append_optimize_op(self, block, param, grad, lr, program, startup):
         m1 = self._add_accumulator("moment1", param, program, startup)
         m2 = self._add_accumulator("moment2", param, program, startup)
@@ -678,6 +776,13 @@ class AdamW(Adam):
     def _op_attrs(self):
         return dict(super()._op_attrs(), coeff=self._coeff)
 
+    def _sparse_update(self, param, sr, lr, state, base=None):
+        # the decoupled decay on the touched rows, then the lazy Adam rule
+        rows = param[safe_rows(sr)]
+        decay = (lr * self._coeff).to(param.dtype)
+        return super()._sparse_update(param, sr, lr, state,
+                                      base=rows + (-decay * rows))
+
 
 class Lamb(Adam):
     """The ``lamb`` op: the Adam direction plus decay, scaled by the trust
@@ -694,6 +799,10 @@ class Lamb(Adam):
 
     def _op_attrs(self):
         return dict(super()._op_attrs(), weight_decay=self._weight_decay)
+
+    def _sparse_update(self, param, sr, lr, state, base=None):
+        # the trust ratio is a norm over the whole tensor: densify
+        return False
 
     def _update_all(self, params, grads, lrs):
         b1, b2 = self._beta1, self._beta2
@@ -743,6 +852,15 @@ class Adagrad(Optimizer):
 
     def _op_attrs(self):
         return {"epsilon": self._epsilon}
+
+    def _sparse_update(self, param, sr, lr, state):
+        # G[rows] += g^2; p[rows] += -lr g / (sqrt(G[rows]) + eps)
+        safe, g = safe_rows(sr), sr.values
+        gg = state["moment"][safe] + g * g
+        scatter_rows(state["moment"], sr, gg)
+        scatter_rows(param, sr, param[safe] + (
+            -lr.to(param.dtype) * g / (torch.sqrt(gg) + self._epsilon)))
+        return True
 
     def _append_optimize_op(self, block, param, grad, lr, program, startup):
         mom = self._add_accumulator("moment", param, program, startup,
@@ -937,58 +1055,74 @@ FtrlOptimizer = Ftrl
 DpSGDOptimizer = DpSGD
 
 
-def _eager_only(scope, program) -> None:
-    if scope is not None or program is not None:
-        raise NotImplementedError(f"a scope or program: {_STATIC}")
-
-
 class _Swap:
-    """The apply()/restore() protocol of the averages: ``values(name)``
-    swapped into the parameters, the originals kept for ``restore``."""
+    """The update/apply/restore protocol of the averages, over a list of
+    parameters (eager, ``parameters=``) or a Program's trainable
+    parameters in a scope (static: ``scope=``, the global one by default,
+    and ``program=``, the default main one by default), as the JAX
+    package's ``_items``/``_get``/``_set`` do. ``_averaged(name)`` is
+    swapped in, the originals kept for ``restore``."""
 
-    def _items(self):
-        if self._params is None:
-            raise NotImplementedError(
-                f"{type(self).__name__} without parameters= (a Program's "
-                f"parameters): {_STATIC}")
-        return [("p%d" % i, p) for i, p in enumerate(self._params)]
+    def _items(self, scope=None, program=None):
+        if self._params is not None:
+            return [("p%d" % i, p) for i, p in enumerate(self._params)]
+        program = program or default_main_program()
+        return [(v.name, v) for v in program.all_parameters()
+                if v.trainable]
+
+    @staticmethod
+    def _get(handle, scope) -> torch.Tensor:
+        if isinstance(handle, VarDesc):
+            # the scope's own tensor (it holds no autograd history)
+            return (scope or global_scope()).find_var(handle.name)
+        return handle.detach()
+
+    @staticmethod
+    def _set(handle, value: torch.Tensor, scope) -> None:
+        if isinstance(handle, VarDesc):
+            (scope or global_scope()).set(handle.name, value)
+        else:
+            handle.copy_(value)
 
     def apply(self, scope=None, program=None, need_restore: bool = True):
         """Context manager: the averaged values in, the originals back on
         exit when ``need_restore``."""
-        _eager_only(scope, program)
         avg = self
 
         class _Guard:
             def __enter__(self_g):
                 avg._backup = {}
                 with torch.no_grad():
-                    for name, p in avg._items():
-                        value = avg._swapped_in(name)
+                    for name, h in avg._items(scope, program):
+                        value = avg._averaged(name)
                         if value is not None:
-                            avg._backup[name] = p.detach().clone()
-                            p.copy_(value)
+                            cur = avg._get(h, scope)
+                            # the scope's tensor itself (the executor
+                            # writes into the one it finds), a parameter's
+                            # values
+                            avg._backup[name] = cur if isinstance(
+                                h, VarDesc) else cur.clone()
+                            avg._set(h, value.to(cur.dtype).clone(), scope)
                 return avg
 
             def __exit__(self_g, *exc):
                 if need_restore:
-                    avg.restore()
+                    avg.restore(scope, program)
                 return False
         return _Guard()
 
+    @torch.no_grad()
     def restore(self, scope=None, program=None):
-        _eager_only(scope, program)
-        with torch.no_grad():
-            for name, p in self._items():
-                if name in self._backup:
-                    p.copy_(self._backup[name])
+        for name, h in self._items(scope, program):
+            if name in self._backup:
+                self._set(h, self._backup[name], scope)
         self._backup = {}
 
 
 class ExponentialMovingAverage(_Swap):
-    """fluid.optimizer.ExponentialMovingAverage, eager side: shadow = decay
-    shadow + (1 - decay) param, with the warmup decay min(decay, (1 + t) /
-    (10 + t)) when ``thres_steps`` is given. The shadows are tensors on the
+    """fluid.optimizer.ExponentialMovingAverage: shadow = decay shadow +
+    (1 - decay) param, with the warmup decay min(decay, (1 + t) / (10 +
+    t)) when ``thres_steps`` is given. The shadows are tensors on the
     parameters' device."""
 
     def __init__(self, decay: float = 0.999, thres_steps=None,
@@ -1002,28 +1136,30 @@ class ExponentialMovingAverage(_Swap):
 
     @torch.no_grad()
     def update(self, scope=None, program=None):
-        _eager_only(scope, program)
         self._step += 1
         decay = min(self._decay, (1.0 + self._step) / (10.0 + self._step)) \
             if self._warmup else self._decay
-        items = self._items()
-        if not self._shadow:
-            self._shadow = {n: p.detach().clone() for n, p in items}
+        items = self._items(scope, program)
+        fresh = [(n, h) for n, h in items if n not in self._shadow]
+        for n, h in fresh:
+            self._shadow[n] = self._get(h, scope).clone()
+        names = [n for n, _ in items if n not in dict(fresh)]
+        if not names:
             return
-        names = [n for n, _ in items]
+        handles = dict(items)
         prev = [self._shadow[n] for n in names]
-        cur = [p.detach() for _, p in items]
+        cur = [self._get(handles[n], scope) for n in names]
         new = torch._foreach_add(torch._foreach_mul(prev, decay),
                                  torch._foreach_mul(cur, 1.0 - decay))
-        self._shadow = dict(zip(names, new))
+        self._shadow.update(zip(names, new))
 
-    def _swapped_in(self, name):
+    def _averaged(self, name):
         return self._shadow.get(name)
 
 
 class ModelAverage(_Swap):
-    """fluid.optimizer.ModelAverage, eager side: the sliding-window average
-    of ``average_accumulates``: sum_1 += param each update; every 16384
+    """fluid.optimizer.ModelAverage: the sliding-window average of
+    ``average_accumulates``: sum_1 += param each update; every 16384
     updates sum_1 folds into sum_2; when num_accum >= min_window and
     num_accum >= min(max_window, num_updates * rate) the window restarts
     (sum_3 <- sum_1 + sum_2, the old sum_3 dropped, sum_1 = sum_2 = 0).
@@ -1048,12 +1184,12 @@ class ModelAverage(_Swap):
 
     @torch.no_grad()
     def update(self, scope=None, program=None):
-        _eager_only(scope, program)
         self._num_updates += 1
         self._num_accum += 1
-        for name, p in self._items():
+        for name, h in self._items(scope, program):
+            p = self._get(h, scope)
             s1 = self._sum1.get(name)
-            self._sum1[name] = p.detach().clone() if s1 is None else s1 + p
+            self._sum1[name] = p.clone() if s1 is None else s1 + p
         if self._num_updates % self._MAX_NUM_ACCUMULATES == 0:
             for name, s1 in self._sum1.items():
                 s2 = self._sum2.get(name)
@@ -1069,11 +1205,11 @@ class ModelAverage(_Swap):
             self._old_num_accum = self._num_accum
             self._num_accum = 0
 
-    def _swapped_in(self, name):
-        sums = [s[name] for s in (self._sum1, self._sum2, self._sum3)
-                if name in s]
+    def _averaged(self, name):
         if name not in self._sum1 and name not in self._sum3:
             return None
+        sums = [s[name] for s in (self._sum1, self._sum2, self._sum3)
+                if name in s]
         total = sums[0]
         for s in sums[1:]:
             total = total + s

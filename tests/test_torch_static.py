@@ -581,7 +581,7 @@ def test_unported_op_raises_naming_its_queue():
     blk = prog.global_block
     blk.create_var("x", shape=[2, 3])
     blk.create_var("y", shape=[2, 3])
-    for op, queue in (("proximal_gd", "A2b"), ("one_hot", "A2b"),
+    for op, queue in (("gather", "A2b"), ("scatter", "A2b"),
                       ("conv2d_transpose", "A2b"), ("sequence_pool", "A8")):
         blk.ops = []
         blk.append_op(op, {"X": ["x"]}, {"Out": ["y"]})
@@ -1162,8 +1162,9 @@ def test_clone_for_test_keeps_the_forward():
 
 
 def test_what_stays_unported_on_a_program_raises_naming_a2b():
-    """Lazy fetches still raise naming A2b; the other parts of this list
-    are ported now, and each builds what the JAX package builds."""
+    """train_from_dataset still raises naming A2b; the other parts of
+    this list (lazy fetches among them) are ported now, and each builds
+    what the JAX package builds."""
     def prog_with(pt, opt, **kw):
         main, startup = pt.Program(), pt.Program()
         with pt.program_guard(main, startup):
@@ -1192,4 +1193,4 @@ def test_what_stays_unported_on_a_program_raises_naming_a2b():
         segments.append(main.global_block.ops[-1].attr("remat_segments"))
     assert segments[0] == segments[1] == [[0, 3], [3, 6]]
     with pytest.raises(NotImplementedError, match="A2b"):
-        Executor("cpu").run(tpt.Program(), return_numpy="lazy")
+        Executor("cpu").train_from_dataset(tpt.Program())

@@ -836,8 +836,8 @@ def test_accuracy_op_matches_jax(k):
 def test_mnist_corpus_reader_and_feeder_match_jax(monkeypatch, tmp_path):
     """The port's MNIST reader serves the JAX reader's synthetic corpus
     (the path it takes without cached files), train and test; reader.batch
-    and DataFeeder stack it as the JAX package does; ragged fields raise
-    naming their queue."""
+    and DataFeeder stack it as the JAX package does, and pad a ragged
+    field as it does."""
     monkeypatch.setattr(jdatasets, "DATA_HOME", str(tmp_path))
     for which in ("train", "test"):
         want = list(getattr(jdatasets.mnist, which)()())
@@ -855,8 +855,9 @@ def test_mnist_corpus_reader_and_feeder_match_jax(monkeypatch, tmp_path):
     got = tfluid.DataFeeder(["img", "label"]).feed(samples)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
-    with pytest.raises(NotImplementedError, match="A2b"):
-        tfluid.DataFeeder(["ids"]).feed([(np.arange(3),), (np.arange(4),)])
+    ragged = [(np.arange(3),), (np.arange(4),)]
+    np.testing.assert_array_equal(tfluid.DataFeeder(["ids"]).feed(ragged)[
+        "ids"], jfluid.DataFeeder(["ids"]).feed(ragged)["ids"])
 
 
 # ---------------------------------------------------------------------------

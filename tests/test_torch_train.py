@@ -526,28 +526,31 @@ def test_adam_is_not_torch_adam():
     assert abs(got - float(ref.detach())) > 1e-4
 
 
+def _one_op_program(pt, op_type):
+    prog = pt.Program()
+    prog.global_block.append_op(op_type, {}, {}, {"sub_block": 0})
+    return prog
+
+
 def _not_ported():
     """What stays out, each a callable that must raise naming its queue."""
+    import paddle_tpu_torch as tpt
     from paddle_tpu_torch import jit as tjit
     from paddle_tpu_torch import optimizer as T
-    from paddle_tpu_torch.amp import GradScaler
-    p = torch.nn.Parameter(torch.zeros(4, 2))
+    from paddle_tpu_torch.core.executor import Executor
 
-    def sparse_step(make):
-        p.grad = torch.zeros(4, 2).to_sparse()
-        try:
-            make()
-        finally:
-            p.grad = None
+    def target_gradients():
+        main = tpt.Program()
+        with tpt.program_guard(main, tpt.Program()):
+            x = tpt.layers.data("x", [2])
+            tpt.gradients([x], [x], target_gradients=[x])
     return {
-        "average_on_a_scope": ("A2b", lambda: T.ExponentialMovingAverage(
-            parameters=[p]).update(scope=object())),
-        "average_of_a_program": ("A2b", lambda: T.ModelAverage(
-            0.1).update()),
-        "selected_rows_step": ("A2b", lambda: sparse_step(
-            lambda: T.SGD(0.1, parameters=[p]).step())),
-        "selected_rows_scaler": ("A2b", lambda: sparse_step(
-            lambda: GradScaler().minimize(T.SGD(0.1, parameters=[p])))),
+        "train_from_dataset": ("A2b", lambda: Executor(
+            "cpu").train_from_dataset(tpt.Program())),
+        "gradients_target_gradients": ("A2b", target_gradients),
+        "compiled_program": ("A6", lambda: Executor("cpu").run(object())),
+        "pipeline_train": ("A6", lambda: Executor("cpu").run(
+            _one_op_program(tpt, "pipeline_train"))),
         "to_static": ("A5", lambda: tjit.to_static(torch.nn.Linear(2, 2))),
         "dgc_momentum": ("A6", lambda: T.DGCMomentumOptimizer),
     }
