@@ -225,6 +225,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -6811,6 +6812,479 @@ def run_sparse_cf(device, card):
     return wd_counts, lm_counts
 
 
+# -- phase 13: datasets, CompiledProgram and the 2.0 front door
+
+# (i) the Wide&Deep epoch from MultiSlot files: WideDeep()'s widths as a
+# static program, DS_N instances (ids Zipf(1.2) as in wd_batches) in
+# DS_FILES files, one epoch at B=WD_B with Adam(WD_LR)
+DS_N = 20480
+DS_FILES = 4
+DS_SEED = 77
+DS_RESULTS_WINDOW = 4
+
+
+def build_wd_program(pt, vocab=100000, dim=16, slots=26, dense_dim=13,
+                     fc_sizes=(400, 400, 400), lr=WD_LR, seed=WD_SEED):
+    """Wide&Deep as a static program built with package ``pt``, the
+    network of models/wide_deep.py: the slots C0..C{slots-1} (int64 [B, 1]
+    each, one id an instance) looked up in one [vocab, dim] table, their
+    rows beside the dense features through fc 400-400-400 (relu) to a
+    logit, plus a linear map of the dense features; the mean sigmoid
+    cross-entropy against ``label``, minimized by Adam(lr). Returns (main,
+    startup, the feed vars in slot order, the loss)."""
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.program_guard(main, startup):
+        L = pt.layers
+        ids = [L.data(f"C{s}", [1], dtype="int64") for s in range(slots)]
+        dense = L.data("dense", [dense_dim])
+        label = L.data("label", [1])
+        emb = L.embedding(L.reshape(L.concat(ids, axis=1), [-1, slots, 1]),
+                          size=[vocab, dim], is_sparse=True,
+                          param_attr="embedding.weight")
+        h = L.concat([dense, L.reshape(emb, [-1, slots * dim])], axis=1)
+        for k, size in enumerate(fc_sizes):
+            h = L.fc(h, size, act="relu", param_attr=f"deep.{2 * k}.weight",
+                     bias_attr=f"deep.{2 * k}.bias")
+        k = 2 * len(fc_sizes)
+        deep = L.fc(h, 1, param_attr=f"deep.{k}.weight",
+                    bias_attr=f"deep.{k}.bias")
+        wide = L.fc(dense, 1, param_attr="wide.weight", bias_attr="wide.bias")
+        loss = L.mean(L.sigmoid_cross_entropy_with_logits(
+            L.elementwise_add(wide, deep), label))
+        pt.optimizer.Adam(lr).minimize(loss, startup_program=startup)
+    return main, startup, ids + [dense, label], loss
+
+
+def write_wd_files(dataset_mod, root, n=DS_N, files=DS_FILES, slots=26,
+                   vocab=100000, dense_dim=13, seed=DS_SEED):
+    """``n`` instances written by ``dataset_mod.MultiSlotDataGenerator`` in
+    MultiSlot text into ``files`` files under ``root``: per instance one
+    id a slot (Zipf(1.2) folded into the table), the dense features
+    N(0, 1) as float32 and a label 1 where a fixed random linear map of
+    them is positive. Returns the paths."""
+    rng = np.random.default_rng(seed)
+    rule = rng.standard_normal(dense_dim).astype(np.float32)
+    ids = ((rng.zipf(1.2, (n, slots)) - 1) % vocab).astype(np.int64)
+    dense = rng.standard_normal((n, dense_dim)).astype(np.float32)
+    label = (dense @ rule > 0).astype(np.float32)
+
+    class Gen(dataset_mod.MultiSlotDataGenerator):
+        def generate_sample(self, i):
+            def rec():
+                yield ([(f"C{s}", [int(ids[i, s])]) for s in range(slots)] +
+                       [("dense", [float(v) for v in dense[i]]),
+                        ("label", [float(label[i])])])
+            return rec
+
+    paths = []
+    per = n // files
+    for f in range(files):
+        lines = Gen().run_from_memory(range(f * per, (f + 1) * per))
+        path = os.path.join(root, f"part-{f:05d}")
+        with open(path, "w") as out:
+            out.write("\n".join(lines) + "\n")
+        paths.append(path)
+    return paths
+
+
+def wd_dataset(pt, feeds, paths, b=WD_B, kind="InMemoryDataset",
+               seed=DS_SEED):
+    """A dataset of package ``pt`` over ``paths``: loaded and shuffled by
+    ``local_shuffle(seed)`` when in memory."""
+    ds = pt.dataset.DatasetFactory().create_dataset(kind)
+    ds.set_use_var(feeds)
+    ds.set_filelist(paths)
+    ds.set_batch_size(b)
+    ds.set_thread(len(paths))
+    if kind == "InMemoryDataset":
+        ds.load_into_memory()
+        ds.local_shuffle(seed)
+    return ds
+
+
+def dataset_epoch(exe, main, ds, state, device, loss, window=2):
+    """One train_from_dataset epoch from ``state`` with ``window`` steps in
+    flight: (the losses, the parameters after, the epoch's seconds)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import load_reference_scope
+    scope = pt.Scope()
+    load_reference_scope(scope, state, device)
+    before = pt.get_flags("FLAGS_executor_inflight_steps")
+    pt.set_flags({"FLAGS_executor_inflight_steps": window})
+    try:
+        t = time.perf_counter()
+        out = exe.train_from_dataset(main, ds, scope=scope,
+                                     fetch_list=[loss])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    finally:
+        pt.set_flags(before)
+    return ([float(r[0]) for r in out],
+            {v.name: scope.find_var(v.name).detach().cpu().clone()
+             for v in main.all_parameters()}, seconds)
+
+
+def fed_epoch(exe, main, ds, state, device, loss):
+    """The dataset's batches fed one by one through ``exe.run``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import load_reference_scope
+    scope = pt.Scope()
+    load_reference_scope(scope, state, device)
+    losses = [float(exe.run(main, feed=b, fetch_list=[loss], scope=scope)[0])
+              for b in ds]
+    return losses, {v.name: scope.find_var(v.name).detach().cpu().clone()
+                    for v in main.all_parameters()}
+
+
+def params_equal(a, b):
+    return all(torch.equal(a[n], b[n]) for n in a)
+
+
+def run_dataset_epoch(device, card, cfg=None, n=DS_N, b=WD_B):
+    """Phase 13 (i): files written, loaded by the native parser, one epoch
+    through train_from_dataset at window 2 and 1 and fed through run, all
+    bitwise equal; times; infer_from_dataset's result windows."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.dataset import native
+    cfg = dict(cfg or {})
+    vocab = cfg.get("vocab", 100000)
+    main, startup, feeds, loss = build_wd_program(pt, **cfg)
+    state = static_state(startup, device)
+    exe = pt.Executor(device)
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        paths = write_wd_files(pt.dataset, root, n=n, vocab=vocab,
+                               slots=cfg.get("slots", 26),
+                               dense_dim=cfg.get("dense_dim", 13))
+        write_s = time.perf_counter() - t
+        before = dict(native.PARSES)
+        t = time.perf_counter()
+        ds = wd_dataset(pt, feeds, paths, b)
+        parse_s = time.perf_counter() - t
+        parsed = {k: native.PARSES[k] - before[k] for k in before}
+        if not native.using_native() or parsed != {"native": len(paths),
+                                                   "python": 0}:
+            fail(f"dataset: the native MultiSlot parser did not read the "
+                 f"files (using_native {native.using_native()}, parses "
+                 f"{parsed})")
+        if ds.get_memory_data_size() != n:
+            fail(f"dataset: {ds.get_memory_data_size()} instances loaded of "
+                 f"{n}")
+        steps = -(-n // b)
+        w2, p2, s2 = dataset_epoch(exe, main, ds, state, device, loss, 2)
+        w1, p1, s1 = dataset_epoch(exe, main, ds, state, device, loss, 1)
+        fed, pf = fed_epoch(exe, main, ds, state, device, loss)
+        if len(w2) != steps or not all(math.isfinite(v) for v in w2):
+            fail(f"dataset epoch: losses {w2}")
+        if w2 != fed or not params_equal(p2, pf):
+            fail("dataset epoch (window 2) differs from the batches fed "
+                 f"through run: losses {w2} against {fed}")
+        if w1 != w2 or not params_equal(p1, p2):
+            fail(f"dataset epoch: window 1 {w1} differs from window 2 {w2}")
+        if not np.mean(w2[-4:]) < np.mean(w2[:4]):
+            fail(f"dataset epoch: the loss does not fall: {w2}")
+        say("dataset", f"Wide&Deep {cfg or 'WideDeep() widths'} as a static "
+            f"program: {n} instances written by MultiSlotDataGenerator into "
+            f"{len(paths)} files in {write_s:.2f} s, loaded by the native "
+            f"parser ({parsed['native']} files, 0 by the Python parser) and "
+            f"local_shuffle({DS_SEED}); one train_from_dataset epoch of "
+            f"{steps} Adam({WD_LR:g}) steps at B={b}: losses "
+            + " ".join(f"{v:.6f}" for v in w2) + "; bitwise equal to the "
+            "same batches fed one by one through exe.run (losses and every "
+            f"parameter), and window 1 bitwise equal to window 2  [{card}]")
+        # times: the epoch at window 2 and 1, its device busy time
+        runs = {2: [], 1: []}
+        for _ in range(2):
+            for w in (2, 1):
+                runs[w].append(dataset_epoch(exe, main, ds, state, device,
+                                             loss, w)[2])
+        scope = pt.Scope()
+        from paddle_tpu_torch.core.scope import load_reference_scope
+        load_reference_scope(scope, state, device)
+        busy, n_kernels, _, _ = profile_step(lambda: exe.train_from_dataset(
+            main, ds, scope=scope, fetch_list=[loss]))
+        ms2 = 1e3 * min(runs[2])
+        ms1 = 1e3 * min(runs[1])
+        say("dataset", f"times: parse {1e3 * parse_s:.1f} ms for {n} "
+            f"instances on {len(paths)} threads (load_into_memory + "
+            f"local_shuffle, host); epoch {ms2:.1f} ms at window 2 "
+            f"({', '.join(f'{1e3 * s:.1f}' for s in runs[2])}), {ms1:.1f} "
+            f"ms at window 1 ({', '.join(f'{1e3 * s:.1f}' for s in runs[1])})"
+            f"; step {ms2 / steps:.2f} ms at window 2, {ms1 / steps:.2f} at "
+            f"window 1; device busy {busy:.2f} ms an epoch in {n_kernels} "
+            f"kernels, idle share {max(0.0, 1 - busy / ms2):.3f} at window "
+            f"2, {max(0.0, 1 - busy / ms1):.3f} at window 1  [{card}]")
+        # infer_from_dataset: a for_test clone; all results, none, the last
+        # DS_RESULTS_WINDOW
+        qds = wd_dataset(pt, feeds, paths, b, "QueueDataset")
+        scope = pt.Scope()
+        load_reference_scope(scope, state, device)
+        every = exe.infer_from_dataset(main, qds, scope=scope,
+                                       fetch_list=[loss])
+        none = exe.infer_from_dataset(main, qds, scope=scope,
+                                      fetch_list=[loss], keep_results=False)
+        pt.set_flags({"FLAGS_dataset_results_window": DS_RESULTS_WINDOW})
+        try:
+            last = exe.infer_from_dataset(main, qds, scope=scope,
+                                          fetch_list=[loss])
+        finally:
+            pt.set_flags({"FLAGS_dataset_results_window": 0})
+        moved = [n_ for n_, v in p2.items()
+                 if not torch.equal(scope.find_var(n_).cpu(),
+                                    torch.from_numpy(state[n_]))]
+        if len(every) != steps or none is not None or \
+                [float(r[0]) for r in last] != \
+                [float(r[0]) for r in every[-DS_RESULTS_WINDOW:]] or moved:
+            fail(f"infer_from_dataset: {len(every)} results, keep_results="
+                 f"False gave {none!r}, the window gave {len(last)}, "
+                 f"parameters moved: {moved[:3]}")
+        say("dataset", f"infer_from_dataset over the same files "
+            f"(QueueDataset, the program's for_test clone): {len(every)} "
+            f"batches, losses {float(every[0][0]):.6f}..."
+            f"{float(every[-1][0]):.6f}; keep_results=False returns None; "
+            f"FLAGS_dataset_results_window={DS_RESULTS_WINDOW} keeps the "
+            f"last 4, equal to the full run's; no parameter moved  [{card}]")
+
+
+def compiled_run(form, state, device, b, steps):
+    """amp_run's ``steps`` steps through CompiledProgram(main)
+    .with_data_parallel(loss_name), counts set to 0 just before and read
+    just after."""
+    from paddle_tpu_torch.compiler import CompiledProgram
+    run = StaticRun(form, state, device, b)
+    prog = CompiledProgram(run.main).with_data_parallel(loss_name=run.loss)
+    reset_counts()
+    reset_static_logs()
+    losses = []
+    with LaunchDtypes() as seen:
+        for _ in range(steps):
+            losses.append(run.exe.run(prog, feed=run.feed,
+                                      fetch_list=[run.loss], scope=run.scope,
+                                      return_numpy=False)[0])
+        torch.cuda.synchronize()
+    counts, paths = read_counts(), static_paths()
+    return dict(losses=[float(x) for x in losses], counts=counts,
+                paths=paths, dtypes=seen.seen, params=run.params(), seq=[])
+
+
+def run_compiled(device, card):
+    """Phase 13 (ii): form (d) in bf16 through CompiledProgram against the
+    plain program. Returns the compiled run's launch counts."""
+    import paddle_tpu_torch as pt
+    form, _ = amp_form(pt, "bfloat16")
+    state = static_state(form[1], device)
+    plain = amp_run(form, state, device, STATIC_B, STATIC_STEPS)
+    comp = compiled_run(form, state, device, STATIC_B, STATIC_STEPS)
+    per = check_amp_run(comp, "dataset CompiledProgram (d) bf16", "bfloat16",
+                        STATIC_STEPS)
+    diff = max(float((plain["params"][n] - comp["params"][n]).abs().max())
+               for n in plain["params"])
+    if comp["losses"] != plain["losses"] or diff != 0.0:
+        fail(f"CompiledProgram (d): losses {comp['losses']} against the "
+             f"plain program's {plain['losses']}, parameters off by {diff}")
+    say("dataset", f"CompiledProgram(main).with_data_parallel(loss_name) of "
+        f"form (d) {STATIC_CFG} bf16, {STATIC_STEPS} steps at B={STATIC_B}: "
+        "losses " + " ".join(f"{v:.8f}" for v in comp["losses"]) + "; "
+        "bitwise equal to the plain program's losses and parameters; "
+        "launches a step " + ", ".join(f"{k} {v}" for k, v in per.items())
+        + f"; flash on {sorted(comp['dtypes']['flash_attention_fwd'])}; path "
+        f"logs {len(comp['paths'][0])} x 'flash', {len(comp['paths'][1])} x "
+        f"'kernel'  [{card}]")
+    return comp["counts"]
+
+
+def nan_program(pt):
+    """y = log(x) and z = x * 2 over a feed x [4]: (main, y, z)."""
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()):
+        x = pt.layers.data("x", [4])
+        y = pt.layers.log(x)
+        z = pt.layers.scale(x, scale=2.0)
+    return main, y, z
+
+
+def grads_seeded(pt, device):
+    """d(sum(t1 * s1) + sum(t2 * s2))/d(x, h) through
+    gradients(target_gradients=), t1 = fc(x) and t2 = tanh(t1): a list of
+    numpy arrays (x a feed, h the intermediate t1)."""
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = 5
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", [6])
+        s1 = pt.layers.data("s1", [3])
+        s2 = pt.layers.data("s2", [3])
+        t1 = pt.layers.fc(x, 3, param_attr="w", bias_attr="b")
+        t2 = pt.layers.tanh(t1)
+        grads = pt.gradients([t1, t2], [x, t1], target_gradients=[s1, s2])
+    rng = np.random.default_rng(9)
+    feed = {n: rng.standard_normal((4, d)).astype(np.float32)
+            for n, d in (("x", 6), ("s1", 3), ("s2", 3))}
+    scope = pt.Scope()
+    exe = pt.Executor(device)
+    exe.run(startup, scope=scope)
+    return exe.run(main, feed=feed, fetch_list=grads, scope=scope)
+
+
+def check_executor_checks(device, card):
+    """Phase 13 (iii): FLAGS_check_nan_inf raises naming the op; the fast
+    check reads the host once a run; gradients(target_gradients=) on the
+    card against the CPU port."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.core.enforce import EnforceNotMet
+    main, y, z = nan_program(pt)
+    exe = pt.Executor(device)
+    feed = {"x": np.array([[0.0, 1.0, 2.0, 3.0]], np.float32)}
+    pt.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        exe.run(main, feed=feed, fetch_list=[z, y], scope=pt.Scope())
+    except EnforceNotMet as e:
+        raised = str(e)
+    else:
+        raised = None
+    finally:
+        pt.set_flags({"FLAGS_check_nan_inf": False})
+    if raised is None or "'log'" not in raised or y.name not in raised:
+        fail(f"check_nan_inf on {device}: log(0) gave {raised!r}")
+    pt.set_flags({"FLAGS_fast_check_nan_inf": True})
+    try:
+        monitor.reset_all()
+        for _ in range(3):
+            exe.run(main, feed={"x": feed["x"] + 1}, fetch_list=[z, y],
+                    scope=pt.Scope(), return_numpy=False)
+        syncs = monitor.stat_get("STAT_executor_sync")
+        try:
+            exe.run(main, feed=feed, fetch_list=[z, y], scope=pt.Scope(),
+                    return_numpy=False)
+            fast = None
+        except EnforceNotMet as e:
+            fast = str(e)
+    finally:
+        pt.set_flags({"FLAGS_fast_check_nan_inf": False})
+    if syncs != 3 or fast is None or y.name not in fast:
+        fail(f"fast_check_nan_inf on {device}: {syncs} host reads in 3 "
+             f"runs, the -inf fetch gave {fast!r}")
+    # one startup seed draws the same weights on the card and the CPU
+    got = grads_seeded(pt, device)
+    want = grads_seeded(pt, torch.device("cpu"))
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    if not err <= 1e-5:
+        fail(f"gradients(target_gradients=) on {device} against the CPU "
+             f"port: max error {err}")
+    say("dataset", f"check_nan_inf raises on the card: {raised}; "
+        "fast_check_nan_inf reads the host once a run (3 reads in 3 runs) "
+        f"and names the fetch: {fast}; gradients(target_gradients=) of two "
+        f"seeded targets on the card against the CPU port: max error "
+        f"{err:.2e} (tol 1e-5)  [{card}]")
+
+
+EXAMPLE_MODULES = ("", ".nn", ".nn.functional", ".jit", ".models",
+                   ".models.bert")
+
+
+def example_on_port(path):
+    """The example file at ``path`` run as a module with the port in place
+    of paddle_tpu: ``paddle_tpu`` and each of EXAMPLE_MODULES under it
+    bound to the port's module of the same name while it imports, so
+    nothing of the JAX package is imported."""
+    import importlib
+    import importlib.util
+
+    names = {"paddle_tpu" + m: importlib.import_module("paddle_tpu_torch" + m)
+             for m in EXAMPLE_MODULES}
+    saved = {k: sys.modules.get(k) for k in names}
+    sys.modules.update(names)
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "example_on_port_" + os.path.basename(path)[:-3], path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del sys.modules[k]
+            else:
+                sys.modules[k] = v
+    return mod
+
+
+CNN_EXAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", "dygraph_cnn.py")
+CNN_WORKERS = 2
+
+
+def run_cnn_example(device, card, workers=CNN_WORKERS):
+    """Phase 13 (iv): examples/dygraph_cnn.py's main as written on the
+    port, its DataLoader given ``workers`` worker processes; every batch
+    that reaches to_tensor is already a tensor on ``device``. Returns the
+    losses printed."""
+    import contextlib
+    import io as _io
+
+    import paddle_tpu_torch as pt
+    mod = example_on_port(CNN_EXAMPLE)
+    seen = []
+    to_tensor, loader = pt.to_tensor, pt.io.DataLoader
+
+    class WorkerLoader(loader):
+        def __init__(self, *a, **k):
+            k.setdefault("num_workers", workers)
+            k.setdefault("timeout", 120)  # a stuck worker raises, not hangs
+            super().__init__(*a, **k)
+
+    def recording(x, *a, **k):
+        seen.append(x.device if isinstance(x, torch.Tensor) else type(x))
+        return to_tensor(x, *a, **k)
+    if pt.device.resolve(None) != device:
+        fail(f"dygraph_cnn: the default device is not {device}")
+    pt.to_tensor, pt.io.DataLoader = recording, WorkerLoader
+    out = _io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            mod.main()
+    finally:
+        pt.to_tensor, pt.io.DataLoader = to_tensor, loader
+    seconds = time.perf_counter() - t
+    losses = [float(ln.split("loss ")[1]) for ln in out.getvalue().splitlines()
+              if ln.startswith("step")]
+    if len(losses) < 2 or not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"dygraph_cnn on the port: losses {losses}")
+    if not seen or any(d != device for d in seen):
+        fail(f"dygraph_cnn: batches reached to_tensor on {set(seen)}, not "
+             f"already on {device}")
+    say("dataset", f"examples/dygraph_cnn.py main on the port ({device}), "
+        f"DataLoader with {workers} worker processes and device prefetch: "
+        f"losses " + " ".join(f"{v:.4f}" for v in losses) + f" in "
+        f"{seconds:.1f} s; all {len(seen)} batches reached to_tensor "
+        f"already on {device}  [{card}]")
+    return losses
+
+
+def run_front_door(device, card):
+    """Phase 13. Returns the launch counts of its kernel path
+    (CompiledProgram's form (d))."""
+    t0 = time.perf_counter()
+    run_dataset_epoch(device, card)
+    torch.cuda.empty_cache()
+    say("dataset", f"(i) in {time.perf_counter() - t0:.1f} s  [{card}]")
+    t0 = time.perf_counter()
+    counts = run_compiled(device, card)
+    torch.cuda.empty_cache()
+    say("dataset", f"(ii) in {time.perf_counter() - t0:.1f} s  [{card}]")
+    t0 = time.perf_counter()
+    check_executor_checks(device, card)
+    run_cnn_example(device, card)
+    say("dataset", f"(iii) and (iv) in {time.perf_counter() - t0:.1f} s  "
+        f"[{card}]")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -6992,8 +7466,19 @@ def main() -> int:
     wd_counts, lm_counts = run_sparse_cf(device, card)
     sparse_counts = {k: wd_counts[k] + lm_counts[k] for k in wd_counts}
 
-    # -- 13. records: launches are the serving, training, recipe, static,
-    # generation, inference, static-training and sparse/control-flow runs
+    # -- 13. datasets, CompiledProgram and the 2.0 front door: the counts of
+    # its kernel path (ten bf16 steps of form (d) through CompiledProgram)
+    # set to 0 just before its run, read just after
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    front_counts = run_front_door(device, card)
+    say("dataset", f"phase 13 in {time.perf_counter() - t0:.1f} s  [{card}]")
+    late_counts = {k: sparse_counts[k] + front_counts[k]
+                   for k in sparse_counts}
+
+    # -- 14. records: launches are the serving, training, recipe, static,
+    # generation, inference, static-training, sparse/control-flow and
+    # CompiledProgram runs
     ln_rec = ln_times[(4096, 768, torch.float32)]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]
@@ -7006,7 +7491,7 @@ def main() -> int:
              recipe_counts["layer_norm_fwd"] +
              static_counts["layer_norm_fwd"] +
              train_static_counts["layer_norm_fwd"] +
-             sparse_counts["layer_norm_fwd"] + sum(
+             late_counts["layer_norm_fwd"] + sum(
                  r["counts"]["layer_norm"] for r in gen_recs.values()) +
              infer_ln,
              max_abs_err=ln_err[(4096, 768, torch.float32, 1e-12)],
@@ -7018,7 +7503,7 @@ def main() -> int:
              recipe_counts["layer_norm_bwd"] +
              static_counts["layer_norm_bwd"] +
              train_static_counts["layer_norm_bwd"] +
-             sparse_counts["layer_norm_bwd"],
+             late_counts["layer_norm_bwd"],
              max_abs_err=ln_bwd_err[(16384, 768, torch.float32)],
              **ln_bwd_times[(16384, 768, torch.float32)]),
         dict(name="flash_attention_fwd", route="cuda",
@@ -7028,7 +7513,7 @@ def main() -> int:
              recipe_counts["flash_attention_fwd"] +
              static_counts["flash_attention_fwd"] +
              train_static_counts["flash_attention_fwd"] +
-             sparse_counts["flash_attention_fwd"] + infer_fa,
+             late_counts["flash_attention_fwd"] + infer_fa,
              max_abs_err=fa_err[(*fa_key, "contiguous")], **fa_rec),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -7037,7 +7522,7 @@ def main() -> int:
              recipe_counts["flash_attention_bwd_dq"] +
              static_counts["flash_attention_bwd_dq"] +
              train_static_counts["flash_attention_bwd_dq"] +
-             sparse_counts["flash_attention_bwd_dq"],
+             late_counts["flash_attention_bwd_dq"],
              max_abs_err=fa_bwd_err[(0, "dq")],
              **fa_bwd_times[(*bwd_key, "dq")]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
@@ -7047,7 +7532,7 @@ def main() -> int:
              recipe_counts["flash_attention_bwd_dkv"] +
              static_counts["flash_attention_bwd_dkv"] +
              train_static_counts["flash_attention_bwd_dkv"] +
-             sparse_counts["flash_attention_bwd_dkv"],
+             late_counts["flash_attention_bwd_dkv"],
              max_abs_err=max(fa_bwd_err[(0, "dk")], fa_bwd_err[(0, "dv")]),
              **fa_bwd_times[(*bwd_key, "dkv")]),
         dict(name="paged_attention", route="cuda",

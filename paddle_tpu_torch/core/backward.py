@@ -68,10 +68,12 @@ def gradients(targets, inputs, target_gradients=None,
               no_grad_set: Optional[set] = None,
               program: Optional[Program] = None) -> List[VarDesc]:
     """d(sum(targets))/d(inputs) for any vars: feeds, parameters or
-    intermediate activations."""
-    if target_gradients is not None:
-        raise NotImplementedError(
-            "gradients(target_gradients=) is not ported yet (ROADMAP.md A2b)")
+    intermediate activations. ``target_gradients`` (a var, or None, for
+    each target) seeds each target's cotangent, as the reference's
+    backward does: the program differentiates sum(target * seed), the
+    seeds taken as constants. The JAX package accepts the argument and
+    ignores it (``paddle_tpu/core/backward.py:79``), which is the same
+    where every seed is ones."""
     program = program or default_main_program()
     block = program.global_block
     as_list = (lambda v: list(v) if isinstance(v, (list, tuple)) else [v])
@@ -79,6 +81,33 @@ def gradients(targets, inputs, target_gradients=None,
     no_grad = {_var_name(v) for v in (no_grad_set or set())}
     input_names = [_var_name(t) for t in as_list(inputs)
                    if _var_name(t) not in no_grad]
+    if target_gradients is not None:
+        seeds = as_list(target_gradients)
+        if len(seeds) != len(target_names):
+            raise ValueError(f"target_gradients: {len(seeds)} seeds for "
+                             f"{len(target_names)} targets")
+        seeded = []
+        for t, g in zip(target_names, seeds):
+            if g is None:
+                seeded.append(t)
+                continue
+            out = program._unique_name(t + "@SEEDED")
+            tv = block.var(t)
+            block.create_var(out, shape=tv.shape, dtype=tv.dtype,
+                             stop_gradient=False)
+            block.append_op("elementwise_mul",
+                            inputs={"X": [t], "Y": [_var_name(g)]},
+                            outputs={"Out": [out]}, attrs={"axis": -1})
+            seeded.append(out)
+        target_names = seeded
+        if len(target_names) == 1:
+            # one seeded target: its sum is the loss
+            loss_name = program._unique_name("grad_target_sum")
+            block.create_var(loss_name, dtype=block.var(target_names[0]).dtype,
+                             shape=(), stop_gradient=False)
+            block.append_op("sum_of_sums", inputs={"X": target_names},
+                            outputs={"Out": [loss_name]})
+            target_names = [loss_name]
     if len(target_names) == 1:
         loss_name = target_names[0]
     else:

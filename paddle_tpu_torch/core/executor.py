@@ -51,13 +51,32 @@ handed over as a copy on its device, so that it keeps its step's value.
 fetch and each run that fetches into numpy, as in the JAX package. A
 ``LoDTensor`` feed is its packed buffer, as in the JAX package.
 
-Left out, raising where the JAX signature has them: ``CompiledProgram``
-and mesh plans (``ROADMAP.md`` A6), the program cache and AOT and
-``train_from_dataset`` (A2b), and telemetry (A7).
+``run`` takes a ``CompiledProgram`` (``compiler.py``) on one device and
+runs its program as it runs the plain one. The checks of the JAX
+package read the flags (``flags.py``): ``FLAGS_check_nan_inf`` checks each
+float output of each op and raises naming the op and the var (the JAX
+step, traced, can only print); ``FLAGS_fast_check_nan_inf`` checks a
+run's float fetches with one read on the host, counted in
+``STAT_executor_sync``; ``FLAGS_enable_unused_var_check`` warns once a
+program version about the vars that ops write and nothing reads.
+
+``train_from_dataset`` and ``infer_from_dataset`` run a program over
+every batch of a ``dataset`` (``dataset/``), as the JAX package's do
+(``paddle_tpu/core/executor.py:873-1000``): ``FLAGS_executor_inflight_steps``
+steps in flight (default 2), the next batch staged while a step runs
+(``reader._DevicePrefetcher``: pinned host buffers copied on a side CUDA
+stream, an event the step's stream waits on), fetches returned lazily
+and read ``window`` steps behind. A ``CompiledProgram`` is not staged, as
+in the JAX package.
+
+Left out, raising where the JAX signature has them: mesh plans and data
+parallelism over places (``ROADMAP.md`` A6), the program cache and AOT
+(A5), and telemetry (A7).
 """
 from __future__ import annotations
 
 import collections
+import logging
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -67,8 +86,11 @@ from torch.utils.checkpoint import checkpoint
 from .. import device as _device
 from .. import monitor
 from .. import ops  # noqa: F401  (registers the lowerings)
+from ..compiler import CompiledProgram
+from ..flags import get_flag
 from .backward import BACKWARD_OP, GRAD_SUFFIX
 from .control_flow import LOWERINGS as _STRUCTURAL
+from .enforce import EnforceNotMet, check_numerics
 from .fetch import FetchHandle
 from .lod import LoDTensor
 from .program import OpDesc, Program, VarDesc, default_main_program
@@ -121,6 +143,8 @@ class Executor:
         self.recomputed: collections.Counter = collections.Counter()
         # the predicates read on the host in the last run
         self.host_syncs = 0
+        # (program id, version) already checked for unused vars
+        self._unused_checked = set()
 
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, Any]] = None,
@@ -130,10 +154,11 @@ class Executor:
         """Run one step. ``return_numpy`` True returns numpy arrays (bf16
         widened to float32, ``as_numpy``), False the tensors on the
         device, "lazy" a ``FetchHandle`` each."""
+        if isinstance(program, CompiledProgram):
+            program = program._program
         if program is not None and not isinstance(program, Program):
-            raise NotImplementedError(
-                f"Executor.run({type(program).__name__}): compiled and "
-                "mesh-planned programs are not ported yet (ROADMAP.md A6)")
+            raise TypeError(f"Executor.run({type(program).__name__}): "
+                            "expected a Program or a CompiledProgram")
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
         fetch_names = [f.name if isinstance(f, VarDesc) else str(f)
@@ -143,6 +168,8 @@ class Executor:
         self.lowered = collections.Counter()
         self.recomputed = collections.Counter()
         self.host_syncs = 0
+        if get_flag("FLAGS_enable_unused_var_check"):
+            self._warn_unused_vars(program, fetch_names)
         self._run_block(program, env, ctx, keep=set(fetch_names))
         for n, v in env.items():
             if n in persistable and v is not state.get(n):
@@ -155,6 +182,9 @@ class Executor:
                                "produced it and it is not fed")
             v = env[n]
             fetches.append(v.detach() if isinstance(v, torch.Tensor) else v)
+        if get_flag("FLAGS_fast_check_nan_inf") and \
+                not get_flag("FLAGS_check_nan_inf"):
+            self._check_fetches(fetch_names, fetches)
         if return_numpy == "lazy":
             held = {t.untyped_storage().data_ptr() for n, t in env.items()
                     if n in persistable and isinstance(t, torch.Tensor)}
@@ -166,6 +196,49 @@ class Executor:
                 monitor.stat_add("STAT_executor_sync")
             fetches = [as_numpy(v) for v in fetches]
         return fetches
+
+    @staticmethod
+    def _check_fetches(names, fetches) -> None:
+        """FLAGS_fast_check_nan_inf: the float fetches reduced to one flag
+        on their device and read once (one sync, counted); only a failure
+        reads each fetch, to name it."""
+        floats = [v for v in fetches if _is_float(v)]
+        if not floats:
+            return
+        finite = torch.stack([torch.isfinite(v).all() for v in floats])
+        monitor.stat_add("STAT_executor_sync")
+        if bool(finite.all()):
+            return
+        for n, v in zip(names, fetches):
+            if _is_float(v) and not bool(torch.isfinite(v).all()):
+                raise EnforceNotMet(
+                    f"fast_check_nan_inf: fetch {n!r} contains nan/inf")
+
+    def _warn_unused_vars(self, program: Program, fetch_names) -> None:
+        """FLAGS_enable_unused_var_check: warn once a program version
+        about the vars that an op writes and nothing reads (neither an
+        op, a fetch nor the scope, as a persistable)."""
+        pid = (id(program), program._version)
+        if pid in self._unused_checked:
+            return
+        self._unused_checked.add(pid)
+        consumed = set(fetch_names)
+        produced = {}
+        for blk in program.blocks:
+            for op in blk.ops:
+                for ns in op.inputs.values():
+                    consumed.update(ns)
+                for ns in op.outputs.values():
+                    for n in ns:
+                        produced.setdefault(n, op.type)
+        block = program.global_block
+        unused = sorted(n for n in produced if n not in consumed and not (
+            n in block.vars and block.vars[n].persistable))
+        if unused:
+            logging.getLogger("paddle_tpu_torch").warning(
+                "unused_var_check: vars produced but never consumed: %s",
+                ", ".join("%s (by %s)" % (n, produced[n])
+                          for n in unused[:20]))
 
     def _host_pred(self, x) -> bool:
         """A structural op's predicate, read on the host (a sync on the
@@ -301,6 +374,10 @@ class Executor:
                        f"(in={op.inputs}, out={op.outputs})")
             raise
         (self.recomputed if again else self.lowered)[op.type] += 1
+        if get_flag("FLAGS_check_nan_inf"):
+            for slot, vals in outs.items():
+                for n, v in zip(op.outputs.get(slot, []), vals or []):
+                    check_numerics(v, op.type, n)
         block = program.global_block
         for slot, names in op.outputs.items():
             vals = outs.get(slot)
@@ -358,11 +435,77 @@ class Executor:
                 if g is None else g
         self.lowered[BACKWARD_OP] += 1
 
-    def train_from_dataset(self, *args, **kwargs):
-        raise NotImplementedError("Executor.train_from_dataset is not ported "
-                                  "yet (ROADMAP.md A2b)")
+    # -- dataset-driven runs (JAX executor.py:873-1000) ------------------
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None, keep_results=True):
+        """Run ``program`` once for each batch of ``dataset``. Returns the
+        fetches of each batch (a list of numpy arrays a batch; the last
+        FLAGS_dataset_results_window batches when that is > 0), or None
+        with ``keep_results=False``. ``fetch_handler.handler`` and the log
+        see every ``print_period``-th batch's fetches. ``thread`` is kept
+        for the signature: the dataset parses on its own threads."""
+        return self._run_from_dataset(program, dataset, scope, debug,
+                                      fetch_list, fetch_info, print_period,
+                                      fetch_handler, False, keep_results)
 
-    infer_from_dataset = train_from_dataset
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None, keep_results=True):
+        """``train_from_dataset`` over the program's ``for_test`` clone."""
+        return self._run_from_dataset(program, dataset, scope, debug,
+                                      fetch_list, fetch_info, print_period,
+                                      fetch_handler, True, keep_results)
+
+    def _run_from_dataset(self, program, dataset, scope, debug, fetch_list,
+                          fetch_info, print_period, fetch_handler, is_infer,
+                          keep_results):
+        from ..reader import _DevicePrefetcher
+        if dataset is None:
+            raise ValueError("dataset is required")
+        program = program if program is not None else default_main_program()
+        if is_infer:
+            if isinstance(program, CompiledProgram):
+                program = program._program
+            program = program.clone(for_test=True)
+        fetch_names = [f.name if isinstance(f, VarDesc) else str(f)
+                       for f in (fetch_list or [])]
+        infos = list(fetch_info or fetch_names)
+        window = max(1, int(get_flag("FLAGS_executor_inflight_steps") or 1))
+        rwin = int(get_flag("FLAGS_dataset_results_window") or 0)
+        results = None if not keep_results else (
+            collections.deque(maxlen=rwin) if rwin > 0 else [])
+        batches = iter(dataset)
+        if window > 1 and not isinstance(program, CompiledProgram):
+            batches = _DevicePrefetcher(batches, self.device, depth=window)
+        pending = collections.deque()
+        log = logging.getLogger("paddle_tpu_torch")
+
+        def drain_one():
+            n, outs = pending.popleft()
+            host = [h.numpy() for h in outs]
+            if results is not None:
+                results.append(host if host else None)
+            if fetch_names and (debug or n % max(print_period, 1) == 0):
+                log.info("batch %d: %s", n, ", ".join(
+                    "%s=%s" % (i, v.ravel()[:4]) for i, v in zip(infos, host)))
+                if fetch_handler is not None:
+                    fetch_handler.handler(dict(zip(fetch_names, host)))
+
+        # a step that raises drops its window: the scope holds the state
+        # after the last step that ran, as the JAX loop leaves it
+        for n, batch in enumerate(batches, start=1):
+            pending.append((n, self.run(program, feed=batch,
+                                        fetch_list=fetch_names, scope=scope,
+                                        return_numpy="lazy")))
+            if len(pending) >= window:
+                drain_one()
+        while pending:
+            drain_one()
+        return list(results) if isinstance(results, collections.deque) \
+            else results
 
     def close(self) -> None:
         pass

@@ -22,23 +22,23 @@ import torch
 Arrays = Dict[str, List[Any]]  # slot -> list of tensors
 LowerFn = Callable[["LowerCtx", Arrays, Dict[str, Any]], Arrays]
 
-# the queues of ROADMAP.md that hold the ops not lowered yet: the op
-# families of the long tail (A8), and A2b for every other op of the
-# static path
-_A8_PREFIXES = ("sequence_", "fusion_", "lstm", "gru", "rnn", "beam_search",
-                "detection", "yolo", "roi_", "prior_box", "multiclass_nms",
-                "anchor_generator", "box_", "generate_proposals", "fake_",
-                "quantize", "dequantize", "ctr_", "distributed_", "send",
-                "recv", "py_func", "save", "load", "crf", "linear_chain_crf",
-                "warpctc", "edit_distance", "auc", "precision_recall",
-                "chunk_eval")
+# the queues of ROADMAP.md that hold the ops not lowered yet: the
+# distributed family (collectives, the parameter server's ops, DGC, sync
+# batch norm) goes with the distributed runtime (A6), every other op with
+# the long tail (A8); the static path's queue (A2b) is closed
+_A6_PREFIXES = ("c_", "send", "recv", "distributed_", "pull_", "push_",
+                "lookup_sparse_table", "dgc", "listen_and_serv",
+                "fl_listen_and_serv", "gen_nccl_id")
+_A6_OPS = frozenset(("allreduce", "barrier", "broadcast", "checkpoint_notify",
+                     "fetch_barrier", "merge_ids", "prefetch",
+                     "ref_by_trainer_id", "split_ids", "sync_batch_norm"))
 
 
 def queue_of(op_type: str) -> str:
     """The ``ROADMAP.md`` queue that ports ``op_type``."""
-    if op_type.startswith(_A8_PREFIXES):
-        return "A8"
-    return "A2b"
+    if op_type in _A6_OPS or op_type.startswith(_A6_PREFIXES):
+        return "A6"
+    return "A8"
 
 
 class LowerCtx:

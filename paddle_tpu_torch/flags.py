@@ -3,14 +3,26 @@ defaults.
 
 Counterpart of ``paddle_tpu/flags.py`` (``set_flags``, ``get_flag``).
 Only the flags that a ported path reads live here (generation, the
-Predictor and its pool, dropout and the embedding gradient); a later
-slice adds its own. An unknown name raises in ``set_flags``, as in the reference.
+Predictor and its pool, dropout, the embedding gradient, the executor's
+checks and the dataset loop); a later slice adds its own. An unknown name
+raises in ``set_flags`` and ``get_flags``, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, Union
 
 _DEFS: Dict[str, Any] = {
+    # the executor's checks (core/executor.py): every float output of
+    # every op, or one check of a run's fetches, for NaN/Inf; a warning
+    # once a program about vars an op writes and nothing reads
+    "FLAGS_check_nan_inf": False,
+    "FLAGS_fast_check_nan_inf": False,
+    "FLAGS_enable_unused_var_check": False,
+    # train/infer_from_dataset: steps in flight (2: batch N+1 is staged
+    # while step N runs; 1: stage, run, fetch in turn) and the batches
+    # whose fetches are kept (0: all of them)
+    "FLAGS_executor_inflight_steps": 2,
+    "FLAGS_dataset_results_window": 0,
     # the generation engine (generation/engine.py): a fixed pool of
     # kv_blocks blocks of block_size tokens a layer (block 0 is the trash
     # block), decode_width lanes, prefill_chunk prompt tokens per lane and
@@ -57,6 +69,18 @@ def set_flags(flags: Dict[str, Any]) -> None:
             raise ValueError(f"unknown flag {k!r} (the port knows "
                              f"{len(_values)} flags)")
         _values[k] = v
+
+
+def get_flags(flags: Union[str, Iterable[str]]) -> Dict[str, Any]:
+    """The values of ``flags`` by their canonical names; an unknown flag
+    raises."""
+    out = {}
+    for k in [flags] if isinstance(flags, str) else flags:
+        k = _canon(k)
+        if k not in _values:
+            raise ValueError(f"unknown flag {k!r}")
+        out[k] = _values[k]
+    return out
 
 
 def get_flag(name: str, default: Any = None) -> Any:

@@ -4,7 +4,9 @@ Counterpart of ``paddle_tpu/fluid/``: Program, Executor and the scope,
 ``layers``, ``nets``, ``optimizer``, ``io``, ``regularizer``, ``clip``,
 ``contrib`` (static mixed precision), ``DataFeeder`` (ragged fields
 padded through ``LoDTensor``), ``LoDTensor``, ``lod_tensor``, ``input``
-(``embedding``, ``one_hot``) and the places, so
+(``embedding``, ``one_hot``), ``compiler`` (``CompiledProgram`` and its
+strategies), ``dataset`` (with ``DataFeedDesc`` and ``data_generator``)
+and the places, so
 that a Fluid static-graph program such as ``examples/fluid_mnist.py``
 runs on the port as written. ``CPUPlace()`` is the CPU and
 ``CUDAPlace(n)`` card n; ``Executor(place)`` runs there (the JAX
@@ -30,6 +32,11 @@ from ..layers import data  # noqa: F401
 from ..layers.helper import ParamAttr  # noqa: F401
 from . import (clip, contrib, data_feeder, input, io,  # noqa: F401
                layers, lod_tensor, nets, optimizer, regularizer)
+from . import data_feed_desc, data_generator, dataset  # noqa: F401
+from .. import compiler  # noqa: F401
+from ..compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
+                        ExecutionStrategy)
+from .data_feed_desc import DataFeedDesc  # noqa: F401
 from ._not_ported import not_ported
 from .data_feeder import DataFeeder  # noqa: F401
 from .input import embedding, one_hot  # noqa: F401
@@ -57,22 +64,20 @@ def device_count() -> int:
 
 # the names of paddle_tpu.fluid the port lacks, by ROADMAP.md queue
 _QUEUES = {
-    "A2b": ("BuildStrategy", "CompiledProgram", "ExecutionStrategy",
-            "compiler", "device_guard", "name_scope", "backward",
-            "executor", "framework", "core", "unique_name", "initializer",
-            "set_global_initializer", "WeightNormParamAttr"),
+    "A8": ("device_guard", "name_scope", "backward", "executor",
+           "framework", "core", "unique_name", "initializer",
+           "set_global_initializer", "WeightNormParamAttr",
+           "CUDAPinnedPlace", "XPUPlace", "ComplexVariable",
+           "monkey_patch_varbase", "monkey_patch_variable", "generator",
+           "install_check", "memory_optimize", "release_memory", "metrics",
+           "evaluator", "average"),
     "A5": ("enable_dygraph", "disable_dygraph", "enable_static",
            "disable_static", "in_dygraph_mode", "dygraph"),
     "A6": ("ParallelExecutor", "parallel_executor", "DistributeTranspiler",
            "DistributeTranspilerConfig", "transpiler", "fleet",
            "TrainerDesc", "trainer_desc", "trainer_desc_cls",
-           "distribute_lookup_table", "dataset", "DataFeedDesc",
-           "data_feed_desc", "data_generator", "incubate"),
+           "distribute_lookup_table", "incubate"),
     "A7": ("profiler",),
-    "A8": ("CUDAPinnedPlace", "XPUPlace", "ComplexVariable",
-           "monkey_patch_varbase", "monkey_patch_variable", "generator",
-           "install_check", "memory_optimize", "release_memory", "metrics",
-           "evaluator", "average"),
 }
 _QUEUE_OF = {n: q for q, names in _QUEUES.items() for n in names}
 

@@ -14,9 +14,10 @@ Values leave the scope as numpy arrays: a tensor on the card is copied
 to the host, and bf16 widens to float32, which is exact (numpy has no
 bfloat16). Loaded arrays enter the scope as tensors on the executor's
 device (``load_vars(executor, ...)``), or on the default device when the
-executor is None, under the port's device rule (``device.py``). The JAX
-package's re-exports of its data readers (``paddle_tpu.reader``) are not
-ported yet (``ROADMAP.md`` A8).
+executor is None, under the port's device rule (``device.py``). The
+data-loading surface (``Dataset``, ``DataLoader``, the samplers and the
+reader decorators) is re-exported from ``reader.py``, as the JAX file
+does (:282-289).
 """
 from __future__ import annotations
 
@@ -325,3 +326,12 @@ def set_program_state(program, state_dict):
         else:
             missing.append(name)
     return missing
+
+
+# the data-loading surface of paddle.io: the objects of reader.py
+from .reader import (BatchSampler, DataLoader, Dataset,  # noqa: F401,E402
+                     IterableDataset, TensorDataset, shuffle)
+from .reader import (DistributedBatchSampler, RandomSampler,  # noqa: F401,E402
+                     Sampler, SequenceSampler, batch, buffered, cache,
+                     chain, compose, firstn, get_worker_info,
+                     map_readers, xmap_readers)

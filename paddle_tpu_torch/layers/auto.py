@@ -8,7 +8,8 @@ registers (:203-213, ``installed()``) resolves to one, built on its first
 use. The port's ``layers`` are static
 only, so the builders are too: each appends its op to the current block.
 The JAX file's re-exports of its dual-mode ``tensor`` functions (:215-228)
-wait for the port's ``tensor`` namespace (``ROADMAP.md`` A8); ``split``,
+are the port's ``tensor`` functions run under ``tensor.static_guard``, so
+that ``layers.zeros`` builds a var as every builder here does; ``split``,
 ``slice``, ``stack`` and ``unstack`` are static builders of ``nn.py``.
 """
 from __future__ import annotations
@@ -222,3 +223,31 @@ def sum(x, name=None):  # noqa: A001
 
 
 __all__.append("sum")
+
+
+# the JAX file's re-exports of the tensor functions (:215-228), static
+_TENSOR_REEXPORTS = {
+    "argmax": "argmax", "argmin": "argmin", "argsort": "argsort",
+    "diag": "diag", "eye": "eye", "gather": "gather",
+    "gather_nd": "gather_nd", "linspace": "linspace", "ones": "ones",
+    "ones_like": "ones_like", "pow": "pow", "range": "arange",
+    "scatter": "scatter", "scatter_nd_add": "scatter_nd_add",
+    "shape": "shape", "squeeze": "squeeze", "strided_slice": "strided_slice",
+    "triu": "triu", "unique": "unique", "unique_with_counts": "unique",
+    "unsqueeze": "unsqueeze", "where": "where", "zeros": "zeros",
+    "zeros_like": "zeros_like"}
+
+
+def _static_reexport(name, src):
+    def fn(*args, **kwargs):
+        from .. import tensor
+        with tensor.static_guard():
+            return getattr(tensor, src)(*args, **kwargs)
+    fn.__name__ = name
+    fn.__doc__ = f"``tensor.{src}`` building into the current block."
+    return fn
+
+
+for _name, _src in _TENSOR_REEXPORTS.items():
+    globals()[_name] = _static_reexport(_name, _src)
+__all__.extend(_TENSOR_REEXPORTS)

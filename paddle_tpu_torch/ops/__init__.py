@@ -3,9 +3,11 @@
 Counterparts of the ``paddle_tpu/ops/`` lowerings that the static BERT-
 shaped program, the BERT inference program, the dense recipes, static
 mixed precision, Fluid's MNIST LeNet, the static update rules, the
-control-flow programs and the SelectedRows ops reach;
+control-flow programs, the SelectedRows ops and the tensor functions
+(``tensor_fns.py``) reach;
 every other op raises naming its ``ROADMAP.md`` queue
 (``core/registry.py``).
 """
 from . import (activation, amp, controlflow, elementwise,  # noqa: F401
-               fused, math, metrics, nn, optimizers, random, reduce, tensor)
+               fused, math, metrics, nn, optimizers, random, reduce, tensor,
+               tensor_fns)

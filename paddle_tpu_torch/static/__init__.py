@@ -1,7 +1,9 @@
 """The static-graph namespace: the part of ``paddle_tpu/static`` that the
 port has (Program and its guards, Executor, Scope, append_backward,
-gradients, data, the persistence functions of ``io`` and the layer
-builders as ``nn``)."""
+gradients, ``CompiledProgram`` and its strategies, data, the persistence
+functions of ``io`` and the layer builders as ``nn``)."""
+from ..compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
+                        ExecutionStrategy)
 from ..core.backward import append_backward, gradients  # noqa: F401
 from ..core.executor import Executor  # noqa: F401
 from ..core.program import (Program, default_main_program,  # noqa: F401

@@ -24,6 +24,10 @@ import paddle_tpu_torch.optimizer as T
 from paddle_tpu_torch.amp import GradScaler, amp_guard, auto_cast
 from paddle_tpu_torch.jit import load_reference_scaler_state
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 SHAPES = ((6, 4), (4,))
 # which steps get a non-finite gradient, and which: the sequence crosses
 # decr_every_n_nan_or_inf (2) and incr_every_n_steps (3) both ways

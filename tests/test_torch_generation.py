@@ -31,6 +31,10 @@ from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.monitor import stat_get as tstat
 from paddle_tpu_torch.serving import ServingQueueFull
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 CFG_KW = dict(vocab_size=128, hidden=64, layers=2, heads=4, max_seq_len=64)
 JCFG, TCFG = J.DecoderConfig(**CFG_KW), T.DecoderConfig(**CFG_KW)
 # logits: 2 layers of fp32 in other orders, values O(1): ~2e-6 measured.

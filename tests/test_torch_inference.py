@@ -40,6 +40,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 F32 = dict(atol=1e-5, rtol=1e-4)
 SMALL = dict(layers_n=2, H=64, heads=4, FF=128, vocab=100, max_pos=32,
              types=2, S=16)

@@ -24,6 +24,10 @@ from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import layer_norm as tln
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 # fp32 on both sides; the sums run in another order: a few ulps of the
 # O(1) values compared
 F32_TOL = dict(atol=2e-5, rtol=2e-5)

@@ -24,6 +24,10 @@ from paddle_tpu_torch.jit import load_reference_state
 from paddle_tpu_torch.layers import helper as thelper
 from paddle_tpu_torch.nn import functional as TF
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 # fp32 on both sides, different summation orders
 F32_TOL = dict(atol=2e-5, rtol=2e-5)
 

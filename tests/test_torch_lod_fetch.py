@@ -34,6 +34,10 @@ from paddle_tpu_torch.core.registry import REGISTRY as TREG
 from paddle_tpu_torch.core.scope import Scope as TScope
 from paddle_tpu_torch.core.scope import load_reference_scope
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 RULE_TOL = dict(rtol=1e-6, atol=1e-7)
 
 

@@ -23,6 +23,10 @@ from paddle_tpu.dygraph import Tensor
 
 import paddle_tpu_torch.optimizer as T
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 # (class, constructor arguments): each update rule of ops/optimizers.py
 RULES = {
     "sgd": ("SGD", {}),

@@ -19,6 +19,10 @@ from paddle_tpu.kernels import paged_attention as jpa
 from paddle_tpu_torch import quant as tquant
 from paddle_tpu_torch.kernels import paged_attention as tpa
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 # fp32 on both sides, sums in another order: a few ulps of O(1) outputs
 TOL = dict(atol=2e-5, rtol=2e-5)
 KV_DTYPES = {"int8": (jnp.int8, torch.int8),

@@ -32,6 +32,10 @@ from paddle_tpu_torch.layers import helper as thelper
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.nn import transformer as ttr
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 F32, BF16, F16, F64 = torch.float32, torch.bfloat16, torch.float16, \
     torch.float64
 # fp32 on both sides, different summation orders

@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as jpt
 from paddle_tpu import inference as JI
@@ -29,6 +30,10 @@ from paddle_tpu_torch.monitor import reset_all, stat_get
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
+
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
 
 F32 = dict(atol=1e-5, rtol=1e-4)
 SMALL = dict(layers_n=2, H=64, heads=4, FF=128, vocab=100, max_pos=32,

@@ -40,6 +40,10 @@ from paddle_tpu_torch.jit import load_reference_state
 from paddle_tpu_torch.layers.helper import seed as tseed
 from paddle_tpu_torch.models.wide_deep import WideDeep as TWideDeep
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 RULE_TOL = dict(rtol=1e-6, atol=1e-7)
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
 H, D = 12, 3
@@ -127,6 +131,35 @@ def test_sparse_embedding_gradient_with_padding_idx():
     dense = got.to_dense().numpy()
     assert (dense[7] == 0).all()
     np.testing.assert_allclose(dense, want.numpy(), **F32_TOL)
+
+
+def test_sparse_lookup_with_padding_idx_plus_a_dense_term():
+    """A weight read by a sparse lookup with padding_idx=7 and by a dense
+    term (sum(w * w)): its gradient, the sparse part with the padding row
+    dropped plus the dense part, equals the JAX package's (ROADMAP.md C5:
+    the padding entry of the port's COO gradient is 0, so a dense
+    accumulation adds nothing at row 7)."""
+    rng = np.random.default_rng(6)
+    w0 = rng.standard_normal((H, D)).astype(np.float32)
+    lin = rng.standard_normal((4, 5, D)).astype(np.float32)
+    ids = rng.integers(0, H, (4, 5)).astype(np.int64)
+    ids[0, :2] = 7
+    ids[3, 4] = 7
+    jw = Tensor(jnp.asarray(w0), stop_gradient=False, trainable=True)
+    out = JF.embedding(Tensor(jnp.asarray(ids)), jw, padding_idx=7,
+                       sparse=True)
+    loss = run_op("reduce_sum", {"X": [out * Tensor(jnp.asarray(lin))]},
+                  {"reduce_all": True})["Out"][0] + run_op(
+        "reduce_sum", {"X": [jw * jw]}, {"reduce_all": True})["Out"][0]
+    loss.backward()
+    want = jw.grad
+    want = np.asarray(want.to_dense() if isinstance(want, JSR) else want)
+    tw = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    ((TF.embedding(torch.from_numpy(ids), tw, padding_idx=7, sparse=True)
+      * torch.from_numpy(lin)).sum() + (tw * tw).sum()).backward()
+    got = tw.grad.to_dense().numpy()
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    np.testing.assert_allclose(got[7], 2 * w0[7], **F32_TOL)
 
 
 def test_only_a_leaf_weight_gets_a_sparse_gradient():

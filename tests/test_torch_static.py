@@ -50,6 +50,10 @@ import chip_smoke  # noqa: E402
 from check_backward_replay import (  # noqa: E402
     build_bert_shaped as jbuild_tool, build_dense_chain as jbuild_dense)
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 # fp32 on both sides, different summation orders: ops and gradients
 F32_TOL = dict(atol=2e-5, rtol=2e-5)
 # Adam's updates after 3 steps, per tensor: the norm of the difference
@@ -581,8 +585,8 @@ def test_unported_op_raises_naming_its_queue():
     blk = prog.global_block
     blk.create_var("x", shape=[2, 3])
     blk.create_var("y", shape=[2, 3])
-    for op, queue in (("gather", "A2b"), ("scatter", "A2b"),
-                      ("conv2d_transpose", "A2b"), ("sequence_pool", "A8")):
+    for op, queue in (("c_allreduce_sum", "A6"), ("send", "A6"),
+                      ("conv2d_transpose", "A8"), ("sequence_pool", "A8")):
         blk.ops = []
         blk.append_op(op, {"X": ["x"]}, {"Out": ["y"]})
         with pytest.raises(NotImplementedError, match=queue):
@@ -1162,9 +1166,9 @@ def test_clone_for_test_keeps_the_forward():
 
 
 def test_what_stays_unported_on_a_program_raises_naming_a2b():
-    """train_from_dataset still raises naming A2b; the other parts of
-    this list (lazy fetches among them) are ported now, and each builds
-    what the JAX package builds."""
+    """Every part of this list is ported now (lazy fetches and
+    train_from_dataset among them), and each builds what the JAX package
+    builds; train_from_dataset without a dataset raises as there."""
     def prog_with(pt, opt, **kw):
         main, startup = pt.Program(), pt.Program()
         with pt.program_guard(main, startup):
@@ -1192,5 +1196,6 @@ def test_what_stays_unported_on_a_program_raises_naming_a2b():
             pt.append_backward(pt.layers.mean(h), checkpoints=outs)
         segments.append(main.global_block.ops[-1].attr("remat_segments"))
     assert segments[0] == segments[1] == [[0, 3], [3, 6]]
-    with pytest.raises(NotImplementedError, match="A2b"):
-        Executor("cpu").train_from_dataset(tpt.Program())
+    for exe, pt in ((Executor("cpu"), tpt), (jpt.Executor(), jpt)):
+        with pytest.raises(ValueError, match="dataset is required"):
+            exe.train_from_dataset(pt.Program())

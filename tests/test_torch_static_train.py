@@ -53,6 +53,10 @@ sys.path.insert(0, str(ROOT / "examples"))
 import chip_smoke  # noqa: E402
 import fluid_mnist  # noqa: E402  (examples/fluid_mnist.py, the JAX side)
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 # fp32 on both sides, other summation orders
 F32_TOL = dict(atol=2e-5, rtol=2e-5)
 SMALL = dict(layers_n=2, H=64, FF=128, heads=4, S=16)

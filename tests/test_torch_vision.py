@@ -39,6 +39,10 @@ from paddle_tpu_torch.nn import functional as TF
 
 from test_torch_vision_models import _random_stats
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 B, HW, CLASSES = 4, 64, 10
 LR, MU = 0.1, 0.9
 

@@ -31,6 +31,10 @@ from paddle_tpu_torch.jit import TrainStep, load_reference_state
 from paddle_tpu_torch.models import resnet as tres
 from paddle_tpu_torch.nn import functional as TF
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 # fp32 forwards: the same sums in other orders, ~1e-6 of the largest output
 OUT_RTOL = 1e-5
 # resnet50's loss at B=2, 64 x 64: stage 4 normalizes 8 values a channel

@@ -18,6 +18,10 @@ from paddle_tpu_torch.models import vision_zoo as tzoo
 
 from test_torch_vision_models import _assert_out_close, _eval_both, _pair
 
+# several test processes share the machine's cores: one intra-op thread
+# each keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 
 def test_lenet_forward_matches_jax():
     jmodel, state, port = _pair(jlenet.LeNet, tlenet.LeNet)
