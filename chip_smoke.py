@@ -118,7 +118,25 @@ Phases, each printing its lines; any failure exits nonzero:
    (iv) times: the paged kernels against their bound, plain version and
    gather + SDPA; tokens/s, mixed-step, TTFT and TPOT quantiles, and the
    device idle share and the paged-attention group's device ms a mixed
-   step over profiled mixed steps, in fp32 and int8 KV;
+   step over profiled mixed steps, in fp32 and int8 KV; then the rest of
+   the engine, each run through ``GenerationPool`` with counts set to 0
+   before and read after: (i) the two-phase engine (``prefill_chunk=0``,
+   the ``pow2:512`` ladder) on the main path's requests: 16 paged and 33
+   layer-norm launches a decode step, 33 layer-norm and no paged launch a
+   prefill, its streams against the chunked engine's (equal, or parting
+   first at a near tie of the full recompute: ``NEAR_TIE``), its decode
+   logits against full recompute, its times beside the chunked engine's;
+   (ii) the ngram drafter, k = 4, on prompts of a repeated 16-token
+   pattern: proposals, no draft fault, streams against the plain
+   engine's; (iii) the model drafter (the target itself) on 8 greedy
+   requests: acceptance above 0.9, the drafter's paged launches 16 a draft
+   call, streams against the plain engine's; (iv) int8 and fp8 weights
+   (KV auto -> int8): logits against fp32 over 8 contexts beside the JAX
+   package's budget, the main path's requests with their launches and
+   ``GAUGE_quant_weight_bytes_saved``, 4 x 16 + 1 ``torch._int_mm`` calls a
+   mixed step (profiler), one int8 mixed step against the CPU port (the
+   card's activation codes replayed on the CPU), and one ``qmatmul`` at the
+   decoder's shapes against the fp32 matmul;
 9. ResNet-50 ("[resnet]" lines), the sixth main path, which launches
    none of the seven kernels (no TPU kernel lies on it: the convolutions
    are cuDNN's, batch norm and pooling torch ops): (i) resnet50 at B=4,
@@ -155,8 +173,11 @@ Phases, each printing its lines; any failure exits nonzero:
    against the eager run of its bucket, and one replay's kernels counted
    from a profiler trace (12 flash, 25 layer-norm forward); (iv)
    ``enable_bf16`` against fp32 in relative norm, on the bf16 instances;
-   (vi) times: eager, replay and device ms at B=1, 8 and 32 in fp32 and
-   bf16, the pool's requests/s, rows/s, latency p50/p95 and idle share,
+   and phase 8's (v) on this bundle: ``Config.enable_quant("int8")``, the
+   scope's int8 weights and fp32 scales, the output within the JAX
+   package's budget against fp32, each bucket's replay (the dequant ops in
+   the graph) bitwise against its eager run; (vi) times: eager, replay
+   and device ms at B=1, 8 and 32 in fp32 and bf16, the pool's requests/s, rows/s, latency p50/p95 and idle share,
    peak memory, and the two kernels at this path's calls;
 11. static-graph training ("[static-train]" lines), the eighth main path:
    (i) Fluid's MNIST LeNet (``examples/fluid_mnist.py``'s network through
@@ -3387,62 +3408,91 @@ def gen_counts():
                 layer_norm=LN.launches)
 
 
-def serve_generation(engine, reqs, label):
+def serve_generation(engine, reqs, label,
+                     step_timer="TIMER_generation_mixed_step_us"):
     """The main path: ``reqs`` through a GenerationPool over ``engine``.
     Launch counts, the path log and the monitor are set to 0 just before
-    and read just after. Returns (streams, record)."""
+    and read just after; a model drafter's calls are counted. Returns
+    (streams, record); ``step_timer`` names the engine's step (the
+    two-phase engine's is the decode step)."""
     from paddle_tpu_torch import monitor
     from paddle_tpu_torch.generation import GenerationPool
     from paddle_tpu_torch.kernels import layer_norm as LN
     from paddle_tpu_torch.kernels import paged_attention as PA
     torch.cuda.synchronize()
+    draft_calls = [0]
+    if engine.draft_params is not None:
+        real_draft = engine._run_draft
+
+        def counted(*a):
+            draft_calls[0] += 1
+            return real_draft(*a)
+        engine._run_draft = counted
     PA.launches = PA.launches_quant = LN.launches = 0
     PA.reset_path_log()
     monitor.reset_all()
     t0 = time.perf_counter()
-    with GenerationPool(engine) as pool:
-        futs = [pool.submit(r) for r in reqs]
-        results = [f.result(timeout=900) for f in futs]
-    torch.cuda.synchronize()
+    try:
+        with GenerationPool(engine) as pool:
+            futs = [pool.submit(r) for r in reqs]
+            results = [f.result(timeout=900) for f in futs]
+        torch.cuda.synchronize()
+    finally:
+        if engine.draft_params is not None:
+            engine._run_draft = real_draft
     wall = time.perf_counter() - t0
     rec = dict(counts=gen_counts(), paths=PA.paths_taken(), wall=wall,
-               steps=int(monitor.timer_get(
-                   "TIMER_generation_mixed_step_us")["count"]),
-               step_us=monitor.timer_get("TIMER_generation_mixed_step_us"),
+               steps=int(monitor.timer_get(step_timer)["count"]),
+               step_us=monitor.timer_get(step_timer),
                ttft_us=monitor.timer_get("TIMER_generation_ttft_us"),
                tpot_us=monitor.timer_get("TIMER_generation_tpot_us"),
+               prefill_us=monitor.timer_get("TIMER_generation_prefill_us"),
+               draft_calls=draft_calls[0],
                stats={k: monitor.stat_get(f"STAT_generation_{k}") for k in
                       ("tokens", "prefills", "prefix_hits",
                        "prefix_hit_tokens", "prefix_cow_copies",
-                       "evictions", "pad_tokens")})
+                       "evictions", "pad_tokens", "spec_proposed",
+                       "spec_accepted", "draft_faults")})
     streams = {r.request_id: r.tokens for r in results}
     say("generate", f"{label}: {len(reqs)} requests through GenerationPool "
-        f"in {wall:.2f} s, {rec['steps']} mixed steps; " + ", ".join(
-            f"{k} {v:g}" for k, v in rec["stats"].items()))
+        f"in {wall:.2f} s, {rec['steps']} steps; " + ", ".join(
+            f"{k} {v:g}" for k, v in rec["stats"].items()) +
+        (f", draft calls {draft_calls[0]}" if draft_calls[0] else ""))
+    if engine.last_draft_fault is not None:
+        fail(f"{label}: the drafter raised {engine.last_draft_fault!r}")
     return streams, rec
 
 
-def check_gen_launches(rec, cfg, kv, label):
-    """Paged-kernel launches = layers x mixed steps (the kernel of the
-    pool's dtype, none of the other), layer-norm launches = (2 layers + 1)
-    x steps, an all-"cuda" path log of one entry a launch."""
-    c, steps = rec["counts"], rec["steps"]
+def check_gen_launches(rec, cfg, kv, label, prefills=0, draft_layers=0):
+    """Paged-kernel launches = layers x steps (the kernel of the pool's
+    dtype, none of the other) + the drafter's layers x its calls,
+    layer-norm launches = (2 layers + 1) x (steps + two-phase prefills) +
+    (2 draft layers + 1) x draft calls, an all-"cuda" path log of one entry
+    a launch."""
+    c, steps, calls = rec["counts"], rec["steps"], rec["draft_calls"]
     which, other = ("paged", "paged_quant") if kv == "fp32" else \
         ("paged_quant", "paged")
-    want = cfg.layers * steps
+    want = cfg.layers * steps + draft_layers * calls
     if steps == 0 or c[which] != want or c[other] != 0:
-        fail(f"{label}: paged launches {c} after {steps} mixed steps, want "
-             f"{which} = {want}")
-    if c["layer_norm"] != (2 * cfg.layers + 1) * steps:
+        fail(f"{label}: paged launches {c} after {steps} steps and {calls} "
+             f"draft calls, want {which} = {want}")
+    want_ln = (2 * cfg.layers + 1) * (steps + prefills) + \
+        (2 * draft_layers + 1) * calls
+    if c["layer_norm"] != want_ln:
         fail(f"{label}: layer_norm launches {c['layer_norm']}, want "
-             f"{2 * cfg.layers + 1} x {steps}")
+             f"{2 * cfg.layers + 1} x ({steps} steps + {prefills} prefills)"
+             f" + {2 * draft_layers + 1} x {calls} draft calls = {want_ln}")
     if set(rec["paths"]) != {"cuda"} or len(rec["paths"]) != want:
         fail(f"{label}: paged path log {sorted(set(rec['paths']))} x "
              f"{len(rec['paths'])}, want 'cuda' x {want}")
     say("generate", f"{label}: {c[which]} {which} launches = {cfg.layers} "
-        f"x {steps} mixed steps, {c['layer_norm']} layer_norm launches = "
-        f"{2 * cfg.layers + 1} x {steps}, path log {len(rec['paths'])} x "
-        "'cuda'")
+        f"x {steps} steps" + (f" + {draft_layers} x {calls} draft calls"
+                              if calls else "") +
+        f", {c['layer_norm']} layer_norm launches = {2 * cfg.layers + 1} x "
+        f"{steps + prefills} ({steps} steps" +
+        (f" + {prefills} prefills" if prefills else "") + ")" +
+        (f" + {2 * draft_layers + 1} x {calls}" if calls else "") +
+        f", path log {len(rec['paths'])} x 'cuda'")
 
 
 def check_gen_outputs(streams, reqs, cfg, label):
@@ -3481,16 +3531,17 @@ def capture_steps(engine):
     return records, undo
 
 
-def check_recompute(cfg, params, device, kv, reqs):
+def check_recompute(cfg, params, device, kv, reqs, label="", **engine_kw):
     """Paged against full recompute on the card: ``reqs`` through a
     fresh engine (prefix cache off, so a table's first block names its
-    request), every sampled slot's logits against forward_full over the
-    same context. fp32 pools: within GEN_TOL, and every greedy token the
-    recompute's argmax or within 1e-3 of its maximum. int8 pools: within
-    the reference's int8 budget against the fp32 recompute."""
+    request; ``engine_kw`` on top of GEN_GEO), every sampled slot's logits
+    against forward_full over the same context. fp32 pools: within
+    GEN_TOL, and every greedy token the recompute's argmax or within 1e-3
+    of its maximum. int8 pools: within the reference's int8 budget against
+    the fp32 recompute."""
     from paddle_tpu_torch.generation import GenerationEngine, forward_full
     eng = GenerationEngine(cfg, params, kv_dtype=kv, device=device,
-                           **dict(GEN_GEO, prefix_cache=False))
+                           **dict(GEN_GEO, prefix_cache=False, **engine_kw))
     records, undo = capture_steps(eng)
     try:
         res = {r.request_id: r for r in eng.generate(reqs)}
@@ -3528,7 +3579,8 @@ def check_recompute(cfg, params, device, kv, reqs):
                          "recompute's maximum")
     mse = sq / max(n, 1)
     if kv == "fp32":
-        say("generate", f"paged vs full recompute, fp32 KV, {len(records)} "
+        say("generate", f"{label}paged vs full recompute, fp32 KV, "
+            f"{len(records)} "
             f"sampled slots of {len(reqs)} requests: max |diff| {worst:.3e} "
             f"(tol {GEN_TOL['atol']:g} + {GEN_TOL['rtol']:g}|ref|); greedy "
             f"tokens {exact} exact argmax, {ties} near ties (share exact "
@@ -3576,7 +3628,8 @@ def step_case(cfg, num_blocks, seed, decode=16, chunk=64, chunk_start=128,
     return (tables, positions, tokens), shape, written
 
 
-def check_step_vs_cpu(cfg, params_np, device, kv="fp32", num_blocks=256):
+def check_step_vs_cpu(cfg, params_np, device, kv="fp32", num_blocks=256,
+                      weights="fp32"):
     """One mixed step at full width on the card (kernels) against the same
     step on the CPU port (plain versions), from the same pools: logits and
     every written pool row within GEN_TOL.
@@ -3588,10 +3641,22 @@ def check_step_vs_cpu(cfg, params_np, device, kv="fp32", num_blocks=256):
     the card's quantized rows in place of its own: both sides attend over
     the same payloads, the written rows must agree exactly, and the CPU's
     own codes must lie within one step of the card's (their count is
-    printed)."""
+    printed).
+
+    With ``weights`` "int8" the parameters are ``quantize_decoder_params``
+    of ``params_np`` and every matmul quantizes its activations per row
+    (``quant.qmatmul``): the same rounding boundaries, one activation code
+    a step of absmax / 127 of its row. So the CPU step takes the card's
+    activation codes and steps in place of its own too: the int32
+    products are then exact on both sides (``torch._int_mm`` on the card,
+    a float64 product on the CPU), what is left is fp32 arithmetic in
+    other orders, and GEN_TOL holds; the CPU's own codes must again lie
+    within one step of the card's."""
     import paddle_tpu_torch.generation.model as M
     from paddle_tpu_torch import quant
     from paddle_tpu_torch.jit import load_reference_params
+    if weights != "fp32":
+        params_np = quant.quantize_decoder_params(params_np, weights)
     inputs, shape, written = step_case(cfg, num_blocks, GEN_SEED + 7)
     rng = np.random.default_rng(GEN_SEED + 8)
     pools = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
@@ -3603,7 +3668,8 @@ def check_step_vs_cpu(cfg, params_np, device, kv="fp32", num_blocks=256):
     blk = torch.tensor([w[0] for w in written])
     off = torch.tensor([w[1] for w in written])
     real_q = M.quantize_kv_rows
-    card_rows, own_rows = [], []
+    real_a = quant._quantize_rows
+    card_rows, own_rows, card_acts, own_acts = [], [], [], []
 
     def on_card(x, dtype):
         q, sc = real_q(x, dtype)
@@ -3613,11 +3679,22 @@ def check_step_vs_cpu(cfg, params_np, device, kv="fp32", num_blocks=256):
     def on_cpu(x, dtype):
         own_rows.append(real_q(x, dtype))
         return card_rows[len(own_rows) - 1]
+
+    def acts_on_card(x):
+        xq, xs = real_a(x)
+        card_acts.append((xq.cpu(), xs.cpu()))
+        return xq, xs
+
+    def acts_on_cpu(x):
+        own_acts.append(real_a(x))
+        return card_acts[len(own_acts) - 1]
     out = []
     try:
-        for where, hook in ((device, on_card),
-                            (torch.device("cpu"), on_cpu)):
+        for where, hook, acts in ((device, on_card, acts_on_card),
+                                  (torch.device("cpu"), on_cpu,
+                                   acts_on_cpu)):
             M.quantize_kv_rows = hook
+            quant._quantize_rows = acts
             params = load_reference_params(cfg, params_np, where)
             kp, vp = (p.to(where, copy=True) for p in pools)
             sc = [s.to(where, copy=True) for s in scales]
@@ -3630,6 +3707,7 @@ def check_step_vs_cpu(cfg, params_np, device, kv="fp32", num_blocks=256):
             del params, kp, vp, sc
     finally:
         M.quantize_kv_rows = real_q
+        quant._quantize_rows = real_a
     parts = []
     names = ("logits", "written K", "written V", "written K scales",
              "written V scales")
@@ -3656,8 +3734,24 @@ def check_step_vs_cpu(cfg, params_np, device, kv="fp32", num_blocks=256):
         parts.append(f"the CPU's own codes differ from the card's at {flips}"
                      f" of {sum(d.numel() for d in diffs)} (by at most "
                      f"{worst:g})")
+    if weights != "fp32":
+        if len(own_acts) != len(card_acts) or not card_acts:
+            fail(f"mixed step {weights} weights: {len(card_acts)} quantized "
+                 f"matmuls on the card, {len(own_acts)} on the CPU")
+        diffs = [(q.float() - cq.float()).abs()
+                 for (q, _), (cq, _) in zip(own_acts, card_acts)]
+        flips = sum(int((d > 0).sum()) for d in diffs)
+        worst = max(float(d.max()) for d in diffs)
+        if worst > 1:
+            fail(f"mixed step {weights} weights: the CPU's own activation "
+                 f"codes lie {worst} steps from the card's")
+        parts.append(f"{len(card_acts)} quantized matmuls, the CPU's own "
+                     f"activation codes differ from the card's at {flips} of "
+                     f"{sum(d.numel() for d in diffs)} (by at most "
+                     f"{worst:g})")
     say("generate", f"one mixed step of {len(written)} slots at full width, "
-        f"{kv} KV, card (kernels) vs CPU port (plain versions): " +
+        f"{kv} KV, {weights} weights, card (kernels) vs CPU port (plain "
+        "versions): " +
         ", ".join(parts) + f" (tol {GEN_TOL['atol']:g} + "
         f"{GEN_TOL['rtol']:g}|ref|" +
         ("" if kv == "fp32" else "; written rows exact") + ")")
@@ -3833,7 +3927,7 @@ def gen_times(rec, label, card):
     us = {k: rec[k] for k in ("step_us", "ttft_us", "tpot_us")}
     say("times", f"generation {label}: {tokens:g} tokens in "
         f"{rec['wall']:.2f} s, {tokens / rec['wall']:.1f} generated "
-        f"tokens/s; mixed step p50 {us['step_us']['p50'] / 1e3:.2f} ms, p95 "
+        f"tokens/s; step p50 {us['step_us']['p50'] / 1e3:.2f} ms, p95 "
         f"{us['step_us']['p95'] / 1e3:.2f} ms ({rec['steps']} steps); TTFT "
         f"p50 {us['ttft_us']['p50'] / 1e3:.1f} ms, p95 "
         f"{us['ttft_us']['p95'] / 1e3:.1f} ms; TPOT p50 "
@@ -3841,11 +3935,391 @@ def gen_times(rec, label, card):
         f"{us['tpot_us']['p95'] / 1e3:.2f} ms  [{card}]")
 
 
+# a difference between two engines' streams is a near tie when, at the
+# first token where they part, both tokens score within this of the best
+# score of the full recompute (check_recompute's rule for greedy tokens; a
+# sampled row's scores are the filtered logits / T plus its Gumbel noise,
+# so the margin there is this / T)
+NEAR_TIE = 1e-3
+# speculative decoding at the main path's geometry: k drafts a lane
+SPEC_K = 4
+# the model drafter is the target itself: its greedy drafts are the
+# target's greedy tokens but where the two steps' logits (other slot
+# counts, so other cuBLAS kernels) part at a near tie
+DRAFT_ACCEPT_MIN = 0.9
+
+
+def sampler_scores(full, sp, step):
+    """What a request's sampler ranks at token index ``step``: the logits
+    (greedy), or the filtered logits / T plus the Gumbel noise of (seed,
+    step), in float64."""
+    from paddle_tpu_torch.generation import sampling as S
+    z = full.float()[None]
+    if sp.temperature <= 0:
+        return z[0].double()
+    dev = z.device
+    f = S.filter_logits(z, torch.tensor([sp.temperature], device=dev),
+                        torch.tensor([sp.top_k], device=dev),
+                        torch.tensor([sp.top_p], device=dev))
+    g = S._gumbel_noise(torch.tensor([sp.seed], device=dev),
+                        torch.tensor([step], device=dev), z.shape[-1])
+    return (f.double() + g)[0]
+
+
+def check_same_streams(cfg, params, device, reqs, got, want, label,
+                       attn_lanes):
+    """``got`` against ``want`` (two engines on the same requests): each
+    stream equal, or equal up to the first token where they part, which
+    must be a near tie of the full recompute over the shared context
+    (NEAR_TIE). Returns (equal, near ties)."""
+    from paddle_tpu_torch.generation import forward_full
+    equal = ties = 0
+    for r in reqs:
+        a, b = got[r.request_id], want[r.request_id]
+        if a == b:
+            equal += 1
+            continue
+        p = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if p is None:
+            fail(f"{label}: request {r.request_id} gave {len(a)} tokens "
+                 f"against {len(b)}")
+        ctx = list(r.prompt) + b[:p]
+        full = forward_full(cfg, params, torch.tensor([ctx], device=device),
+                            torch.tensor([len(ctx)], device=device),
+                            attn_lanes=attn_lanes)[0][0]
+        sc = sampler_scores(full, r.sampling, p)
+        tol = NEAR_TIE / (r.sampling.temperature
+                          if r.sampling.temperature > 0 else 1.0)
+        top = float(sc.max())
+        gaps = (top - float(sc[a[p]]), top - float(sc[b[p]]))
+        if max(gaps) > tol:
+            fail(f"{label}: request {r.request_id} parts at token {p} "
+                 f"({a[p]} against {b[p]}), {max(gaps)} below the "
+                 f"recompute's best score (near tie {tol:g})")
+        ties += 1
+    say("generate", f"{label}: {equal} of {len(reqs)} streams equal, {ties} "
+        f"part at a near tie of the recompute (within {NEAR_TIE:g} of its "
+        "best score, / T for a sampled row)")
+    return equal, ties
+
+
+def pattern_requests(cfg, n, seed, greedy=False, new_lo=32, new_hi=64):
+    """Prompts of a repeated 16-token pattern (2-12 repeats, cut mid-way),
+    from a numpy seed, so the ngram drafter finds matches; sampling as
+    gen_requests (or all greedy)."""
+    from paddle_tpu_torch.generation import GenerationRequest, SamplingParams
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        pat = rng.integers(0, cfg.vocab_size, 16).tolist()
+        reps = int(rng.integers(2, 13))
+        prompt = (pat * reps)[:16 * reps - int(rng.integers(0, 16))]
+        new = int(rng.integers(new_lo, new_hi + 1))
+        if greedy or i % 2 == 0:
+            sp = SamplingParams()
+        elif i % 4 == 1:
+            sp = SamplingParams(temperature=0.8, top_k=40, seed=2000 + i)
+        else:
+            sp = SamplingParams(temperature=0.8, top_p=0.95, seed=2000 + i)
+        reqs.append(GenerationRequest(prompt=prompt, max_new_tokens=new,
+                                      sampling=sp, request_id=i))
+    return reqs
+
+
+def run_two_phase(cfg, params, device, card, reqs, chunked, few):
+    """(i) The two-phase engine (prefill_chunk=0, the pow2:512 ladder) on
+    the main path's requests: launches (16 paged and 33 layer-norm a decode
+    step, 33 layer-norm and no paged a prefill), its streams against the
+    chunked engine's (``chunked``: streams, record), its decode logits
+    against full recompute, its times beside the chunked engine's."""
+    from paddle_tpu_torch.generation import GenerationEngine
+    eng = GenerationEngine(cfg, params, kv_dtype="fp32", device=device,
+                           **dict(GEN_GEO, prefill_chunk=0))
+    t0 = time.perf_counter()
+    report = eng.warmup()
+    say("generate", f"(i) two-phase engine: ladder {eng.prefill_ladder}, "
+        f"{eng.decode_width} lanes; warmup (the decode step, every prefill "
+        f"rung) {time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in report.items()))
+    label = "(i) two-phase, fp32 KV"
+    streams, rec = serve_generation(
+        eng, reqs, label, step_timer="TIMER_generation_decode_step_us")
+    prefills = int(rec["stats"]["prefills"])
+    if prefills < len(reqs):
+        fail(f"{label}: {prefills} prefills for {len(reqs)} requests")
+    check_gen_launches(rec, cfg, "fp32", label, prefills=prefills)
+    check_gen_outputs(streams, reqs, cfg, label)
+    check_same_streams(cfg, eng.params, device, reqs, streams, chunked[0],
+                       f"{label} vs chunked", eng.attn_lanes)
+    del eng
+    torch.cuda.empty_cache()
+    check_recompute(cfg, params, device, "fp32", few, "(i) two-phase: ",
+                    prefill_chunk=0)
+    gen_times(rec, "two-phase fp32 KV (decode step)", card)
+    gen_times(chunked[1], "chunked fp32 KV (mixed step), beside it", card)
+    pre = rec["prefill_us"]
+    say("times", f"generation two-phase: {prefills} prefills, p50 "
+        f"{pre['p50'] / 1e3:.2f} ms, p95 {pre['p95'] / 1e3:.2f} ms (bucketed "
+        "forward_full, the pool write and the first token)  [" + card + "]")
+    return rec
+
+
+def run_spec(cfg, params, device, card, n_ngram=16, n_model=8):
+    """(ii) the ngram drafter and (iii) the model drafter (the target
+    itself), k = SPEC_K, each against the plain chunked engine on the same
+    requests: launches (the drafter's pools counted apart), proposals,
+    acceptances, no draft fault, streams under the near-tie rule, times."""
+    from paddle_tpu_torch.generation import GenerationEngine
+    recs = {}
+    cases = (
+        ("(ii) ngram drafter", pattern_requests(cfg, n_ngram, GEN_SEED + 20),
+         {}, dict(GEN_GEO)),
+        ("(iii) model drafter = the target",
+         pattern_requests(cfg, n_model, GEN_SEED + 30, greedy=True,
+                          new_lo=32, new_hi=48),
+         dict(draft="model", draft_cfg=cfg, draft_params=params),
+         dict(GEN_GEO, prefix_cache=False)))
+    for label, reqs, draft, geo in cases:
+        plain = GenerationEngine(cfg, params, device=device, **geo)
+        want, prec = serve_generation(plain, reqs, f"{label}: plain engine")
+        check_gen_launches(prec, cfg, "fp32", f"{label}: plain engine")
+        del plain
+        eng = GenerationEngine(cfg, params, device=device,
+                               spec_tokens=SPEC_K, **draft, **geo)
+        eng.warmup()
+        name = f"{label}, k={SPEC_K}"
+        got, rec = serve_generation(eng, reqs, name)
+        st = rec["stats"]
+        check_gen_launches(rec, cfg, "fp32", name,
+                           draft_layers=cfg.layers if draft else 0)
+        check_gen_outputs(got, reqs, cfg, name)
+        if st["spec_proposed"] <= 0 or st["draft_faults"] != 0:
+            fail(f"{name}: proposed {st['spec_proposed']}, draft faults "
+                 f"{st['draft_faults']}")
+        rate = st["spec_accepted"] / st["spec_proposed"]
+        if draft and rate <= DRAFT_ACCEPT_MIN:
+            fail(f"{name}: accepted {st['spec_accepted']:g} of "
+                 f"{st['spec_proposed']:g} drafts ({rate:.4f}, want > "
+                 f"{DRAFT_ACCEPT_MIN})")
+        check_same_streams(cfg, eng.params, device, reqs, got, want,
+                           f"{name} vs plain", eng.attn_lanes)
+        say("times", f"generation {name}: proposed {st['spec_proposed']:g}, "
+            f"accepted {st['spec_accepted']:g} ({rate:.4f}), draft faults "
+            f"{st['draft_faults']:g}; {st['tokens'] / rec['wall']:.1f} "
+            f"tokens/s in {rec['steps']} steps (step p50 "
+            f"{rec['step_us']['p50'] / 1e3:.2f} ms) against the plain "
+            f"engine's {prec['stats']['tokens'] / prec['wall']:.1f} in "
+            f"{prec['steps']} (p50 {prec['step_us']['p50'] / 1e3:.2f} ms)"
+            f"  [{card}]")
+        recs[label] = rec
+        del eng
+        torch.cuda.empty_cache()
+    return recs
+
+
+def check_quant_logits(cfg, params_np, params, device):
+    """(iv) forward_full with int8 and fp8 weights against fp32 on the same
+    contexts (8 rows, lengths 40-320): max |diff|, MSE and greedy agreement
+    of the last position's logits, printed beside the JAX package's budget
+    for its small decoder (tests/test_quantized_serving.py)."""
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.generation import forward_full
+    from paddle_tpu_torch.jit import load_reference_params
+    rng = np.random.default_rng(GEN_SEED + 11)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 320))
+                            ).to(device)
+    lens = torch.tensor(np.linspace(40, 320, 8).astype(np.int64),
+                        device=device)
+    lf = forward_full(cfg, params, toks, lens)[0]
+    out = {}
+    for mode in ("int8", "fp8"):
+        qp = load_reference_params(
+            cfg, quant.quantize_decoder_params(params_np, mode), device)
+        lq = forward_full(cfg, qp, toks, lens)[0]
+        d = (lq - lf).double()
+        out[mode] = (float(d.abs().max()), float((d ** 2).mean()),
+                     float((lq.argmax(-1) == lf.argmax(-1)).double().mean()))
+        if not torch.isfinite(lq).all():
+            fail(f"(iv) {mode} weights: non-finite logits")
+        say("generate", f"(iv) {mode} weights vs fp32, forward_full over 8 "
+            f"contexts of 40-320 tokens: logits max |diff| "
+            f"{out[mode][0]:.4f}, MSE {out[mode][1]:.3e}, greedy agreement "
+            f"{out[mode][2]:.4f} (the JAX package's budget for its 2-layer "
+            f"decoder: {INT8_MAX_ABS}, {INT8_MSE:g})")
+        del qp, lq
+    return out
+
+
+def count_int_mm(engine, reqs, warm=4, window=3):
+    """``torch._int_mm`` calls a mixed step, from a profiler trace of
+    ``window`` steady steps (requests straight into the engine). The engine
+    is left mid-run."""
+    from torch.profiler import ProfilerActivity, profile
+    for r in reqs:
+        engine.submit(r)
+    for _ in range(warm):
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(window):
+            engine.step()
+        torch.cuda.synchronize()
+    calls = sum(1 for e in prof.events() if e.name == "aten::_int_mm")
+    return calls / window
+
+
+def time_qmatmul(cfg, device, card, m=80):
+    """One int8 ``qmatmul`` (activations quantized, ``torch._int_mm`` on the
+    column-major int8 weight, the rescale) against the fp32 ``torch.matmul``
+    at the decoder's shapes and the main path's 80 rows, device ms from a
+    CUDA graph. Not a kernel of the port: a library call and torch ops."""
+    from paddle_tpu_torch import quant
+    g = torch.Generator().manual_seed(GEN_SEED + 12)
+    total = [0.0, 0.0, 0.0]
+    h = cfg.hidden
+    # the decoder's matmuls: (K, N) of wqkv, wo, w1, w2 and the unembedding
+    for k, n in ((h, 3 * h), (h, h), (h, 4 * h), (4 * h, h),
+                 (h, cfg.vocab_size)):
+        x = torch.randn(m, k, generator=g).to(device)
+        w = torch.randn(k, n, generator=g)
+        wq, sc = quant.quantize_array(w, 1, "int8")
+        wq = wq.to(device).t().contiguous().t()
+        sc = sc.to(device)
+        wd = w.to(device)
+        xq = torch.randint(-127, 128, (m, k), generator=g,
+                           dtype=torch.int8).to(device)
+        q_ms = device_ms([lambda: quant.qmatmul(x, wq, sc)])
+        mm_ms = device_ms([lambda: torch._int_mm(xq, wq)])
+        f_ms = device_ms([lambda: torch.matmul(x, wd)])
+        for i, v in enumerate((q_ms, mm_ms, f_ms)):
+            total[i] += v
+        say("times", f"(iv) qmatmul [{m}, {k}] x [{k}, {n}]: {q_ms:.4f} ms "
+            f"(torch._int_mm alone {mm_ms:.4f}), fp32 torch.matmul "
+            f"{f_ms:.4f} ms  [{card}]")
+        del x, w, wq, wd, xq
+    say("times", f"(iv) a decoder layer's four matmuls and the unembedding at "
+        f"{m} rows: qmatmul {total[0]:.4f} ms (torch._int_mm {total[1]:.4f})"
+        f", fp32 {total[2]:.4f} ms  [{card}]")
+
+
+def run_quant_weights(cfg, params_np, params, device, card, reqs,
+                      fp32_streams):
+    """(iv) int8 weights (KV auto -> int8) and fp8 weights on the main
+    path's requests: logits against fp32, launches, the gauge, the
+    ``torch._int_mm`` calls a step, one int8 mixed step against the CPU
+    port, and qmatmul's time. Returns the records of the two runs."""
+    from paddle_tpu_torch import monitor, quant
+    from paddle_tpu_torch.generation import GenerationEngine
+    check_quant_logits(cfg, params_np, params, device)
+    recs = {}
+    for mode in ("int8", "fp8"):
+        eng = GenerationEngine(cfg, params_np, quant_mode=mode,
+                               device=device, **GEN_GEO)
+        saved = monitor.gauge_get("GAUGE_quant_weight_bytes_saved")
+        want = quant.weight_bytes_saved(eng.params)
+        if eng.kv_dtype != "int8" or saved != want or saved <= 0:
+            fail(f"(iv) {mode} weights: KV {eng.kv_dtype}, "
+                 f"GAUGE_quant_weight_bytes_saved {saved} against the "
+                 f"checkpoint's {want}")
+        eng.warmup()
+        label = f"(iv) {mode} weights, KV auto -> int8"
+        streams, rec = serve_generation(eng, reqs, label)
+        check_gen_launches(rec, cfg, "int8", label)
+        check_gen_outputs(streams, reqs, cfg, label)
+        agree = np.mean([a == b for r in reqs for a, b in zip(
+            streams[r.request_id], fp32_streams[r.request_id])
+            if r.sampling.temperature <= 0])
+        say("generate", f"{label}: GAUGE_quant_weight_bytes_saved {saved:g} "
+            f"= weight_bytes_saved of the checkpoint; greedy token agreement "
+            f"with fp32 weights and KV {agree:.4f} position by position")
+        gen_times(rec, f"{mode} weights, int8 KV", card)
+        if mode == "int8":
+            per_step = count_int_mm(
+                eng, gen_requests(cfg, 2 * GEN_GEO["decode_width"],
+                                  seed=GEN_SEED + 1))
+            if per_step != 4 * cfg.layers + 1:
+                fail(f"{label}: {per_step} torch._int_mm calls a mixed "
+                     f"step, want 4 x {cfg.layers} + 1")
+            say("generate", f"{label}: {per_step:g} torch._int_mm calls a "
+                f"mixed step (profiler) = 4 x {cfg.layers} layers + the "
+                "unembedding")
+        recs[f"{mode} weights"] = rec
+        del eng
+        torch.cuda.empty_cache()
+    check_step_vs_cpu(cfg, params_np, device, kv="int8", weights="int8")
+    time_qmatmul(cfg, device, card)
+    return recs
+
+
+def check_predictor_quant(device, card, bundle, p_fp32, feed):
+    """(v) ``Config.enable_quant("int8")`` on the BERT-base encoder bundle:
+    the scope holds int8 weights beside fp32 ``.quant_scale``, the output
+    within the JAX package's budget against fp32 (max |diff| < 0.1, MSE <
+    1e-3, tests/test_quantized_serving.py), and on a bucket ladder each
+    replay bitwise equal to the eager run of its bucket."""
+    from paddle_tpu_torch import inference as TI
+    from paddle_tpu_torch.monitor import gauge_get, stat_get
+
+    def predictor(buckets=None):
+        cfg = TI.Config(bundle)
+        cfg.enable_use_gpu(device_id=device.index or 0)
+        cfg.enable_quant("int8")
+        if buckets:
+            cfg.switch_shape_bucketing(True, buckets=buckets)
+        return TI.create_predictor(cfg)
+    pq = predictor()
+    ops = [op.type for op in pq.program.global_block.ops]
+    n_deq = ops.count("fake_channel_wise_dequantize_max_abs")
+    int8 = [n for b in pq.program.blocks for n, v in b.vars.items()
+            if v.dtype == "int8"]
+    for n in int8:
+        w, sc = pq.scope.find_var(n), pq.scope.find_var(n + ".quant_scale")
+        if w.dtype != torch.int8 or sc is None or sc.dtype != torch.float32 \
+                or w.device != device or not bool((sc > 0).all()):
+            fail(f"(v) enable_quant: {n} is {w.dtype}, its scale {sc}")
+    if not int8 or n_deq != len(int8):
+        fail(f"(v) enable_quant: {len(int8)} int8 weights, {n_deq} dequant "
+             "ops")
+    got = pq.run(feed)[0]
+    want = p_fp32.run(feed)[0]
+    d = (got - want).astype(np.float64)
+    err, mse = float(np.abs(d).max()), float((d ** 2).mean())
+    if not np.isfinite(got).all() or err >= 0.1 or mse >= 1e-3:
+        fail(f"(v) enable_quant: max |diff| {err}, MSE {mse} against fp32 "
+             "(budget 0.1, 1e-3)")
+    pb = predictor(buckets="1,8")
+    diffs = {}
+    for b in (1, 8):
+        f = [a[:b] for a in feed]
+        cold = pb.run(f)[0]
+        r0 = stat_get("STAT_predictor_graph_replay")
+        rep = pb.run(f)[0]
+        if stat_get("STAT_predictor_graph_replay") != r0 + 1:
+            fail(f"(v) enable_quant bucket {b}: the run was not a replay")
+        diffs[b] = float(np.abs(rep - cold).max())
+        diffs[b] = max(diffs[b], float(np.abs(rep - pq.run(f)[0]).max()))
+    if any(diffs.values()):
+        fail(f"(v) enable_quant: replays differ from their eager runs "
+             f"{diffs}")
+    say("generate", f"(v) Predictor enable_quant('int8') on the BERT-base "
+        f"bundle: {len(int8)} int8 weights with fp32 .quant_scale in the "
+        f"scope, {n_deq} dequant ops, GAUGE_quant_weight_bytes_saved "
+        f"{gauge_get('GAUGE_quant_weight_bytes_saved'):g}; "
+        f"B={feed[0].shape[0]} against fp32: max |diff| {err:.4f} (budget 0.1), MSE {mse:.3e} "
+        f"(budget 1e-3); each bucket's replay (captured with the dequant "
+        "ops) against its eager run: " + ", ".join(
+            f"b{b} {v:g}" for b, v in diffs.items()) + f"  [{card}]")
+    del pq, pb
+
+
 def run_generation(device, card, cfg_kw=GEN_CFG, n_requests=GEN_REQUESTS,
                    check_reqs=4):
-    """Phase 6: the generation engine's main path at full width, its
-    checks and its times. Returns (paged parity errors, the main path's
-    records, paged kernel times)."""
+    """Phase 8: the generation engine's main path at full width, its
+    checks and its times, then the two-phase mode (i), speculative
+    decoding with the ngram (ii) and model (iii) drafters, and int8 and
+    fp8 weights (iv). Returns (paged parity errors, the records of every
+    pool run by path, paged kernel times)."""
     from paddle_tpu_torch.generation import (DecoderConfig, GenerationEngine,
                                              init_params)
     from paddle_tpu_torch.jit import load_reference_params
@@ -3901,11 +4375,21 @@ def run_generation(device, card, cfg_kw=GEN_CFG, n_requests=GEN_REQUESTS,
         check_recompute(cfg, params, device, kv, few)
     for kv in ("fp32", "int8"):
         check_step_vs_cpu(cfg, params_np, device, kv)
+    for kv in ("fp32", "int8"):
+        gen_times(recs[kv], f"{kv} KV", card)
+    # the rest of the engine: each path's pool run sets the counts to 0
+    # just before and reads them just after
+    t0 = time.perf_counter()
+    recs["two-phase"] = run_two_phase(cfg, params, device, card, reqs,
+                                      (streams["fp32"], recs["fp32"]), few)
+    recs.update(run_spec(cfg, params, device, card))
+    recs.update(run_quant_weights(cfg, params_np, params, device, card, reqs,
+                                  streams["fp32"]))
+    say("generate", f"two-phase, speculative decoding and quantized weights "
+        f"in {time.perf_counter() - t0:.1f} s  [{card}]")
     del params
     torch.cuda.empty_cache()
     paged_times = time_paged(device, card)
-    for kv in ("fp32", "int8"):
-        gen_times(recs[kv], f"{kv} KV", card)
     return paged_err, recs, paged_times
 
 
@@ -4913,6 +5397,8 @@ def run_inference(device, card):
 
     # (ii) launches in one eager forward
     feed8 = bert_encoder_feed(8, lo=POOL_MIN_LEN)
+    # phase 8's (v): weight-only int8 on this bundle
+    check_predictor_quant(device, card, tmp.name, p_on, feed8)
     for name, pred, flash in (("on", p_on, n_layers), ("off", p_off, 0)):
         reset_infer_counts()
         pred.run(feed8)
@@ -7477,8 +7963,10 @@ def main() -> int:
                    for k in sparse_counts}
 
     # -- 14. records: launches are the serving, training, recipe, static,
-    # generation, inference, static-training, sparse/control-flow and
-    # CompiledProgram runs
+    # generation (chunked fp32 and int8 KV, two-phase, the two drafters'
+    # runs, int8 and fp8 weights),
+    # inference, static-training, sparse/control-flow and CompiledProgram
+    # runs
     ln_rec = ln_times[(4096, 768, torch.float32)]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]
@@ -7538,14 +8026,15 @@ def main() -> int:
         dict(name="paged_attention", route="cuda",
              source="paddle_tpu_torch/csrc/paged_attention.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:215",
-             launches=gen_recs["fp32"]["counts"]["paged"],
+             launches=sum(r["counts"]["paged"] for r in gen_recs.values()),
              max_abs_err=max(paged_err["fp32"],
                              paged_times["fp32"]["max_abs_err"]), **{
                  k: paged_times["fp32"][k] for k in KERNEL_TIME_KEYS}),
         dict(name="paged_attention_quant", route="cuda",
              source="paddle_tpu_torch/csrc/paged_attention.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:274",
-             launches=gen_recs["int8"]["counts"]["paged_quant"],
+             launches=sum(r["counts"]["paged_quant"]
+                          for r in gen_recs.values()),
              max_abs_err=max(paged_err["int8"], paged_err["fp8"],
                              paged_times["int8"]["max_abs_err"],
                              paged_times["fp8"]["max_abs_err"]), **{

@@ -15,7 +15,9 @@ re-exported here, as the JAX package does; ``layers`` builds programs and
 ``optimizer`` minimizes them. ``io`` saves and loads parameters and
 inference bundles in the JAX package's format, ``inference`` serves a
 bundle (``Config``, ``create_predictor``) and ``serving`` batches
-concurrent requests onto a Predictor (``PredictorPool``). ``contrib``
+concurrent requests onto a Predictor (``PredictorPool``). ``generation``
+serves the decoder (chunked or two-phase, with speculative decoding) and
+``quant`` quantizes its weights and the Predictor's. ``contrib``
 holds static mixed precision, and ``fluid`` is the Paddle 1.8 namespace
 (with the places ``CPUPlace``, ``CUDAPlace`` and ``TPUPlace``).
 
@@ -42,7 +44,7 @@ from . import io  # noqa: F401
 from .io import (load, load_dygraph, load_inference_model,  # noqa: F401
                  load_params, load_persistables, save, save_dygraph,
                  save_inference_model, save_params, save_persistables)
-from . import inference, serving  # noqa: F401
+from . import generation, inference, quant, serving  # noqa: F401
 from . import contrib, fluid  # noqa: F401
 from . import amp, compiler, dataset, reader, tensor  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401

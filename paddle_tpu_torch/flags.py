@@ -2,10 +2,11 @@
 defaults.
 
 Counterpart of ``paddle_tpu/flags.py`` (``set_flags``, ``get_flag``).
-Only the flags that a ported path reads live here (generation, the
-Predictor and its pool, dropout, the embedding gradient, the executor's
-checks and the dataset loop); a later slice adds its own. An unknown name
-raises in ``set_flags`` and ``get_flags``, as in the reference.
+Only the flags that a ported path reads live here (generation and
+quantization, the Predictor and its pool, dropout, the embedding
+gradient, the executor's checks and the dataset loop); a later slice adds
+its own. An unknown name raises in ``set_flags`` and ``get_flags``, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -26,17 +27,27 @@ _DEFS: Dict[str, Any] = {
     # the generation engine (generation/engine.py): a fixed pool of
     # kv_blocks blocks of block_size tokens a layer (block 0 is the trash
     # block), decode_width lanes, prefill_chunk prompt tokens per lane and
-    # step (chunked mode; 0 is the two-phase mode, not ported yet), a
-    # mixed step of token_budget slots (0: decode_width + prefill_chunk)
+    # step (chunked mode; 0 is the two-phase mode, whose whole-prompt
+    # prefill pads to a rung of prefill_buckets), a mixed step of
+    # token_budget slots (0: decode_width * (1 + spec_tokens) +
+    # prefill_chunk)
     "FLAGS_generation_kv_blocks": 128,
     "FLAGS_generation_block_size": 16,
     "FLAGS_generation_decode_width": 8,
+    "FLAGS_generation_prefill_buckets": "pow2:512",
     "FLAGS_generation_prefill_chunk": 8,
     "FLAGS_generation_token_budget": 0,
     "FLAGS_generation_prefix_cache": True,
+    # speculative decoding: up to spec_tokens drafts a decode lane, from
+    # the "ngram" prompt lookup or a "model" drafter, verified in one step
+    "FLAGS_generation_spec_tokens": 0,
+    "FLAGS_generation_draft": "ngram",
     "FLAGS_generation_queue_depth": 256,
-    # KV pool dtype: "auto" follows the weight quantization mode, which
-    # the port does not have yet, so it resolves to "fp32"
+    # weight quantization of the engine ("off", "int8", "fp8") and the
+    # Predictor ("off", "int8")
+    "FLAGS_quant_mode": "off",
+    # KV pool dtype: "auto" follows FLAGS_quant_mode (int8 KV when the
+    # weights are quantized, fp32 otherwise)
     "FLAGS_generation_kv_quant": "auto",
     # the Predictor's shape buckets (inference.py): comma-separated sizes
     # or "pow2:N"; a bucketed signature is one CUDA graph on the card

@@ -18,9 +18,14 @@ be held against a full-context recompute.
   stream, in that order.
 
 On CUDA, ``_ln`` launches the fused layer-norm kernel (2 layers + 1 a
-step) and the paged attention its kernel (one a layer); matmuls are
-``torch.matmul`` in fp32 (TF32 stays off). Weight quantization is not
-ported yet (``ROADMAP.md`` A4): matmuls and embeddings are fp32.
+step) and the paged attention its kernel (one a layer). Every weight
+matmul and embedding gather goes through the seams ``_mm``
+(``quant.matmul``) and ``_emb`` (``quant.embed``): with no
+``<name>::scale`` in the parameters they are the exact fp32 expressions
+(``torch.matmul``, TF32 off; an index), and a quantized checkpoint
+(``quant.quantize_decoder_params``) switches them to int8 x int8 -> int32
+(``torch._int_mm`` on the card) and a rescale, or to an fp8 upcast, and to
+a gather then dequantization.
 """
 from __future__ import annotations
 
@@ -33,10 +38,16 @@ import torch
 
 from ..kernels.layer_norm import layer_norm
 from ..kernels.paged_attention import attend_reference, ragged_paged_attention
+from .. import quant as _quant
 from ..quant import quantize_kv_rows
 
 __all__ = ["DecoderConfig", "init_params", "param_shapes", "forward_full",
            "forward_paged"]
+
+# every weight matmul and embedding gather: the exact fp32 expressions
+# unless the parameters carry '<name>::scale'
+_mm = _quant.matmul
+_emb = _quant.embed
 
 
 @dataclass(frozen=True)
@@ -97,7 +108,7 @@ def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _qkv(cfg: DecoderConfig, params: Dict[str, torch.Tensor], i: int,
          x: torch.Tensor):
     """x [..., hidden] -> q, k, v, each [..., heads, head_dim]."""
-    qkv = torch.matmul(x, params[f"l{i}_wqkv"])
+    qkv = _mm(params, f"l{i}_wqkv", x)
     shape = x.shape[:-1] + (cfg.heads, cfg.head_dim)
     return tuple(t.reshape(shape) for t in qkv.split(cfg.hidden, dim=-1))
 
@@ -105,9 +116,8 @@ def _qkv(cfg: DecoderConfig, params: Dict[str, torch.Tensor], i: int,
 def _mlp(params: Dict[str, torch.Tensor], i: int, x: torch.Tensor
          ) -> torch.Tensor:
     h = torch.nn.functional.gelu(
-        torch.matmul(x, params[f"l{i}_w1"]) + params[f"l{i}_b1"],
-        approximate="none")
-    return torch.matmul(h, params[f"l{i}_w2"]) + params[f"l{i}_b2"]
+        _mm(params, f"l{i}_w1", x) + params[f"l{i}_b1"], approximate="none")
+    return _mm(params, f"l{i}_w2", h) + params[f"l{i}_b2"]
 
 
 @torch.no_grad()
@@ -125,7 +135,7 @@ def forward_full(cfg: DecoderConfig, params: Dict[str, torch.Tensor],
     tokens = tokens.long()
     lengths = lengths.to(dev).long()
     pos = torch.arange(s, device=dev)
-    x = params["tok_emb"][tokens] + params["pos_emb"][pos][None]
+    x = _emb(params, "tok_emb", tokens) + _emb(params, "pos_emb", pos)[None]
     lanes = int(attn_lanes) if attn_lanes else s
     if lanes < s:
         raise ValueError(f"attn_lanes {lanes} < sequence length {s}")
@@ -146,11 +156,11 @@ def forward_full(cfg: DecoderConfig, params: Dict[str, torch.Tensor],
         o = attend_reference(q.transpose(1, 2), kp.transpose(1, 2),
                              vp.transpose(1, 2), mask, sm_scale)
         o = o.transpose(1, 2).reshape(b, s, cfg.hidden)
-        x = x + torch.matmul(o, params[f"l{i}_wo"])
+        x = x + _mm(params, f"l{i}_wo", o)
         x = x + _mlp(params, i, _ln(x, params[f"l{i}_ln2_g"],
                                     params[f"l{i}_ln2_b"]))
     x = _ln(x, params["ln_f_g"], params["ln_f_b"])
-    logits = torch.matmul(x, params["unembed"])                  # [B, S, V]
+    logits = _mm(params, "unembed", x)                           # [B, S, V]
     last = logits[torch.arange(b, device=dev), lengths - 1]
     return last, torch.stack(ks), torch.stack(vs)
 
@@ -182,7 +192,7 @@ def forward_paged(cfg: DecoderConfig, params: Dict[str, torch.Tensor],
     bs = k_pools.shape[2]
     tokens = tokens.long()
     ctx = ctx_lens.long()
-    x = params["tok_emb"][tokens] + params["pos_emb"][ctx]       # [T, h]
+    x = _emb(params, "tok_emb", tokens) + _emb(params, "pos_emb", ctx)
     sm_scale = 1.0 / math.sqrt(cfg.head_dim)
     blk = block_tables.long().gather(1, (ctx // bs)[:, None])[:, 0]
     off = ctx % bs
@@ -204,8 +214,8 @@ def forward_paged(cfg: DecoderConfig, params: Dict[str, torch.Tensor],
         o = ragged_paged_attention(q.contiguous()[:, None], kp, vp,
                                    block_tables, ones, ctx_lens, sm_scale,
                                    k_scales=ksp, v_scales=vsp)[:, 0]
-        x = x + torch.matmul(o.reshape(t, cfg.hidden), params[f"l{i}_wo"])
+        x = x + _mm(params, f"l{i}_wo", o.reshape(t, cfg.hidden))
         x = x + _mlp(params, i, _ln(x, params[f"l{i}_ln2_g"],
                                     params[f"l{i}_ln2_b"]))
     x = _ln(x, params["ln_f_g"], params["ln_f_b"])
-    return torch.matmul(x, params["unembed"])                    # [T, V]
+    return _mm(params, "unembed", x)                             # [T, V]

@@ -1,9 +1,10 @@
 """GenerationPool: the thread-safe continuous-batching front end.
 
 Counterpart of ``paddle_tpu/generation/scheduler.py``. Requests join the
-running batch at admission, stream their prompt through the mixed step a
-chunk at a time and leave at EOS or max_new_tokens while their
-batch-mates go on; a worker thread drives ``GenerationEngine.step()``.
+running batch at admission, stream their prompt in (chunk by chunk through
+the mixed step, or whole in two-phase mode) and leave at EOS or
+max_new_tokens while their batch-mates go on; a worker thread drives
+``GenerationEngine.step()``.
 
 Contracts, as in the reference:
 - backpressure: the queue is bounded (``FLAGS_generation_queue_depth``);
@@ -298,4 +299,6 @@ class GenerationPool:
                      "GAUGE_generation_prefix_blocks"):
             gauge_set(name, 0)
         gauge_set("GAUGE_generation_blocks_free", eng.kv.num_blocks - 1)
-        eng._publish_gauges()
+        # the quant gauges derive from what survives (the pools' dtype, the
+        # parameters): publishing them again is their retraction
+        eng._publish_quant_gauges()

@@ -39,11 +39,18 @@ arrays). Device rule: the Predictor runs on the card (``cuda:<id>`` of
 ``enable_use_gpu``, else the default device) and raises without one
 unless the config asks for the CPU (``disable_gpu()``).
 
-Not ported yet, raising ``NotImplementedError``: weight-only quantized
-serving (``enable_quant``, ``ROADMAP.md`` A4 item 3), SPMD serving
-(``enable_spmd``, A6), the program cache, adaptive bucket dispatch and
-the serialized artifact (``enable_program_cache``, ``switch_autotune``,
-``export_serialized``, ``SerializedPredictor``, A5). The
+Weight-only quantized serving (``Config.enable_quant("int8")``, or
+``FLAGS_quant_mode``): at load, after the passes, every matmul-family
+weight is stored int8 in the scope beside its ``<name>.quant_scale``
+absmax, with slim's ``fake_channel_wise_dequantize_max_abs`` before its
+consumers (``quant.quantize_program_weights``); the saving is
+``GAUGE_quant_weight_bytes_saved``. It excludes bf16, and fp8 is refused
+(flat decoder checkpoints only), as in the JAX package.
+
+Not ported yet, raising ``NotImplementedError``: SPMD serving
+(``enable_spmd``, ``ROADMAP.md`` A6), the program cache, adaptive bucket
+dispatch and the serialized artifact (``enable_program_cache``,
+``switch_autotune``, ``export_serialized``, ``SerializedPredictor``, A5). The
 ``serving/predict`` telemetry span and its ``TIMER_predictor_run_us``
 go with A7.
 """
@@ -63,7 +70,7 @@ from .core.executor import Executor, _as_feed, as_numpy
 from .core.passes import apply_pass
 from .core.scope import Scope
 from .flags import get_flag
-from .monitor import stat_add
+from .monitor import gauge_set, stat_add
 
 __all__ = ["Config", "AnalysisConfig", "Predictor", "create_predictor",
            "PredictorTensor", "PassStrategy", "GpuPassStrategy",
@@ -156,8 +163,8 @@ TpuPassStrategy = GpuPassStrategy
 
 class Config:
     """``AnalysisConfig``: the bundle's directory (or its program and
-    parameter files), the device, the pass pipeline, bf16 and the shape
-    buckets."""
+    parameter files), the device, the pass pipeline, bf16, weight
+    quantization and the shape buckets."""
 
     def __init__(self, model_dir: Optional[str] = None,
                  prog_file: Optional[str] = None,
@@ -174,6 +181,8 @@ class Config:
         # pins the ladder
         self._shape_buckets = None
         self._bucket_axes = (0,)
+        # None: FLAGS_quant_mode; enable_quant()/disable_quant() pin it
+        self._quant_mode: Optional[str] = None
 
     # --- device ---------------------------------------------------------
     def enable_use_gpu(self, memory_pool_init_size_mb=100, device_id=0):
@@ -227,14 +236,20 @@ class Config:
     def disable_shape_bucketing(self):
         self.switch_shape_bucketing(False)
 
-    # --- not ported yet -------------------------------------------------
+    # --- weight quantization --------------------------------------------
     def enable_quant(self, mode: str = "int8"):
-        raise NotImplementedError(
-            "Config.enable_quant: weight-only quantized serving is not "
-            "ported yet (ROADMAP.md A4 item 3)")
+        """Serve with weight-only int8 quantization (not bitwise against
+        fp32: within the JAX package's error budget)."""
+        if mode not in ("off", "int8"):
+            raise ValueError(f"Predictor quant mode {mode!r} not supported "
+                             "(off|int8; fp8 is flat-checkpoint only)")
+        self._quant_mode = mode
+        return self
 
     def disable_quant(self):
-        pass  # unquantized is the only mode
+        self._quant_mode = "off"
+
+    # --- not ported yet -------------------------------------------------
 
     def switch_autotune(self, x: bool = True):
         if x:
@@ -317,6 +332,18 @@ class Predictor:
                 # fetch targets keep their producers through any fusion
                 self.program = apply_pass(self.program, name,
                                           protected=set(self.fetch_names))
+        qm = config._quant_mode if config._quant_mode is not None \
+            else str(get_flag("FLAGS_quant_mode"))
+        self.quant_mode = qm if qm in ("off", "int8") else "off"
+        if self.quant_mode != "off":
+            if config._bf16:
+                raise ValueError(
+                    "enable_quant and bf16 are mutually exclusive: the bf16 "
+                    "cast would truncate the fp32 quant scales")
+            from .quant import quantize_program_weights
+            gauge_set("GAUGE_quant_weight_bytes_saved",
+                      quantize_program_weights(self.program, self.scope,
+                                               self.quant_mode))
         if config._bf16:
             self._cast_params_bf16()
         self._feeds: Dict[str, np.ndarray] = {}

@@ -230,33 +230,87 @@ def load_reference_params(cfg, params: Mapping[str, np.ndarray],
                           device=None) -> Dict[str, torch.Tensor]:
     """The generation decoder's flat parameter dict (the JAX package's
     ``generation.init_params`` or a checkpoint of it, as numpy arrays) as
-    fp32 tensors on ``device`` (the default device when None). Raises on a
+    tensors on ``device`` (the default device when None). Raises on a
     missing, extra or shape-mismatched name against ``cfg``, a
     ``generation.DecoderConfig``; nothing is built unless every name and
-    shape agrees. Tensors already on the device are used as they are."""
+    shape agrees. Tensors already on the device are used as they are.
+
+    Weights are fp32, or, in a quantized checkpoint of either package
+    (``quant.quantize_decoder_params``, ``load_quantized``), int8 or fp8
+    beside their fp32 absmax ``<name>::scale``: [rows] for an embedding,
+    [out] (or [1]) for a matmul weight. Those keep their dtypes; on the
+    card an int8 matmul weight is laid out column-major, the layout in
+    which cuBLASLt's int8 kernels run several times faster on Hopper."""
     from .device import resolve
     from .generation.model import param_shapes
+    from .quant import SCALE_SUFFIX
     want = param_shapes(cfg)
-    missing = sorted(set(want) - set(params))
-    extra = sorted(set(params) - set(want))
+    scaled = {n[:-len(SCALE_SUFFIX)] for n in params
+              if n.endswith(SCALE_SUFFIX)}
+    given = set(params) - {n + SCALE_SUFFIX for n in scaled}
+    missing = sorted(set(want) - given)
+    extra = sorted((given - set(want)) |
+                   {n + SCALE_SUFFIX for n in scaled - set(want)})
     if missing or extra:
         raise KeyError(f"load_reference_params: names differ; missing "
                        f"{missing}, unexpected {extra}")
     bad = [f"{n}: {tuple(params[n].shape)} vs {shape}"
            for n, shape in want.items() if tuple(params[n].shape) != shape]
+    for n in sorted(scaled):
+        shape = want[n]
+        rows = n in ("tok_emb", "pos_emb")
+        ok = {(shape[0],)} if rows else {(shape[-1],), (1,)}
+        got = tuple(params[n + SCALE_SUFFIX].shape)
+        if len(shape) < 2 or got not in ok:
+            bad.append(f"{n}{SCALE_SUFFIX}: {got} vs {sorted(ok)}")
+    quantized = {n for n in want if _quant_dtype(params[n]) is not None}
+    bad += [f"{n}: a quantized weight without {n}{SCALE_SUFFIX}"
+            for n in sorted(quantized - scaled)]
+    bad += [f"{n}: a {params[n].dtype} weight beside {n}{SCALE_SUFFIX}"
+            for n in sorted(scaled - quantized)]
     if bad:
         raise ValueError("load_reference_params: shapes differ (given vs "
                          "config): " + "; ".join(bad))
     dev = resolve(device)
     out = {}
-    for n in want:
+    for n in list(want) + sorted(n + SCALE_SUFFIX for n in scaled):
         a = params[n]
-        if isinstance(a, torch.Tensor):
-            out[n] = a.to(device=dev, dtype=torch.float32)
-        else:
-            # np.array copies: a JAX array's numpy view is read-only
-            out[n] = torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+        dt = _quant_dtype(a)
+        if dt is None:
+            out[n] = _fp32_tensor(a, dev)
+            continue
+        if not isinstance(a, torch.Tensor):
+            a = np.asarray(a)
+            a = torch.from_numpy(a.view(np.uint8).copy()).view(dt) \
+                if dt != torch.int8 else torch.from_numpy(np.array(a))
+        t = a.to(dev)
+        if dt == torch.int8 and dev.type == "cuda" and \
+                n not in ("tok_emb", "pos_emb"):
+            t = t.t().contiguous().t()
+        out[n] = t
     return out
+
+
+def _quant_dtype(a) -> Optional[torch.dtype]:
+    """int8 or float8_e4m3fn for a quantized weight (a tensor, or a numpy
+    array: int8, or one byte of void or ml_dtypes float8), else None."""
+    if isinstance(a, torch.Tensor):
+        fp8 = getattr(torch, "float8_e4m3fn", None)
+        return a.dtype if a.dtype in (torch.int8, fp8) else None
+    dt = np.asarray(a).dtype
+    if dt == np.int8:
+        return torch.int8
+    if dt.kind == "V" and dt.itemsize == 1:
+        from .quant import storage_dtype
+        return storage_dtype("fp8")
+    return None
+
+
+def _fp32_tensor(a, dev) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=dev, dtype=torch.float32)
+    # np.array copies: a JAX array's numpy view is read-only
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
 
 def _as_tensors(values, device) -> tuple:

@@ -246,6 +246,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "          'paddle_tpu_torch.generation.scheduler',\n"
         "          'paddle_tpu_torch.kernels.paged_attention',\n"
         "          'paddle_tpu_torch.quant', 'paddle_tpu_torch.flags',\n"
+        "          'paddle_tpu_torch.quant.convert',\n"
+        "          'paddle_tpu_torch.ops.quantize',\n"
         "          'paddle_tpu_torch.monitor', 'paddle_tpu_torch.tracing',\n"
         "          'paddle_tpu_torch.serving', 'paddle_tpu_torch.io',\n"
         "          'paddle_tpu_torch.inference',\n"

@@ -611,7 +611,6 @@ def test_config_device_rule(port_bundle, monkeypatch):
 
 
 @pytest.mark.parametrize("call,queue", [
-    (lambda c: c.enable_quant(), "A4 item 3"),
     (lambda c: c.enable_spmd("dp4"), "A6"),
     (lambda c: c.enable_program_cache(), "A5"),
     (lambda c: c.switch_autotune(True), "A5"),
