@@ -179,6 +179,24 @@ Phases, each printing its lines; any failure exits nonzero:
    the graph) bitwise against its eager run; (vi) times: eager, replay
    and device ms at B=1, 8 and 32 in fp32 and bf16, the pool's requests/s, rows/s, latency p50/p95 and idle share,
    peak memory, and the two kernels at this path's calls;
+10b. serving artifacts, warm starts and autotune ("[artifact]" lines):
+   the BERT-base encoder bundle exported fp32 with a static batch of 8
+   (a trace of the cached module) and a dynamic one (a cold Predictor of
+   the program cache, whose forward that export is) and bf16 (static 8),
+   each artifact's kernel ops (25 layer-norm, 12 flash forwards) and
+   shipped libraries checked; the main path: the three served by a process
+   that cannot import paddle_tpu_torch, paddle_tpu or jax, counts set to
+   0 there before one eager forward and read after, every replay at B=1
+   and 8 bitwise its eager run, fp32 against the Predictor and bf16
+   against the bf16 Predictor, eager and replay ms beside the Predictor's;
+   the C client (when the Python has a shared libpython) bitwise
+   ``SerializedCore`` and its ms a request; a warm Predictor in a fresh
+   process, no pass and no export, bitwise the cold one, construction
+   seconds cold, warm and without the cache; the Predictor's bucket
+   choice tuned at B=3; the 16-layer decoder's geometry tuned (3
+   candidates, a 32-token probe) and reloaded by a fresh engine with no
+   trial, ``kernel="reference"`` raising on the card; each custom op's
+   dispatch cost over its wrapper;
 11. static-graph training ("[static-train]" lines), the eighth main path:
    (i) Fluid's MNIST LeNet (``examples/fluid_mnist.py``'s network through
    the port's ``fluid``, B=64) under ``CUDAPlace(0)``: one step against
@@ -250,6 +268,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -5223,6 +5242,15 @@ def rel_norm(got, want):
                  max(np.linalg.norm(want.ravel()), 1e-30))
 
 
+def check_warmup(report, what):
+    """Fail on a bucket that ``warmup_buckets`` reports as failed (the
+    program cache's ladder reports an error instead of raising it)."""
+    bad = {b: r["error"] for b, r in report.items() if "error" in r}
+    if bad:
+        fail(f"[inference] {what}: warmup failed at buckets {bad}")
+    return report
+
+
 def check_close(what, got, want, tol=CPU_TOL):
     err = float(np.abs(got - want).max())
     if not np.all(np.abs(got - want) <= tol["atol"] + tol["rtol"] *
@@ -5326,14 +5354,13 @@ def time_infer_kernels(device, card):
     return rec
 
 
-def run_inference(device, card):
-    """Phase 10: the BERT-base encoder bundle through io, Predictor, shape
+def run_inference(device, card, bundle):
+    """Phase 10: the BERT-base encoder bundle (saved into the directory
+    ``bundle``, which phase 10b serves again) through io, Predictor, shape
     buckets as CUDA graphs and PredictorPool. Returns the main path's
     launches, (flash forward, layer-norm forward): the pool's warmup
     (each bucket's cold eager run and capture) and its traffic, counts set
     to 0 just before and read just after."""
-    import tempfile
-
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import inference as TI
     from paddle_tpu_torch import serving as TS
@@ -5347,9 +5374,8 @@ def run_inference(device, card):
     state = bert_encoder_state(main_prog)
     scope = pt.Scope()
     load_reference_scope(scope, state, "cpu")
-    tmp = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
-    pt.save_inference_model(tmp.name, list(INFER_FEEDS), [out],
+    pt.save_inference_model(bundle, list(INFER_FEEDS), [out],
                             pt.Executor("cpu"), main_program=main_prog,
                             scope=scope)
     del scope, state
@@ -5359,7 +5385,7 @@ def run_inference(device, card):
         f"{time.perf_counter() - t0:.1f} s")
 
     def predictor(ir=True, bf16=False, buckets=None, cpu=False):
-        cfg = TI.Config(tmp.name)
+        cfg = TI.Config(bundle)
         if cpu:
             cfg.disable_gpu()
         else:
@@ -5398,7 +5424,7 @@ def run_inference(device, card):
     # (ii) launches in one eager forward
     feed8 = bert_encoder_feed(8, lo=POOL_MIN_LEN)
     # phase 8's (v): weight-only int8 on this bundle
-    check_predictor_quant(device, card, tmp.name, p_on, feed8)
+    check_predictor_quant(device, card, bundle, p_on, feed8)
     for name, pred, flash in (("on", p_on, n_layers), ("off", p_off, 0)):
         reset_infer_counts()
         pred.run(feed8)
@@ -5421,12 +5447,12 @@ def run_inference(device, card):
     ladder = TI.parse_bucket_ladder(INFER_LADDER)
     reset_all()
     reset_infer_counts()
-    cfg = TI.Config(tmp.name)
+    cfg = TI.Config(bundle)
     cfg.enable_use_gpu(device_id=device.index or 0)
     cfg.switch_shape_bucketing(True, buckets=INFER_LADDER)
     pool = TS.serve(cfg, max_batch=max(ladder), batch_timeout_ms=2.0)
     t0 = time.perf_counter()
-    report = pool.warmup([f[:1] for f in reqs[0]])
+    report = check_warmup(pool.warmup([f[:1] for f in reqs[0]]), "the pool")
     t_warm = time.perf_counter() - t0
     outs, lat, wall = drive_pool(pool, reqs)
     torch.cuda.synchronize()
@@ -5521,7 +5547,7 @@ def run_inference(device, card):
 
     # (vi) times
     p_b16 = predictor(bf16=True, buckets=INFER_LADDER)
-    p_b16.warmup_buckets([f[:1] for f in feed8])
+    check_warmup(p_b16.warmup_buckets([f[:1] for f in feed8]), "bf16")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for label, pe, pb in (("fp32", p_on, p_b), ("bf16", p_e16, p_b16)):
         for b in INFER_TIME_B:
@@ -5564,9 +5590,518 @@ def run_inference(device, card):
     del pool, p_b, p_b16, p_on, p_off, p_e16
     gc.collect()
     torch.cuda.empty_cache()
-    tmp.cleanup()
     say("inference", f"phase done in {time.perf_counter() - t_phase:.1f} s")
     return main_counts, kernel_times
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: serving artifacts, warm starts and autotune
+# ---------------------------------------------------------------------------
+
+ARTIFACT_B = (1, 8)
+# the generation engine's tune: a short probe, three geometry candidates
+AUTOTUNE_CANDIDATES = 3
+AUTOTUNE_PROBE_TOKENS = 32
+AUTOTUNE_LADDER = "pow2:32"
+DISPATCH_REPS = 200
+
+# one child process serves the artifacts without the framework
+# (paddle_tpu_torch, paddle_tpu and jax cannot be imported while it does),
+# then lifts the bar and warm-starts a Predictor from the program cache.
+# argv: a JSON job {"artifacts": {label: dir}, "feeds": npz, "out": npz
+# prefix, "batches": [...], "reps": n, "warm": {"repo", "bundle", "cache",
+# "ladder", "out"}}; prints an ARTIFACTS and a WARM JSON line
+_SERVE_ARTIFACTS = r'''
+import importlib.util, json, sys, time
+BARRED = ("paddle_tpu_torch", "paddle_tpu", "jax")
+for name in BARRED:
+    sys.modules[name] = None
+import numpy as np
+import torch
+job = json.loads(sys.argv[1])
+with np.load(job["feeds"]) as f:
+    feed8 = [f["f%d" % i] for i in range(len(f.files))]
+report = {}
+for label, art in job["artifacts"].items():
+    spec = importlib.util.spec_from_file_location(
+        "serving_core_" + label, art + "/serving_core.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t_art = time.perf_counter()
+    core = mod.SerializedCore(art)
+    rec = {"load_s": time.perf_counter() - t_art}
+    for k in core.ops.launches:
+        core.ops.launches[k] = 0
+    core.run_eager(feed8)
+    if core.device.type == "cuda":
+        torch.cuda.synchronize()
+    rec["launches"] = dict(core.ops.launches)
+    outs = {}
+    for b in job["batches"]:
+        feed = [v[:b] for v in feed8]
+        eager = core.run_eager(feed)
+        cold = core.run(feed)          # the capture
+        replay = core.run(feed)
+        rec["b%d_bitwise" % b] = all(
+            x.tobytes() == y.tobytes() for x, y in zip(eager, replay))
+        rec["b%d_cold_bitwise" % b] = all(
+            x.tobytes() == y.tobytes() for x, y in zip(eager, cold))
+        for name, fn in (("eager", core.run_eager), ("replay", core.run)):
+            times = []
+            for _ in range(job["reps"]):
+                t0 = time.perf_counter()
+                fn(feed)
+                times.append(1e3 * (time.perf_counter() - t0))
+            rec["b%d_%s_ms" % (b, name)] = float(np.median(times))
+        outs["%s_b%d" % (label, b)] = replay[0]
+    rec["stats"] = dict(core.stats)
+    rec["modules"] = sorted(m for m in sys.modules if sys.modules[m] is not
+                            None and m.split(".")[0] in BARRED)
+    rec["seconds"] = time.perf_counter() - t_art
+    report[label] = rec
+    np.savez(job["out"] + "_" + label + ".npz", **outs)
+    del core
+print("ARTIFACTS " + json.dumps(report), flush=True)
+
+# the warm start: a Predictor of the cache that ran no pass and no export
+warm = job["warm"]
+for name in BARRED:
+    del sys.modules[name]
+sys.path.insert(0, warm["repo"])
+t_import = time.perf_counter()
+from paddle_tpu_torch import inference as TI
+from paddle_tpu_torch.monitor import stat_get
+import paddle_tpu_torch.core.passes as passes
+t_import = time.perf_counter() - t_import
+def refuse(*a, **k):
+    raise AssertionError("the warm start ran the pass pipeline or an export")
+passes.apply_pass = TI.apply_pass = refuse
+torch.export.export = refuse
+cfg = TI.Config(warm["bundle"])
+if torch.cuda.is_available():
+    cfg.enable_use_gpu()
+    torch.cuda.synchronize()
+else:
+    cfg.disable_gpu()
+t0 = time.perf_counter()
+cfg.switch_shape_bucketing(True, buckets=warm["ladder"])
+cfg.enable_program_cache(warm["cache"])
+p = TI.create_predictor(cfg)
+if p.device.type == "cuda":
+    torch.cuda.synchronize()
+t_build = time.perf_counter() - t0
+np.save(warm["out"], p.run(feed8)[0])
+print("WARM " + json.dumps({
+    "construct_s": t_build, "import_s": t_import, "hit": p.cache_hit,
+    "program": p.program is None,
+    "trace_hit": stat_get("STAT_program_cache_trace_hit"),
+    "bytes_read": stat_get("STAT_program_cache_bytes_read")}))
+'''
+
+
+def _json_line(stdout, tag, what):
+    for line in stdout.splitlines():
+        if line.startswith(tag + " "):
+            return json.loads(line[len(tag) + 1:])
+    fail(f"[artifact] {what} printed no {tag} line")
+
+
+def _tree_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _child(cmd, what, env=None, cwd=None, timeout=300):
+    """Run a child process to its end; fail with its output if it fails."""
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=cwd, timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"[artifact] {what} exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def time_dispatch(device, card, reps=DISPATCH_REPS):
+    """Host microseconds a call of each kernel op over its wrapper's
+    direct launch, at the serving forward's shapes (B=8 S=128 fp32),
+    ``reps`` calls each in turns, ending in a synchronize. Launches made
+    here are not on a main path."""
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.kernels import layer_norm as LN
+    from paddle_tpu_torch.kernels import traced
+    traced.register()
+    ops = torch.ops.paddle_tpu
+    b, s, h, d = 8, INFER_CFG["S"], INFER_CFG["heads"], 64
+    x, g, bt = ln_inputs(b * s, h * d, torch.float32, device, 4242)
+    qkv = torch.randn(b, s, 3, h, d, device=device)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    bias = padding_bias(b, s, device, 4243, lo=POOL_MIN_LEN)
+    scale = 1.0 / math.sqrt(d)
+    cases = {
+        "layer_norm_fwd": (lambda: LN._launch(x, g, bt, 1e-5),
+                           lambda: ops.layer_norm_fwd(x, g, bt, 1e-5)),
+        "flash_attention_fwd": (
+            lambda: FA._launch_fwd(q, k, v, bias, False, scale, None, None,
+                                   1.0),
+            lambda: ops.flash_attention_fwd(q, k, v, bias, False, scale)),
+    }
+    out = {}
+    for name, (direct, op) in cases.items():
+        us = {"direct": [], "op": []}
+        for _ in range(2):
+            for form, fn in (("direct", direct), ("op", op),
+                             ("op", op), ("direct", direct)):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                us[form].append(1e6 * (time.perf_counter() - t0) / reps)
+        out[name] = (min(us["direct"]), min(us["op"]))
+        say("times", f"[artifact] dispatch of {name}: wrapper's launch "
+            f"{out[name][0]:.2f} us a call, custom op {out[name][1]:.2f} us "
+            f"a call (+{out[name][1] - out[name][0]:.2f} us; best of 4 runs "
+            f"of {reps} calls, host clock)  [{card}]")
+    return out
+
+
+def run_artifact(device, card, bundle):
+    """Phase 10b: the BERT-base encoder bundle that phase 10 saved into the
+    directory ``bundle``, as serving artifacts. (i) a cold Predictor of the program cache exports
+    its forward (a dynamic batch, no weights) and serves the module it
+    read back; export fp32 with a static batch (8) and a dynamic one, both
+    over that module, and bf16 (static 8, from the bf16 Predictor's
+    program); (ii) one child process serves all three while it cannot
+    import the port, with the kernels' launches counted there (12 flash
+    and 25 layer-norm forwards in one forward), each against the
+    Predictor's output (bf16 bitwise) and each replay bitwise against its
+    eager run, the times beside the Predictor's; then (iii) the same
+    process warm-starts a Predictor from the cache, bitwise against the
+    cold one; (iv) serve from the C client; (v) autotune the Predictor's
+    bucket choice and (vi) the generation engine at docs/generation.md:19's
+    decoder; (vii) the custom ops' dispatch cost. Prints each step's
+    seconds. Returns the main path's launches (flash forward, layer-norm
+    forward): the artifact process's, counted there."""
+    import sysconfig
+
+    from paddle_tpu_torch import autotune as AT
+    from paddle_tpu_torch import capi
+    from paddle_tpu_torch import inference as TI
+    from paddle_tpu_torch.monitor import reset_all, stat_get
+    t_phase = time.perf_counter()
+    steps = {}
+    t_step = time.perf_counter()
+
+    def step(name):
+        nonlocal t_step
+        now = time.perf_counter()
+        steps[name] = now - t_step
+        t_step = now
+
+    n_layers = INFER_CFG["layers_n"]
+    n_ln = 2 * n_layers + 1
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+
+    def config(bf16=False, cache=None, ladder=None, autotune=False):
+        cfg = TI.Config(bundle)
+        cfg.enable_use_gpu(device_id=device.index or 0)
+        if bf16:
+            cfg.enable_bf16()
+        if cache:
+            cfg.enable_program_cache(cache)
+        if ladder:
+            cfg.switch_shape_bucketing(True, buckets=ladder)
+        cfg.switch_autotune(autotune)
+        return cfg
+
+    feed8 = bert_encoder_feed(8, lo=POOL_MIN_LEN)
+    np.savez(os.path.join(root, "feed8.npz"),
+             **{f"f{i}": v for i, v in enumerate(feed8)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p32 = TI.create_predictor(config())
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    want = {b: p32.run([v[:b] for v in feed8])[0] for b in ARTIFACT_B}
+    p16 = TI.create_predictor(config(bf16=True))
+    want16 = p16.run(feed8)[0]
+    # p16 widens its bf16 fetch to fp32 exactly: its raw words
+    words16 = (want16.view(np.uint32) >> 16).astype(np.uint16)
+    step("plain Predictors")
+
+    # (i) the cold Predictor of the cache exports the dynamic forward
+    # without weights at construction, and serves (and captures its bucket
+    # graphs over) the module it read back
+    cache = os.path.join(root, "cache")
+    reset_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = TI.create_predictor(config(cache=cache, ladder=list(ARTIFACT_B)))
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    entry_bytes = stat_get("STAT_program_cache_bytes_written")
+    if cold.cache_hit or cold._module is None or entry_bytes <= 0:
+        fail(f"[artifact] the cold Predictor did not write and load the "
+             f"cache (hit {cold.cache_hit}, module "
+             f"{cold._module is not None})")
+    step("cold Predictor")
+    arts, sigs, t_export = {}, {}, {}
+    for label, pred, dyn in (("fp32_static", cold, False),
+                             ("fp32_dynamic", cold, True),
+                             ("bf16_static", p16, False)):
+        arts[label] = os.path.join(root, label)
+        t0 = time.perf_counter()
+        sigs[label] = pred.export_serialized(arts[label], feed8,
+                                             dynamic_batch=dyn)
+        t_export[label] = time.perf_counter() - t0
+        ops = sigs[label]["kernel_ops"]
+        shipped = sorted(f for f in os.listdir(os.path.join(arts[label],
+                                                            "kernels"))
+                         if f.endswith(".so"))
+        if ops != {"layer_norm_fwd": n_ln, "flash_attention_fwd": n_layers} \
+                or shipped != ["libflash_attention.so", "liblayer_norm.so"]:
+            fail(f"[artifact] {label}: kernel ops {ops}, libraries {shipped}")
+        say("artifact", f"(i) export {label}: {t_export[label]:.2f} s"
+            + (" (over the cached module)" if pred is cold else
+               " (the executor's forward)")
+            + f", {_tree_bytes(arts[label]) / 2 ** 20:.1f} MiB (model.pt2 "
+            f"{os.path.getsize(os.path.join(arts[label], 'model.pt2')) / 2 ** 20:.1f}"
+            f" MiB); graph calls {ops}; batch {sigs[label]['batch']}")
+    step("exports")
+    say("artifact", f"(i) Predictor construction: plain {t_plain:.2f} s, "
+        f"cold with the program cache {t_cold:.2f} s (load, passes, "
+        f"export without weights, store {entry_bytes / 2 ** 20:.2f} MiB, "
+        f"read back)  [{card}]")
+
+    # (ii) the artifacts from a process without the framework, then (iii)
+    # a warm start in that process once it lifts the bar
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    script = os.path.join(root, "serve.py")
+    with open(script, "w") as f:
+        f.write(_SERVE_ARTIFACTS)
+    warm_out = os.path.join(root, "warm.npy")
+    job = dict(artifacts=arts, feeds=os.path.join(root, "feed8.npz"),
+               out=os.path.join(root, "served"), batches=list(ARTIFACT_B),
+               reps=10, warm=dict(
+                   repo=os.path.dirname(os.path.abspath(__file__)),
+                   bundle=bundle, cache=cache, ladder=list(ARTIFACT_B),
+                   out=warm_out))
+    t0 = time.perf_counter()
+    stdout = _child([sys.executable, script, json.dumps(job)],
+                    "the artifact process", env=env, cwd=root)
+    t_served = time.perf_counter() - t0
+    served = _json_line(stdout, "ARTIFACTS", "the artifact process")
+    warm = _json_line(stdout, "WARM", "the artifact process")
+    counts = (0, 0)
+    for label, rec in served.items():
+        outs = np.load(os.path.join(root, f"served_{label}.npz"))
+        lau = rec["launches"]
+        if lau != {"layer_norm_fwd": n_ln, "flash_attention_fwd": n_layers}:
+            fail(f"[artifact] {label}: one forward launched {lau}")
+        if rec["modules"]:
+            fail(f"[artifact] {label}: the process imported {rec['modules']}")
+        bad = [b for b in ARTIFACT_B if not rec[f"b{b}_bitwise"] or
+               not rec[f"b{b}_cold_bitwise"]]
+        if bad:
+            fail(f"[artifact] {label}: replays differ from the eager run at "
+                 f"batches {bad}")
+        if label.startswith("fp32"):
+            errs = [check_close(f"{label} B={b}", outs[f"{label}_b{b}"],
+                                want[b]) for b in ARTIFACT_B]
+            agree = f"max error {max(errs):.3e} against the Predictor"
+        else:
+            words = outs[f"{label}_b8"]
+            if words.dtype != np.uint16 or \
+                    words.tobytes() != words16.tobytes():
+                fail(f"[artifact] {label}: {words.dtype} words not bitwise "
+                     f"the bf16 Predictor's (relative norm "
+                     f"{rel_norm((words.astype(np.uint32) << 16).view(np.float32), want16):.3e})")
+            agree = "raw bf16 words bitwise the bf16 Predictor's"
+        counts = (counts[0] + lau["flash_attention_fwd"],
+                  counts[1] + lau["layer_norm_fwd"])
+        say("artifact", f"(ii) {label} served without the framework "
+            f"(loaded in {rec['load_s']:.2f} s, served in "
+            f"{rec['seconds']:.2f} s): one eager forward launched "
+            f"flash {lau['flash_attention_fwd']}, layer norm "
+            f"{lau['layer_norm_fwd']}; {agree}; every replay bitwise its "
+            f"eager run; graphs {rec['stats']['graph_captures']}, replays "
+            f"{rec['stats']['graph_replays']}")
+        say("times", f"[artifact] SerializedCore {label} S={INFER_CFG['S']}: "
+            + ", ".join(f"B={b} eager {rec[f'b{b}_eager_ms']:.2f} ms, replay "
+                        f"{rec[f'b{b}_replay_ms']:.2f} ms"
+                        for b in ARTIFACT_B) + f"  [{card}]")
+    cold8 = cold.run(feed8)[0]
+    if not warm["hit"] or not warm["program"] or warm["trace_hit"] != 1 or \
+            np.load(warm_out).tobytes() != cold8.tobytes():
+        fail(f"[artifact] the warm start: {warm}; bitwise "
+             f"{np.load(warm_out).tobytes() == cold8.tobytes()}")
+    say("artifact", f"(iii) warm Predictor in a fresh process: built in "
+        f"{warm['construct_s']:.2f} s from the cache "
+        f"({warm['bytes_read'] / 2 ** 20:.2f} MiB read, the parameters "
+        f"from the bundle; no pass, no export) against {t_cold:.2f} s cold "
+        f"and {t_plain:.2f} s without the cache; B=8 bitwise the cold one  "
+        f"[{card}]")
+    say("artifact", f"(ii) the artifact process took {t_served:.1f} s "
+        f"(the port's import for the warm start {warm['import_s']:.2f} s)")
+    step("artifact process")
+    # the Predictor at the same shapes: eager (no ladder) and its replay
+    # (the cold Predictor's graphs, captured over the cached module)
+    check_warmup(cold.warmup_buckets([v[:1] for v in feed8]),
+                 "the cached module")
+    for b in ARTIFACT_B:
+        f = [v[:b] for v in feed8]
+        got = cold.run(f)[0]
+        if got.tobytes() != cold._eager(dict(zip(cold.feed_names,
+                                                f)))[0].tobytes():
+            fail(f"[artifact] the cached module's replay at B={b} differs "
+                 "from its eager run")
+        say("times", f"[artifact] Predictor B={b} S={INFER_CFG['S']}: eager "
+            f"{host_ms(lambda: p32.run(f)):.2f} ms, replay over the cached "
+            f"module {host_ms(lambda: cold.run(f)):.2f} ms  [{card}]")
+    del cold
+    step("Predictor times")
+
+    # (iv) the C client
+    if not sysconfig.get_config_var("Py_ENABLE_SHARED"):
+        say("artifact", "(iv) this Python has no shared libpython "
+            "(Py_ENABLE_SHARED off): the C ABI cannot embed it; not run")
+    else:
+        t0 = time.perf_counter()
+        client = capi.client()
+        t_build = time.perf_counter() - t0
+        ind, outd = os.path.join(root, "c_in"), os.path.join(root, "c_out")
+        os.makedirs(ind)
+        os.makedirs(outd)
+        for i, v in enumerate(feed8):
+            capi.write_tensor(os.path.join(ind, f"in{i}.bin"), v)
+        reps = 21
+        stdout = _child([str(client), arts["fp32_static"], "--raw", ind,
+                         outd, str(reps)], "the C client", env=env, cwd=root)
+        ms = float(re.search(r"MS_PER_RUN ([0-9.]+)", stdout).group(1))
+        got = capi.read_tensor(os.path.join(outd, "out0.bin"))
+        ref = np.load(os.path.join(root, "served_fp32_static.npz"))[
+            "fp32_static_b8"]
+        if got.tobytes() != ref.tobytes():
+            fail("[artifact] the C client's output differs from "
+                 "SerializedCore's")
+        say("artifact", f"(iv) C client (built in {t_build:.1f} s): B=8 "
+            f"bitwise SerializedCore's; {ms:.3f} ms a request over {reps - 1} "
+            f"runs after the first  [{card}]")
+    step("C client")
+
+    # (v) autotune: the Predictor's bucket-or-exact choice at B=3
+    AT.reset()
+    t0 = stat_get("STAT_autotune_trials")
+    pa = TI.create_predictor(config(ladder=AUTOTUNE_LADDER, autotune=True))
+    f3 = [v[:3] for v in feed8]
+    pa.run(f3)
+    snap = [s for s in AT.policies() if s["kind"] == "predictor"]
+    entry, = AT.policy().entries()
+    if not snap or stat_get("STAT_autotune_trials") - t0 != 6:
+        fail(f"[artifact] the Predictor's tune: {snap}")
+    say("artifact", f"(v) Predictor autotune at B=3 on {AUTOTUNE_LADDER}: "
+        f"6 trials, winner {snap[0]['form']!r}; " + ", ".join(
+            f"{c['label']} {c['step_time_us'] / 1e3:.2f} ms (bitwise the "
+            f"bucket's: {c['eligible']})" for c in entry["candidates"])
+        + f"  [{card}]")
+    del pa, p32, p16
+    step("Predictor autotune")
+
+    # (vi) autotune of the generation engine at full width
+    gen = run_gen_autotune(device, card, os.path.join(root, "gen_policy"))
+    step("engine autotune")
+    dispatch = time_dispatch(device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    step("dispatch")
+    say("artifact", "step costs: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in steps.items()))
+    say("artifact", f"phase done in {time.perf_counter() - t_phase:.1f} s")
+    return counts, gen, dispatch
+
+
+def run_gen_autotune(device, card, cache):
+    """Autotune of docs/generation.md:19's 16-layer decoder: geometry only
+    on the card (block size x prefill chunk; the kernel is the Hopper one),
+    a short probe, the winner stored and reloaded by a fresh engine with
+    no trial; kernel="reference" on the card raises."""
+    from paddle_tpu_torch import autotune as AT
+    from paddle_tpu_torch.flags import set_flags, clear_explicit, get_flag
+    from paddle_tpu_torch.generation import (DecoderConfig, GenerationEngine,
+                                             init_params)
+    from paddle_tpu_torch.jit import load_reference_params
+    from paddle_tpu_torch.monitor import stat_get
+    cfg = DecoderConfig(**GEN_CFG)
+    params = load_reference_params(cfg, init_params(cfg, GEN_SEED), device)
+    geo = {k: v for k, v in GEN_GEO.items()
+           if k not in ("block_size", "prefill_chunk")}
+    saved = {k: get_flag(k) for k in ("FLAGS_autotune_candidates",
+                                      "FLAGS_autotune_probe_tokens",
+                                      "FLAGS_generation_block_size",
+                                      "FLAGS_generation_prefill_chunk")}
+    set_flags({"FLAGS_autotune_candidates": AUTOTUNE_CANDIDATES,
+               "FLAGS_autotune_probe_tokens": AUTOTUNE_PROBE_TOKENS,
+               "FLAGS_generation_block_size": GEN_GEO["block_size"],
+               "FLAGS_generation_prefill_chunk": GEN_GEO["prefill_chunk"]})
+    clear_explicit(*saved)
+    try:
+        try:
+            GenerationEngine(cfg, params, kernel="reference", device=device,
+                             **GEN_GEO)
+            fail("[artifact] kernel='reference' on the card did not raise")
+        except ValueError as e:
+            if "ROADMAP.md" not in str(e):
+                fail(f"[artifact] kernel='reference' raised {e}")
+        AT.reset()
+        t0 = time.perf_counter()
+        trials = stat_get("STAT_autotune_trials")
+        eng = GenerationEngine(cfg, params, autotune=True,
+                               program_cache_dir=cache, device=device, **geo)
+        t_tune = time.perf_counter() - t0
+        entry = eng._policy_entry
+        n = stat_get("STAT_autotune_trials") - trials
+        cands = entry["candidates"]
+        if entry["source"] != "tuned" or n != len(cands) or \
+                {c["kernel"] for c in cands} != {"pallas"} or \
+                not cands[0]["eligible"]:
+            fail(f"[artifact] the engine's tune: {entry}")
+        default = cands[0]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        AT.reset()
+        trials = stat_get("STAT_autotune_trials")
+        hits = stat_get("STAT_autotune_cache_hits")
+        again = GenerationEngine(cfg, params, autotune=True,
+                                 program_cache_dir=cache, device=device,
+                                 **geo)
+        if stat_get("STAT_autotune_trials") != trials or \
+                stat_get("STAT_autotune_cache_hits") != hits + 1 or \
+                again._policy_entry["label"] != entry["label"] or \
+                (again.kv.block_size, again.prefill_chunk) != \
+                (entry["block_size"], entry["prefill_chunk"]):
+            fail(f"[artifact] a fresh engine did not reload the winner: "
+                 f"{again._policy_entry}")
+        say("artifact", f"(vi) engine autotune, decoder {GEN_CFG}: {int(n)} "
+            f"trials in {t_tune:.1f} s (probe {AUTOTUNE_PROBE_TOKENS} tokens, "
+            f"3 interleaved passes), winner {entry['label']} at "
+            f"{entry['us_per_token']:.0f} us a token "
+            f"({entry['step_time_us']:.0f} us a step) against the default {default['label']} at "
+            f"{default['us_per_token']:.0f} us a token; " + ", ".join(
+                f"{c['label']} {c.get('us_per_token', 0):.0f} us/token "
+                f"eligible {c['eligible']}" for c in cands) +
+            "; a fresh engine reloaded it with 0 trials; kernel='reference' "
+            f"on the card raised  [{card}]")
+        del again
+        return entry
+    finally:
+        set_flags(saved)
+        clear_explicit(*saved)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -7938,7 +8473,15 @@ def main() -> int:
     # -- 10. Paddle Inference: the pool's main path counts set to 0 just
     # before its warmup, read just after its traffic
     torch.cuda.empty_cache()
-    (infer_fa, infer_ln), _ = run_inference(device, card)
+    infer_dir = tempfile.TemporaryDirectory()
+    (infer_fa, infer_ln), _ = run_inference(device, card, infer_dir.name)
+
+    # -- 10b. serving artifacts, warm starts and autotune, on phase 10's
+    # bundle: the artifact process's counts set to 0 just before its
+    # forwards, read just after
+    torch.cuda.empty_cache()
+    (art_fa, art_ln), _, _ = run_artifact(device, card, infer_dir.name)
+    infer_dir.cleanup()
 
     # -- 11. static-graph training: the main path's counts (ten bf16 steps
     # of form (d)) set to 0 just before its run, read just after
@@ -7965,8 +8508,8 @@ def main() -> int:
     # -- 14. records: launches are the serving, training, recipe, static,
     # generation (chunked fp32 and int8 KV, two-phase, the two drafters'
     # runs, int8 and fp8 weights),
-    # inference, static-training, sparse/control-flow and CompiledProgram
-    # runs
+    # inference, artifact, static-training, sparse/control-flow and
+    # CompiledProgram runs
     ln_rec = ln_times[(4096, 768, torch.float32)]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]
@@ -7981,7 +8524,7 @@ def main() -> int:
              train_static_counts["layer_norm_fwd"] +
              late_counts["layer_norm_fwd"] + sum(
                  r["counts"]["layer_norm"] for r in gen_recs.values()) +
-             infer_ln,
+             infer_ln + art_ln,
              max_abs_err=ln_err[(4096, 768, torch.float32, 1e-12)],
              **ln_rec),
         dict(name="layer_norm_bwd", route="cuda",
@@ -8001,7 +8544,7 @@ def main() -> int:
              recipe_counts["flash_attention_fwd"] +
              static_counts["flash_attention_fwd"] +
              train_static_counts["flash_attention_fwd"] +
-             late_counts["flash_attention_fwd"] + infer_fa,
+             late_counts["flash_attention_fwd"] + infer_fa + art_fa,
              max_abs_err=fa_err[(*fa_key, "contiguous")], **fa_rec),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",

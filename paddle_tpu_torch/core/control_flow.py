@@ -41,7 +41,8 @@ generator leaves the loop T draws on; the ``while`` body draws from the
 executor's generator in turn, as JAX threads its key through the carry.
 
 ``run_program`` (the op of ``@to_static``) raises naming ``ROADMAP.md``
-A5 item 6 and A8, and ``pipeline_train`` naming A6.
+A8 (with ``to_static`` and ``dygraph_to_static``), and ``pipeline_train``
+naming A6.
 """
 from __future__ import annotations
 
@@ -227,7 +228,7 @@ def lower_array_length(exe, program, op, env: Dict[str, Any], ctx) -> None:
 def lower_run_program(exe, program, op, env, ctx) -> None:
     raise NotImplementedError(
         "run_program (the op of @to_static) is not ported yet (ROADMAP.md "
-        "A5 item 6, A8)")
+        "A8, with to_static and dygraph_to_static)")
 
 
 def lower_pipeline_train(exe, program, op, env, ctx) -> None:

@@ -69,9 +69,12 @@ stream, an event the step's stream waits on), fetches returned lazily
 and read ``window`` steps behind. A ``CompiledProgram`` is not staged, as
 in the JAX package.
 
-Left out, raising where the JAX signature has them: mesh plans and data
-parallelism over places (``ROADMAP.md`` A6), the program cache and AOT
-(A5), and telemetry (A7).
+The program cache has no trace layer here (``core/program_cache.py``): the
+executor lowers each op eagerly and compiles nothing per program, so an
+executor given ``program_cache_dir`` runs as without it and writes
+nothing (the Predictor's forward is what the cache keeps). Left out,
+raising where the JAX signature has them: mesh plans and data
+parallelism over places (``ROADMAP.md`` A6) and telemetry (A7).
 """
 from __future__ import annotations
 
@@ -132,10 +135,12 @@ def _is_float(t) -> bool:
 class Executor:
     """Runs Programs: ``run(program, feed, fetch_list)``. ``place`` is the
     device, the default one (the card) when None; ``"cpu"`` runs on the
-    CPU."""
+    CPU. ``program_cache_dir`` is the JAX signature's and kept, unused:
+    there is no trace for it to hold."""
 
-    def __init__(self, place=None):
+    def __init__(self, place=None, program_cache_dir: Optional[str] = None):
         self.device = _device.resolve(place)
+        self.program_cache_dir = program_cache_dir
         self._seed_counter = 0
         # op type -> lowerings in the last run, and re-runs of recompute
         # segments' ops in its backward

@@ -6,9 +6,9 @@ by one package loads and runs in the other. Ops are named ops with attrs;
 the port's executor (``core/executor.py``) lowers each one to eager
 PyTorch through the op registry (``core/registry.py``).
 
-Left out: ``Program.fingerprint``, which keys the JAX package's AOT
-program cache (``ROADMAP.md`` A2b), and ``device_guard``, which stamps
-ops for its pipeline compiler (A6).
+``Program.fingerprint`` keys the program cache (``program_cache.py``).
+Left out: ``device_guard``, which stamps ops for the JAX package's
+pipeline compiler (``ROADMAP.md`` A6).
 """
 from __future__ import annotations
 
@@ -305,6 +305,54 @@ class Program:
     @staticmethod
     def from_json(s: str) -> "Program":
         return Program.from_dict(json.loads(s))
+
+    def fingerprint(self, feed_sig: Sequence = (),
+                    fetch_names: Sequence[str] = (),
+                    state_sig: Sequence = (), extra: Sequence = (),
+                    device=None) -> Optional[str]:
+        """A stable identity, across processes, of what this program
+        computes on ``device``: a hash of every op desc and attr and var
+        desc (canonical JSON), the feed and state signatures, the fetch
+        list, the flags a lowering reads (``flags.lowering_snapshot``), the
+        torch and CUDA versions, the card's name (for a CUDA device), the
+        port's source token (``program_cache.framework_token``) and
+        ``extra``. None when an attr cannot be canonicalized: such a program
+        is not cached. The JAX package's ``Program.fingerprint``, with the
+        port's versions and token."""
+        import hashlib
+
+        import torch
+
+        from ..flags import lowering_snapshot
+        from . import program_cache
+
+        def _default(o):
+            # array-valued attrs hash by content, never by a cut repr
+            if hasattr(o, "tobytes") and hasattr(o, "dtype"):
+                return {"__nd__": [str(o.dtype), list(getattr(o, "shape", ())),
+                                   hashlib.sha256(o.tobytes()).hexdigest()]}
+            if isinstance(o, bytes):
+                return {"__b__": hashlib.sha256(o).hexdigest()}
+            raise TypeError(type(o).__name__)
+
+        try:
+            body = json.dumps(self.to_dict(), sort_keys=True,
+                              default=_default)
+        except (TypeError, ValueError):
+            return None
+        dev = torch.device("cpu" if device is None else device)
+        card = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+            else "cpu"
+        h = hashlib.sha256()
+        for part in (f"pttorch{program_cache.FORMAT_VERSION}", body,
+                     repr(tuple(sorted(feed_sig))), repr(tuple(fetch_names)),
+                     repr(tuple(sorted(state_sig))),
+                     repr(lowering_snapshot()), torch.__version__,
+                     str(torch.version.cuda), dev.type, card,
+                     program_cache.framework_token(), repr(tuple(extra))):
+            h.update(part.encode())
+            h.update(b"\x00")
+        return h.hexdigest()
 
     def clone(self, for_test: bool = False) -> "Program":
         """Deep copy; with for_test=True only the forward section stays

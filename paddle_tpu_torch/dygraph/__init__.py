@@ -8,7 +8,7 @@ with 64-bit floats off; integers stay int64 for indexing), ``grad`` is
 ``torch.autograd.grad`` under Paddle's argument names, and ``no_grad`` is
 ``torch.no_grad``. The rest of the JAX ``dygraph`` (``guard``,
 ``dygraph_to_static``, ``Tensor`` as a class of its own) waits for
-``ROADMAP.md`` A5 and A8.
+``ROADMAP.md`` A8.
 """
 from __future__ import annotations
 

@@ -57,6 +57,21 @@ _DEFS: Dict[str, Any] = {
     "FLAGS_predictor_max_batch": 32,
     "FLAGS_predictor_batch_timeout_ms": 2.0,
     "FLAGS_predictor_queue_depth": 256,
+    # the paged-attention form of the generation engine: "pallas" names
+    # the Hopper kernel (on a CPU tensor its wrapper runs the plain
+    # version); "reference", the JAX package's default, is accepted only
+    # off the card (a plain version never runs on a CUDA tensor)
+    "FLAGS_paged_attention_kernel": "pallas",
+    # the program cache (core/program_cache.py): None follows
+    # PADDLE_TPU_PROGRAM_CACHE_DIR, and without it there is no cache; ""
+    # disables it
+    "FLAGS_program_cache_dir": None,
+    # adaptive dispatch (autotune.py): tune the engine's geometry and the
+    # Predictor's bucket-or-exact choice once a key; at most
+    # autotune_candidates forms, a probe of autotune_probe_tokens tokens
+    "FLAGS_autotune": False,
+    "FLAGS_autotune_candidates": 4,
+    "FLAGS_autotune_probe_tokens": 32,
     # what the JAX dropout backward stores ("xla", "u8", "seed"); the
     # port's dropout gives the same Out and Mask under each value
     "FLAGS_dropout_storage": "xla",
@@ -66,6 +81,9 @@ _DEFS: Dict[str, Any] = {
 }
 
 _values: Dict[str, Any] = dict(_DEFS)
+# the names ever passed through set_flags: autotune takes an explicitly
+# set geometry flag as a pin, which its value alone cannot tell
+_EXPLICIT: set = set()
 
 
 def _canon(name: str) -> str:
@@ -80,6 +98,7 @@ def set_flags(flags: Dict[str, Any]) -> None:
             raise ValueError(f"unknown flag {k!r} (the port knows "
                              f"{len(_values)} flags)")
         _values[k] = v
+        _EXPLICIT.add(k)
 
 
 def get_flags(flags: Union[str, Iterable[str]]) -> Dict[str, Any]:
@@ -96,3 +115,30 @@ def get_flags(flags: Union[str, Iterable[str]]) -> Dict[str, Any]:
 
 def get_flag(name: str, default: Any = None) -> Any:
     return _values.get(_canon(name), default)
+
+
+def explicitly_set(name: str) -> bool:
+    """True when the flag was ever set through ``set_flags``."""
+    return _canon(name) in _EXPLICIT
+
+
+def clear_explicit(*names: str) -> None:
+    """Forget that ``names`` (every flag when none) were set explicitly;
+    their values stay."""
+    if not names:
+        _EXPLICIT.clear()
+    for n in names:
+        _EXPLICIT.discard(_canon(n))
+
+
+# the flags a lowering reads: their values are part of what a traced
+# program computes, so Program.fingerprint hashes them
+LOWERING_FLAGS = ("FLAGS_check_nan_inf", "FLAGS_dropout_storage",
+                  "FLAGS_embedding_onehot_grad", "FLAGS_quant_mode",
+                  "FLAGS_generation_kv_quant",
+                  "FLAGS_paged_attention_kernel")
+
+
+def lowering_snapshot() -> tuple:
+    """Sorted (name, value) pairs of ``LOWERING_FLAGS``."""
+    return tuple((k, _values.get(k)) for k in sorted(LOWERING_FLAGS))

@@ -70,8 +70,9 @@ _QUEUES = {
            "CUDAPinnedPlace", "XPUPlace", "ComplexVariable",
            "monkey_patch_varbase", "monkey_patch_variable", "generator",
            "install_check", "memory_optimize", "release_memory", "metrics",
-           "evaluator", "average"),
-    "A5": ("enable_dygraph", "disable_dygraph", "enable_static",
+           "evaluator", "average",
+           # the mode switches go with to_static and dygraph_to_static
+           "enable_dygraph", "disable_dygraph", "enable_static",
            "disable_static", "in_dygraph_mode", "dygraph"),
     "A6": ("ParallelExecutor", "parallel_executor", "DistributeTranspiler",
            "DistributeTranspilerConfig", "transpiler", "fleet",

@@ -53,10 +53,18 @@ device state (the parameters and the per-layer K/V block pools) and
 There is no compiled-step registry: eager PyTorch runs each step as it
 comes, and ``warmup`` runs every step kind once so the kernels are built
 before the first request. The engine runs on the card unless the caller
-asks for ``device="cpu"``; without CUDA the default raises. Not ported
-yet, and refused with ``NotImplementedError`` naming ``ROADMAP.md`` A5:
-``autotune``, ``program_cache_dir`` and the ``kernel=`` form (on the port
-the device picks the path). Failpoints are omitted (A7).
+asks for ``device="cpu"``; without CUDA the default raises.
+
+Adaptive dispatch (``autotune``, ``autotune.py``): each geometry knob
+(``kernel``, ``block_size``, ``prefill_chunk``, ``token_budget``) is pinned
+by its argument or an explicitly set flag, else taken from the tuned or
+stored policy entry, else from the flag's default, as in the JAX package.
+``kernel="pallas"`` names the Hopper paged kernel; ``"reference"`` is
+accepted on the CPU as its alias (the wrapper runs the plain version on a
+CPU tensor either way) and raises ``ValueError`` on the card, where a
+plain version never runs. The tune never varies it.
+``program_cache_dir`` reaches the policy layer only: eager steps have no
+trace to keep. Failpoints are omitted (A7).
 
 Instruments: STAT_generation_requests / _tokens / _prefills /
 _evictions / _errors / _pad_tokens / _replay_retries,
@@ -77,6 +85,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import flags as _flags
 from .. import quant as _quant
 from .. import tracing as _tr
 from ..device import DeviceLike, resolve
@@ -169,9 +178,21 @@ class _Seq:
         self.published = 0         # prompt tokens already cached
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to paddle_tpu_torch "
-                               f"yet (ROADMAP.md {item})")
+KERNELS = ("reference", "pallas")
+
+
+def check_kernel(kernel: str, device: torch.device) -> None:
+    """A paged-attention form the device runs: "pallas" (the Hopper
+    kernel; its wrapper runs the plain version on a CPU tensor) anywhere,
+    "reference" off the card only."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown paged-attention kernel {kernel!r} "
+                         "(reference|pallas)")
+    if kernel == "reference" and device.type == "cuda":
+        raise ValueError(
+            "kernel='reference' on a CUDA device: a plain version never runs "
+            "on a CUDA tensor (ROADMAP.md, rules for the port); the card "
+            "runs the Hopper kernel, kernel='pallas'")
 
 
 class GenerationEngine:
@@ -200,19 +221,10 @@ class GenerationEngine:
                  kernel: Optional[str] = None,
                  autotune: Optional[bool] = None,
                  device: DeviceLike = None):
-        if autotune:
-            raise _not_ported("autotune", "A5")
-        if program_cache_dir is not None:
-            raise _not_ported("the program cache (program_cache_dir)", "A5")
-        if kernel is not None:
-            raise _not_ported("the kernel= form argument (the device picks "
-                              "the kernel)", "A5")
         self.cfg = cfg
         self.device = resolve(device)
         nb = int(num_blocks if num_blocks is not None
                  else get_flag("FLAGS_generation_kv_blocks"))
-        bs = int(block_size if block_size is not None
-                 else get_flag("FLAGS_generation_block_size"))
         self.decode_width = int(
             decode_width if decode_width is not None
             else get_flag("FLAGS_generation_decode_width"))
@@ -250,9 +262,48 @@ class GenerationEngine:
             params = _quant.quantize_decoder_params(params, self.quant_mode)
         from ..jit import load_reference_params
         self.params = load_reference_params(cfg, params, self.device)
-        self.prefill_chunk = int(
-            prefill_chunk if prefill_chunk is not None
-            else get_flag("FLAGS_generation_prefill_chunk"))
+        # adaptive dispatch: an argument or an explicitly set flag pins a
+        # knob, then the tuned or stored policy, then the flag's default;
+        # trial engines recurse with autotune=False
+        self.autotune = bool(autotune if autotune is not None
+                             else get_flag("FLAGS_autotune"))
+        pins: Dict[str, Any] = {}
+        for name, arg, flag, cast in (
+                ("kernel", kernel, "FLAGS_paged_attention_kernel", str),
+                ("block_size", block_size, "FLAGS_generation_block_size",
+                 int),
+                ("prefill_chunk", prefill_chunk,
+                 "FLAGS_generation_prefill_chunk", int),
+                ("token_budget", token_budget,
+                 "FLAGS_generation_token_budget", int)):
+            if arg is not None:
+                pins[name] = cast(arg)
+            elif _flags.explicitly_set(flag):
+                pins[name] = cast(get_flag(flag))
+        self._policy_entry = None
+        if self.autotune and len(pins) < 4:
+            from .. import autotune as _at
+            self._policy_entry = _at.resolve_generation(
+                cfg, params, num_blocks=nb, decode_width=self.decode_width,
+                spec_tokens=self.spec_tokens, quant_mode=self.quant_mode,
+                kv_dtype=self.kv_dtype, draft_kind=self.draft_kind,
+                device=self.device, draft_cfg=draft_cfg,
+                draft_params=draft_params, prefix_cache=prefix_cache,
+                program_cache_dir=program_cache_dir, pins=pins)
+
+        def knob(name, flag, cast):
+            if name in pins:
+                return pins[name]
+            if self._policy_entry is not None:
+                return cast(self._policy_entry[name])
+            return cast(get_flag(flag))
+        self.kernel = knob("kernel", "FLAGS_paged_attention_kernel", str)
+        check_kernel(self.kernel, self.device)
+        bs = knob("block_size", "FLAGS_generation_block_size", int)
+        self.prefill_chunk = knob("prefill_chunk",
+                                  "FLAGS_generation_prefill_chunk", int)
+        token_budget = knob("token_budget", "FLAGS_generation_token_budget",
+                            int)
         if self.prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0")
         if self.spec_tokens and not self.prefill_chunk:
@@ -269,8 +320,7 @@ class GenerationEngine:
         if self.prefill_chunk:
             # prompts stream through the mixed step: the ladder is one rung
             self.prefill_ladder = [cfg.max_seq_len]
-            tb = int(token_budget if token_budget is not None
-                     else get_flag("FLAGS_generation_token_budget"))
+            tb = int(token_budget)
             # the auto budget leaves every lane room for its k drafts
             self.token_budget = tb if tb > 0 else \
                 w * (1 + self.spec_tokens) + self.prefill_chunk
@@ -356,6 +406,7 @@ class GenerationEngine:
         self.on_request_error = None
         self._warmed = False
         self._publish_quant_gauges()
+        self._publish_autotune_gauges()
 
     # --- pool geometry and the quant gauges ------------------------------
 
@@ -388,6 +439,16 @@ class GenerationEngine:
         gauge_set("GAUGE_kv_capacity_seqs", self.kv_capacity_seqs())
         gauge_set("GAUGE_quant_weight_bytes_saved",
                   _quant.weight_bytes_saved(self.params))
+
+    def _publish_autotune_gauges(self) -> None:
+        """(Re)publish the autotune gauges of this engine's policy entry
+        (zeros without one): at construction and from the scheduler's
+        ``_reset_engine``."""
+        e = self._policy_entry or {}
+        gauge_set("GAUGE_autotune_active", 1.0 if e else 0.0)
+        gauge_set("GAUGE_autotune_step_time_us",
+                  float(e.get("step_time_us", 0.0)))
+        gauge_set("GAUGE_autotune_trials", float(e.get("trials", 0.0)))
 
     # --- warmup ------------------------------------------------------------
 

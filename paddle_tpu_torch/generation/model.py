@@ -66,6 +66,13 @@ class DecoderConfig:
                              f"{self.heads}")
         return self.hidden // self.heads
 
+    def meta(self) -> dict:
+        """The config as JSON, for autotune's policy key."""
+        return {"vocab": self.vocab_size, "hidden": self.hidden,
+                "layers": self.layers, "heads": self.heads,
+                "max_seq_len": self.max_seq_len,
+                "mlp_ratio": self.mlp_ratio}
+
 
 def param_shapes(cfg: DecoderConfig) -> Dict[str, Tuple[int, ...]]:
     """Every parameter's name and shape, in ``init_params``'s order."""

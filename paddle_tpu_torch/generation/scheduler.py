@@ -302,3 +302,6 @@ class GenerationPool:
         # the quant gauges derive from what survives (the pools' dtype, the
         # parameters): publishing them again is their retraction
         eng._publish_quant_gauges()
+        # the engine's policy entry republishes (or retracts) the
+        # autotune gauges
+        eng._publish_autotune_gauges()

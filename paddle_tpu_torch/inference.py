@@ -47,17 +47,49 @@ consumers (``quant.quantize_program_weights``); the saving is
 ``GAUGE_quant_weight_bytes_saved``. It excludes bf16, and fp8 is refused
 (flat decoder checkpoints only), as in the JAX package.
 
+The serving artifact (``export_serialized``): ``torch.export`` (non-strict)
+of the pass-pipelined ``Executor._run_block`` (``_Forward``) as a module
+whose buffers are the persistables (``_Bound``), the kernels as the custom ops of
+``kernels/serving_ops.py``, written with ``serving_core.py`` (the
+framework-free ``SerializedCore``, which ``SerializedPredictor`` fronts and
+the C ABI, ``capi.py``, embeds), the ops file and the kernels' sources
+and libraries. A program that reads a value on the host cannot be traced:
+the export raises naming the op.
+
+The program cache (``Config.enable_program_cache``, ``core/program_cache.py``):
+the Predictor's forward keyed by ``Program.fingerprint`` of the bundle's
+program (with the pipeline, bf16 and the quant mode, the declared feed
+signature and the device). The entry holds the graph without its
+weights: the persistables are the exported forward's first argument, and
+each process binds them from the bundle's parameter file, as the JAX
+package's Predictor loads them before its cached executable runs. A hit
+loads the ``.pt2`` and the parameters and skips the pass pipeline, the
+quantization's program rewrite and the export (the bf16 cast and the int8
+weights are made from the bundle's parameters as a cold start makes
+them); a miss runs them, exports the forward with a dynamic batch,
+stores it and runs the module it reads back, so a cold and a warm process
+run the same graph. Either way every run (and every bucket's graph) goes
+through that module. A program that cannot be exported is served as
+without the cache (``STAT_program_cache_unexportable``).
+
+Adaptive bucket dispatch (``Config.switch_autotune``, ``autotune.py``): for
+each (rows, bucket) key the pad-to-bucket and the exact-shape forms are
+timed in turns on the real request, and only a form whose rows are
+bitwise those of the bucket form may win; the winner is kept in the
+policy layer. On the card a padded bucket is a graph replay and the exact
+shape an eager run, whose products cuBLAS may pick by shape: when the two
+differ in a bit, "bucket" wins.
+
 Not ported yet, raising ``NotImplementedError``: SPMD serving
-(``enable_spmd``, ``ROADMAP.md`` A6), the program cache, adaptive bucket
-dispatch and the serialized artifact (``enable_program_cache``,
-``switch_autotune``, ``export_serialized``, ``SerializedPredictor``, A5). The
-``serving/predict`` telemetry span and its ``TIMER_predictor_run_us``
-go with A7.
+(``enable_spmd``, ``ROADMAP.md`` A6). The ``serving/predict`` telemetry
+span and its ``TIMER_predictor_run_us`` go with A7.
 """
 from __future__ import annotations
 
 import collections
-import time
+import json
+import os
+import shutil
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -67,10 +99,15 @@ from . import device as _device
 from . import io as _io
 from .core.control_flow import HOST_PREDICATE_OPS
 from .core.executor import Executor, _as_feed, as_numpy
+from .core import program_cache
 from .core.passes import apply_pass
+from .core.program import Program
+from .core.registry import LowerCtx
 from .core.scope import Scope
 from .flags import get_flag
 from .monitor import gauge_set, stat_add
+
+_PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 
 __all__ = ["Config", "AnalysisConfig", "Predictor", "create_predictor",
            "PredictorTensor", "PassStrategy", "GpuPassStrategy",
@@ -183,6 +220,11 @@ class Config:
         self._bucket_axes = (0,)
         # None: FLAGS_quant_mode; enable_quant()/disable_quant() pin it
         self._quant_mode: Optional[str] = None
+        # None: FLAGS_program_cache_dir or PADDLE_TPU_PROGRAM_CACHE_DIR when
+        # one names a directory, else no cache; "": no cache
+        self._program_cache_dir: Optional[str] = None
+        # None: FLAGS_autotune
+        self._autotune: Optional[bool] = None
 
     # --- device ---------------------------------------------------------
     def enable_use_gpu(self, memory_pool_init_size_mb=100, device_id=0):
@@ -249,28 +291,35 @@ class Config:
     def disable_quant(self):
         self._quant_mode = "off"
 
-    # --- not ported yet -------------------------------------------------
+    # --- the program cache and autotune --------------------------------
+    def enable_program_cache(self, cache_dir: Optional[str] = None):
+        """Warm-start the Predictor from the program cache at ``cache_dir``
+        (default ``program_cache.default_dir()``); autotune's policy layer
+        lives there too."""
+        self._program_cache_dir = cache_dir or program_cache.default_dir()
+        return self
+
+    def disable_program_cache(self):
+        self._program_cache_dir = ""
 
     def switch_autotune(self, x: bool = True):
-        if x:
-            raise NotImplementedError(
-                "Config.switch_autotune: adaptive bucket dispatch is not "
-                "ported yet (ROADMAP.md A5)")
+        """Tune the bucket-or-exact choice a (rows, bucket) key, once,
+        keeping the winner in the policy layer; default FLAGS_autotune."""
+        self._autotune = bool(x)
+        return self
 
+    def cache_dir(self) -> Optional[str]:
+        """The program cache directory in use, or None
+        (``program_cache.resolve_dir``)."""
+        return program_cache.resolve_dir(self._program_cache_dir)
+
+    # --- not ported yet -------------------------------------------------
     def enable_spmd(self, plan_or_spec, data_axis: str = "dp"):
         raise NotImplementedError(
             "Config.enable_spmd: SPMD serving is not ported yet "
             "(ROADMAP.md A6)")
 
     def disable_spmd(self):
-        pass
-
-    def enable_program_cache(self, cache_dir: Optional[str] = None):
-        raise NotImplementedError(
-            "Config.enable_program_cache: the program cache is not ported "
-            "yet (ROADMAP.md A5)")
-
-    def disable_program_cache(self):
         pass
 
 
@@ -311,6 +360,75 @@ class _BucketGraph:
         self.fetches = fetches
 
 
+class _Forward(torch.nn.Module):
+    """A program's forward as a module for ``torch.export``:
+    ``forward(params, feeds)`` runs ``Executor._run_block`` over the
+    persistables by name and the feeds and returns the fetches in order.
+    The program cache exports it as it is (a graph without weights);
+    the serving artifact wraps it in ``_Bound``."""
+
+    def __init__(self, exe: Executor, program: Program,
+                 fetch_names: Sequence[str]):
+        super().__init__()
+        self._exe, self._program = exe, program
+        self._fetch_names = list(fetch_names)
+
+    def forward(self, params: Dict[str, torch.Tensor],
+                feeds: Dict[str, torch.Tensor]):
+        env = dict(params)
+        env.update(feeds)
+        # serving runs no random op: the pipeline drops eval dropout
+        ctx = LowerCtx(self._exe.device, is_test=True,
+                       generator=torch.Generator().manual_seed(0))
+        self._exe._run_block(self._program, env, ctx)
+        missing = [n for n in self._fetch_names if n not in env]
+        if missing:
+            raise KeyError(f"fetch {missing}: no op of the program produced "
+                           "it and it is not fed")
+        return tuple(env[n] for n in self._fetch_names)
+
+
+class _Bound(torch.nn.Module):
+    """``forward(feeds)`` of a forward that takes ``(params, feeds)``
+    (``_Forward``, or the program cache's module), the persistables held
+    as buffers: ``torch.export`` lifts them into the artifact's weights."""
+
+    def __init__(self, inner, params: Dict[str, torch.Tensor]):
+        super().__init__()
+        self._inner = inner
+        self._bound = []
+        for name, val in params.items():
+            buf = f"p{len(self._bound)}"
+            self.register_buffer(buf, val)
+            self._bound.append((name, buf))
+
+    def forward(self, feeds: Dict[str, torch.Tensor]):
+        return self._inner({n: getattr(self, buf) for n, buf in self._bound},
+                           feeds)
+
+
+def _kernel_ops(ep) -> Dict[str, int]:
+    """The calls of each kernel op (``kernels/serving_ops.py``) in an
+    exported program's graphs."""
+    counts = collections.Counter()
+    for mod in ep.graph_module.modules():
+        if isinstance(mod, torch.fx.GraphModule):
+            for node in mod.graph.nodes:
+                target = str(node.target)
+                if node.op == "call_function" and \
+                        target.startswith("paddle_tpu."):
+                    counts[target.split(".")[1]] += 1
+    return dict(counts)
+
+
+def _host_op(e: BaseException) -> Optional[str]:
+    """The op that a lowering's note (``Executor._lower_one``) names."""
+    for note in getattr(e, "__notes__", ()):
+        if note.startswith("while lowering op"):
+            return note
+    return None
+
+
 class Predictor:
     """A loaded, pass-optimized inference program: ``run(feeds)`` or the
     handles. Not thread-safe: ``serving.PredictorPool`` calls it from its
@@ -323,6 +441,43 @@ class Predictor:
         self.device = config.device()
         self.scope = scope if scope is not None else Scope()
         self.exe = Executor(self.device)
+        # the exported forward every run goes through (the program cache)
+        # and the persistables it takes, its fingerprint, and whether it
+        # was read from the cache
+        self._module = None
+        self._params: Dict[str, torch.Tensor] = {}
+        self._feed_dtypes: Dict[str, torch.dtype] = {}
+        self.fingerprint: Optional[str] = None
+        self.cache_hit = False
+        self._feeds: Dict[str, np.ndarray] = {}
+        self._outputs: Dict[str, np.ndarray] = {}
+        # bucketed signatures already run: hits against cold first runs
+        self._warm_sigs: set = set()
+        self._graphs: Dict[tuple, _BucketGraph] = {}
+        self._graph_pool = None
+        self._capture_stream = None
+        self.host_control_flow: List[str] = []
+        # how each bucketed run went: "graph", or "eager" for a program
+        # with host_control_flow (the last 65536, as the path logs keep)
+        self.bucket_paths: "collections.deque[str]" = collections.deque(
+            maxlen=65536)
+        at = config._autotune
+        self._autotune = bool(get_flag("FLAGS_autotune") if at is None
+                              else at)
+        qm = config._quant_mode if config._quant_mode is not None \
+            else str(get_flag("FLAGS_quant_mode"))
+        self.quant_mode = qm if qm in ("off", "int8") else "off"
+        cache_dir = config.cache_dir()
+        if cache_dir is not None and self._warm_start(cache_dir):
+            return
+        self._load_and_optimize()
+        if cache_dir is not None and self.fingerprint is not None:
+            self._cold_export(cache_dir)
+
+    def _load_and_optimize(self):
+        """The bundle into the scope, then the pass pipeline, the weight
+        quantization and the bf16 cast."""
+        config = self.config
         self.program, self.feed_names, self.fetch_names = \
             _io.load_inference_model(
                 config.model_dir, self.exe, model_filename=config.prog_file,
@@ -332,9 +487,6 @@ class Predictor:
                 # fetch targets keep their producers through any fusion
                 self.program = apply_pass(self.program, name,
                                           protected=set(self.fetch_names))
-        qm = config._quant_mode if config._quant_mode is not None \
-            else str(get_flag("FLAGS_quant_mode"))
-        self.quant_mode = qm if qm in ("off", "int8") else "off"
         if self.quant_mode != "off":
             if config._bf16:
                 raise ValueError(
@@ -346,23 +498,122 @@ class Predictor:
                                                self.quant_mode))
         if config._bf16:
             self._cast_params_bf16()
-        self._feeds: Dict[str, np.ndarray] = {}
-        self._outputs: Dict[str, np.ndarray] = {}
-        # bucketed signatures already run: hits against cold first runs
-        self._warm_sigs: set = set()
-        self._graphs: Dict[tuple, _BucketGraph] = {}
-        self._graph_pool = None
-        self._capture_stream = None
         # a structural op that reads its predicate on the host (while,
         # cond, conditional_block) cannot be captured: its branch would be
         # frozen at the capture's; such a program's buckets run eagerly
         self.host_control_flow = sorted({
             op.type for blk in self.program.blocks for op in blk.ops
             if op.type in HOST_PREDICATE_OPS})
-        # how each bucketed run went: "graph", or "eager" for a program
-        # with host_control_flow (the last 65536, as the path logs keep)
-        self.bucket_paths: "collections.deque[str]" = collections.deque(
-            maxlen=65536)
+
+    # --- the program cache ------------------------------------------------
+    def _bundle_key(self):
+        """(fingerprint, example feeds, the bundle's meta) of the bundle's
+        program as this config serves it, from its JSON; no fingerprint
+        when it cannot be keyed (an attr that does not canonicalize, a
+        feed with an unknown non-batch dim). The parameters' values stay
+        out of it: each process binds its own."""
+        config = self.config
+        with open(os.path.join(config.model_dir, config.prog_file or
+                               _io.MODEL_FILE)) as f:
+            meta = json.load(f)
+        program = Program.from_dict(meta["program"])
+        feeds = {}
+        for n in meta["feed_names"]:
+            v = program.global_block.vars.get(n)
+            shape = list(v.shape) if v is not None and v.shape else []
+            if any(d < 0 for d in shape[1:]):
+                return None, None, meta
+            shape = [2 if d < 0 else d for d in shape[:1]] + shape[1:]
+            feeds[n] = np.zeros(shape, dtype=str(v.dtype))
+        passes = tuple(config.pass_builder().passes()) \
+            if config._ir_optim else ()
+        fp = program.fingerprint(
+            feed_sig=[(n, v.shape[1:], str(v.dtype)) for n, v in
+                      feeds.items()],
+            fetch_names=meta["fetch_names"],
+            extra=(passes, config._bf16, self.quant_mode), device=self.device)
+        return fp, feeds, meta
+
+    def _warm_start(self, cache_dir: str) -> bool:
+        """Serve from the cached module when the fingerprint hits, its
+        persistables bound from the bundle's parameter file."""
+        from .kernels import traced
+        fp, self._cache_feeds, meta = self._bundle_key()
+        self.fingerprint = fp
+        if fp is None:
+            stat_add("STAT_program_cache_unexportable")
+            return False
+        traced.register()
+        hit = program_cache.load_program(cache_dir, fp)
+        if hit is None:
+            return False
+        sig = json.loads(hit[1]["signature.json"])
+        self._bind_bundle_params(sig["params"])
+        self.program = None
+        self.feed_names = list(meta["feed_names"])
+        self.fetch_names = list(meta["fetch_names"])
+        self._use_module(hit[0], sig)
+        self.cache_hit = True
+        return True
+
+    def _bind_bundle_params(self, names: Sequence[str]) -> None:
+        """The persistables ``names`` into the scope from the bundle's
+        parameter file, as ``_load_and_optimize`` leaves them: int8 with
+        its ``<name>.quant_scale`` for a weight whose scale is among them,
+        bf16 for the other fp32 ones under bf16."""
+        from .quant import SCALE_VAR_SUFFIX, quantize_weight_int8
+        names = set(names)
+        scales = {n for n in names if n.endswith(SCALE_VAR_SUFFIX) and
+                  n[:-len(SCALE_VAR_SUFFIX)] in names}
+        scaled = {n[:-len(SCALE_VAR_SUFFIX)] for n in scales}
+        raw = sorted(names - scales)
+        _io.load_vars(self.exe, self.config.model_dir, vars=raw,
+                      filename=self.config.params_file, scope=self.scope)
+        for n in raw:
+            val = self.scope.find_var(n)
+            if n in scaled:
+                wq, scale = quantize_weight_int8(val)
+                self.scope.set(n, torch.from_numpy(wq).to(val.device))
+                self.scope.set(n + SCALE_VAR_SUFFIX,
+                               torch.from_numpy(scale).to(val.device))
+            elif self.config._bf16 and val.dtype == torch.float32:
+                self.scope.set(n, val.to(torch.bfloat16))
+
+    def _cold_export(self, cache_dir: str) -> None:
+        """Export the forward with a dynamic batch and without its weights,
+        store it, and serve the module read back from the stored bytes; a
+        program that cannot be exported is served without the cache."""
+        if self.host_control_flow:
+            stat_add("STAT_program_cache_unexportable")
+            return
+        params = self._persistables()
+        try:
+            ep = self._export(self._cache_feeds, dynamic_batch=True,
+                              params=params)
+        except Exception:  # served as without the cache, and counted
+            stat_add("STAT_program_cache_unexportable")
+            return
+        sig = self._signature(ep, self._cache_feeds, "dyn")
+        sig["params"] = list(params)
+        # the module of the bytes stored, as a warm process reads them
+        payload = program_cache.store_program(cache_dir, self.fingerprint,
+                                              ep, sig)
+        self._use_module(program_cache.read_program(payload)[0], sig)
+
+    def _persistables(self) -> Dict[str, torch.Tensor]:
+        """The program's persistables in the scope, by name."""
+        out = {}
+        for v in self.program.persistable_vars():
+            val = self.scope.find_var(v.name)
+            if isinstance(val, torch.Tensor):
+                out[v.name] = val
+        return out
+
+    def _use_module(self, ep, sig: dict) -> None:
+        self._module = ep.module()
+        self._params = {n: self.scope.find_var(n) for n in sig["params"]}
+        self._feed_dtypes = {f["name"]: getattr(torch, f["dtype"])
+                             for f in sig["feeds"]}
 
     def _cast_params_bf16(self):
         for v in self.program.list_vars():
@@ -409,9 +660,23 @@ class Predictor:
         return [self._outputs[n] for n in self.fetch_names]
 
     def _eager(self, feeds) -> List[np.ndarray]:
+        if self._module is not None:
+            with torch.no_grad():
+                outs = self._module(self._params, self._module_feeds(feeds))
+            return [as_numpy(o) for o in outs]
         return self.exe.run(self.program, feed=feeds,
                             fetch_list=list(self.fetch_names),
                             scope=self.scope)
+
+    def _module_feeds(self, feeds) -> Dict[str, torch.Tensor]:
+        """Feeds as the exported module takes them: on the device, in the
+        dtypes it was traced with."""
+        out = {}
+        for n, v in feeds.items():
+            t = _as_feed(v, self.device)
+            want = self._feed_dtypes.get(n)
+            out[n] = t if want is None or t.dtype == want else t.to(want)
+        return out
 
     # --- shape buckets --------------------------------------------------
     def _ladder(self) -> List[int]:
@@ -438,7 +703,48 @@ class Predictor:
             return self._eager(arrs)
         b = batches.pop()
         target = bucket_or_exact(b, ladder, "STAT_predictor_bucket_overflow")
+        if self._autotune and target != b:
+            target = self._dispatch_target(arrs, b, target, ladder)
         return self._exec_padded(arrs, b, target, ladder)
+
+    # --- adaptive bucket dispatch (autotune.py) ---------------------------
+    def _program_token(self) -> Optional[str]:
+        """The program's identity across processes for the policy key (the
+        cache's fingerprint when there is one); None when it cannot be
+        fingerprinted, and the bucket form then stays."""
+        if self.fingerprint is None and self.program is not None:
+            self.fingerprint = self.program.fingerprint(
+                fetch_names=list(self.fetch_names), device=self.device,
+                extra=(self.config._bf16, self.quant_mode))
+        return self.fingerprint
+
+    def _dispatch_target(self, arrs: Dict[str, Any], b: int, target: int,
+                         ladder: List[int]) -> int:
+        """The bucket-or-exact choice of this (rows, bucket) key: one dict
+        lookup once tuned; a miss times both forms in turns on this request
+        (``autotune.tune_two_forms``) and keeps the winner, which only a
+        form whose rows are bitwise the bucket form's can be."""
+        from . import autotune as _at
+        prog = self._program_token()
+        if prog is None:
+            return target
+        key_meta = {"kind": "predictor", "prog": prog, "rows": int(b),
+                    "bucket": int(target), "qm": self.quant_mode,
+                    "backend": _at.backend_of(self.device)}
+        entry = _at.policy().resolve(_at.key_for(key_meta))
+        if entry is not None:
+            stat_add("STAT_autotune_cache_hits")
+        else:
+            entry = _at.tune_two_forms(
+                key_meta, program_cache_dir=self.config.cache_dir(),
+                forms={"bucket": lambda: self._exec_padded(arrs, b, target,
+                                                           ladder),
+                       "exact": lambda: self._exec_padded(arrs, b, b,
+                                                          ladder)},
+                reference="bucket", compare=_bitwise_rows)
+        if entry is not None and entry.get("form") == "exact":
+            return b
+        return target
 
     def _padded(self, arrs: Dict[str, np.ndarray], target: int,
                 ladder: List[int]):
@@ -526,37 +832,51 @@ class Predictor:
         stream = self._capture_stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            static = {n: _as_feed(v, self.device).clone()
-                      for n, v in feeds.items()}
+            if self._module is not None:
+                static = {n: t.clone() for n, t in
+                          self._module_feeds(feeds).items()}
+            else:
+                static = {n: _as_feed(v, self.device).clone()
+                          for n, v in feeds.items()}
             outs = self._eager(static)
         torch.cuda.current_stream(self.device).wait_stream(stream)
-        env, _, ctx = self.exe.bind(self.program, static, self.scope)
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=self._graph_pool,
                                   stream=stream,
                                   capture_error_mode="thread_local"):
-                self.exe._run_block(self.program, env, ctx)
+                fetches = self._captured(static)
         except Exception as e:
             raise RuntimeError(
                 f"Predictor: capturing the bucket {sig} as a CUDA graph "
                 f"failed ({e}); the notes name the op that broke it") from e
+        self._graphs[sig] = _BucketGraph(graph, static, fetches)
+        stat_add("STAT_predictor_graph_capture")
+        return outs
+
+    def _captured(self, static: Dict[str, torch.Tensor]) -> list:
+        """The forward over static feeds, as a capture records it: the
+        cached module, else the executor's op loop."""
+        if self._module is not None:
+            with torch.no_grad():
+                return list(self._module(self._params, static))
+        env, _, ctx = self.exe.bind(self.program, static, self.scope)
+        self.exe._run_block(self.program, env, ctx)
         missing = [n for n in self.fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch {missing}: no op of the program produced "
                            "it and it is not fed")
-        self._graphs[sig] = _BucketGraph(
-            graph, static, [env[n] for n in self.fetch_names])
-        stat_add("STAT_predictor_graph_capture")
-        return outs
+        return [env[n] for n in self.fetch_names]
 
     def warmup_buckets(self, example_feeds: Sequence,
                        max_bucket: Optional[int] = None) -> Dict:
         """Run every bucket of the ladder once on zero feeds (trailing
         dims and dtypes from ``example_feeds``, one a feed): on the card
         each becomes a captured graph, largest first, so that the smaller
-        graphs reuse the shared pool. Returns {bucket: {"seconds",
-        "graph"}}."""
+        graphs reuse the shared pool. Through
+        ``program_cache.warmup_ladder``: returns {bucket: {"seconds",
+        "disk_warm", "graph"}}, "disk_warm" whether the forward came from
+        the program cache, or {"error"} for a bucket that failed."""
         ladder = self._ladder()
         if not ladder:
             raise RuntimeError(
@@ -571,8 +891,8 @@ class Predictor:
                                 len(example_feeds)))
         examples = {n: np.asarray(v)
                     for n, v in zip(self.feed_names, example_feeds)}
-        report = {}
-        for bkt in sorted(ladder, reverse=True):
+
+        def run_one(bkt):
             feeds = {}
             for n, v in examples.items():
                 if not v.ndim:
@@ -581,32 +901,184 @@ class Predictor:
                 feeds[n] = np.zeros((bkt,) + v.shape[1:], v.dtype)
             feeds, _, on_ladder = self._padded(feeds, bkt, full)
             sig = self._bucket_sig(feeds)
-            t0 = time.perf_counter()
             graph = self._graphs_on() and on_ladder
             if graph and sig not in self._graphs:
                 self._capture(sig, feeds)
             elif not graph:
                 self._eager(feeds)
             self._warm_sigs.add(sig)
-            report[bkt] = {"seconds": round(time.perf_counter() - t0, 4),
-                           "graph": graph}
-        return report
+            return {"graph": graph, "disk_warm": self.cache_hit}
+
+        return program_cache.warmup_ladder(sorted(ladder, reverse=True),
+                                           run_one)
+
+    # --- the serving artifact ---------------------------------------------
+    def _export(self, example: Dict[str, Any], dynamic_batch: bool,
+                params: Optional[Dict[str, torch.Tensor]] = None):
+        """``torch.export`` (non-strict) of the forward over ``example``
+        feeds: the cached module's, else ``_Forward`` of the program. With
+        ``params`` the persistables are its first argument (the program
+        cache's graph without weights), else its buffers (``_Bound``, the
+        artifact). With ``dynamic_batch`` every feed's leading dim is one
+        symbol. A program whose lowering reads a value on the host raises
+        naming the op."""
+        if self.host_control_flow:
+            raise ValueError(
+                f"export_serialized: op {self.host_control_flow[0]!r} reads "
+                "its predicate on the host (Executor.host_syncs); a traced "
+                "forward would freeze its branch, so this program cannot be "
+                "exported")
+        feeds = self._module_feeds(example) if self._module is not None \
+            else {n: _as_feed(v, self.device) for n, v in example.items()}
+        dyn = None
+        if dynamic_batch:
+            # an example of one row would specialize the batch to 1
+            feeds = {n: t.repeat(2, *[1] * (t.dim() - 1))
+                     if t.dim() and t.shape[0] == 1 else t
+                     for n, t in feeds.items()}
+            batch = torch.export.Dim("batch", min=1, max=1 << 20)
+            dyn = {n: ({0: batch} if t.dim() else None)
+                   for n, t in feeds.items()}
+        inner = self._module if self._module is not None else _Forward(
+            self.exe, self.program, self.fetch_names)
+        if params is None:
+            module, args = _Bound(inner, self._params if self._module
+                                  is not None else self._persistables()), \
+                (feeds,)
+            dyn = None if dyn is None else (dyn,)
+        else:
+            module, args = inner, (params, feeds)
+            dyn = None if dyn is None else ({n: None for n in params}, dyn)
+        try:
+            return torch.export.export(module, args, dynamic_shapes=dyn,
+                                       strict=False)
+        except Exception as e:
+            op = _host_op(e)
+            raise RuntimeError(
+                "export_serialized: the forward cannot be exported"
+                + (f" ({op}: a value read on the host or a shape the trace "
+                   "cannot follow)" if op else "")
+                + f": {type(e).__name__}: {e}") from e
+
+    def _signature(self, ep, example: Dict[str, Any], batch) -> dict:
+        """signature.json of an exported forward."""
+        feeds = []
+        for n in self.feed_names:
+            t = _as_feed(example[n], torch.device("cpu"))
+            want = self._feed_dtypes.get(n, t.dtype)
+            feeds.append({"name": n, "dtype": str(want).split(".")[-1],
+                          "shape": list(t.shape[1:])})
+        ops = _kernel_ops(ep)
+        from .kernels import serving_ops
+        cuda = self.device.type == "cuda"
+        return {"feed_names": list(self.feed_names),
+                "fetch_names": list(self.fetch_names), "feeds": feeds,
+                "batch": batch, "device": self.device.type,
+                "kernel_ops": ops,
+                "kernel_libraries": sorted({serving_ops.LIBRARY_OF[o]
+                                            for o in ops}),
+                "build": self._build_info() if cuda else None,
+                "torch": torch.__version__, "cuda": torch.version.cuda,
+                "card": torch.cuda.get_device_name(self.device) if cuda
+                else "cpu"}
+
+    def _build_info(self) -> dict:
+        from .kernels import _build
+        return {"capability": list(torch.cuda.get_device_capability(
+                    self.device)), "cuda": torch.version.cuda,
+                "nvcc_flags": list(_build.NVCC_FLAGS)}
 
     def export_serialized(self, path: str, example_feeds: Sequence,
-                          dynamic_batch: bool = False):
-        raise NotImplementedError(
-            "Predictor.export_serialized: the serialized serving artifact "
-            "is not ported yet (ROADMAP.md A5)")
+                          dynamic_batch: bool = False) -> dict:
+        """Write the pass-pipelined forward as a serving artifact that
+        ``SerializedPredictor``, ``serving_core.SerializedCore`` and the C
+        ABI serve without the program, the registry or the framework (the
+        reference's ``SaveOptimModel``): ``model.pt2``, ``signature.json``,
+        ``serving_ops.py``, ``serving_core.py`` and ``kernels/`` (the
+        sources of the kernels the graph calls, and their ``.so`` when it
+        runs on the card). ``dynamic_batch`` makes the leading dim of
+        every feed one symbol, so that one artifact serves any batch
+        (padded to ``PADDLE_TPU_SHAPE_BUCKETS``); a static export serves
+        batches up to its example's, padded up. Returns the signature."""
+        from .kernels import _build, serving_ops, traced
+        if len(example_feeds) != len(self.feed_names):
+            raise ValueError("expected %d example feeds (%s), got %d"
+                             % (len(self.feed_names), self.feed_names,
+                                len(example_feeds)))
+        example = {n: np.asarray(v)
+                   for n, v in zip(self.feed_names, example_feeds)}
+        traced.register()
+        ep = self._export(example, dynamic_batch)
+        rows = {v.shape[0] for v in example.values() if v.ndim}
+        batch = "dyn" if dynamic_batch else (rows.pop() if len(rows) == 1
+                                             else None)
+        sig = self._signature(ep, example, batch)
+        os.makedirs(path, exist_ok=True)
+        torch.export.save(ep, os.path.join(path, "model.pt2"))
+        with open(os.path.join(path, "signature.json"), "w") as f:
+            json.dump(sig, f, indent=1)
+        for name in ("serving_core.py", "kernels/serving_ops.py"):
+            shutil.copy(os.path.join(_PACKAGE_DIR, name),
+                        os.path.join(path, os.path.basename(name)))
+        kdir = os.path.join(path, "kernels")
+        os.makedirs(kdir, exist_ok=True)
+        for lib in sig["kernel_libraries"]:
+            shutil.copy(_build.CSRC_DIR / f"{lib}.cu", kdir)
+            if self.device.type == "cuda":
+                shutil.copy(_build.library_path(lib),
+                            os.path.join(kdir, f"lib{lib}.so"))
+        if sig["kernel_libraries"]:
+            for header in _build.CSRC_DIR.glob("*.cuh"):
+                shutil.copy(header, kdir)
+        return sig
+
+
+def _bitwise_rows(ref, val) -> bool:
+    """Whether two forms' fetches are equal bit for bit."""
+    if len(ref) != len(val):
+        return False
+    for x, y in zip(ref, val):
+        x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
+        if x.shape != y.shape or x.dtype != y.dtype or \
+                x.tobytes() != y.tobytes():
+            return False
+    return True
 
 
 class SerializedPredictor:
-    """The JAX package's StableHLO artifact server; the port's artifact
-    format is not written yet."""
+    """Serve an ``export_serialized`` artifact: no program, no registry, no
+    trace. A thin facade over ``serving_core.SerializedCore`` (the file the
+    artifact ships for the C ABI); ``device`` as there (the card unless
+    "cpu" is asked for). The kernel ops run through the package's wrappers,
+    so their launch counters move. A bf16 fetch, which the core returns as
+    raw uint16 words, is widened to float32 (exact), as ``Predictor``
+    returns it."""
 
-    def __init__(self, path: str):
-        raise NotImplementedError(
-            "SerializedPredictor: the serialized serving artifact is not "
-            "ported yet (ROADMAP.md A5)")
+    def __init__(self, path: str, device=None):
+        from .kernels import traced
+        from .serving_core import SerializedCore
+        traced.register()
+        self._core = SerializedCore(path, device=device)
+        self.feed_names = self._core.feed_names
+        self.fetch_names = self._core.fetch_names
+
+    @property
+    def core(self):
+        return self._core
+
+    def get_input_names(self) -> List[str]:
+        return list(self.feed_names)
+
+    def get_output_names(self) -> List[str]:
+        return list(self.fetch_names)
+
+    def run(self, feeds: Sequence[np.ndarray]) -> List[np.ndarray]:
+        return [(o.astype(np.uint32) << 16).view(np.float32)
+                if o.dtype == np.uint16 else o for o in self._core.run(feeds)]
+
+    def warmup_buckets(self, example_feeds: Sequence,
+                       max_bucket: Optional[int] = None) -> Dict:
+        return self._core.warmup_buckets(example_feeds, max_bucket)
 
 
 def create_predictor(config: Config) -> Predictor:

@@ -14,9 +14,9 @@ does, so a tied weight (BERT's MLM decoder is the word embedding) is one
 tensor under its first name. Linear weights are ``[in, out]`` in both
 packages, so nothing is transposed. ``load_reference_params`` does the
 same for the generation decoder's flat parameter dict
-(``generation/model.py``). ``to_static`` is not ported: on the card it is
-a CUDA-graph capture of the forward (``ROADMAP.md`` A5), its AST
-conversion A8's ``dygraph_to_static``.
+(``generation/model.py``). ``to_static`` is not ported: the JAX function is
+defined by its AST conversion, ``dygraph_to_static``, which goes with it
+in ``ROADMAP.md`` A8.
 """
 from __future__ import annotations
 
@@ -78,9 +78,8 @@ def functional_call(layer: Layer, state: Mapping[str, torch.Tensor], *args,
 
 def to_static(layer_or_fn, example_inputs=None, donate_state: bool = False):
     raise NotImplementedError(
-        "to_static is not ported yet: on the card it is a CUDA-graph "
-        "capture of the forward, with A5's shape buckets (ROADMAP.md A5); "
-        "its AST conversion is A8's dygraph_to_static")
+        "to_static is not ported yet: it goes with its AST conversion, "
+        "dygraph_to_static (ROADMAP.md A8)")
 
 
 def state_of(layer: Layer) -> Dict[str, torch.Tensor]:

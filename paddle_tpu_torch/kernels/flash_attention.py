@@ -40,9 +40,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, serving_ops
 
-NEG_INF = -1e30
+NEG_INF = serving_ops.NEG_INF
 HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # the input types of the tensor-core kernels, whose 16-byte copies need
@@ -63,9 +63,6 @@ launches_dkv = 0
 fwd_copies = 0
 bwd_copies = 0
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-    ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_uint,
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_uint,
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -134,39 +131,10 @@ def philox_keep_mask(seed: int, batch: int, heads: int, sq: int, sk: int,
     return bits[:, :, :sq, :sk] >= keep_threshold(keep_prob)
 
 
-def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bias: Optional[torch.Tensor] = None,
-                        causal: bool = False,
-                        sm_scale: Optional[float] = None,
-                        keep_mask: Optional[torch.Tensor] = None,
-                        keep_prob: float = 1.0
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: (o in q.dtype, lse fp32). keep_mask (1 = keep)
-    applies attention-probs dropout with the kernel's semantics: the
-    softmax denominator stays undropped, only the value accumulation is
-    masked and rescaled by 1/keep_prob."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
-    if bias is not None:
-        scores = scores + bias.float()
-    sq, sk = scores.shape[-2], scores.shape[-1]
-    if causal:
-        mask = torch.ones(sq, sk, dtype=torch.bool,
-                          device=scores.device).tril(diagonal=sk - sq)
-        scores = scores.masked_fill(~mask, NEG_INF)
-    lse = torch.logsumexp(scores, dim=-1)
-    probs = torch.softmax(scores, dim=-1)
-    if causal and sq > sk:
-        # bottom-right aligned causal with sq > sk: the leading rows see no
-        # key at all; their output is 0 and their lse 0, as in the kernel
-        visible = torch.arange(sq, device=scores.device) + (sk - sq) >= 0
-        probs = probs * visible[:, None]
-        lse = torch.where(visible, lse, torch.zeros_like(lse))
-    if keep_mask is not None:
-        probs = probs * keep_mask.float() * (1.0 / keep_prob)
-    o = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
-    return o.to(q.dtype), lse
+# the plain forward (o in q.dtype, lse fp32), dropout from keep_mask with
+# the kernel's semantics; it lives with the traceable ops (serving_ops.py),
+# which an artifact ships alone
+attention_reference = serving_ops.attention_plain
 
 
 def _backward_math(do, q, k, v, o, lse, bias, causal, sm_scale, keep_mask,
@@ -278,16 +246,9 @@ def _on_kernel_device(q: torch.Tensor) -> bool:
 def _bias_view(bias: Optional[torch.Tensor], q: torch.Tensor, sk: int):
     """The fp32 bias broadcast (stride 0, never materialised) to
     [B, H, Sq, Sk], and its four strides."""
-    if bias is None:
-        return None, (0, 0, 0, 0)
-    if bias.device != q.device:
+    if bias is not None and bias.device != q.device:
         raise ValueError("flash_attention: bias on another device")
-    bias = bias.to(torch.float32)
-    while bias.dim() < 4:
-        bias = bias.unsqueeze(0)
-    b, h, sq, _ = q.shape
-    bias = bias.expand(b, h, sq, sk)
-    return bias, bias.stride()
+    return serving_ops.bias_view(bias, q, sk)
 
 
 def _keep_view(keep_mask: Optional[torch.Tensor], q: torch.Tensor, sk: int):
@@ -308,7 +269,7 @@ def _dropout_args(keep_prob: float) -> Tuple[int, float]:
 def fwd_kernel():
     """The C entry of the forward kernels."""
     return _build.function("flash_attention", "pt_flash_attention_fwd",
-                           _FWD_ARGTYPES)
+                           serving_ops.FA_FWD_ARGTYPES)
 
 
 def _launch_fwd(q, k, v, bias, causal, sm_scale, keep_mask, seed_t,
@@ -319,39 +280,22 @@ def _launch_fwd(q, k, v, bias, causal, sm_scale, keep_mask, seed_t,
     _check(q, k, v)
     (q, k, v), copied = _chunk_aligned_inputs((q, k, v))
     fwd_copies += copied
-    b, h, sq, d = q.shape
     sk = k.shape[2]
-    bias, bias_strides = _bias_view(bias, q, sk)
-    keep, keep_strides = _keep_view(keep_mask, q, sk)
-    # o is laid out [B, Sq, H, D] in memory and returned as a [B, H, Sq, D]
-    # view, so the caller's transpose back to the projection layout is free
-    o = torch.empty((b, sq, h, d), dtype=q.dtype,
-                    device=q.device).transpose(1, 2)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 20)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        *bias_strides, *keep_strides)
+    bias, _ = _bias_view(bias, q, sk)
+    keep, _ = _keep_view(keep_mask, q, sk)
     thresh, rinv = _dropout_args(keep_prob)
-    fn = fwd_kernel()
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            None if keep is None else keep.data_ptr(),
-            None if seed_t is None else seed_t.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b, h, sq, sk, d,
-            ctypes.addressof(strides), float(sm_scale), int(bool(causal)),
-            thresh, rinv, _build.dtype_code(q.dtype),
-            _build.stream_ptr(q.device))
+    o, lse, rc = serving_ops.flash_fwd_call(
+        fwd_kernel, q, k, v, bias, causal, sm_scale,
+        _build.stream_ptr(q.device), keep=keep, seed_t=seed_t,
+        thresh=thresh, rinv=rinv)
     launches += 1
     _build.check(rc, "pt_flash_attention_fwd")
     return o, lse
 
 
-def _chunk_aligned(t: torch.Tensor) -> bool:
-    """True when t starts on 16 bytes and its batch, head and row strides
-    are whole 16-byte chunks: every row a whole number of chunks."""
-    per = 16 // t.element_size()
-    return t.data_ptr() % 16 == 0 and all(st % per == 0
-                                          for st in t.stride()[:3])
+# the 16-byte rule of the kernels' copies: every row a whole number of
+# 16-byte chunks, starting on 16 bytes
+_chunk_aligned = serving_ops.chunk_aligned
 
 
 def _chunk_aligned_inputs(ts):
@@ -523,7 +467,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(o, lse), differentiable in q, k, v (and the bias): the kernels on
     CUDA tensors, the plain versions on CPU. Dropout with keep probability
     ``keep_prob`` from an explicit ``keep_mask`` (mask mode) or from
-    ``seed`` (seed mode); at most one of the two."""
+    ``seed`` (seed mode); at most one of the two. Under ``torch.export``
+    it is the traceable op ``paddle_tpu::flash_attention_fwd``
+    (``traced.py``), forward only and without dropout."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     _on_kernel_device(q)
@@ -533,6 +479,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (keep_mask is not None or seed is not None) and not 0.0 < keep_prob <= 1.0:
         raise ValueError(f"flash_attention: keep_prob {keep_prob} is outside "
                          "(0, 1]")
+    if torch.compiler.is_exporting():
+        # the traceable op of traced.py: the forward without dropout
+        if keep_mask is not None or seed is not None:
+            raise NotImplementedError(
+                "flash_attention: dropout cannot be exported (the serving "
+                "forward runs none)")
+        from . import traced
+        return traced.op("flash_attention_fwd")(q, k, v, bias, bool(causal),
+                                                float(sm_scale))
     if seed is not None and bias is not None and bias.requires_grad:
         # the JAX package's rule (flash_attention.py _bwd): the plain dbias
         # recompute cannot regenerate in-kernel dropout

@@ -21,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, serving_ops
 
 # Kernel launches since the count was last set to 0, forward and
 # backward. Only the CUDA path adds to them, one per launch.
@@ -53,25 +53,15 @@ RESIDENT_CLUSTERS = {2: 66, 4: 32, 8: 16}
 # (bwd_grid: G F <= 132 x 8192 for every instance)
 MAX_BWD_SCRATCH_BYTES = 2 * SMS * 8192 * 4
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_void_p]
 
 
-def layer_norm_reference(x: torch.Tensor, gamma: torch.Tensor,
-                         beta: torch.Tensor, eps: float = 1e-5
-                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version over the trailing dim: (y in x.dtype, mean, rstd), the
-    statistics fp32 with shape x.shape[:-1]."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-    rstd = torch.rsqrt(var + eps)
-    y = (xf - mean) * rstd * gamma.float() + beta.float()
-    return y.to(x.dtype), mean.squeeze(-1), rstd.squeeze(-1)
+# the plain forward: (y in x.dtype, mean, rstd) over the trailing dim, the
+# statistics fp32 with shape x.shape[:-1]; it lives with the traceable
+# ops (serving_ops.py), which an artifact ships alone
+layer_norm_reference = serving_ops.layer_norm_plain
 
 
 def layer_norm_backward_reference(dy: torch.Tensor, x: torch.Tensor,
@@ -144,20 +134,13 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     global launches
     _check(x, gamma, beta)
-    f = x.shape[-1]
-    rows = x.numel() // f
-    y = torch.empty_like(x)
-    mean = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
-    if rows == 0:
-        return y, mean, rstd
-    fn = _build.function("layer_norm", "pt_layer_norm_fwd", _ARGTYPES)
-    rc = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), rows, f, float(eps),
-            _build.dtype_code(x.dtype), _build.dtype_code(gamma.dtype),
-            _build.stream_ptr(x.device))
-    launches += 1
-    _build.check(rc, "pt_layer_norm_fwd")
+    y, mean, rstd, rc = serving_ops.layer_norm_fwd_call(
+        lambda: _build.function("layer_norm", "pt_layer_norm_fwd",
+                                serving_ops.LN_FWD_ARGTYPES),
+        x, gamma, beta, eps, _build.stream_ptr(x.device))
+    if rc is not None:
+        launches += 1
+        _build.check(rc, "pt_layer_norm_fwd")
     return y, mean, rstd
 
 
@@ -276,8 +259,13 @@ def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    eps: float = 1e-5
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(y, mean, rstd) over the trailing dim: the kernel on a CUDA tensor,
-    the plain version on a CPU tensor; differentiable in y."""
+    the plain version on a CPU tensor; differentiable in y. Under
+    ``torch.export`` it is the traceable op ``paddle_tpu::layer_norm_fwd``
+    (``traced.py``), forward only."""
     _on_kernel_device(x)
+    if torch.compiler.is_exporting():
+        from . import traced
+        return traced.op("layer_norm_fwd")(x, gamma, beta, float(eps))
     return LayerNormFunction.apply(x, gamma, beta, float(eps))
 
 

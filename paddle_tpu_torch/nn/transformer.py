@@ -58,8 +58,9 @@ def attention_route(head_dim: int, device_type: str) -> str:
     package's ``routes_to_flash`` without its TPU crossover: "flash" for a
     CUDA tensor whose head dim is in ``KERNEL_HEAD_DIMS``, "composed" for
     any other CUDA tensor, "reference" (the kernels' plain versions) off
-    CUDA."""
-    if device_type != "cuda":
+    CUDA. Under ``torch.export`` the device does not decide: a traced
+    forward takes the card's route wherever it was exported."""
+    if device_type != "cuda" and not torch.compiler.is_exporting():
         return "reference"
     return "flash" if head_dim in KERNEL_HEAD_DIMS else "composed"
 

@@ -142,10 +142,12 @@ def _softmax_with_ce(ctx, ins, attrs):
 
 def layer_norm_route(x, ins, axis: int) -> str:
     """"kernel" for a CUDA tensor normalized over its trailing axis with
-    both Scale and Bias, else "composed"."""
+    both Scale and Bias, else "composed". Under ``torch.export`` such a
+    norm is "kernel" on any device: the traced op runs the kernel on the
+    card and its plain version on the CPU."""
+    on_kernel = x.device.type == "cuda" or torch.compiler.is_exporting()
     return "kernel" if (axis == x.dim() - 1 and ins.get("Scale")
-                        and ins.get("Bias") and x.device.type == "cuda") \
-        else "composed"
+                        and ins.get("Bias") and on_kernel) else "composed"
 
 
 @register_op("layer_norm", inputs=("X", "Scale", "Bias"),

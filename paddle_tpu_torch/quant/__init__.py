@@ -50,6 +50,8 @@ GRID_FP8 = 448.0
 # the scale's key in a flat parameter dict ("::" cannot collide with a
 # program var name; slim's program naming is ".quant_scale")
 SCALE_SUFFIX = "::scale"
+# a quantized program weight's scale var
+SCALE_VAR_SUFFIX = ".quant_scale"
 MODES = ("off", "int8", "fp8")
 KV_DTYPES = ("fp32", "int8", "fp8")
 # torch._int_mm (cuBLASLt) takes more than 16 rows; fewer are padded with
@@ -345,8 +347,18 @@ def load_quantized(path: str) -> Tuple[Dict[str, torch.Tensor], str]:
 
 # --- programs and scopes (inference.Predictor) -------------------------------
 
+def quantize_weight_int8(w) -> Tuple[np.ndarray, np.ndarray]:
+    """(int8 weight, fp32 per-output-channel absmax) of a matmul-family
+    weight (quant axis 1), as ``quantize_program_weights`` stores them."""
+    w = _numpy(w)
+    s = channel_absmax(w, 1)
+    wq = np.clip(np.round(w / s.reshape(_bshape(w.ndim, s.size, 1))
+                          * GRID_INT8), -GRID_INT8, GRID_INT8)
+    return wq.astype(np.int8), s
+
+
 def quantize_program_weights(program, scope, mode: str = "int8",
-                             scale_suffix: str = ".quant_scale") -> int:
+                             scale_suffix: str = SCALE_VAR_SUFFIX) -> int:
     """Weight-only quantization of a loaded inference Program: every
     persistable >= 2-D float weight feeding a matmul-family op is stored
     int8 in ``scope`` (on its device) beside a ``<name>.quant_scale`` absmax
@@ -401,11 +413,9 @@ def _convert_weight(block, scope, new_ops, name: str,
     w = _numpy(w)
     if w.ndim < 2 or str(w.dtype) not in ("float32", "float64"):
         return None
-    axis = 1        # matmul-family weights: per output channel
-    s = channel_absmax(w, axis)
-    wq = np.clip(np.round(w / s.reshape(_bshape(w.ndim, s.size, axis))
-                          * GRID_INT8), -GRID_INT8, GRID_INT8)
-    scope.set(name, torch.from_numpy(wq.astype(np.int8)).to(dev))
+    # matmul-family weights: per output channel
+    wq, s = quantize_weight_int8(w)
+    scope.set(name, torch.from_numpy(wq).to(dev))
     block.vars[name].dtype = "int8"
     scale = name + scale_suffix
     if scale not in block.vars:

@@ -154,8 +154,9 @@ class PredictorPool:
     """Coalesces concurrent ``run`` calls into batched ``Predictor`` runs.
 
     ``predictor`` is a ``Config`` (a Predictor is made, with shape buckets
-    on unless ``bucketing=False``) or a ``Predictor`` (left as configured
-    unless ``bucketing=True`` turns the ladder on)::
+    on unless ``bucketing=False``), a ``Predictor`` (left as configured
+    unless ``bucketing=True`` turns the ladder on) or a
+    ``SerializedPredictor`` (an artifact, padded as it was exported)::
 
         pool = serving.serve(config)
         outs = pool.run([ids, mask])           # thread-safe
@@ -175,7 +176,10 @@ class PredictorPool:
             if bucketing and predictor._shape_buckets is None:
                 predictor.switch_shape_bucketing(True)
             predictor = create_predictor(predictor)
-        elif bucketing and predictor.config._shape_buckets is None:
+        elif bucketing and getattr(predictor, "config", None) is not None \
+                and predictor.config._shape_buckets is None:
+            # a SerializedPredictor has no config: its artifact pads to
+            # its own batch or ladder
             predictor.config.switch_shape_bucketing(True)
         self.predictor = predictor
         self.max_batch = int(max_batch if max_batch is not None

@@ -445,7 +445,7 @@ def test_clone_for_test_sets_is_test_in_sub_blocks():
 
 
 def test_run_program_and_pipeline_train_raise_naming_their_queues():
-    for op_type, queue in (("run_program", "A5 item 6"),
+    for op_type, queue in (("run_program", "A8"),
                            ("pipeline_train", "A6")):
         prog = TProgram()
         prog.global_block.append_op(op_type, {}, {}, {"sub_block": 0})

@@ -30,6 +30,8 @@ import paddle_tpu_torch as tpt
 from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch import inference as TI
 from paddle_tpu_torch import io as tio
+from paddle_tpu_torch import jit as tjit
+from paddle_tpu_torch import serving as tserving
 from paddle_tpu_torch.core import passes as tpasses
 from paddle_tpu_torch.core.scope import load_reference_scope
 from paddle_tpu_torch.monitor import reset_all, stat_get
@@ -610,11 +612,27 @@ def test_config_device_rule(port_bundle, monkeypatch):
     assert cfg.device() == torch.device("cuda", 1)
 
 
+def _serve_on_a_mesh(path):
+    """SerializedPredictor under PADDLE_TPU_MESH (SPMD serving)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PADDLE_TPU_MESH", "dp4")
+        return TI.SerializedPredictor(path)
+
+
+def _labelled_submit():
+    """A PredictorPool request with a tenant label."""
+    pool = object.__new__(tserving.PredictorPool)
+    return pool.submit([], tenant="t")
+
+
+# the program cache, autotune and the serialized artifact left this list
+# when they were ported (tests/test_torch_serialized.py and
+# tests/test_torch_autotune.py); what is still refused takes their places
 @pytest.mark.parametrize("call,queue", [
     (lambda c: c.enable_spmd("dp4"), "A6"),
-    (lambda c: c.enable_program_cache(), "A5"),
-    (lambda c: c.switch_autotune(True), "A5"),
-    (lambda c: TI.SerializedPredictor("x"), "A5")])
+    (lambda c: _serve_on_a_mesh("x"), "A6"),
+    (lambda c: tjit.to_static(torch.nn.Linear(2, 2)), "A8"),
+    (lambda c: _labelled_submit(), "A7")])
 def test_what_stays_unported_raises_naming_its_queue(call, queue):
     cfg = TI.Config("x")
     with pytest.raises(NotImplementedError, match=queue):
@@ -626,8 +644,10 @@ def test_what_stays_unported_raises_naming_its_queue(call, queue):
 
 
 def test_export_serialized_raises_naming_a5(port_bundle):
+    """The artifact is ported (tests/test_torch_serialized.py); what still
+    raises is an export without an example for each feed."""
     _, tc = _configs(port_bundle)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="expected 4 example feeds"):
         TI.create_predictor(tc).export_serialized("x", [])
 
 

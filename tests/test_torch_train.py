@@ -556,7 +556,7 @@ def _not_ported():
                 places=[tpt.CPUPlace(), tpt.CPUPlace()]))),
         "pipeline_train": ("A6", lambda: Executor("cpu").run(
             _one_op_program(tpt, "pipeline_train"))),
-        "to_static": ("A5", lambda: tjit.to_static(torch.nn.Linear(2, 2))),
+        "to_static": ("A8", lambda: tjit.to_static(torch.nn.Linear(2, 2))),
         "dgc_momentum": ("A6", lambda: T.DGCMomentumOptimizer),
     }
 
