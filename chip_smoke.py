@@ -254,7 +254,30 @@ Phases, each printing its lines; any failure exits nonzero:
    (``CF_CASES``) on the card against the CPU port and their expected
    values, with their host reads, and three LeNet steps of
    ``proximal_gd``, ``proximal_adagrad`` and a static ``ModelAverage``;
-13. one JSON line of kernel records, the card line, and last the result
+13. datasets, ``CompiledProgram`` and the 2.0 front door ("[dataset]"
+   lines; ``run_front_door``);
+14. data-parallel training ("[dp]" lines), BASELINE config 5: (i)
+   ERNIE-large (``ernie_large_config()``, 24 layers, hidden 1024, 16
+   heads, 3 classes, dropout 0.1, weights from numpy seed DP_SEED) on one
+   NCCL rank through ``TrainStep(..., mesh=init_parallel_env().mesh,
+   amp_dtype="bfloat16")`` with Adam(3e-5) at B=32 S=128 under the padding
+   mask, counts set to 0 before and read after: 24 flash forward, dQ and
+   dK/dV and 49 layer-norm forward and backward launches a step, path logs,
+   falling losses, the collective counters, eager and device ms and the
+   idle share; (ii) two ranks on the one card over gloo (NCCL refuses two
+   ranks on one device), each a process spawned under the env contract,
+   4 layers at full width, dropout off, the batch cut 16/16, each run's
+   launches counted (9 layer-norm and 4 flash a step): fp32 and bf16
+   against one rank of the whole batch (losses and parameters after 3
+   steps, bf16's parameters by their update in norm), a control run on
+   rank 0's gradients that must fail the bf16 bounds, the replicas bitwise
+   equal after every step, the int8 and fp8 wires
+   (``FLAGS_collective_quant``) with falling losses and the bytes the
+   ring model predicts, host-staged collectives counted; (iii) the two
+   ranks through ``fleet.init(is_collective=True)``, ``strategy.amp`` and
+   ``CompiledProgram.with_data_parallel`` on form (d) at 2 layers against
+   one rank of the whole feed; (iv) the kernels at ERNIE-large's shapes;
+15. one JSON line of kernel records, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -1417,10 +1440,10 @@ LN_TIME_CASES = ((4096, 768, torch.float32), (4096, 768, torch.bfloat16),
                  (1024, 768, torch.float32))  # the static program's norm
 
 
-def time_layer_norm(device, card, eps=1e-12):
+def time_layer_norm(device, card, eps=1e-12, cases=LN_TIME_CASES):
     from paddle_tpu_torch.kernels import layer_norm as LN
     records = {}
-    for rows, f, dtype in LN_TIME_CASES:
+    for rows, f, dtype in cases:
         per = rows * f * (4 if dtype == torch.float32 else 2)
         sets = copies(lambda i: ln_inputs(rows, f, dtype, device, 100 + i),
                       per)
@@ -1530,50 +1553,57 @@ def time_flash(device, card):
         del sets
 
     # the train shape in bf16, without and with the main path's seed
-    # dropout; SDPA with dropout_p draws random numbers, which a CUDA graph
-    # cannot hold, so it is timed by the profiler
-    b, h, s, d = TRAIN_B, 12, TRAIN_S, 64
-    scale = 1.0 / math.sqrt(d)
-    seed_t = FA.seed_tensor(77, device)
+    # dropout
     for dtype, kp in ((torch.bfloat16, 1.0), (torch.bfloat16, KEEP_PROB),
                       (torch.float16, 1.0)):
-        sets = copies(lambda i: attn_inputs(b, h, s, s, d, dtype, device,
-                                            510 + i),
-                      3 * b * h * s * d * 2)
-        st = seed_t if kp < 1.0 else None
-        ms = device_ms([lambda x=x: FA._launch_fwd(*x, None, False, scale,
-                                                   None, st, kp)
-                        for x in sets])
-
-        def plain(x=sets[0]):
-            keep = None if kp == 1.0 else FA.philox_keep_mask(
-                77, b, h, s, s, kp, device)
-            return FA.attention_reference(*x, None, False, scale, keep, kp)
-        plain_ms = device_ms([plain], reps=2)
-        if kp == 1.0:
-            lib_ms = device_ms([lambda x=x: torch.nn.functional
-                                .scaled_dot_product_attention(*x, scale=scale)
-                                for x in sets])
-        else:
-            lib_ms = profiled_ms(lambda: torch.nn.functional
-                                 .scaled_dot_product_attention(
-                                     *sets[0], dropout_p=1.0 - kp,
-                                     scale=scale))
-        nbytes, flops = attn_work(sets[0][0], sets[0][1], None, False)
-        bms, by = bound_ms(nbytes, flops, dtype)
-        records[("train", dtype, kp)] = dict(ms=ms, plain_ms=plain_ms,
-                                             library_ms=lib_ms, bound_ms=bms,
-                                             bound_by=by)
-        drop = "no dropout" if kp == 1.0 else \
-            f"seed dropout {1.0 - kp:g}"
-        lib = "SDPA" + ("" if kp == 1.0 else f" dropout_p={1.0 - kp:g}")
-        say("times", f"flash fwd {str(dtype)[6:]} [{b},{h},{s},{d}] "
-            f"(train shape) "
-            f"{drop}: kernel {ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s), "
-            f"bound {bms:.4f} ms ({by}), plain {plain_ms:.4f} ms "
-            f"(attention_reference{'' if kp == 1.0 else ' + philox_keep_mask'}"
-            f"), {lib} {lib_ms:.4f} ms  [{card}]")
+        records[("train", dtype, kp)] = time_flash_fwd_seed(
+            device, card, (TRAIN_B, 12, TRAIN_S, 64), dtype, kp,
+            "(train shape) ")
     return records
+
+
+def time_flash_fwd_seed(device, card, shape, dtype, kp, what=""):
+    """The forward at ``shape`` without a bias, with seed dropout of
+    1 - kp when kp < 1: kernel, bound, plain version and SDPA. SDPA with
+    dropout_p draws random numbers, which a CUDA graph cannot hold, so it
+    is timed by the profiler."""
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    b, h, s, d = shape
+    scale = 1.0 / math.sqrt(d)
+    seed_t = FA.seed_tensor(77, device)
+    sets = copies(lambda i: attn_inputs(b, h, s, s, d, dtype, device,
+                                        510 + i),
+                  3 * b * h * s * d * 2)
+    st = seed_t if kp < 1.0 else None
+    ms = device_ms([lambda x=x: FA._launch_fwd(*x, None, False, scale,
+                                               None, st, kp)
+                    for x in sets])
+
+    def plain(x=sets[0]):
+        keep = None if kp == 1.0 else FA.philox_keep_mask(
+            77, b, h, s, s, kp, device)
+        return FA.attention_reference(*x, None, False, scale, keep, kp)
+    plain_ms = device_ms([plain], reps=2)
+    if kp == 1.0:
+        lib_ms = device_ms([lambda x=x: torch.nn.functional
+                            .scaled_dot_product_attention(*x, scale=scale)
+                            for x in sets])
+    else:
+        lib_ms = profiled_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(
+                                 *sets[0], dropout_p=1.0 - kp,
+                                 scale=scale))
+    nbytes, flops = attn_work(sets[0][0], sets[0][1], None, False)
+    bms, by = bound_ms(nbytes, flops, dtype)
+    drop = "no dropout" if kp == 1.0 else f"seed dropout {1.0 - kp:g}"
+    lib = "SDPA" + ("" if kp == 1.0 else f" dropout_p={1.0 - kp:g}")
+    say("times", f"flash fwd {str(dtype)[6:]} [{b},{h},{s},{d}] {what}"
+        f"{drop}: kernel {ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s), "
+        f"bound {bms:.4f} ms ({by}), plain {plain_ms:.4f} ms "
+        f"(attention_reference{'' if kp == 1.0 else ' + philox_keep_mask'}"
+        f"), {lib} {lib_ms:.4f} ms  [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by)
 
 
 def time_forward(model, requests, card, reps=20):
@@ -1998,10 +2028,10 @@ LN_BWD_TIME_CASES = ((16384, 768, torch.float32),
                      (1024, 768, torch.float32))  # the static program's
 
 
-def time_layer_norm_bwd(device, card):
+def time_layer_norm_bwd(device, card, cases=LN_BWD_TIME_CASES):
     from paddle_tpu_torch.kernels import layer_norm as LN
     records = {}
-    for rows, f, dtype in LN_BWD_TIME_CASES:
+    for rows, f, dtype in cases:
         per = 3 * rows * f * (4 if dtype == torch.float32 else 2)
         sets = copies(lambda i: ln_bwd_case(rows, f, dtype, False, device,
                                             400 + i), per)
@@ -2066,7 +2096,7 @@ TIME_BWD_CASES = ((32, 12, 512, 64, False, torch.bfloat16, 1.0),
     for dtype in (torch.bfloat16, torch.float16, torch.float32))
 
 
-def time_flash_bwd(device, card):
+def time_flash_bwd(device, card, cases=TIME_BWD_CASES):
     """The dQ and the dK/dV kernels each alone (the dK/dV kernel reads the
     delta a dQ launch wrote before), their sum, the plain backward, and
     SDPA's backward (one autograd call for dq, dk and dv, with
@@ -2081,7 +2111,7 @@ def time_flash_bwd(device, card):
     say("times", "flash backward bf16 tiling: a CTA of "
         f"{tiles['kThreads']} threads owns {tiles['kTile']} rows, "
         f"{tiles['kStages']} stages of {tiles['kTile']}-row tiles")
-    for b, h, s, d, with_bias, dtype, kp in TIME_BWD_CASES:
+    for b, h, s, d, with_bias, dtype, kp in cases:
         q, k, v, do = attn_grad_inputs(b, h, s, s, d, dtype, device,
                                        "contiguous", 500)
         bias = padding_bias(b, s, device, 501) if with_bias else None
@@ -8306,6 +8336,587 @@ def run_front_door(device, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: data-parallel training
+# ---------------------------------------------------------------------------
+
+# BASELINE config 5, ERNIE-large fine-tuning (AMP + gradient all-reduce):
+# ernie_large_config() (24 layers, hidden 1024, 16 heads, FFN 4096, vocab
+# 30522) with 3 classes, dropout 0.1, Adam(3e-5), bf16 auto_cast, B=32,
+# S=128 under the padding mask, one batch a few times (a learnable label:
+# the first token mod 3)
+DP_B, DP_S, DP_LR, DP_CLASSES = 32, 128, 3e-5, 3
+DP_STEPS = 10
+DP_TIME_REPS = 10
+DP_SEED = 1919
+# (ii) two gloo ranks on the card at full width and 4 layers, dropout off,
+# Adam(1e-5) (at 1e-4 the first step overshoots: 1.21 -> 3.51 on the card):
+# 3 steps against one rank of the whole batch. Adam moves a weight about
+# lr a step, so a state that never moved is ~3 lr off. fp32: losses rtol
+# 1e-5 (the tests' bound), parameters within 2e-6 (0.07 lr). bf16: the
+# gradients of 16 rows and of 32 round to bf16 apart and a weight whose
+# tiny gradient flips sign moves as far the other way, so the parameters
+# are held in norm: |update - one rank's update| / |one rank's update|
+# (1 for a state that never moved). Each bf16 bound lies between the
+# sound run's reading and that of a control run whose ranks both take
+# rank 0's gradients (dp_rank0_grads: the replicas stay equal), which
+# must fail both bounds: losses 4.50e-4 and 3.52e-2 apart, updates
+# 1.55e-2 and 0.880 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, phase 14).
+DP_GLOO_LAYERS, DP_GLOO_STEPS, DP_GLOO_LR = 4, 3, 1e-5
+DP_TOL = {None: dict(loss_rtol=1e-5, param_atol=2e-6),
+          "bfloat16": dict(loss_rtol=4e-3, update_rel=0.12)}
+# (iii) form (d) of phase 11 at 2 layers through fleet with strategy.amp,
+# B=8 cut 4 and 4, against one rank of the whole feed at the bf16
+# bounds above (lr STATIC_LR)
+DP_STATIC_LAYERS, DP_STATIC_STEPS = 2, 3
+# the two ranks' processes, joined with this timeout (and killed after)
+DP_CHILD_TIMEOUT_S = 600
+
+
+def dp_batch(b, s, vocab, device, seed):
+    """ids, token types, a padding mask of rows 64..S (the first full);
+    labels [b, 1] the first token mod DP_CLASSES."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (b, s))
+    types = (np.arange(s)[None, :] >= s // 2).repeat(b, 0)
+    lens = rng.integers(64, s + 1, b)
+    lens[0] = s
+    mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.float32)
+    y = ids[:, :1] % DP_CLASSES
+    t = (lambda a, dt: torch.from_numpy(a.astype(dt)).to(device))
+    return ((t(ids, np.int64), t(types, np.int64), t(mask, np.float32)),
+            (t(y, np.int64),))
+
+
+def dp_loss(logits, y):
+    from paddle_tpu_torch.nn import functional as TF
+    return TF.cross_entropy(logits, y)
+
+
+def ernie_model(device, layers=None, dropout=True):
+    """BertForSequenceClassification at ernie_large_config()'s widths,
+    weights from numpy seed DP_SEED (random_state)."""
+    from paddle_tpu_torch.jit import load_reference_state
+    from paddle_tpu_torch.models.bert import (BertForSequenceClassification,
+                                              ernie_large_config)
+    cfg = ernie_large_config()
+    if layers is not None:
+        cfg.num_hidden_layers = layers
+    if not dropout:
+        cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    model = BertForSequenceClassification(cfg, num_classes=DP_CLASSES,
+                                          device=device)
+    load_reference_state(model, random_state(model, DP_SEED))
+    return model, cfg
+
+
+def collective_stats():
+    from paddle_tpu_torch import monitor
+    return {k: v for k, v in monitor.stats_with_prefix("STAT_").items()
+            if "collective" in k}
+
+
+def run_dp_one_rank(device, card):
+    """(i) ERNIE-large on one NCCL rank through TrainStep(mesh=...):
+    losses, launches a step, path logs, collective counters, step ms,
+    device ms and idle share. Returns the launch counts."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import parallel as P
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Adam
+    t0 = time.perf_counter()
+    env = P.init_parallel_env()
+    if env.backend != "nccl" or env.world_size != 1:
+        fail(f"one rank on the card: backend {env.backend}, world "
+             f"{env.world_size}; want nccl, 1")
+    model, cfg = ernie_model(device)
+    step = TrainStep(model, dp_loss, Adam(DP_LR), mesh=env.mesh,
+                     amp_dtype="bfloat16")
+    batch = dp_batch(DP_B, DP_S, cfg.vocab_size, device, DP_SEED + 1)
+    say("dp", f"ERNIE-large ({cfg.num_hidden_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, FFN "
+        f"{cfg.intermediate_size}) on {env.backend} world {env.world_size} "
+        f"mesh {env.mesh.mesh_dim_names}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    from paddle_tpu_torch.nn.functional import (layer_norm_paths_taken,
+                                                reset_layer_norm_path_log)
+    from paddle_tpu_torch.nn.transformer import (attention_paths_taken,
+                                                 reset_attention_path_log)
+    paddle_tpu_torch.seed(DP_SEED)
+    before = collective_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    reset_attention_path_log()
+    reset_layer_norm_path_log()
+    losses = [float(step(*batch)) for _ in range(DP_STEPS)]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    attn, ln = attention_paths_taken(), layer_norm_paths_taken()
+    after = collective_stats()
+    layers = cfg.num_hidden_layers
+    per = dict(layer_norm_fwd=2 * layers + 1, layer_norm_bwd=2 * layers + 1,
+               flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
+               flash_attention_bwd_dkv=layers)
+    say("dp", "losses " + ", ".join(f"{v:.5f}" for v in losses))
+    say("dp", "launches a step: " + ", ".join(
+        f"{k} {counts[k] / DP_STEPS:g}" for k in per) +
+        f"; flash input copies {counts['flash_attention_fwd_copies']}; "
+        f"path logs {len(attn)} x {sorted(set(attn))}, {len(ln)} x "
+        f"{sorted(set(ln))}")
+    say("dp", f"collective counters over the steps: "
+        f"{ {k: after[k] - before.get(k, 0) for k in after} } (one rank: "
+        "every collective is the identity)")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"ERNIE-large losses not finite or not falling: {losses}")
+    for k, n in per.items():
+        if counts[k] != n * DP_STEPS:
+            fail(f"ERNIE-large: {k} launched {counts[k]} times in "
+                 f"{DP_STEPS} steps, want {n} a step")
+    if attn != ["flash"] * (layers * DP_STEPS) or \
+            ln != ["kernel"] * ((2 * layers + 1) * DP_STEPS):
+        fail(f"ERNIE-large path logs: {sorted(set(attn))} x {len(attn)}, "
+             f"{sorted(set(ln))} x {len(ln)}")
+    if after.get("STAT_collective_host_staged", 0) != 0:
+        fail("a collective on NCCL was staged through host memory")
+    # times: eager (host clock, synchronised), device busy (profiler)
+    times = []
+    for _ in range(DP_TIME_REPS):
+        t1 = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    ms = 1e3 * float(np.median(times))
+    busy, n_kernels, groups, _ = profile_step(lambda: step(*batch))
+    flops = train_flops(cfg, DP_B, DP_S, 0)
+    say("dp", f"ERNIE-large step B={DP_B} S={DP_S} bf16 one rank: eager "
+        f"{ms:.2f} ms median of {DP_TIME_REPS}, "
+        f"{DP_B * DP_S / ms * 1e3:.0f} tokens/s, MFU "
+        f"{flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]:.4f} "
+        f"({flops / 1e12:.3f} TFLOP a step, bench.py's count without the "
+        f"MLM head); device busy {busy:.2f} ms in {n_kernels} kernels, "
+        f"idle share {max(0.0, 1.0 - busy / ms):.3f}  [{card}]")
+    say("dp", "ERNIE-large step device time: " + ", ".join(
+        f"{g} {t:.2f} ms ({t / busy:.0%})" for g, t in groups.items()) +
+        f"  [{card}]")
+    del step, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _dp_params(opt):
+    return {n: p.detach().clone() for n, p in
+            opt.named_parameters().items()}
+
+
+def digest(tensors) -> str:
+    """sha1 of the tensors' float32 bytes, in order."""
+    import hashlib
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank0_grads(grads, axis, *, mean=True, **plan_args):
+    """A wrong exchange, for (ii)'s control run: every rank takes rank 0's
+    gradients (the replicas stay equal, the gradient is of rank 0's rows
+    only)."""
+    from paddle_tpu_torch.parallel import collective as C
+    return {n: C.broadcast(g.float(), 0, axis=axis)
+            for n, g in grads.items()}
+
+
+def dp_train(device, batch, amp=None, quant="off", mesh=None, steps=None,
+             wrong_exchange=False):
+    """Four-layer ERNIE width, dropout off, TrainStep(Adam(DP_GLOO_LR))
+    over ``mesh`` (None: one rank; ``wrong_exchange``: the gradients
+    exchanged by dp_rank0_grads): losses, a digest of the parameters after
+    each step, the parameters before and after, the collective counters
+    from the second step on, the wire's census a step and the kernels'
+    launches in the steps."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.mesh import collectives as coll
+    from paddle_tpu_torch.optimizer import Adam
+    paddle_tpu_torch.set_flags({"FLAGS_collective_quant": quant})
+    exchange = coll.average_grads
+    if wrong_exchange:
+        coll.average_grads = dp_rank0_grads
+    try:
+        model, _ = ernie_model(device, DP_GLOO_LAYERS, dropout=False)
+        opt = Adam(DP_GLOO_LR)
+        step = TrainStep(model, dp_loss, opt, mesh=mesh, amp_dtype=amp)
+        init = _dp_params(opt)
+        losses, digests = [], []
+        before = None
+        torch.cuda.synchronize()
+        reset_counts()
+        for i in range(steps or DP_GLOO_STEPS):
+            if i == 1:
+                torch.cuda.synchronize()
+                before = collective_stats()
+            losses.append(float(step(*batch)))
+            digests.append(digest(opt.parameters))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        after = collective_stats()
+        census = None if step._dp is None or wrong_exchange else \
+            coll.census_bytes(step._dp.coll_plan)
+        return dict(losses=losses, digests=digests, init=init,
+                    params=_dp_params(opt),
+                    stats={k: after[k] - before.get(k, 0) for k in after},
+                    census=census, counts=counts)
+    finally:
+        coll.average_grads = exchange
+        paddle_tpu_torch.set_flags({"FLAGS_collective_quant": "off"})
+
+
+def fleet_amp_form(pt):
+    """Form (d) at DP_STATIC_LAYERS layers, its optimizer through fleet:
+    ``fleet.distributed_optimizer(Adam(STATIC_LR), strategy)`` with
+    ``strategy.amp`` (bf16, the white list of form (d)), minimized."""
+    cfg = dict(STATIC_CFG, layers_n=DP_STATIC_LAYERS)
+    main, startup, loss, _ = build_bert_forward(pt, **cfg, norm_axis=2)
+    startup.random_seed = STATIC_SEED
+    from paddle_tpu_torch.core.passes import apply_pass
+    main = apply_pass(main, "multihead_matmul_fuse")
+    fleet = pt.fleet
+    fleet.init(is_collective=True)
+    strategy = fleet.DistributedStrategy()
+    strategy.amp = True
+    strategy.amp_configs["custom_white_list"] = list(AMP_WHITE)
+    opt = fleet.distributed_optimizer(pt.optimizer.Adam(STATIC_LR),
+                                      strategy)
+    with pt.program_guard(main, startup):
+        opt.minimize(loss, startup_program=startup, program=main)
+    return main, startup, loss.name, cfg
+
+
+def dp_static_run(device, data_parallel, rows):
+    """(iii)'s program from one numpy state on ``rows`` of the feed, as
+    ``CompiledProgram(main).with_data_parallel`` or as the plain main:
+    losses (rank means), the parameters after, launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import load_reference_scope
+    main, startup, loss, cfg = fleet_amp_form(pt)
+    state = static_state(startup, device)
+    scope = pt.Scope()
+    load_reference_scope(scope, state, device)
+    exe = pt.Executor(device)
+    feed = {"x": static_feed(STATIC_B, cfg)["x"][rows]}
+    prog = pt.CompiledProgram(main).with_data_parallel(loss_name=loss) \
+        if data_parallel else main
+    torch.cuda.synchronize()
+    reset_counts()
+    losses = [float(exe.run(prog, feed=feed, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(DP_STATIC_STEPS)]
+    torch.cuda.synchronize()
+    names = [v.name for v in main.all_parameters()]
+    return dict(losses=losses, counts=read_counts(),
+                init={n: torch.from_numpy(state[n]).to(device)
+                      for n in names},
+                params={n: scope.find_var(n).detach().clone()
+                        for n in names})
+
+
+def _worst(got, want):
+    return max(float((got[n].float() - want[n].float()).abs().max())
+               for n in want)
+
+
+def _update_rel(got, want, init):
+    """|got - want| / |want - init| over all of ``want``'s parameters: how
+    far apart two runs from ``init`` moved them, in the reference's
+    update's norm (1 for a state that never moved)."""
+    def sq(a, b):
+        return sum(float((a[n].double() - b[n].double()).square().sum())
+                   for n in want)
+    return math.sqrt(sq(got, want) / sq(want, init))
+
+
+def _loss_rel(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def check_collectives(device, rank, world=2):
+    """Each collective function on ``device`` tensors over the group of
+    ``world`` ranks: the names whose result is not the rule's, and the
+    calls staged through host memory (gloo's point-to-point: ppermute)."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch import parallel as P
+    staged = monitor.stat_get("STAT_collective_host_staged")
+    xs = [torch.arange(6 * world, dtype=torch.float32).reshape(2 * world, 3)
+          + 100 * r for r in range(world)]
+    x = xs[rank].to(device)
+    want = {"all_reduce": sum(xs),
+            "all_gather": torch.cat(xs, 1),
+            "reduce_scatter": sum(xs).chunk(world, 0)[rank],
+            "broadcast": xs[world - 1],
+            "all_to_all": torch.cat([x_.chunk(world, 0)[rank]
+                                     for x_ in xs]),
+            "ppermute": xs[(rank - 1) % world]}
+    got = {"all_reduce": P.all_reduce(x),
+           "all_gather": P.all_gather(x, tensor_axis=1),
+           "reduce_scatter": P.reduce_scatter(x),
+           "broadcast": P.broadcast(x, world - 1),
+           "all_to_all": P.all_to_all(x),
+           "ppermute": P.ppermute(x, [(i, (i + 1) % world)
+                                      for i in range(world)])}
+    P.barrier()
+    return (sorted(k for k in want if got[k].device != x.device or
+                   not torch.equal(got[k].cpu(), want[k])),
+            monitor.stat_get("STAT_collective_host_staged") - staged)
+
+
+# (ii)'s runs on both ranks: (label, amp, FLAGS_collective_quant)
+DP_GLOO_RUNS = (("fp32", None, "off"), ("bf16", "bfloat16", "off"),
+                ("int8", None, "int8"), ("fp8", None, "fp8"),
+                ("bf16-control", "bfloat16", "off"))
+
+
+def dp_gloo_rank(out_dir, device_name="cuda:0"):
+    """One of (ii) and (iii)'s two ranks over gloo on ``device_name`` (the
+    card), spawned with the env contract: the data-parallel runs, rank 0
+    also the one-rank runs of the whole batch; its findings as JSON in
+    out_dir."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import parallel as P
+    from paddle_tpu_torch.models.bert import ernie_large_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_name)
+    env = P.init_parallel_env(device=device_name, backend="gloo")
+    rank = P.get_rank()
+    batch = dp_batch(DP_B, DP_S, ernie_large_config().vocab_size, device,
+                     DP_SEED + 2)
+    half = DP_B // 2
+    local = tuple(tuple(x[rank * half:(rank + 1) * half] for x in part)
+                  for part in batch)
+    out = dict(rank=rank, backend=env.backend, world=env.world_size,
+               runs={})
+    out["collectives"] = check_collectives(device, rank)
+    t0 = time.perf_counter()
+    for label, amp, quant in DP_GLOO_RUNS:
+        res = dp_train(device, local, amp, quant, env.mesh,
+                       wrong_exchange=label == "bf16-control")
+        if rank != 0 or label not in ("fp32", "bf16", "bf16-control"):
+            del res["params"], res["init"]
+        out["runs"][label] = res
+        torch.cuda.empty_cache()
+    out["dp_s"] = time.perf_counter() - t0
+    P.barrier()
+    report = dict(rank=rank, backend=out["backend"], world=out["world"],
+                  device=device.type, dp_s=out["dp_s"],
+                  collectives=out["collectives"], runs={})
+    for label, res in out["runs"].items():
+        report["runs"][label] = dict(
+            losses=res["losses"], digests=res["digests"],
+            stats=res["stats"], census=res["census"], counts=res["counts"])
+    if rank == 0:
+        t0 = time.perf_counter()
+        for label, amp in (("fp32", None), ("bf16", "bfloat16")):
+            one = dp_train(device, batch, amp, "off", None)
+            for lab in (label, label + "-control"):
+                if lab not in out["runs"]:
+                    continue
+                got = out["runs"][lab]
+                report["runs"][lab].update(
+                    one_losses=one["losses"],
+                    loss_rel=_loss_rel(got["losses"], one["losses"]),
+                    worst_param=_worst(got["params"], one["params"]),
+                    update_rel=_update_rel(got["params"], one["params"],
+                                           one["init"]))
+            del one
+            torch.cuda.empty_cache()
+        report["one_s"] = time.perf_counter() - t0
+    del out
+    P.barrier()
+    # (iii) static: fleet with strategy.amp, CompiledProgram data-parallel
+    t0 = time.perf_counter()
+    rows = slice(rank * (STATIC_B // 2), (rank + 1) * (STATIC_B // 2))
+    dpst = dp_static_run(device, True, rows)
+    report["static"] = dict(losses=dpst["losses"], counts=dpst["counts"],
+                            digest=digest(dpst["params"][n]
+                                          for n in sorted(dpst["params"])))
+    P.barrier()
+    if rank == 0:
+        one = dp_static_run(device, False, slice(0, STATIC_B))
+        report["static"].update(
+            one_losses=one["losses"],
+            loss_rel=_loss_rel(dpst["losses"], one["losses"]),
+            worst_param=_worst(dpst["params"], one["params"]),
+            update_rel=_update_rel(dpst["params"], one["params"],
+                                   one["init"]))
+    report["static_s"] = time.perf_counter() - t0
+    report["host_staged"] = paddle_tpu_torch.monitor.stat_get(
+        "STAT_collective_host_staged")
+    P.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    P.destroy_parallel_env()
+
+
+def check_dp_gloo(reports, card):
+    """(ii) and (iii): the ranks' findings held."""
+    r0, r1 = reports
+    for r in reports:
+        if r["backend"] != "gloo" or r["world"] != 2:
+            fail(f"rank {r['rank']}: backend {r['backend']} world "
+                 f"{r['world']}; want gloo, 2")
+        wrong, staged = r["collectives"]
+        say("dp", f"rank {r['rank']}: all_reduce, all_gather, reduce_scatter"
+            f", broadcast, all_to_all and ppermute on the card over gloo: "
+            f"wrong {wrong}; calls staged through host memory {staged:g}")
+        if wrong or staged != (1 if r["device"] == "cuda" else 0):
+            fail(f"collectives on the card over gloo: {wrong} wrong, "
+                 f"{staged:g} staged (want the one ppermute)")
+    per = dict(layer_norm_fwd=2 * DP_GLOO_LAYERS + 1,
+               layer_norm_bwd=2 * DP_GLOO_LAYERS + 1,
+               flash_attention_fwd=DP_GLOO_LAYERS,
+               flash_attention_bwd_dq=DP_GLOO_LAYERS,
+               flash_attention_bwd_dkv=DP_GLOO_LAYERS,
+               flash_attention_fwd_copies=0)
+    for r in reports:
+        for label, run in r["runs"].items():
+            if any(run["counts"][k] != n * DP_GLOO_STEPS
+                   for k, n in per.items()):
+                fail(f"(ii) rank {r['rank']} {label}: launches "
+                     f"{run['counts']} in {DP_GLOO_STEPS} steps, want "
+                     f"{per} a step")
+    bf16 = DP_TOL["bfloat16"]
+    for label, run in r0["runs"].items():
+        other = r1["runs"][label]
+        if run["digests"] != other["digests"]:
+            fail(f"(ii) {label}: the replicas' parameters differ after a "
+                 "step")
+        losses = run["losses"]
+        say("dp", f"(ii) {label} 2 gloo ranks x {DP_B // 2} rows, "
+            f"{DP_GLOO_LAYERS} layers: losses " +
+            ", ".join(f"{v:.6f}" for v in losses) +
+            "; replicas bitwise equal after every step; launches a rank "
+            f"each step as {per}")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"(ii) {label}: losses not finite: {losses}")
+        if "one_losses" in run:
+            say("dp", f"(ii) {label} against one rank of the whole batch: "
+                f"losses {', '.join(f'{v:.6f}' for v in run['one_losses'])}"
+                f", worst relative {run['loss_rel']:.2e}; parameters after "
+                f"{DP_GLOO_STEPS} steps within {run['worst_param']:.2e}, "
+                f"updates {run['update_rel']:.2e} apart in norm; bounds: "
+                f"fp32 {DP_TOL[None]}, bf16 {bf16}")
+        if label == "bf16-control":
+            # the wrong exchange must fail both bf16 bounds
+            if run["loss_rel"] <= bf16["loss_rtol"] or \
+                    run["update_rel"] <= bf16["update_rel"]:
+                fail("(ii) the control run (rank 0's gradients on both "
+                     "ranks) passes the bf16 bounds")
+            continue
+        if not losses[-1] < losses[0]:
+            fail(f"(ii) {label}: losses not falling: {losses}")
+        if label == "fp32" and (
+                run["loss_rel"] > DP_TOL[None]["loss_rtol"] or
+                run["worst_param"] > DP_TOL[None]["param_atol"]):
+            fail("(ii) fp32: two ranks disagree with one rank")
+        if label == "bf16" and (run["loss_rel"] > bf16["loss_rtol"] or
+                                run["update_rel"] > bf16["update_rel"]):
+            fail("(ii) bf16: two ranks disagree with one rank")
+        moved = {k.split('dtype="')[1][:-2]: v
+                 for k, v in run["stats"].items()
+                 if k.startswith("STAT_mesh_collective_bytes") and v}
+        # a step from the second on: the wire's census and the loss's
+        # 4-byte all-reduce (ring: 4 of its 8 bytes on the wire)
+        steps = DP_GLOO_STEPS - 1
+        want = {dt: nb * steps for dt, nb in run["census"].items()}
+        want["float32"] = want.get("float32", 0) + 4 * steps
+        stats = run["stats"]
+        say("dp", f"(ii) {label} wire bytes a rank over steps 2-"
+            f"{DP_GLOO_STEPS}: {moved}; ring-model census {want}; "
+            f"collectives {stats.get('STAT_mesh_collective_dp', 0):g}, "
+            f"host-staged {stats.get('STAT_collective_host_staged', 0):g}")
+        if moved != want:
+            fail(f"(ii) {label}: wire bytes {moved}, census {want}")
+    st0, st1 = r0["static"], r1["static"]
+    if st0["digest"] != st1["digest"]:
+        fail("(iii) the replicas' parameters differ")
+    say("dp", f"(iii) fleet strategy.amp + with_data_parallel, form (d) "
+        f"{DP_STATIC_LAYERS} layers, 2 gloo ranks x {STATIC_B // 2} rows: "
+        f"losses {', '.join(f'{v:.6f}' for v in st0['losses'])}; one rank "
+        f"of the whole feed {', '.join(f'{v:.6f}' for v in st0['one_losses'])}"
+        f"; worst relative {st0['loss_rel']:.2e} (bound "
+        f"{bf16['loss_rtol']:g}); parameters within "
+        f"{st0['worst_param']:.2e}, updates {st0['update_rel']:.2e} apart "
+        f"in norm (bound {bf16['update_rel']:g}); replicas equal; launches "
+        f"a rank {st0['counts']}")
+    if st0["loss_rel"] > bf16["loss_rtol"] or \
+            st0["update_rel"] > bf16["update_rel"]:
+        fail("(iii) two ranks disagree with one rank")
+    want = amp_expect(DP_STATIC_LAYERS)
+    if any(st0["counts"][k] != n * DP_STATIC_STEPS for k, n in want.items()):
+        fail(f"(iii) launches {st0['counts']}, want {want} a step")
+    say("dp", f"host-staged collectives (gloo on CUDA tensors): rank 0 "
+        f"{r0['host_staged']:g}, rank 1 {r1['host_staged']:g}; ranks' "
+        f"seconds: dp runs {r0['dp_s']:.1f}, one-rank runs "
+        f"{r0.get('one_s', 0):.1f}, static {r0['static_s']:.1f}  [{card}]")
+    total = {k: 0 for k, _, _ in KERNEL_COUNTS}
+    for r in reports:
+        for run in r["runs"].values():
+            for k in total:
+                total[k] += run["counts"][k]
+        for k in total:
+            total[k] += r["static"]["counts"][k]
+    return total
+
+
+def run_dp_gloo(card):
+    """(ii) and (iii): two ranks on the card over gloo, each a process
+    under the env contract, joined within DP_CHILD_TIMEOUT_S."""
+    from paddle_tpu_torch import parallel as P
+    out = tempfile.TemporaryDirectory()
+    try:
+        P.spawn(dp_gloo_rank, args=(out.name,), nprocs=2,
+                timeout=DP_CHILD_TIMEOUT_S)
+    except RuntimeError as e:
+        fail(f"(ii)/(iii) a rank failed: {e}")
+    reports = []
+    for r in range(2):
+        with open(os.path.join(out.name, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    out.cleanup()
+    return check_dp_gloo(reports, card)
+
+
+DP_LN_CASES = ((4096, 1024, torch.float32),)
+DP_BWD_CASES = ((DP_B, 16, DP_S, 64, False, torch.bfloat16, KEEP_PROB),)
+
+
+def run_data_parallel(device, card):
+    """Phase 14. Returns the launch totals of its runs (one rank's
+    ERNIE-large steps, the gloo ranks' runs) and the kernels' records at
+    its shapes."""
+    from paddle_tpu_torch import parallel as P
+    t0 = time.perf_counter()
+    counts = run_dp_one_rank(device, card)
+    say("dp", f"(i) in {time.perf_counter() - t0:.1f} s  [{card}]")
+    t0 = time.perf_counter()
+    gloo = run_dp_gloo(card)
+    say("dp", f"(ii) and (iii) in {time.perf_counter() - t0:.1f} s  "
+        f"[{card}]")
+    total = {k: counts[k] + gloo[k] for k in counts}
+    # the kernels at ERNIE-large's shapes
+    t0 = time.perf_counter()
+    recs = dict(
+        ln=time_layer_norm(device, card, cases=DP_LN_CASES),
+        ln_bwd=time_layer_norm_bwd(device, card, cases=DP_LN_CASES),
+        fa=time_flash_fwd_seed(device, card, (DP_B, 16, DP_S, 64),
+                               torch.bfloat16, KEEP_PROB, "(ERNIE-large) "),
+        fa_bwd=time_flash_bwd(device, card, cases=DP_BWD_CASES))
+    say("dp", f"(iv) kernel times in {time.perf_counter() - t0:.1f} s  "
+        f"[{card}]")
+    P.destroy_parallel_env()
+    return total, recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -8502,14 +9113,22 @@ def main() -> int:
     t0 = time.perf_counter()
     front_counts = run_front_door(device, card)
     say("dataset", f"phase 13 in {time.perf_counter() - t0:.1f} s  [{card}]")
-    late_counts = {k: sparse_counts[k] + front_counts[k]
+
+    # -- 14. data-parallel training: the counts of ERNIE-large's steps on
+    # one NCCL rank set to 0 just before them, read just after; the gloo
+    # ranks' runs counted in their processes
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dp_counts, _ = run_data_parallel(device, card)
+    say("dp", f"phase 14 in {time.perf_counter() - t0:.1f} s  [{card}]")
+    late_counts = {k: sparse_counts[k] + front_counts[k] + dp_counts[k]
                    for k in sparse_counts}
 
-    # -- 14. records: launches are the serving, training, recipe, static,
+    # -- 15. records: launches are the serving, training, recipe, static,
     # generation (chunked fp32 and int8 KV, two-phase, the two drafters'
     # runs, int8 and fp8 weights),
-    # inference, artifact, static-training, sparse/control-flow and
-    # CompiledProgram runs
+    # inference, artifact, static-training, sparse/control-flow,
+    # CompiledProgram and data-parallel runs
     ln_rec = ln_times[(4096, 768, torch.float32)]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]

@@ -26,6 +26,13 @@ tensors or static on program vars), ``to_tensor``, ``to_variable``,
 ``grad`` and ``no_grad`` (``dygraph``), ``io.DataLoader`` and the reader
 decorators (``reader``), the datasets (``dataset``), ``CompiledProgram``
 and its strategies (``compiler``), and ``set_flags``/``get_flags``.
+
+Data parallelism: ``parallel`` (the process group, one rank a process:
+``init_parallel_env``, the collectives, ``DataParallel``, ``spawn``),
+``mesh`` (``MeshSpec``, ``ShardingPlan`` and the bucketed fp32/int8/fp8
+gradient wire), ``fleet`` in collective mode and ``fleet.launch``;
+``jit.TrainStep(mesh=...)`` and ``CompiledProgram.with_data_parallel``
+train on it.
 ``Tensor`` is ``torch.Tensor``. A top-level name of the JAX package that
 the port lacks raises ``NotPortedError`` naming its ``ROADMAP.md`` queue.
 """
@@ -47,6 +54,8 @@ from .io import (load, load_dygraph, load_inference_model,  # noqa: F401
 from . import generation, inference, quant, serving  # noqa: F401
 from . import contrib, fluid  # noqa: F401
 from . import amp, compiler, dataset, reader, tensor  # noqa: F401
+from . import fleet, mesh, parallel  # noqa: F401
+from .parallel import DataParallel  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
 from .core.enforce import EnforceNotMet, enforce  # noqa: F401
@@ -92,6 +101,7 @@ no_grad_ = no_grad
 # the top-level names of the JAX package the port lacks, by ROADMAP.md
 # queue: its builders and modules that later queues bring
 _QUEUES = {
+    "A6": ("distributed", "transpiler", "DistributeTranspiler"),
     "A8": ("crop_tensor", "has_inf", "has_nan", "is_empty", "multiplex",
            "rank", "scatter_nd", "shard_index", "stanh", "unbind",
            "create_global_var", "create_parameter", "load_op_library",

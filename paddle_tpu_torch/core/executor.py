@@ -51,9 +51,18 @@ handed over as a copy on its device, so that it keeps its step's value.
 fetch and each run that fetches into numpy, as in the JAX package. A
 ``LoDTensor`` feed is its packed buffer, as in the JAX package.
 
-``run`` takes a ``CompiledProgram`` (``compiler.py``) on one device and
-runs its program as it runs the plain one. The checks of the JAX
-package read the flags (``flags.py``): ``FLAGS_check_nan_inf`` checks each
+``run`` takes a ``CompiledProgram`` (``compiler.py``) and runs its
+program as it runs the plain one. Under ``with_data_parallel`` inside a
+process group of more than one rank (``parallel.init_parallel_env``),
+each rank runs its own feed shard through the program: the first run
+gives every rank rank 0's persistables and folds the rank into the
+scope's generator, the gradients of the ``backward`` op are averaged over
+the group in the buckets of ``mesh/collectives.py``
+(``FLAGS_collective_quant`` picks the wire) before the update ops run,
+and the fetched loss (``loss_name``) is the mean over the ranks.
+
+The checks of the JAX package read the flags (``flags.py``):
+``FLAGS_check_nan_inf`` checks each
 float output of each op and raises naming the op and the var (the JAX
 step, traced, can only print); ``FLAGS_fast_check_nan_inf`` checks a
 run's float fetches with one read on the host, counted in
@@ -73,8 +82,8 @@ The program cache has no trace layer here (``core/program_cache.py``): the
 executor lowers each op eagerly and compiles nothing per program, so an
 executor given ``program_cache_dir`` runs as without it and writes
 nothing (the Predictor's forward is what the cache keeps). Left out,
-raising where the JAX signature has them: mesh plans and data
-parallelism over places (``ROADMAP.md`` A6) and telemetry (A7).
+raising where the JAX signature has them: data parallelism over more
+than one place in one process (``ROADMAP.md`` A6) and telemetry (A7).
 """
 from __future__ import annotations
 
@@ -150,6 +159,8 @@ class Executor:
         self.host_syncs = 0
         # (program id, version) already checked for unused vars
         self._unused_checked = set()
+        # the data axis of the run in progress's gradient exchange
+        self._dp_axis: Optional[str] = None
 
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, Any]] = None,
@@ -159,7 +170,8 @@ class Executor:
         """Run one step. ``return_numpy`` True returns numpy arrays (bf16
         widened to float32, ``as_numpy``), False the tensors on the
         device, "lazy" a ``FetchHandle`` each."""
-        if isinstance(program, CompiledProgram):
+        compiled = program if isinstance(program, CompiledProgram) else None
+        if compiled is not None:
             program = program._program
         if program is not None and not isinstance(program, Program):
             raise TypeError(f"Executor.run({type(program).__name__}): "
@@ -175,7 +187,14 @@ class Executor:
         self.host_syncs = 0
         if get_flag("FLAGS_enable_unused_var_check"):
             self._warn_unused_vars(program, fetch_names)
-        self._run_block(program, env, ctx, keep=set(fetch_names))
+        dp_axis = compiled._dp_axis() if compiled is not None else None
+        if dp_axis is not None:
+            compiled._sync_replicas(scope, env, state, ctx, persistable)
+        self._dp_axis = dp_axis
+        try:
+            self._run_block(program, env, ctx, keep=set(fetch_names))
+        finally:
+            self._dp_axis = None
         for n, v in env.items():
             if n in persistable and v is not state.get(n):
                 scope.set(n, v.detach() if isinstance(v, torch.Tensor)
@@ -186,6 +205,8 @@ class Executor:
                 raise KeyError(f"fetch {n!r}: no op of the program "
                                "produced it and it is not fed")
             v = env[n]
+            if dp_axis is not None and n == compiled._loss_name:
+                v = compiled._mean_over_ranks(v)
             fetches.append(v.detach() if isinstance(v, torch.Tensor) else v)
         if get_flag("FLAGS_fast_check_nan_inf") and \
                 not get_flag("FLAGS_check_nan_inf"):
@@ -438,7 +459,18 @@ class Executor:
             g = got.get(n)
             env[n + GRAD_SUFFIX] = torch.zeros_like(env[n]).detach() \
                 if g is None else g
+        if self._dp_axis is not None:
+            self._exchange_grads([n for n in names if _is_float(env[n])],
+                                 env)
         self.lowered[BACKWARD_OP] += 1
+
+    def _exchange_grads(self, names, env: Dict[str, Any]) -> None:
+        """The mean over the data axis of each float target's gradient,
+        in the buckets of ``FLAGS_collective_quant``'s wire."""
+        from ..mesh.collectives import average_grads
+        grads = {n: env[n + GRAD_SUFFIX].detach() for n in names}
+        for n, g in average_grads(grads, self._dp_axis).items():
+            env[n + GRAD_SUFFIX] = g.to(grads[n].dtype)
 
     # -- dataset-driven runs (JAX executor.py:873-1000) ------------------
     def train_from_dataset(self, program=None, dataset=None, scope=None,

@@ -22,10 +22,11 @@ import torch
 Arrays = Dict[str, List[Any]]  # slot -> list of tensors
 LowerFn = Callable[["LowerCtx", Arrays, Dict[str, Any]], Arrays]
 
-# the queues of ROADMAP.md that hold the ops not lowered yet: the
-# distributed family (collectives, the parameter server's ops, DGC, sync
-# batch norm) goes with the distributed runtime (A6), every other op with
-# the long tail (A8); the static path's queue (A2b) is closed
+# the queues of ROADMAP.md that hold the ops not lowered yet: the rest of
+# the distributed family (the parameter server's ops, DGC; the collectives
+# are lowered in parallel/collective.py) goes with the distributed runtime
+# (A6), every other op with the long tail (A8); the static path's queue
+# (A2b) is closed
 _A6_PREFIXES = ("c_", "send", "recv", "distributed_", "pull_", "push_",
                 "lookup_sparse_table", "dgc", "listen_and_serv",
                 "fl_listen_and_serv", "gen_nccl_id")

@@ -4,8 +4,8 @@ defaults.
 Counterpart of ``paddle_tpu/flags.py`` (``set_flags``, ``get_flag``).
 Only the flags that a ported path reads live here (generation and
 quantization, the Predictor and its pool, dropout, the embedding
-gradient, the executor's checks and the dataset loop); a later slice adds
-its own. An unknown name raises in ``set_flags`` and ``get_flags``, as in
+gradient, the executor's checks, the dataset loop, the rendezvous and the
+gradient wire of data parallelism); a later slice adds its own. An unknown name raises in ``set_flags`` and ``get_flags``, as in
 the reference.
 """
 from __future__ import annotations
@@ -78,6 +78,26 @@ _DEFS: Dict[str, Any] = {
     # the JAX package's one-hot embedding gradient; the port sums the
     # same rows with its fixed-order gradient (nn/functional.py) either way
     "FLAGS_embedding_onehot_grad": True,
+    # the distributed runtime (parallel/env.py): each rendezvous attempt's
+    # timeout, the retries after a failed one, and the first backoff
+    # (doubled each retry); a group that cannot form inside the budget
+    # raises RendezvousTimeout
+    "FLAGS_rendezvous_timeout_s": 60.0,
+    "FLAGS_rendezvous_retries": 2,
+    "FLAGS_rendezvous_backoff_ms": 200.0,
+    # the mesh a plan is built on when none is installed ("dp2"; "" none)
+    "FLAGS_mesh_spec": "",
+    # the data-parallel gradient wire (mesh/collectives.py): "off" averages
+    # the step's gradients once in fp32 buckets, "fp32" once a microbatch,
+    # "int8" and "fp8" once a step on the block-scaled quantized wires
+    "FLAGS_collective_quant": "off",
+    # a bucket's cap in MiB of fp32 payload
+    "FLAGS_collective_bucket_mb": 4,
+    # gradients with fewer elements (or ndim <= 1) stay on the fp32 wire
+    "FLAGS_collective_quant_min_numel": 2048,
+    # the wire of mesh-sharded parameters: only "off" here, the tensor-
+    # parallel half of the runtime is not ported (ROADMAP.md A6)
+    "FLAGS_collective_quant_mp": "off",
 }
 
 _values: Dict[str, Any] = dict(_DEFS)

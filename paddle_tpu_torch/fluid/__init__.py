@@ -5,8 +5,8 @@ Counterpart of ``paddle_tpu/fluid/``: Program, Executor and the scope,
 ``contrib`` (static mixed precision), ``DataFeeder`` (ragged fields
 padded through ``LoDTensor``), ``LoDTensor``, ``lod_tensor``, ``input``
 (``embedding``, ``one_hot``), ``compiler`` (``CompiledProgram`` and its
-strategies), ``dataset`` (with ``DataFeedDesc`` and ``data_generator``)
-and the places, so
+strategies), ``fleet`` (collective mode), ``dataset`` (with
+``DataFeedDesc`` and ``data_generator``) and the places, so
 that a Fluid static-graph program such as ``examples/fluid_mnist.py``
 runs on the port as written. ``CPUPlace()`` is the CPU and
 ``CUDAPlace(n)`` card n; ``Executor(place)`` runs there (the JAX
@@ -33,7 +33,7 @@ from ..layers.helper import ParamAttr  # noqa: F401
 from . import (clip, contrib, data_feeder, input, io,  # noqa: F401
                layers, lod_tensor, nets, optimizer, regularizer)
 from . import data_feed_desc, data_generator, dataset  # noqa: F401
-from .. import compiler  # noqa: F401
+from .. import compiler, fleet  # noqa: F401
 from ..compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                         ExecutionStrategy)
 from .data_feed_desc import DataFeedDesc  # noqa: F401
@@ -75,7 +75,7 @@ _QUEUES = {
            "enable_dygraph", "disable_dygraph", "enable_static",
            "disable_static", "in_dygraph_mode", "dygraph"),
     "A6": ("ParallelExecutor", "parallel_executor", "DistributeTranspiler",
-           "DistributeTranspilerConfig", "transpiler", "fleet",
+           "DistributeTranspilerConfig", "transpiler",
            "TrainerDesc", "trainer_desc", "trainer_desc_cls",
            "distribute_lookup_table", "incubate"),
     "A7": ("profiler",),

@@ -2,8 +2,9 @@
 load_state, the state carry-across from the JAX package, and TrainStep.
 
 Counterparts of ``paddle_tpu/jit.py:functional_call``, ``state_of``,
-``load_state`` and ``TrainStep`` (single device, with a scheduler, a clip
-and a regularizer), plus loaders that copy the JAX package's state (as
+``load_state`` and ``TrainStep`` (one device, or data-parallel over the
+ranks of a process group; with a scheduler, a clip and a regularizer),
+plus loaders that copy the JAX package's state (as
 numpy arrays) into the port, so that the two packages can start or
 continue from one state: ``load_reference_state`` (``state_of(model)``),
 ``load_reference_opt_state`` (``TrainStep._opt_state`` and ``_lr_step``),
@@ -20,7 +21,7 @@ in ``ROADMAP.md`` A8.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -363,21 +364,35 @@ class TrainStep:
     ``ROADMAP.md`` C4); its eager loop and its executor move them, and so
     does the port. Under ``grad_accum_steps=k`` each microbatch moves them
     from the step's starting values and the last microbatch's are kept,
-    the JAX step's semantics for the buffers it returns. ``mesh``,
-    ``plan``, ``param_rules`` and ``batch_spec`` (the sharded step) are not
-    ported yet and raise."""
+    the JAX step's semantics for the buffers it returns.
+
+    Data parallelism (``mesh=``, ``plan=``, or an installed plan; the JAX
+    GSPMD step ``paddle_tpu/jit.py:323-384`` and its explicit-exchange
+    step :403): each rank of the group runs this step on its local shard
+    of the batch, and the gradients are averaged over the data axis in
+    the buckets of ``mesh/collectives.py`` before the optimizer's update,
+    so a clip sees the global gradient. ``FLAGS_collective_quant`` picks
+    the wire: "off" averages once a step in fp32, "fp32" once a
+    microbatch (the JAX oracle), "int8" and "fp8" accumulate the
+    microbatches locally and exchange once on the quantized wire. The
+    returned loss is the mean over the ranks (one more 4-byte
+    all-reduce), every rank's view of the JAX step's global loss; float
+    buffers are averaged too, and the replicas start from rank 0's state
+    and stay equal. Each rank folds its rank and the step into its own
+    dropout generators. Under a plan, a local batch whose leading dim the
+    data axis does not divide is replicated with a warning (the JAX
+    plan's rule) and every rank computes the whole of it; under a bare
+    ``mesh=`` the ranks' local batches must be equal in length, as the
+    JAX ``shard_batch`` needs a divisible global batch. One rank (``dp <=
+    1``) keeps the plain step. A parameter sharded by ``param_rules``, a
+    ``batch_spec`` over another axis, a mesh axis other than the data
+    axis larger than 1, and ``FLAGS_collective_quant_mp`` are tensor
+    parallelism and raise naming ``ROADMAP.md`` A6."""
 
     def __init__(self, model: Layer, loss_fn: Callable, optimizer,
                  mesh=None, batch_spec=None, param_rules=None,
                  grad_accum_steps: int = 1, amp_dtype: Optional[str] = None,
                  plan=None):
-        for what, value in (("mesh", mesh), ("plan", plan),
-                            ("param_rules", param_rules),
-                            ("batch_spec", batch_spec)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"TrainStep: {what} (the sharded step) is not ported "
-                    "yet (ROADMAP.md A6)")
         if int(grad_accum_steps) < 1:
             raise ValueError("TrainStep: grad_accum_steps must be >= 1")
         self.model = model
@@ -391,6 +406,15 @@ class TrainStep:
         self.param_names = list(params)
         self._device = next(iter(params.values())).device
         self._lr_step = 0
+        self.mesh = mesh
+        self.plan = plan
+        self.param_rules = param_rules
+        self.batch_spec = batch_spec
+        # the data-parallel state, resolved at the first call (the JAX
+        # step builds then too); what is tensor parallelism raises now
+        self._dp: Optional[_DataParallelStep] = None
+        self._resolved = False
+        _refuse_tensor_parallel(self)
 
     def _loss(self, inputs, labels) -> torch.Tensor:
         with amp.auto_cast(enable=self.amp_dtype is not None,
@@ -400,32 +424,240 @@ class TrainStep:
             out = (out,)
         return self.loss_fn(*out, *labels).float()
 
+    def _resolve(self) -> None:
+        """Pick up the plan or mesh (the installed plan when neither is
+        given) and build the data-parallel state when the data axis has
+        more than one rank."""
+        self._resolved = True
+        plan, mesh = self.plan, self.mesh
+        if plan is None and mesh is None and self.param_rules is None:
+            from .mesh.plan import current_plan
+            plan = current_plan()
+        if plan is not None:
+            from .mesh.plan import ShardingPlan
+            if not isinstance(plan, ShardingPlan):
+                plan = ShardingPlan(plan)
+            self.plan, mesh = plan, plan.mesh
+            self.mesh = mesh
+        if mesh is None:
+            if self.param_rules is not None or self.batch_spec is not None:
+                raise ValueError("TrainStep: param_rules and batch_spec "
+                                 "need a mesh or a plan")
+            return
+        self._dp = _DataParallelStep.build(self, mesh, plan)
+
     def __call__(self, inputs, labels) -> torch.Tensor:
+        if not self._resolved:
+            self._resolve()
         inputs = _as_tensors(inputs, self._device)
         labels = _as_tensors(labels, self._device)
+        dp = self._dp
+        if dp is not None:
+            dp.check_batch(inputs, labels)
+            from .layers.helper import generator_scope
+            scope = generator_scope(dp.seed_for(self._lr_step))
+        else:
+            import contextlib
+            scope = contextlib.nullcontext()
         self.model.train()
         k = self.grad_accum_steps
         self.optimizer.clear_grad()
         buffers = list(self.model.buffers())
         start = [b.clone() for b in buffers] if k > 1 else []
         losses = []
-        for i in range(k):
-            if i:
-                # each microbatch moves the running statistics from the
-                # step's starting ones; the last one's are kept
-                with torch.no_grad():
-                    for b, b0 in zip(buffers, start):
-                        b.copy_(b0)
-            loss = self._loss(_microbatch(inputs, k, i),
-                              _microbatch(labels, k, i))
-            loss.backward()
-            losses.append(loss.detach())
-        if k > 1:
-            with torch.no_grad():
-                for p in self.optimizer.parameters:
-                    if p.grad is not None:
-                        p.grad.mul_(1.0 / k)
+        acc = None
+        with scope:
+            for i in range(k):
+                if i:
+                    # each microbatch moves the running statistics from
+                    # the step's starting ones; the last one's are kept
+                    with torch.no_grad():
+                        for b, b0 in zip(buffers, start):
+                            b.copy_(b0)
+                loss = self._loss(_microbatch(inputs, k, i),
+                                  _microbatch(labels, k, i))
+                loss.backward()
+                losses.append(loss.detach())
+                if dp is not None and dp.per_microbatch:
+                    # the synchronous oracle: exchange every microbatch
+                    g = dp.exchange(self.optimizer.parameters)
+                    self.optimizer.clear_grad()
+                    acc = g if acc is None else [a + b
+                                                 for a, b in zip(acc, g)]
+        with torch.no_grad():
+            if acc is not None:
+                for p, a in zip(self.optimizer.parameters, acc):
+                    p.grad = a * (1.0 / k) if k > 1 else a
+            else:
+                if k > 1:
+                    for p in self.optimizer.parameters:
+                        if p.grad is not None:
+                            p.grad.mul_(1.0 / k)
+                if dp is not None:
+                    for p, g in zip(self.optimizer.parameters,
+                                    dp.exchange(self.optimizer.parameters)):
+                        p.grad = g
         self.optimizer._apply(self._lr_step)
         self._lr_step += 1
         self.optimizer.clear_grad()
-        return losses[0] if k == 1 else torch.stack(losses).mean()
+        loss = losses[0] if k == 1 else torch.stack(losses).mean()
+        if dp is not None:
+            dp.average_buffers(buffers)
+            loss = dp.mean_over_ranks(loss)
+        return loss
+
+
+def _refuse_tensor_parallel(step: "TrainStep") -> None:
+    """Raise naming A6 for a mesh, plan, param rule or batch spec that
+    goes past the data axis."""
+    from .mesh.plan import ShardingPlan, _spec_tuple, is_sharded
+    from .mesh.spec import MeshSpec, check_data_only, spec_of
+    from .parallel.env import DP_AXIS
+    for what in (step.mesh, step.plan):
+        if what is None or isinstance(what, ShardingPlan):
+            continue
+        check_data_only(spec_of(what) if hasattr(what, "mesh_dim_names")
+                        else what if isinstance(what, MeshSpec)
+                        else MeshSpec(what))
+    rule = step.param_rules
+    if rule is not None:
+        for n, t in _named_state(step.model).items():
+            got = rule(n, tuple(t.shape)) if callable(rule) \
+                else dict(rule).get(n)
+            if is_sharded(_spec_tuple(getattr(got, "spec", got))):
+                raise NotImplementedError(
+                    f"TrainStep: param_rules shard {n!r}; tensor "
+                    "parallelism is not ported yet (ROADMAP.md A6)")
+    bs = _spec_tuple(step.batch_spec)
+    if any(e not in (None, DP_AXIS) for e in bs):
+        raise NotImplementedError(
+            f"TrainStep: batch_spec {bs} shards over another axis than "
+            f"{DP_AXIS!r} (ROADMAP.md A6)")
+
+
+class _DataParallelStep:
+    """What a data-parallel TrainStep adds to the plain one: the group's
+    size and rank, the bucket plan of ``FLAGS_collective_quant``, the
+    batch rule and the dropout generators' fold."""
+
+    def __init__(self, step: TrainStep, dp: int, plan, bare: bool):
+        from .flags import get_flag
+        from .mesh import collectives as coll
+        from .parallel.env import DP_AXIS, get_rank
+        mode = str(get_flag("FLAGS_collective_quant"))
+        if mode not in ("off", "fp32", "int8", "fp8"):
+            raise ValueError(f"FLAGS_collective_quant={mode!r}: expected "
+                             "off, fp32, int8 or fp8")
+        self.dp, self.rank, self.plan, self.bare = dp, get_rank(), plan, bare
+        self.mode = mode
+        self.per_microbatch = mode == "fp32"
+        self._last_len = None
+        params = step.optimizer.parameters
+        names = {id(p): n for n, p in _named_state(step.model).items()}
+        self.names = [names.get(id(p), str(i)) for i, p in enumerate(params)]
+        # the bucket plan of the last exchange (of the parameters whose
+        # gradients are dense: a sparse embedding's is gathered)
+        self.coll_plan: Optional[Any] = None
+        if mode == "off":
+            coll.retract_gauges()
+        # the replicas start from rank 0's state and its dropout base
+        from .layers.helper import default_generator
+        from .parallel import collective as C
+        base = torch.randint(0, 2 ** 62, (1,), dtype=torch.int64,
+                             generator=default_generator())
+        with torch.no_grad():
+            self.base = int(C.broadcast(base.to(step._device), 0,
+                                        axis=DP_AXIS).item())
+            for t in _named_state(step.model).values():
+                t.copy_(C.broadcast(t, 0, axis=DP_AXIS))
+
+    @staticmethod
+    def build(step: TrainStep, mesh, plan) -> Optional["_DataParallelStep"]:
+        from .flags import get_flag
+        from .mesh.spec import MeshSpec, check_data_only, spec_of
+        from .parallel.env import DP_AXIS
+        if isinstance(mesh, MeshSpec):
+            mesh = mesh.build()
+        spec = spec_of(mesh)
+        check_data_only(spec)
+        if plan is not None:
+            for n, t in _named_state(step.model).items():
+                plan.param_sharding(n, tuple(t.shape))
+        if str(get_flag("FLAGS_collective_quant_mp")) != "off":
+            raise NotImplementedError(
+                "FLAGS_collective_quant_mp: the wire of mesh-sharded "
+                "parameters is tensor parallelism, not ported yet "
+                "(ROADMAP.md A6)")
+        dp = spec.axis_size(DP_AXIS) if DP_AXIS in spec else 1
+        if dp <= 1:
+            return None
+        return _DataParallelStep(step, dp, plan, bare=plan is None)
+
+    def check_batch(self, inputs, labels) -> None:
+        """Under a plan, the input rule (an uneven local batch warns and
+        is replicated); under a bare mesh, the ranks' local batches must
+        be equal in length (checked when this rank's length changes)."""
+        vals = [x for x in tuple(inputs) + tuple(labels)
+                if x is not None and x.dim() > 0]
+        if not vals:
+            return
+        if not self.bare:
+            for i, x in enumerate(inputs):
+                if x is not None:
+                    self.plan.input_sharding("input%d" % i, tuple(x.shape))
+            return
+        n = int(vals[0].shape[0])
+        if n == self._last_len:
+            return
+        from .parallel import collective as C
+        lens = C.all_gather(torch.tensor([n], dtype=torch.int64,
+                                         device=vals[0].device)).tolist()
+        if len(set(lens)) != 1:
+            raise ValueError(
+                f"TrainStep: local batches of {lens} rows on the ranks; "
+                "under a mesh each rank feeds an equal shard (the global "
+                "batch must divide over the data axis)")
+        self._last_len = n
+
+    def seed_for(self, step: int) -> int:
+        """This rank's dropout seed for ``step``: its rank folded in, so
+        the ranks draw different masks on their different rows."""
+        return (self.base * 1000003 + step * 8191 + self.rank) % (2 ** 63)
+
+    def exchange(self, params) -> list:
+        """The mean over the ranks of every parameter's gradient (a
+        missing one counts as zeros), in the parameters' dtypes."""
+        from .mesh import collectives as coll
+        from .parallel.data_parallel import _sum_sparse
+        from .parallel.env import DP_AXIS
+        dense, out = {}, [None] * len(params)
+        for i, (n, p) in enumerate(zip(self.names, params)):
+            g = p.grad
+            if g is not None and g.is_sparse:
+                out[i] = _sum_sparse(g) * (1.0 / self.dp)
+            else:
+                dense[n] = g if g is not None else torch.zeros_like(p)
+        got = coll.average_grads(dense, DP_AXIS, mode=self.mode)
+        self.coll_plan = coll.plan_for(dense, DP_AXIS, mode=self.mode)
+        for i, (n, p) in enumerate(zip(self.names, params)):
+            if out[i] is None:
+                out[i] = got[n].to(p.dtype)
+        return out
+
+    def average_buffers(self, buffers) -> None:
+        from .parallel import collective as C
+        floats = [b for b in buffers if b.is_floating_point()]
+        if not floats:
+            return
+        flat = C.mean_over_ranks(torch.cat([b.detach().float().reshape(-1)
+                                            for b in floats]))
+        off = 0
+        with torch.no_grad():
+            for b in floats:
+                b.copy_(flat[off:off + b.numel()].reshape(b.shape))
+                off += b.numel()
+
+    @staticmethod
+    def mean_over_ranks(loss: torch.Tensor) -> torch.Tensor:
+        from .parallel import collective as C
+        return C.mean_over_ranks(loss.reshape(1)).reshape(())

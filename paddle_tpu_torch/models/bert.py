@@ -41,6 +41,16 @@ def bert_base_config() -> BertConfig:
     return BertConfig()
 
 
+def bert_large_config() -> BertConfig:
+    """BERT-large: 24 layers, hidden 1024, 16 heads, FFN 4096."""
+    return BertConfig(hidden_size=1024, num_hidden_layers=24,
+                      num_attention_heads=16, intermediate_size=4096)
+
+
+# ERNIE-large fine-tunes at BERT-large's widths (BASELINE config 5)
+ernie_large_config = bert_large_config
+
+
 class BertEmbeddings(Layer):
     """word + position + token-type embeddings, layer norm, dropout."""
 

@@ -5,8 +5,10 @@ paths call: ``stat_add``/``stat_get`` (counters), ``gauge_set``/
 ``gauge_get``, ``timer_observe``/``timer_get`` (latency histograms,
 microseconds by convention, with p50/p95 over a ring of the last 1024
 samples) and ``reset_all``. The instrument names are the reference's
-(``STAT_generation_*``, ``GAUGE_*``, ``TIMER_*``). Time windows, labels
-and exporters are not ported yet (``ROADMAP.md`` A7).
+(``STAT_generation_*``, ``GAUGE_*``, ``TIMER_*``), and ``labeled``
+composes a labeled series name (``STAT_mesh_collective_bytes{axis="dp",
+dtype="int8"}``) as the JAX package does. Time windows and exporters are
+not ported yet (``ROADMAP.md`` A7).
 """
 from __future__ import annotations
 
@@ -60,6 +62,25 @@ class _Timer:
 def stat_add(name: str, value: float = 1.0) -> None:
     with _LOCK:
         _STATS[name] = _STATS.get(name, 0.0) + float(value)
+
+
+def labeled(name: str, labels: Dict[str, str]) -> str:
+    """``name{k="v",...}`` with the keys sorted and the values escaped
+    (``paddle_tpu/monitor.py:labeled``)."""
+    if not labels:
+        return name
+    parts = []
+    for k in sorted(labels):
+        v = str(labels[k]).replace("\\", "\\\\") \
+            .replace('"', '\\"').replace("\n", "\\n")
+        parts.append('%s="%s"' % (k, v))
+    return "%s{%s}" % (name, ",".join(parts))
+
+
+def stats_with_prefix(prefix: str) -> Dict[str, float]:
+    """Every counter whose name starts with ``prefix``."""
+    with _LOCK:
+        return {k: v for k, v in _STATS.items() if k.startswith(prefix)}
 
 
 def stat_get(name: str) -> float:

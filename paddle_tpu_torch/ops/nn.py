@@ -209,8 +209,14 @@ def _batch_norm(ctx, ins, attrs):
              outputs=_BN_OUTS)
 def _sync_batch_norm(ctx, ins, attrs):
     # on one device the cross-rank batch norm is batch_norm, as in the JAX
-    # package; its reduction across ranks belongs to the distributed
-    # runtime (ROADMAP.md A6)
+    # package; its reduction across the ranks of a data-parallel group is
+    # not ported yet (ROADMAP.md A6) and raises rather than normalize each
+    # rank by its own rows
+    from ..parallel.env import group_of
+    if group_of("dp") is not None:
+        raise NotImplementedError(
+            "sync_batch_norm across the ranks of a data-parallel group is "
+            "not ported yet (ROADMAP.md A6)")
     return _batch_norm(ctx, ins, attrs)
 
 

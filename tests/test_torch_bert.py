@@ -287,7 +287,18 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "          'paddle_tpu_torch.ops.tensor_fns',\n"
         "          'paddle_tpu_torch.fluid.dataset',\n"
         "          'paddle_tpu_torch.fluid.data_feed_desc',\n"
-        "          'paddle_tpu_torch.fluid.data_generator'):\n"
+        "          'paddle_tpu_torch.fluid.data_generator',\n"
+        "          'paddle_tpu_torch.parallel',\n"
+        "          'paddle_tpu_torch.parallel.env',\n"
+        "          'paddle_tpu_torch.parallel.collective',\n"
+        "          'paddle_tpu_torch.parallel.data_parallel',\n"
+        "          'paddle_tpu_torch.mesh', 'paddle_tpu_torch.mesh.spec',\n"
+        "          'paddle_tpu_torch.mesh.plan',\n"
+        "          'paddle_tpu_torch.mesh.collectives',\n"
+        "          'paddle_tpu_torch.fleet',\n"
+        "          'paddle_tpu_torch.fleet.distributed_strategy',\n"
+        "          'paddle_tpu_torch.fleet.role_maker',\n"
+        "          'paddle_tpu_torch.fleet.launch'):\n"
         "    assert n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -418,10 +418,16 @@ def test_grad_accumulation_equals_the_whole_batch(reference):
 
 @pytest.mark.parametrize("what", ["mesh", "plan", "param_rules"])
 def test_train_step_sharding_is_not_ported_yet(reference, what):
+    # data parallelism is ported (tests/test_torch_dp_train.py); tensor
+    # parallelism, a mesh axis past the data axis or a rule that shards a
+    # parameter, still raises at construction
+    from paddle_tpu_torch.mesh import MeshSpec
     _, state = reference
+    value = {"mesh": MeshSpec("dp1xmp2"), "plan": "dp1xmp2",
+             "param_rules": lambda n, s: ("mp",) + (None,) * (len(s) - 1)}
     with pytest.raises(NotImplementedError, match="A6"):
         TrainStep(_port(state), tbert.pretraining_loss, Adam(LR),
-                  **{what: object()})
+                  **{what: value[what]})
 
 
 def test_load_reference_opt_state_continues_the_jax_run(reference):
