@@ -277,7 +277,23 @@ Phases, each printing its lines; any failure exits nonzero:
    ranks through ``fleet.init(is_collective=True)``, ``strategy.amp`` and
    ``CompiledProgram.with_data_parallel`` on form (d) at 2 layers against
    one rank of the whole feed; (iv) the kernels at ERNIE-large's shapes;
-15. one JSON line of kernel records, the card line, and last the result
+15. the parameter server ("[ps]" lines), BASELINE config 4's distributed
+   half at ``WideDeep()``'s widths (a 100,000 x 16 table on the pserver,
+   26 slots, 13 dense features, fc 400-400-400), ids Zipf(1.2): (i) one
+   pserver (tcp, CPU) and two trainer processes on the card, Downpour
+   sparse pull/push and the sync dense window, B=1024 each, 5 steps,
+   the mean of their losses against an in-process control at B=2048 on
+   the card, and the table's rows the same in both runs; (ii) trainer 0's
+   step split into recv, pull, barrier, host-to-device copy, dense (with
+   its device ms from CUDA events), push and send, its idle share and
+   bytes on the wire; (iii) ``HeterWorker.run_pipeline`` bitwise equal to
+   the serial ``DownpourWorker`` loop; (iv) a ``HeterService`` on the
+   card driven by a ``HeterCpuWorker`` process, its loss falling; (v)
+   ``tests/ps_runner.py``'s fc program transpiled by the port, two
+   pservers and two trainers on the card against the local run. The
+   processes are ``tests/torch_ps_runner.py``'s; no kernel of the seven
+   lies on this path, and the in-process runs' counts must stay 0;
+16. one JSON line of kernel records, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -8917,6 +8933,318 @@ def run_data_parallel(device, card):
     return total, recs
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the parameter server, BASELINE config 4's distributed half
+# ---------------------------------------------------------------------------
+
+# WideDeep()'s widths: a 100000 x 16 table on the pserver, 26 slots, 13
+# dense features, fc 400-400-400; B=1024 a trainer, ids Zipf(1.2)
+PS_CFG = dict(vocab=100000, dim=16, slots=26, dense=13, fc=[400, 400, 400],
+              b=1024, law="zipf")
+PS_STEPS = 5
+PS_HETER_STEPS = 6
+PS_HETER_BATCHES = 4
+# two trainers' half-batch gradients averaged by the pserver against the
+# full-batch gradient on one process: the same math in two summation
+# orders (fp32, TF32 off), the bound of tests/test_ps_transport.py
+PS_LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
+PS_CHILD_TIMEOUT_S = 300
+PS_TRAINER_DEVICE = "gpu"  # the runner processes' trainers
+
+
+def ps_runner():
+    """tests/torch_ps_runner.py, the processes of the parameter-server
+    tests (torch and the port only)."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests")
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import torch_ps_runner
+    return torch_ps_runner
+
+
+def _free_ports(n):
+    from paddle_tpu_torch.fleet.launch import _find_free_ports
+    return _find_free_ports(n)
+
+
+def ps_start(specs, env_extra):
+    """Start one runner process a (args, env) of ``specs``."""
+    runner = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "torch_ps_runner.py")
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for args, env in specs:
+        e = dict(os.environ)
+        e["PYTHONPATH"] = root + os.pathsep + e.get("PYTHONPATH", "")
+        e.update({k: str(v) for k, v in dict(env_extra, **env).items()})
+        procs.append(subprocess.Popen(
+            [sys.executable, runner] + list(args), env=e, cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def ps_children(specs, env_extra, procs=None):
+    """Each started child's stdout (started here unless ``procs`` are
+    given); every child ends within PS_CHILD_TIMEOUT_S or all are killed
+    and the phase fails."""
+    procs = procs or ps_start(specs, env_extra)
+    outs = []
+    try:
+        for (args, _), p in zip(specs, procs):
+            try:
+                out, err = p.communicate(timeout=PS_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"[ps] {args} did not end in {PS_CHILD_TIMEOUT_S} s")
+            if p.returncode != 0:
+                fail(f"[ps] {args} exited {p.returncode}: {err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(5)
+    return outs
+
+
+def ps_line(out, tag):
+    for line in out.splitlines():
+        if line.startswith(tag + " "):
+            return json.loads(line[len(tag) + 1:])
+    fail(f"[ps] no {tag} line in {out[-2000:]}")
+
+
+def _kv_rows(path):
+    import pickle
+    with open(os.path.join(path, "emb.kv"), "rb") as f:
+        return pickle.load(f)["rows"]
+
+
+def run_ps_wire(device, card, tmp):
+    """(i) and (ii): the in-process control at the full batch, then one
+    pserver (tcp) and two trainers on the card; returns the control's
+    kernel counts."""
+    from paddle_tpu_torch.distributed import ParamServer
+    R = ps_runner()
+    cfg = dict(PS_CFG)
+    t0 = time.perf_counter()
+    model = R.ctr_model(cfg, device)
+    server = ParamServer(lr=R.LR)
+    reset_counts()
+    control = R.ctr_loop(server, 1, 0, server.apply_pending, model, cfg,
+                         device, steps=PS_STEPS)
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"[ps] the control launched kernels: {counts}")
+    say("ps", f"(i) in-process control, B={2 * cfg['b']}: losses "
+        + " ".join(f"{v:.6f}" for v in control) +
+        f" in {time.perf_counter() - t0:.1f} s  [{card}]")
+    local_rows = server.sparse["emb"]._rows
+    del model
+    t0 = time.perf_counter()
+    port, = _free_ports(1)
+    ep = f"127.0.0.1:{port}"
+    rec = os.path.join(tmp, "record.json")
+    env = dict(PS_CTR=json.dumps(cfg), PS_STEPS=PS_STEPS,
+               PS_ENDPOINTS=ep, PS_TRAINERS=2,
+               PS_DEVICE=PS_TRAINER_DEVICE)
+    outs = ps_children(
+        [(("ctr_pserver", ep), {}),
+         (("ctr_trainer", "0"), dict(PS_RECORD=rec,
+                                     PS_SAVE=os.path.join(tmp, "wire"))),
+         (("ctr_trainer", "1"), {})], env)
+    l0, l1 = ps_line(outs[1], "LOSSES"), ps_line(outs[2], "LOSSES")
+    mean = [(a + b) / 2 for a, b in zip(l0, l1)]
+    err = max(abs(a - b) for a, b in zip(mean, control))
+    bound = max(PS_LOSS_TOL["atol"] + PS_LOSS_TOL["rtol"] * abs(b)
+                for b in control)
+    say("ps", f"(i) 1 pserver + 2 trainers on the card, B={cfg['b']} "
+        f"each, {PS_STEPS} steps: mean losses "
+        + " ".join(f"{v:.6f}" for v in mean) +
+        f"; largest gap to the control {err:.3e} (bound "
+        f"{PS_LOSS_TOL['atol']:g} + {PS_LOSS_TOL['rtol']:g}|loss|); "
+        f"{time.perf_counter() - t0:.1f} s with the processes' start  "
+        f"[{card}]")
+    if not all(math.isfinite(v) for v in mean) or any(
+            abs(a - b) > PS_LOSS_TOL["atol"] + PS_LOSS_TOL["rtol"] * abs(b)
+            for a, b in zip(mean, control)):
+        fail(f"[ps] (i) losses {mean} against the control {control}")
+    wire_rows = _kv_rows(os.path.join(tmp, "wire"))
+    if sorted(wire_rows) != sorted(local_rows):
+        fail(f"[ps] (i) the pserver's table holds {len(wire_rows)} rows, "
+             f"the control's {len(local_rows)}")
+    gap = max(float(np.abs(wire_rows[r] - local_rows[r]).max())
+              for r in local_rows)
+    say("ps", f"(i) the table created the same {len(local_rows)} rows in "
+        f"both runs; their values within {gap:.3e}")
+    # (ii) trainer 0's step, split; the first step creates the rows
+    with open(rec) as f:
+        steps = json.load(f)["steps"][1:]
+    keys = ("recv", "pull", "pull_barrier", "h2d", "dense", "push",
+            "send", "send_barrier")
+    med = {k: float(np.median([st[k] for st in steps])) for k in keys}
+    total = float(np.median([sum(st[k] for k in keys) for st in steps]))
+    # (no CUDA events off the card: nan)
+    dev_ms = float(np.median([st.get("dense_device", math.nan)
+                              for st in steps]))
+    wire = float(np.median([st["wire_bytes"] for st in steps]))
+    say("ps", "(ii) trainer 0's step, median of steps 2-"
+        f"{PS_STEPS} (ms): " + ", ".join(f"{k} {med[k]:.2f}" for k in keys)
+        + f"; step {total:.2f}, dense device {dev_ms:.3f} (CUDA events), "
+        f"idle share {max(0.0, 1.0 - dev_ms / total):.3f}; "
+        f"{wire / 1e6:.3f} MB on the wire a step (sent + received, "
+        f"frames included)  [{card}]")
+    return counts
+
+
+def ps_step_fn(model, lr):
+    """The dense CTR step of (iii): forward from the rows, backward, SGD
+    on the dense parameters in place; (loss, row gradients)."""
+    params = [p for n, p in model.named_parameters()
+              if not n.startswith("embedding.")]
+
+    def step(rows, dense, y):
+        rows = rows.detach().requires_grad_(True)
+        loss = model.loss(model.forward_from_rows(rows, dense), y)
+        loss.backward()
+        with torch.no_grad():
+            for p in params:
+                p -= lr * p.grad
+                p.grad = None
+        return loss.detach(), rows.grad
+    return step
+
+
+def run_ps_heter(device, card):
+    """(iii) HeterWorker.run_pipeline against the serial DownpourWorker
+    loop on the card, bitwise; returns the kernel counts of both."""
+    from paddle_tpu_torch.distributed import (DownpourWorker, HeterWorker,
+                                              ParamServer)
+    R = ps_runner()
+    cfg = dict(PS_CFG)
+    span = cfg["vocab"] // PS_HETER_BATCHES
+    batches = []
+    for k in range(PS_HETER_BATCHES):
+        ids, dense, y = R.ctr_batch(cfg, k, 0, cfg["b"])
+        # each batch its own id range: a pull never waits on another
+        # batch's push of the same row, so pipelining changes nothing
+        batches.append((ids % span + k * span,
+                        torch.from_numpy(dense).to(device),
+                        torch.from_numpy(y).to(device)))
+    runs = {}
+    reset_counts()
+    for how in ("serial", "pipeline"):
+        model = R.ctr_model(cfg, device)
+        server = ParamServer()
+        server.create_sparse_table(R.sparse_cfg(cfg))
+        step = ps_step_fn(model, R.HETER_LR)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "serial":
+            w = DownpourWorker(server, "emb", device=device)
+            losses = [w.train_batch(ids, step, d, y)
+                      for ids, d, y in batches]
+        else:
+            losses = HeterWorker(server, "emb", depth=2,
+                                 device=device).run_pipeline(batches, step)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        all_ids = np.concatenate([b[0].ravel() for b in batches])
+        runs[how] = ([float(v) for v in losses],
+                     server.pull_sparse("emb", all_ids), ms)
+    counts = read_counts()
+    same = runs["serial"][0] == runs["pipeline"][0] and \
+        np.array_equal(runs["serial"][1], runs["pipeline"][1])
+    say("ps", f"(iii) HeterWorker.run_pipeline against the serial loop, "
+        f"{PS_HETER_BATCHES} batches of {cfg['b']} on disjoint id ranges: "
+        "losses " + " ".join(f"{v:.6f}" for v in runs["pipeline"][0]) +
+        f"; bitwise equal losses and table: {same}; "
+        f"{runs['serial'][2]:.1f} ms serial, {runs['pipeline'][2]:.1f} ms "
+        f"pipelined  [{card}]")
+    if not same:
+        fail(f"[ps] (iii) pipeline {runs['pipeline'][0]} against serial "
+             f"{runs['serial'][0]}")
+    return counts
+
+
+def run_ps_service(device, card):
+    """(iv) a HeterService on the card driven by a HeterCpuWorker
+    process; returns the kernel counts of the service's steps."""
+    from paddle_tpu_torch.distributed import HeterService
+    R = ps_runner()
+    cfg = dict(PS_CFG)
+    model = R.ctr_model(cfg, device)
+    svc = HeterService(R.heter_dense_fn(model, device),
+                       ["loss", "row_grads"]).start()
+    reset_counts()
+    t0 = time.perf_counter()
+    out, = ps_children([(("heter_worker", svc.endpoint), {})],
+                       dict(PS_CTR=json.dumps(cfg), PS_STEPS=PS_HETER_STEPS,
+                            PS_DEVICE="cpu"))
+    counts = read_counts()
+    losses = ps_line(out, "LOSSES")
+    say("ps", f"(iv) HeterService on the card, a HeterCpuWorker process "
+        f"(no device) at B={2 * cfg['b']}: losses "
+        + " ".join(f"{v:.6f}" for v in losses) +
+        f" in {time.perf_counter() - t0:.1f} s  [{card}]")
+    if not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        fail(f"[ps] (iv) the service's losses did not fall: {losses}")
+    return counts
+
+
+def start_ps_transpiled():
+    """(v)'s processes: tests/ps_runner.py's fc program transpiled by the
+    port, two pservers (CPU executors) and two trainers on the card, and
+    the local run on the card."""
+    ports = _free_ports(2)
+    eps = ",".join(f"127.0.0.1:{p}" for p in ports)
+    env = dict(PS_ENDPOINTS=eps, PS_TRAINERS=2,
+               PS_DEVICE=PS_TRAINER_DEVICE)
+    specs = ([(("local",), {})] +
+             [(("pserver", ep), {}) for ep in eps.split(",")] +
+             [(("trainer", str(i)), {}) for i in range(2)])
+    return specs, env, ps_start(specs, env), time.perf_counter()
+
+
+def run_ps_transpiled(card, started):
+    """(v) the trainers' mean losses against the local run's."""
+    specs, env, procs, t0 = started
+    outs = ps_children(specs, env, procs)
+    ref = ps_line(outs[0], "LOSSES")
+    l0, l1 = ps_line(outs[3], "LOSSES"), ps_line(outs[4], "LOSSES")
+    syncs = ps_line(outs[3], "HOST_SYNCS")
+    mean = [(a + b) / 2 for a, b in zip(l0, l1)]
+    err = max(abs(a - b) for a, b in zip(mean, ref))
+    say("ps", "(v) the fc program transpiled: 2 pservers + 2 trainers on "
+        "the card, mean losses " + " ".join(f"{v:.6f}" for v in mean) +
+        " against local " + " ".join(f"{v:.6f}" for v in ref) +
+        f": largest gap {err:.3e}; host syncs a trainer step {syncs}; "
+        f"{time.perf_counter() - t0:.1f} s, beside (iv)  [{card}]")
+    if any(abs(a - b) > PS_LOSS_TOL["atol"] + PS_LOSS_TOL["rtol"] * abs(b)
+           for a, b in zip(mean, ref)) or not mean[-1] < mean[0]:
+        fail(f"[ps] (v) transpiled losses {mean} against local {ref}")
+
+
+def run_ps(device, card):
+    """Phase 15. Returns the kernel counts of its in-process runs (no
+    kernel of the seven lies on the parameter server's path)."""
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        counts = run_ps_wire(device, card, tmp.name)
+        more = [run_ps_heter(device, card)]
+        # (v)'s processes start while (iv) runs
+        started = start_ps_transpiled()
+        more.append(run_ps_service(device, card))
+        run_ps_transpiled(card, started)
+        for m in more:
+            counts = {k: counts[k] + m[k] for k in counts}
+    finally:
+        tmp.cleanup()
+    if any(counts.values()):
+        fail(f"[ps] the parameter server's path launched kernels: {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -9121,10 +9449,18 @@ def main() -> int:
     t0 = time.perf_counter()
     dp_counts, _ = run_data_parallel(device, card)
     say("dp", f"phase 14 in {time.perf_counter() - t0:.1f} s  [{card}]")
-    late_counts = {k: sparse_counts[k] + front_counts[k] + dp_counts[k]
-                   for k in sparse_counts}
 
-    # -- 15. records: launches are the serving, training, recipe, static,
+    # -- 15. the parameter server: the counts of its in-process runs (the
+    # control, the heter pipeline and the service's steps; no kernel of
+    # the seven lies on them) set to 0 just before each, read after
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ps_counts = run_ps(device, card)
+    say("ps", f"phase 15 in {time.perf_counter() - t0:.1f} s  [{card}]")
+    late_counts = {k: sparse_counts[k] + front_counts[k] + dp_counts[k] +
+                   ps_counts[k] for k in sparse_counts}
+
+    # -- 16. records: launches are the serving, training, recipe, static,
     # generation (chunked fp32 and int8 KV, two-phase, the two drafters'
     # runs, int8 and fp8 weights),
     # inference, artifact, static-training, sparse/control-flow,

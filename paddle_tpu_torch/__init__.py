@@ -32,7 +32,9 @@ Data parallelism: ``parallel`` (the process group, one rank a process:
 ``mesh`` (``MeshSpec``, ``ShardingPlan`` and the bucketed fp32/int8/fp8
 gradient wire), ``fleet`` in collective mode and ``fleet.launch``;
 ``jit.TrainStep(mesh=...)`` and ``CompiledProgram.with_data_parallel``
-train on it.
+train on it. The parameter server: ``distributed`` (the sparse tables,
+the wire, the Downpour and heter workers), ``transpiler``
+(``DistributeTranspiler``), the PS ops and ``fleet``'s PS runtime.
 ``Tensor`` is ``torch.Tensor``. A top-level name of the JAX package that
 the port lacks raises ``NotPortedError`` naming its ``ROADMAP.md`` queue.
 """
@@ -55,6 +57,8 @@ from . import generation, inference, quant, serving  # noqa: F401
 from . import contrib, fluid  # noqa: F401
 from . import amp, compiler, dataset, reader, tensor  # noqa: F401
 from . import fleet, mesh, parallel  # noqa: F401
+from . import distributed, transpiler  # noqa: F401
+from .transpiler import DistributeTranspiler  # noqa: F401
 from .parallel import DataParallel  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
@@ -101,7 +105,6 @@ no_grad_ = no_grad
 # the top-level names of the JAX package the port lacks, by ROADMAP.md
 # queue: its builders and modules that later queues bring
 _QUEUES = {
-    "A6": ("distributed", "transpiler", "DistributeTranspiler"),
     "A8": ("crop_tensor", "has_inf", "has_nan", "is_empty", "multiplex",
            "rank", "scatter_nd", "shard_index", "stanh", "unbind",
            "create_global_var", "create_parameter", "load_op_library",

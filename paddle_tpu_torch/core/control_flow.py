@@ -77,7 +77,8 @@ def _sub_ctx(ctx: LowerCtx) -> LowerCtx:
     if gen is not None:
         seed = int(torch.randint(0, 2 ** 62, (), generator=gen))
         sub = torch.Generator().manual_seed(seed)
-    return LowerCtx(ctx.device, is_test=ctx.is_test, generator=sub)
+    return LowerCtx(ctx.device, is_test=ctx.is_test, generator=sub,
+                    on_sync=ctx.on_sync)
 
 
 def _run_ops(exe, program, block, env, ctx) -> None:

@@ -41,7 +41,8 @@ The structural ops (``while``, ``conditional_block``,
 ``cond_block_pair``, ``static_rnn`` and the tensor arrays) run their
 sub-blocks through ``_lower_one`` (``core/control_flow.py``); a predicate
 that one reads on the host is counted in ``host_syncs``, the reads of the
-last run.
+last run, as is each card tensor that a parameter-server op
+(``ops/distributed_ps.py``) reads on the host (``LowerCtx.to_host``).
 
 ``return_numpy="lazy"`` returns ``FetchHandle`` objects
 (``core/fetch.py``) that read back on first use, and a fetch that shares
@@ -155,7 +156,8 @@ class Executor:
         # segments' ops in its backward
         self.lowered: collections.Counter = collections.Counter()
         self.recomputed: collections.Counter = collections.Counter()
-        # the predicates read on the host in the last run
+        # the predicates and host ops' inputs read on the host in the
+        # last run
         self.host_syncs = 0
         # (program id, version) already checked for unused vars
         self._unused_checked = set()
@@ -266,6 +268,9 @@ class Executor:
                 ", ".join("%s (by %s)" % (n, produced[n])
                           for n in unused[:20]))
 
+    def _count_host_sync(self) -> None:
+        self.host_syncs += 1
+
     def _host_pred(self, x) -> bool:
         """A structural op's predicate, read on the host (a sync on the
         card), counted in ``host_syncs``."""
@@ -300,7 +305,8 @@ class Executor:
                 seed = self._seed_counter
             gen = torch.Generator().manual_seed(int(seed))
             scope.set(RNG_VAR, gen)
-        return env, state, LowerCtx(self.device, generator=gen)
+        return env, state, LowerCtx(self.device, generator=gen,
+                                    on_sync=self._count_host_sync)
 
     def _run_block(self, program: Program, env: Dict[str, Any],
                    ctx: LowerCtx, keep=frozenset()) -> None:

@@ -23,16 +23,13 @@ Arrays = Dict[str, List[Any]]  # slot -> list of tensors
 LowerFn = Callable[["LowerCtx", Arrays, Dict[str, Any]], Arrays]
 
 # the queues of ROADMAP.md that hold the ops not lowered yet: the rest of
-# the distributed family (the parameter server's ops, DGC; the collectives
-# are lowered in parallel/collective.py) goes with the distributed runtime
-# (A6), every other op with the long tail (A8); the static path's queue
-# (A2b) is closed
-_A6_PREFIXES = ("c_", "send", "recv", "distributed_", "pull_", "push_",
-                "lookup_sparse_table", "dgc", "listen_and_serv",
-                "fl_listen_and_serv", "gen_nccl_id")
-_A6_OPS = frozenset(("allreduce", "barrier", "broadcast", "checkpoint_notify",
-                     "fetch_barrier", "merge_ids", "prefetch",
-                     "ref_by_trainer_id", "split_ids", "sync_batch_norm"))
+# the distributed family (DGC; the collectives are lowered in
+# parallel/collective.py, the parameter server's ops in
+# ops/distributed_ps.py) goes with the distributed runtime (A6), every
+# other op with the long tail (A8); the static path's queue (A2b) is closed
+_A6_PREFIXES = ("c_", "dgc")
+_A6_OPS = frozenset(("allreduce", "barrier", "broadcast", "gen_nccl_id",
+                     "sync_batch_norm"))
 
 
 def queue_of(op_type: str) -> str:
@@ -46,14 +43,29 @@ class LowerCtx:
     """What a lowering may read besides its inputs: the device its
     outputs live on, ``is_test``, and an explicit CPU ``torch.Generator``
     (in place of the JAX package's key chain) from which the random ops
-    draw, in float32 on the CPU, before moving the values to the device."""
+    draw, in float32 on the CPU, before moving the values to the device.
+    A host op (the parameter server's) reads its inputs with ``to_host``,
+    which reports each read of a card tensor to ``on_sync`` (the executor
+    counts them in ``host_syncs``)."""
 
     def __init__(self, device=None, is_test: bool = False,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, on_sync=None):
         self.device = torch.device("cpu") if device is None else \
             torch.device(device)
         self.is_test = is_test
         self._generator = generator
+        self.on_sync = on_sync
+
+    def to_host(self, x):
+        """``x`` as a host numpy array; a tensor on the card is copied out,
+        one read that waits on it, reported to ``on_sync``."""
+        from ..device import to_host
+        return to_host(x, self.on_sync)
+
+    def to_device(self, a) -> torch.Tensor:
+        """A host array as a tensor on the lowering's device."""
+        import numpy as np
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def rng(self) -> torch.Generator:
         if self._generator is None:

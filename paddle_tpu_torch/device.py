@@ -73,6 +73,21 @@ def get_device() -> str:
     return _DEVICE
 
 
+def to_host(x, on_sync=None):
+    """``x`` as a host numpy array: a tensor on the card is copied out (a
+    read that waits on the card, reported to ``on_sync``), a CPU tensor is
+    viewed, anything else goes through ``np.asarray``."""
+    import numpy as np
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.device.type != "cpu":
+            if on_sync is not None:
+                on_sync()
+            x = x.cpu()
+        return x.numpy()
+    return np.asarray(x)
+
+
 def resolve(device: DeviceLike = None) -> torch.device:
     """The torch.device for ``device``, or for the default when it is None."""
     return _parse(_DEVICE if device is None else device)

@@ -1,4 +1,4 @@
-"""Fleet: the distributed-training facade, in collective mode.
+"""Fleet: the distributed-training facade.
 
 Counterpart of ``paddle_tpu/fleet/__init__.py``: ``init`` (the role maker
 and strategy; in collective mode under the env contract of more than one
@@ -7,8 +7,18 @@ rank, ``parallel.init_parallel_env`` forms the group), the role queries,
 the save passthroughs. In the chain, ``strategy.amp`` wraps the optimizer
 with ``contrib.mixed_precision.decorate`` as in the JAX package; lamb,
 lars, dgc, gradient_merge, recompute, localsgd and pipeline raise, as do
-the parameter-server runtime (``init_server``, ``init_worker``...), the
-meta-optimizer classes, ``fs`` and ``metrics``: ``ROADMAP.md`` A6.
+the meta-optimizer classes, ``fs`` and ``metrics``: ``ROADMAP.md`` A6.
+
+The parameter-server runtime, under the role maker's env
+(``fleet.launch --server_num``): on a PSERVER, ``init_server`` makes the
+``ParamServer`` and ``run_server`` hosts it at this server's endpoint
+(``distributed/rpc.py``) until every trainer has completed (or died, or
+one sent STOP); on a TRAINER with pserver endpoints, ``init_worker``
+starts a communicator over one channel to each pserver (sync, async, or
+geo by the strategy's ``a_sync`` and ``a_sync_configs``), and
+``stop_worker`` stops it and tells the pservers this trainer completed.
+Without pserver endpoints the server is in-process, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -21,7 +31,7 @@ from .role_maker import (PaddleCloudRoleMaker, Role, RoleMakerBase,
 
 __all__ = ["init", "is_worker", "is_server", "is_first_worker",
            "worker_index", "worker_num", "server_num", "init_worker",
-           "init_server", "stop_worker", "distributed_optimizer",
+           "init_server", "run_server", "stop_worker", "barrier_worker", "distributed_optimizer",
            "minimize", "DistributedStrategy", "PaddleCloudRoleMaker",
            "UserDefinedRoleMaker", "Fleet", "fleet", "Role"]
 
@@ -40,6 +50,9 @@ class Fleet:
         self._role_maker: Optional[RoleMakerBase] = None
         self._strategy: Optional[DistributedStrategy] = None
         self._inner_opt = None
+        self._server = None
+        self._communicator = None
+        self._ps_client = None
 
     def init(self, role_maker: Optional[RoleMakerBase] = None,
              is_collective: bool = False,
@@ -86,19 +99,79 @@ class Fleet:
         return ",".join(eps) if to_string else eps
 
     # the parameter-server runtime
+    def _pservers(self):
+        return self._rm().get_pserver_endpoints()
+
     def init_server(self, *args, **kw):
-        raise _a6("the parameter-server runtime (init_server)")
+        """The pserver's ``ParamServer`` (made once)."""
+        from ..distributed import ParamServer
+        if self._server is None:
+            self._server = ParamServer()
+        return self._server
 
     def run_server(self):
-        raise _a6("the parameter-server runtime (run_server)")
+        """On a PSERVER with endpoints: serve at this server's endpoint
+        until every trainer completed or dropped (or one sent STOP), then
+        stop. In-process: return the server."""
+        import time
+        from ..distributed.rpc import PsServer
+        rm = self._rm()
+        server = self.init_server()
+        eps = self._pservers()
+        if not (rm.is_server() and eps):
+            return server
+        n = rm.worker_num()
+        srv = PsServer(server, endpoint=eps[rm.server_index()],
+                       n_trainers=n).start()
+        while not srv._stop.is_set() and srv.completed + srv.dropped < n:
+            time.sleep(0.05)
+        srv.stop()
+        return server
 
     def init_worker(self):
-        raise _a6("the parameter-server runtime (init_worker)")
+        """Start the communicator chosen by the strategy (geo when
+        ``a_sync`` with ``a_sync_configs["geo_sgd_mode"]``, async when
+        ``a_sync``, else sync) over the pservers of the env, or over the
+        in-process server."""
+        from ..distributed import (AsyncCommunicator, GeoCommunicator,
+                                   SyncCommunicator)
+        eps = self._pservers() if self._rm().is_worker() else []
+        if eps:
+            from ..distributed.rpc import wait_for_endpoints
+            from ..ops.distributed_ps import get_ps_client
+            wait_for_endpoints(eps)
+            self._ps_client = get_ps_client(eps)
+            server = self._ps_client
+        else:
+            server = self.init_server()
+        st = self._strategy or DistributedStrategy()
+        if st.a_sync and st.a_sync_configs.get("geo_sgd_mode"):
+            self._communicator = GeoCommunicator(
+                server, trainer_push_step=st.a_sync_configs.get(
+                    "geo_sgd_need_push_nums", 100))
+        elif st.a_sync:
+            self._communicator = AsyncCommunicator(server)
+        else:
+            self._communicator = SyncCommunicator(server)
+        self._communicator.start()
+        return self._communicator
 
     def stop_worker(self):
-        raise _a6("the parameter-server runtime (stop_worker)")
+        """Stop the communicator (its queues drained and sent) and tell
+        the pservers this trainer completed."""
+        if self._communicator is not None:
+            self._communicator.stop()
+            self._communicator = None
+        if self._ps_client is not None:
+            self._ps_client.complete()
+            self._ps_client = None
 
     def barrier_worker(self):
+        """The communicator's barrier (its queues drained) in the
+        parameter-server mode; the collective barrier otherwise."""
+        if self._communicator is not None:
+            self._communicator.barrier()
+            return
         from ..parallel import collective
         collective.barrier()
 
@@ -117,8 +190,6 @@ class Fleet:
         on = [f for f in _A6_FLAGS if getattr(st, f)]
         if on:
             raise _a6("strategy %s (its meta-optimizers)" % on)
-        if st.a_sync:
-            raise _a6("strategy.a_sync (the parameter server)")
         opt = self._inner_opt
         if st.amp:
             from ..contrib import mixed_precision as mp
@@ -167,7 +238,9 @@ worker_num = fleet.worker_num
 server_num = fleet.server_num
 init_worker = fleet.init_worker
 init_server = fleet.init_server
+run_server = fleet.run_server
 stop_worker = fleet.stop_worker
+barrier_worker = fleet.barrier_worker
 distributed_optimizer = fleet.distributed_optimizer
 minimize = fleet.minimize
 

@@ -4,9 +4,10 @@ Counterpart of ``paddle_tpu/fleet/distributed_strategy.py``: the same
 fields and defaults (amp, recompute, gradient_merge, localsgd, dgc, lamb,
 lars, pipeline, a_sync/geo, the all-reduce fusion knobs) as plain
 attributes, serialized by ``to_dict``/``from_dict``. In the port's
-collective mode ``fleet`` applies ``amp``; the other meta-optimizers and
-the parameter-server fields raise when ``minimize`` meets them
-(``ROADMAP.md`` A6).
+collective mode ``fleet`` applies ``amp``, and the other meta-optimizers
+raise when ``minimize`` meets them (``ROADMAP.md`` A6); ``a_sync`` and
+``a_sync_configs`` choose the parameter server's communicator
+(``fleet.init_worker``).
 """
 from __future__ import annotations
 

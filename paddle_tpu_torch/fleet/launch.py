@@ -1,16 +1,22 @@
 """Process launcher: ``python -m paddle_tpu_torch.fleet.launch
---nproc_per_node N train.py args...``.
+--nproc_per_node N train.py args...`` or ``--server_num S --worker_num W``.
 
-Counterpart of ``paddle_tpu/fleet/launch.py``'s collective mode
-(``launch_collective`` :37): N processes, one rank each, under the
-cluster env contract (``TRAINING_ROLE``, ``PADDLE_TRAINER_ID``,
+Counterpart of ``paddle_tpu/fleet/launch.py``. Collective mode
+(``launch_collective``): N processes, one rank each, under the cluster env
+contract (``TRAINING_ROLE``, ``PADDLE_TRAINER_ID``,
 ``PADDLE_TRAINERS_NUM``, ``PADDLE_TRAINER_ENDPOINTS`` on free ports,
 ``PADDLE_CURRENT_ENDPOINT``, ``FLAGS_selected_devices`` the rank's card),
-which ``parallel.init_parallel_env`` reads. A watchdog polls the ranks
+which ``parallel.init_parallel_env`` reads. Parameter-server mode
+(``launch_ps``): S pserver processes (``TRAINING_ROLE=PSERVER``,
+``POD_IP``, ``PADDLE_PORT`` on a free port, ``PADDLE_PSERVERS_IP_PORT_LIST``,
+``PADDLE_TRAINERS_NUM``) and W trainers (``TRAINING_ROLE=TRAINER``,
+``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM``,
+``PADDLE_PSERVERS_IP_PORT_LIST``), which ``fleet``'s role maker reads; the
+trainers share the machine's card. A watchdog polls the processes
 (``launch_utils``' TrainerProc loop): when one fails it ends the others
 and returns its code; all succeeding returns 0. ``--log_dir`` writes each
-rank's output to ``workerlog.<rank>``. The parameter-server mode
-(``--server_num``, ``launch_ps``) is not ported yet (``ROADMAP.md`` A6).
+process's output to ``workerlog.<rank>`` (``serverlog.<i>`` for a
+pserver).
 """
 from __future__ import annotations
 
@@ -68,10 +74,45 @@ def launch_collective(args, extra: List[str]) -> int:
                 log.close()
 
 
+def _start(args, extra, env_extra, log_name, logs):
+    env = dict(os.environ)
+    env.update(env_extra)
+    log = open(os.path.join(args.log_dir, log_name), "w") \
+        if args.log_dir else None
+    logs.append(log)
+    return subprocess.Popen(
+        [sys.executable, args.training_script] + extra, env=env,
+        stdout=log, stderr=subprocess.STDOUT if log else None)
+
+
 def launch_ps(args, extra: List[str]) -> int:
-    raise NotImplementedError(
-        "fleet.launch --server_num: the parameter-server mode is not "
-        "ported yet (ROADMAP.md A6)")
+    ns, nw = args.server_num, args.worker_num
+    sports = _find_free_ports(ns)
+    server_eps = ",".join("127.0.0.1:%d" % p for p in sports)
+    procs, logs = [], []
+    if args.log_dir:
+        os.makedirs(args.log_dir, exist_ok=True)
+    for i in range(ns):
+        procs.append(_start(args, extra, {
+            "TRAINING_ROLE": "PSERVER",
+            "POD_IP": "127.0.0.1",
+            "PADDLE_PORT": str(sports[i]),
+            "PADDLE_PSERVERS_IP_PORT_LIST": server_eps,
+            "PADDLE_TRAINERS_NUM": str(nw),
+        }, "serverlog.%d" % i, logs))
+    for rank in range(nw):
+        procs.append(_start(args, extra, {
+            "TRAINING_ROLE": "TRAINER",
+            "PADDLE_TRAINER_ID": str(rank),
+            "PADDLE_TRAINERS_NUM": str(nw),
+            "PADDLE_PSERVERS_IP_PORT_LIST": server_eps,
+        }, "workerlog.%d" % rank, logs))
+    try:
+        return _watchdog(procs)
+    finally:
+        for log in logs:
+            if log is not None:
+                log.close()
 
 
 def _end(procs, grace_s: float = 5.0) -> None:

@@ -78,6 +78,9 @@ class PaddleCloudRoleMaker(RoleMakerBase):
             me = "%s:%s" % (ip, port)
             self._current_id = self._server_endpoints.index(me) \
                 if me in self._server_endpoints else 0
+            # the trainers this server counts at its barrier
+            self._worker_endpoints = ["127.0.0.1:0"] * int(
+                os.environ.get("PADDLE_TRAINERS_NUM", 1))
         elif training_role == "HETER_TRAINER":
             self._role = Role.HETER_WORKER
             self._current_id = int(os.environ.get("PADDLE_TRAINER_ID", 0))

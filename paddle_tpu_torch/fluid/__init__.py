@@ -5,8 +5,10 @@ Counterpart of ``paddle_tpu/fluid/``: Program, Executor and the scope,
 ``contrib`` (static mixed precision), ``DataFeeder`` (ragged fields
 padded through ``LoDTensor``), ``LoDTensor``, ``lod_tensor``, ``input``
 (``embedding``, ``one_hot``), ``compiler`` (``CompiledProgram`` and its
-strategies), ``fleet`` (collective mode), ``dataset`` (with
-``DataFeedDesc`` and ``data_generator``) and the places, so
+strategies), ``fleet``, ``dataset`` (with ``DataFeedDesc`` and
+``data_generator``), the parameter server's ``transpiler``
+(``DistributeTranspiler``), ``trainer_desc`` (``TrainerDesc``),
+``distribute_lookup_table`` and the places, so
 that a Fluid static-graph program such as ``examples/fluid_mnist.py``
 runs on the port as written. ``CPUPlace()`` is the CPU and
 ``CUDAPlace(n)`` card n; ``Executor(place)`` runs there (the JAX
@@ -33,6 +35,12 @@ from ..layers.helper import ParamAttr  # noqa: F401
 from . import (clip, contrib, data_feeder, input, io,  # noqa: F401
                layers, lod_tensor, nets, optimizer, regularizer)
 from . import data_feed_desc, data_generator, dataset  # noqa: F401
+from . import distribute_lookup_table, trainer_desc  # noqa: F401
+from . import transpiler  # noqa: F401
+from ..distributed import (TrainerDesc as trainer_desc_cls,  # noqa: F401
+                           TrainerDesc)
+from ..transpiler import (DistributeTranspiler,  # noqa: F401
+                          DistributeTranspilerConfig)
 from .. import compiler, fleet  # noqa: F401
 from ..compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                         ExecutionStrategy)
@@ -74,11 +82,10 @@ _QUEUES = {
            # the mode switches go with to_static and dygraph_to_static
            "enable_dygraph", "disable_dygraph", "enable_static",
            "disable_static", "in_dygraph_mode", "dygraph"),
-    "A6": ("ParallelExecutor", "parallel_executor", "DistributeTranspiler",
-           "DistributeTranspilerConfig", "transpiler",
-           "TrainerDesc", "trainer_desc", "trainer_desc_cls",
-           "distribute_lookup_table", "incubate"),
-    "A7": ("profiler",),
+    "A6": ("ParallelExecutor", "parallel_executor"),
+    # fluid.incubate holds incubate/checkpoint, which waits on A7's
+    # failpoints and monitor windows
+    "A7": ("profiler", "incubate"),
 }
 _QUEUE_OF = {n: q for q, names in _QUEUES.items() for n in names}
 

@@ -34,6 +34,7 @@ __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "reduce_any", "reduce_all",
            "relu", "sigmoid", "tanh", "gelu", "exp", "sqrt", "abs", "square", "log", "softsign", "erf",
            "softmax", "softmax_with_cross_entropy", "cross_entropy",
+           "square_error_cost",
            "accuracy", "topk", "mean", "concat",
            "reshape", "transpose", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_max",
@@ -338,6 +339,17 @@ def accuracy(input: VarDesc, label: VarDesc, k: int = 1,
                               "Correct": [correct.name],
                               "Total": [total.name]})
     return acc
+
+
+def square_error_cost(input: VarDesc, label: VarDesc,
+                      name: Optional[str] = None) -> VarDesc:
+    """(input - label)^2 elementwise."""
+    helper = LayerHelper("square_error_cost", name)
+    out = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op("square_error_cost",
+                     inputs={"X": [input.name], "Y": [label.name]},
+                     outputs={"Out": [out.name]})
+    return out
 
 
 def mean(x: VarDesc, name: Optional[str] = None) -> VarDesc:

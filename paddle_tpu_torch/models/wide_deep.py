@@ -1,18 +1,23 @@
-"""Wide&Deep CTR, the local network: BASELINE config 4's model.
+"""Wide&Deep CTR: BASELINE config 4's model.
 
 Counterpart of ``paddle_tpu/models/wide_deep.py``, with the same
 parameter names, shapes and defaults (a 100000 x 16 table, 26 sparse
 slots, 13 dense features, fc 400-400-400). ``distributed_embedding=``
-takes the table to use in place of the model's own, as there; built as
-``nn.Embedding(100000, 16, sparse=True)`` it gives the table a sparse
+takes the table to use in place of the model's own, as there: an
+``nn.Embedding(100000, 16, sparse=True)`` gives the table a sparse
 gradient (``core/selected_rows.py``), which the eager optimizers apply to
-the touched rows only. The parameter server that shards the table
-(``DistributedEmbedding``) waits for ``ROADMAP.md`` A6.
+the touched rows only, and a ``distributed.ShardedEmbedding`` shards it
+over a process group. On the parameter server (BASELINE config 4's
+distributed half) the table lives on the pservers instead: a trainer
+pulls the rows a batch touches (``distributed.DownpourWorker``) and runs
+``forward_from_rows`` on them. ``load_reference_params`` copies a JAX
+package model's parameters into the port's by name.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from .. import nn
@@ -60,3 +65,20 @@ class WideDeep(nn.Layer):
     def loss(self, logit, label):
         return F.binary_cross_entropy_with_logits(logit, label,
                                                   reduction="mean")
+
+
+def load_reference_params(model: WideDeep, reference) -> None:
+    """Copy the JAX package's ``WideDeep`` (``reference``) into ``model``:
+    each of its ``named_parameters()``, read on the host, into the port's
+    parameter of the same name (``jit.load_reference_state``: names and
+    shapes must agree). A ``ShardedEmbedding`` table loads from the JAX
+    one's ``dense_view()`` (``ShardedEmbedding.load_dense_view``)."""
+    from ..distributed.sharded_embedding import ShardedEmbedding
+    from ..jit import load_reference_state
+    state = {n: np.asarray(getattr(p, "value", p))
+             for n, p in reference.named_parameters()}
+    if isinstance(model.embedding, ShardedEmbedding):
+        model.embedding.load_dense_view(reference.embedding.dense_view())
+        state["embedding.table"] = \
+            model.embedding.table.detach().cpu().numpy()
+    load_reference_state(model, state)

@@ -113,6 +113,12 @@ def _cross_entropy2(ctx, ins, attrs):
             "MatchX": [picked]}
 
 
+@register_op("square_error_cost", inputs=("X", "Y"))
+def _square_error_cost(ctx, ins, attrs):
+    d = ins["X"][0] - ins["Y"][0]
+    return one(d * d)
+
+
 @register_op("softmax_with_cross_entropy", inputs=("Logits", "Label"),
              outputs=("Softmax", "Loss"), non_diff_inputs=("Label",))
 def _softmax_with_ce(ctx, ins, attrs):

@@ -298,7 +298,24 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "          'paddle_tpu_torch.fleet',\n"
         "          'paddle_tpu_torch.fleet.distributed_strategy',\n"
         "          'paddle_tpu_torch.fleet.role_maker',\n"
-        "          'paddle_tpu_torch.fleet.launch'):\n"
+        "          'paddle_tpu_torch.fleet.launch',\n"
+        "          'paddle_tpu_torch.distributed',\n"
+        "          'paddle_tpu_torch.distributed.large_scale_kv',\n"
+        "          'paddle_tpu_torch.distributed.communicator',\n"
+        "          'paddle_tpu_torch.distributed.rpc',\n"
+        "          'paddle_tpu_torch.distributed.ps_worker',\n"
+        "          'paddle_tpu_torch.distributed.heter_service',\n"
+        "          'paddle_tpu_torch.distributed.sharded_embedding',\n"
+        "          'paddle_tpu_torch.distributed.pslib_desc',\n"
+        "          'paddle_tpu_torch.distributed.multi_trainer',\n"
+        "          'paddle_tpu_torch.distributed.trainer_factory',\n"
+        "          'paddle_tpu_torch.transpiler',\n"
+        "          'paddle_tpu_torch.transpiler.distribute_transpiler',\n"
+        "          'paddle_tpu_torch.ops.distributed_ps',\n"
+        "          'paddle_tpu_torch.models.wide_deep',\n"
+        "          'paddle_tpu_torch.fluid.transpiler',\n"
+        "          'paddle_tpu_torch.fluid.trainer_desc',\n"
+        "          'paddle_tpu_torch.fluid.distribute_lookup_table'):\n"
         "    assert n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
