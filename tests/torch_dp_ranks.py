@@ -502,3 +502,188 @@ def sparse_train(rank, weights, batches, how):
 def torch_from(a):
     import torch
     return torch.from_numpy(a)
+
+
+# ---------------------------------------------------------------------------
+# batch norm across the ranks, the static fleet program, DGC, LocalSGD and
+# fleet.metrics (tests/test_torch_fleet_collective.py)
+# ---------------------------------------------------------------------------
+def conv_bn_net(nn, norm="BatchNorm2D", **kw):
+    """A narrow conv-BN-ReLU net, built with package ``nn`` (the port's, or
+    the JAX package's in the test process): two 3x3 convolutions of 8
+    channels, each under ``norm`` and ReLU, a global average pool and a
+    linear layer to 4 classes."""
+    bn = getattr(nn, norm)
+    return nn.Sequential(
+        nn.Conv2D(3, 8, 3, padding=1, bias_attr=False, **kw), bn(8, **kw),
+        nn.ReLU(), nn.Conv2D(8, 8, 3, stride=2, padding=1, bias_attr=False,
+                             **kw), bn(8, **kw),
+        nn.ReLU(), nn.AdaptiveAvgPool2D(1), nn.Flatten(),
+        nn.Linear(8, 4, **kw))
+
+
+def bn_train(rank, state, batches, how, norm, lr, mu):
+    """``conv_bn_net`` from ``state`` trained on this rank's batches with
+    Momentum(lr, mu): ``how`` "train_step" (TrainStep over the parallel
+    env's mesh) or "data_parallel" (the eager DataParallel loop: forward,
+    scale_loss, backward, apply_collective_grads, step). Returns the
+    losses (the mean over the ranks), each step's averaged gradients (the
+    eager loop), the model's state after, and the batch norms'
+    all-reduces."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch import parallel as P
+    from paddle_tpu_torch.jit import TrainStep, load_reference_state, state_of
+    from paddle_tpu_torch.nn import functional as TF
+    model = conv_bn_net(tpt.nn, norm, device="cpu")
+    load_reference_state(model, state)
+    before = monitor.stat_get("STAT_batch_norm_allreduce")
+    losses, grads = [], []
+    if how == "train_step":
+        step = TrainStep(model, TF.cross_entropy, tpt.optimizer.Momentum(
+            lr, mu), mesh=P.get_mesh())
+        for x, y in batches:
+            losses.append(float(step((x,), (y,))))
+    else:
+        dp = P.DataParallel(model)
+        opt = tpt.optimizer.Momentum(lr, mu, parameters=model.parameters())
+        model.train()
+        for x, y in batches:
+            loss = TF.cross_entropy(dp(torch_from(x)), torch_from(y))
+            dp.scale_loss(loss).backward()
+            dp.apply_collective_grads()
+            grads.append({n: _np(p.grad)
+                          for n, p in model.named_parameters()})
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(P.collective.mean_over_ranks(
+                loss.detach().reshape(1))))
+    return {"losses": losses, "grads": grads,
+            "state": {n: _np(t) for n, t in state_of(model).items()},
+            "bn_allreduces": monitor.stat_get("STAT_batch_norm_allreduce")
+            - before}
+
+
+def build_bn_program(pt, op_type="batch_norm", strategy=None):
+    """A static conv-BN net with package ``pt``'s layers: conv2d (3x3, 8
+    filters, no bias) -> batch_norm(act="relu") -> 2x2 max pool -> fc to
+    4 -> softmax_with_cross_entropy -> mean; ``op_type`` "sync_batch_norm"
+    renames the norm op. Momentum(0.1, 0.9) through fleet with
+    ``strategy`` (a dict of flags) in collective mode. Returns (main,
+    startup, loss)."""
+    layers = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = 11
+    with pt.program_guard(main, startup):
+        x = layers.data("img", [3, 8, 8])
+        y = layers.data("label", [1], dtype="int64")
+        h = layers.conv2d(x, 8, 3, padding=1, bias_attr=False)
+        h = layers.pool2d(layers.batch_norm(h, act="relu"), 2, "max", 2)
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            layers.fc(h, 4), y))
+        for op in main.global_block.ops:
+            if op.type == "batch_norm":
+                op.type = op_type
+        fleet = pt.fleet
+        fleet.init(is_collective=True)
+        st = fleet.DistributedStrategy()
+        for k, v in (strategy or {}).items():
+            setattr(st, k, v)
+        opt = fleet.distributed_optimizer(pt.optimizer.Momentum(0.1, 0.9),
+                                          st)
+        opt.minimize(loss, startup_program=startup)
+    return main, startup, loss
+
+
+def static_bn(rank, scope_state, feeds, op_type, strategy, sync_bn):
+    """``build_bn_program`` run data-parallel through
+    ``CompiledProgram.with_data_parallel`` (``BuildStrategy.sync_batch_norm``
+    = ``sync_bn``) on this rank's feeds: the rank-mean losses and every
+    persistable after."""
+    import torch
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.core.scope import load_reference_scope
+    main, startup, loss = build_bn_program(tpt, op_type, strategy)
+    scope, exe = tpt.Scope(), tpt.Executor("cpu")
+    exe.run(startup, scope=scope)
+    load_reference_scope(scope, scope_state)
+    bs = tpt.BuildStrategy()
+    bs.sync_batch_norm = sync_bn
+    cp = tpt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, build_strategy=bs)
+    losses = [float(exe.run(cp, feed=f, fetch_list=[loss], scope=scope)[0])
+              for f in feeds]
+    return {"losses": losses, "ops": [op.type for op in
+                                      main.global_block.ops],
+            "state": {v.name: _np(scope.find_var(v.name))
+                      for v in main.persistable_vars()
+                      if isinstance(scope.find_var(v.name), torch.Tensor)}}
+
+
+def reg_loss(params, batch):
+    """The regression task of the DGC and LocalSGD tests:
+    mean((x w + b - y)^2)."""
+    x, y = batch
+    return ((x @ params["w"] + params["b"] - y) ** 2).mean()
+
+
+def dgc_steps(rank, params, batches, rampup, sparsity, lr, mu):
+    """DGCMomentumOptimizer.build_spmd_step over the parallel env's mesh
+    on this rank's batches: after each step the parameters, this rank's
+    u and v, and the loss."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import parallel as P
+    from paddle_tpu_torch.fleet import DGCMomentumOptimizer
+    dgc = DGCMomentumOptimizer(tpt.optimizer.Momentum(lr, mu),
+                               rampup_begin_step=rampup, sparsity=sparsity)
+    step, init = dgc.build_spmd_step(reg_loss, P.get_mesh(), lr=lr,
+                                     momentum=mu)
+    p = {n: torch_from(v) for n, v in params.items()}
+    state = init(p)
+    out = []
+    for batch in batches:
+        p, state, loss = step(p, state, batch)
+        (u, v), count = state
+        out.append({"params": {n: _np(t) for n, t in p.items()},
+                    "u": {n: _np(t) for n, t in u.items()},
+                    "v": {n: _np(t) for n, t in v.items()},
+                    "loss": float(loss), "count": count})
+    return out
+
+
+def localsgd_rounds(rank, params, rounds, k, lr):
+    """LocalSGDOptimizer.build_spmd_round over the parallel env's mesh on
+    this rank's [k, B_local, ...] microbatches: the parameters and loss
+    after each round, and the error of a round with a wrong k."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import parallel as P
+    from paddle_tpu_torch.fleet import LocalSGDOptimizer
+    lsgd = LocalSGDOptimizer(tpt.optimizer.SGD(lr), k_steps=k)
+    round_fn = lsgd.build_spmd_round(reg_loss, P.get_mesh(), lr=lr)
+    p = {n: torch_from(v) for n, v in params.items()}
+    out = []
+    for batches in rounds:
+        p, loss = round_fn(p, batches)
+        out.append({"params": {n: _np(t) for n, t in p.items()},
+                    "loss": float(loss)})
+    try:
+        round_fn(p, tuple(b[:k - 1] for b in rounds[0]))
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return {"rounds": out, "wrong_k": err,
+            "averaged": {n: _np(t) for n, t in lsgd.average_params(
+                {n: torch_from(v) * (rank + 1) for n, v in params.items()},
+                P.get_mesh()).items()}}
+
+
+def metrics_case(rank, stats):
+    """Each fleet.metrics function on this rank's statistics."""
+    from paddle_tpu_torch.fleet import metrics as M
+    return {"sum": M.sum(stats["x"]), "max": M.max(stats["x"]),
+            "min": M.min(stats["x"]),
+            "acc": M.acc(stats["correct"], stats["total"]),
+            "mae": M.mae(stats["abserr"], stats["total"]),
+            "mse": M.mse(stats["sqrerr"], stats["total"]),
+            "rmse": M.rmse(stats["sqrerr"], stats["total"]),
+            "auc": M.auc(stats["pos"], stats["neg"])}
