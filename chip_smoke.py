@@ -293,7 +293,29 @@ Phases, each printing its lines; any failure exits nonzero:
    pservers and two trainers on the card against the local run. The
    processes are ``tests/torch_ps_runner.py``'s; no kernel of the seven
    lies on this path, and the in-process runs' counts must stay 0;
-16. one JSON line of kernel records, the card line, and last the result
+16. fleet collective on ResNet-50 ("[fleet]" lines), BASELINE config 2:
+   resnet50 at its published widths (1000 classes, 224 x 224, fp32,
+   weights from numpy seed FLEET_SEED), two gloo ranks of 16 images on
+   the card against one rank of the 32: (i) two ``TrainStep(mesh=dp)``
+   steps with Momentum(0.1, 0.9), every batch norm's statistics reduced
+   over the ranks (106 all-reduces a step): the losses, every gradient,
+   the parameters and the running statistics against one rank (fp32 at
+   step 1, after which the steps are chaotic; float64 at both steps),
+   and a control run whose batch norms normalize each rank by its own
+   rows (the group hidden by a patch here) that must fail those bounds;
+   (ii) the same through a static ResNet-50 of ``fluid.layers`` at the
+   same widths, fleet collective with ``strategy.lars``,
+   ``BuildStrategy.sync_batch_norm`` and ``with_data_parallel``; (iv) DGC
+   (``build_spmd_step``, 3 steps, ramp-up to step 1, sparsity 0.999: the
+   dense step against one process, each sparse step's selection rule
+   checked a leaf) and LocalSGD (one round of 2 local steps against the
+   mean of both ranks' local runs in one process), the replicas bitwise
+   equal; (iii) form (d) through fleet with ``strategy.lamb`` on one NCCL
+   rank, with recompute (the layer norms' and flash forwards twice a
+   layer) and with gradient merge (k_steps 2: an update every second
+   step, its predicate read on the host once a step), 4 steps each
+   against the CPU port;
+17. one JSON line of kernel records, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -9245,6 +9267,742 @@ def run_ps(device, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: fleet collective on ResNet-50, BASELINE config 2
+# ---------------------------------------------------------------------------
+
+# BASELINE config 2, ResNet-50 under fleet collective data parallelism:
+# resnet50 at its published widths (1000 classes, 224 x 224, fp32, TF32
+# off), weights from numpy seed FLEET_SEED (resnet_state), Momentum(0.1,
+# 0.9); two gloo ranks of 16 images each on the card against one rank of
+# the 32 (NCCL refuses two ranks on one card), FLEET_STEPS steps
+FLEET_B = 32
+FLEET_STEPS = 2
+FLEET_SEED = 2626
+FLEET_LR, FLEET_MU = 0.1, 0.9
+FLEET_BN = 53                       # resnet50's batch norms
+# (i) and (ii): two ranks against one rank of the whole batch, held a
+# step each: the loss (relative); every gradient (the 2-norm of the gap
+# relative to one rank's); the parameters' move from the start; the
+# running statistics' move, the same way. Each bound lies between the
+# sound run and a control run whose batch norms normalize each rank by its
+# own 16 images (the group hidden from them), which must fail it at some
+# step. Readings (my chip run, PR 21 call 2, NVIDIA H100 80GB HBM3, 700.00
+# W), sound / control: (i) fp32 step 1 loss 1.4e-07 / 1.8e-03, gradients
+# 2.1e-02 / 1.23, statistics 2.2e-06 / 1.4e-02. At this init the
+# gradients' norm is ~100 (conv1's 122-140), so the first step at lr 0.1
+# moves the early convolutions by more than their size and step 2 is
+# chaotic: fp32 runs 2% apart at step 1 are 129% apart in the gradients at
+# step 2, the control 140% (on the CPU the same at lr 0.001, and the gap
+# stays at step 1's at lr 1e-9). So fp32 (i) is held at step 1 (None: a
+# reading printed, not held), and the two steps are held in float64
+# (call 3), where the gradient wire's fp32 buckets leave 4.0e-08 at step
+# 1, amplified to 5.1e-03 at step 2 (update 2.2e-03; statistics 1.5e-07
+# and 1.1e-07 from the buffers' fp32 mean; the loss 0 and 0), the
+# control 1.23 and 1.41 (1.4e-02 and 2.7e-02, 1.8e-03 and 5.5e-03).
+# (ii) lars takes small steps: step 1 loss 3.2e-07 / 3.7e-05, gradients
+# 2.3e-02 / 1.29, update 1.9e-02 / 1.13, statistics 2.5e-06 / 3.5e-02;
+# step 2 1.0e-05 / 8.4e-04, 0.103 / 1.29, 3.1e-02 / 1.11, 2.3e-05 /
+# 3.5e-02 (calls 2 and 3 read the same).
+FLEET_TOL = {
+    "fp32": dict(loss_rtol=(1e-5, None), grad_rel=(0.1, None),
+                 update_rel=(0.1, None), stat_rel=(1e-4, None)),
+    "fp64": dict(loss_rtol=(1e-10, 1e-6), grad_rel=(1e-6, 0.1),
+                 update_rel=(1e-6, 0.05), stat_rel=(1e-5, 1e-5)),
+    "static": dict(loss_rtol=(5e-6, 1e-4), grad_rel=(0.1, 0.3),
+                   update_rel=(0.1, 0.2), stat_rel=(1e-4, 1e-3)),
+}
+# (iv) DGC: FLEET_DGC_STEPS steps of build_spmd_step, ramp-up to step 1,
+# sparsity 0.999; LocalSGD: one round of FLEET_LOCAL_K local steps a rank
+FLEET_DGC_STEPS = 3
+FLEET_DGC_SPARSITY = 0.999
+FLEET_LOCAL_K = 2
+# (iii): phase 11's form (d) (bf16, the fused attention white-listed)
+# through fleet with lamb on one NCCL rank, FLEET_META_STEPS steps at
+# B=STATIC_CPU_B on the card and on the CPU port
+FLEET_META_STEPS = 4
+FLEET_CHILD_TIMEOUT_S = 600
+
+
+def fleet_loss(logits, y):
+    from paddle_tpu_torch.nn import functional as TF
+    return TF.cross_entropy(logits, y)
+
+
+class HiddenGroup:
+    """For a control run: batch norm sees no group (each rank normalizes by
+    its own rows), by patching ``parallel.env.batch_reduction`` here, not
+    through any option of the port."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.parallel import env
+        self._saved = env.batch_reduction
+        env.batch_reduction = lambda: None
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.parallel import env
+        env.batch_reduction = self._saved
+        return False
+
+
+def bn_syncs():
+    from paddle_tpu_torch import monitor
+    return monitor.stat_get("STAT_batch_norm_allreduce")
+
+
+def fleet_train(device, state, batch, mesh, steps=FLEET_STEPS,
+                dtype=torch.float32):
+    """resnet50 from ``state`` through TrainStep(Momentum) over ``mesh``
+    (None: one rank) on ``batch``: the losses, each step's gradients as the
+    update saw them, the parameters and running statistics before and
+    after each step, a digest of the state after each step, the batch
+    norms' all-reduces and the kernel launches."""
+    from paddle_tpu_torch.jit import TrainStep, state_of
+    from paddle_tpu_torch.optimizer import Momentum
+    model = resnet_model(state, device).to(dtype)
+    batch = ((batch[0][0].to(dtype),), batch[1])
+    opt = Momentum(FLEET_LR, FLEET_MU)
+    step = TrainStep(model, fleet_loss, opt, mesh=mesh)
+    names = step.param_names
+    grads = []
+    update = opt._apply
+
+    def seen(*a, **kw):
+        grads.append({n: p.grad.detach().clone()
+                      for n, p in zip(names, opt.parameters)})
+        return update(*a, **kw)
+    opt._apply = seen
+    init = {n: t.detach().clone() for n, t in state_of(model).items()}
+    losses, digests, states = [], [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    syncs = bn_syncs()
+    for _ in range(steps):
+        losses.append(float(step(*batch)))
+        states.append({n: t.detach().clone()
+                       for n, t in state_of(model).items()})
+        digests.append(digest(states[-1][n] for n in sorted(init)))
+    torch.cuda.synchronize()
+    out = dict(losses=losses, grads=grads, init=init, digests=digests,
+               states=states, syncs=bn_syncs() - syncs,
+               counts=read_counts())
+    del step, model
+    return out
+
+
+def _norm_gap(got, want, names, base=None):
+    """|got - want| over ``names`` in the 2-norm, relative to |want - base|
+    (|want| when base is None)."""
+    num = den = 0.0
+    for n in names:
+        w = want[n].double()
+        num += float((got[n].double() - w).square().sum())
+        den += float((w - (base[n].double() if base is not None else 0))
+                     .square().sum())
+    return math.sqrt(num / den)
+
+
+def fleet_gaps(got, one):
+    """(i)/(ii)'s readings of a two-rank run against one rank's, a list of
+    one a step each (FLEET_TOL's keys): the loss; every gradient; the
+    parameters' move from the start; the running statistics' move."""
+    init = one["init"]
+    stats = [n for n in init if n.endswith(("_mean", "_variance"))]
+    params = list(one["grads"][0])
+    return dict(
+        loss_rtol=[abs(a - b) / abs(b)
+                   for a, b in zip(got["losses"], one["losses"])],
+        grad_rel=[_norm_gap(g, w, params)
+                  for g, w in zip(got["grads"], one["grads"])],
+        update_rel=[_norm_gap(g, w, params, init)
+                    for g, w in zip(got["states"], one["states"])],
+        stat_rel=[_norm_gap(g, w, stats, init)
+                  for g, w in zip(got["states"], one["states"])])
+
+
+def build_resnet50_static(pt, classes=RESNET_CLASSES, hw=RESNET_HW,
+                          depth=(3, 4, 6, 3)):
+    """ResNet-50 as a static program of package ``pt``'s layers, at the
+    published widths (the eager resnet50's: conv1 7x7/2 and a 3x3/2 max
+    pool; bottlenecks of 64-512 filters, x4 out, the stride on the 3x3; a
+    projection shortcut a stage; global average pool; fc to ``classes``),
+    softmax_with_cross_entropy and mean; each parameter named as Paddle's
+    ResNet names it, so that two builds share names. The optimizer is
+    fleet's: ``Momentum(FLEET_LR, FLEET_MU)`` under ``strategy.lars`` in
+    collective mode. Returns (main, startup, loss name)."""
+    layers = pt.layers
+    attr = pt.ParamAttr
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = FLEET_SEED
+
+    def conv_bn(x, filters, size, stride, name, act="relu"):
+        h = layers.conv2d(x, filters, size, stride, (size - 1) // 2,
+                          param_attr=attr(name=name + "_weights"),
+                          bias_attr=False)
+        bn = "bn_" + name if name == "conv1" else "bn" + name[3:]
+        return layers.batch_norm(
+            h, act=act, param_attr=attr(name=bn + "_scale"),
+            bias_attr=attr(name=bn + "_offset"),
+            moving_mean_name=bn + "_mean",
+            moving_variance_name=bn + "_variance")
+
+    with pt.program_guard(main, startup):
+        x = layers.data("img", [3, hw, hw])
+        y = layers.data("label", [1], dtype="int64")
+        h = layers.pool2d(conv_bn(x, 64, 7, 2, "conv1"), 3, "max", 2, 1)
+        for stage, blocks in enumerate(depth):
+            filters = 64 * 2 ** stage
+            for i in range(blocks):
+                name = "res%d%s" % (stage + 2, chr(ord("a") + i))
+                stride = 2 if i == 0 and stage > 0 else 1
+                a = conv_bn(h, filters, 1, 1, name + "_branch2a")
+                b = conv_bn(a, filters, 3, stride, name + "_branch2b")
+                c = conv_bn(b, 4 * filters, 1, 1, name + "_branch2c", None)
+                short = conv_bn(h, 4 * filters, 1, stride, name + "_branch1",
+                                None) if i == 0 else h
+                h = layers.elementwise_add(short, c, act="relu")
+        h = layers.pool2d(h, 7, "avg", global_pooling=True)
+        logits = layers.fc(h, classes, param_attr=attr(name="fc_0.w_0"),
+                           bias_attr=attr(name="fc_0.b_0"))
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, y))
+        fleet = pt.fleet
+        fleet.init(is_collective=True)
+        strategy = fleet.DistributedStrategy()
+        strategy.lars = True
+        opt = fleet.distributed_optimizer(
+            pt.optimizer.Momentum(FLEET_LR, FLEET_MU), strategy)
+        opt.minimize(loss, startup_program=startup)
+    return main, startup, loss.name
+
+
+def fleet_static_run(device, feed, data_parallel, steps=FLEET_STEPS):
+    """(ii): the static ResNet-50 from its startup's seeded state, through
+    ``CompiledProgram.with_data_parallel`` with
+    ``BuildStrategy.sync_batch_norm`` (or as the plain main on one rank),
+    on ``feed``: fleet_train's record, the gradients as fetched (after the
+    exchange)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import load_reference_scope
+    main, startup, loss = build_resnet50_static(pt)
+    state = static_state(startup, device, FLEET_SEED)
+    scope, exe = pt.Scope(), pt.Executor(device)
+    load_reference_scope(scope, state, device)
+    bs = pt.BuildStrategy()
+    bs.sync_batch_norm = True
+    prog = pt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss, build_strategy=bs) if data_parallel else main
+    params = list(next(op for op in main.global_block.ops
+                       if op.type == "backward").attr("parameter_list"))
+    persist = sorted(v.name for v in main.persistable_vars()
+                     if v.name in state)
+    losses, grads, digests, states = [], [], [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    syncs = bn_syncs()
+    for _ in range(steps):
+        vals = exe.run(prog, feed=feed,
+                       fetch_list=[loss] + [n + "@GRAD" for n in params],
+                       scope=scope, return_numpy=False)
+        losses.append(float(vals[0]))
+        grads.append({n: v.detach().clone()
+                      for n, v in zip(params, vals[1:])})
+        states.append({n: scope.find_var(n).detach().clone()
+                       for n in persist})
+        digests.append(digest(states[-1][n] for n in persist))
+    torch.cuda.synchronize()
+    ops = collections_count(op.type for op in main.global_block.ops)
+    return dict(losses=losses, grads=grads, digests=digests, states=states,
+                init={n: torch.from_numpy(state[n]).to(device)
+                      for n in persist},
+                syncs=bn_syncs() - syncs, counts=read_counts(), ops=ops)
+
+
+def collections_count(items):
+    import collections
+    return dict(collections.Counter(items))
+
+
+def resnet_loss_fn(model):
+    """loss_fn(params, batch) of the builders: resnet50 through
+    ``jit.functional_call`` in training mode on this rank's rows (batch
+    norm on the rows it is given, as inside the JAX shard_map)."""
+    from paddle_tpu_torch.jit import functional_call
+
+    def loss_fn(params, batch):
+        x, y = batch
+        out, _ = functional_call(model, params, x, training=True)
+        return fleet_loss(out, y)
+    return loss_fn
+
+
+def _local_grads(loss_fn, params, batch):
+    names = list(params)
+    live = [params[n].detach().requires_grad_(True) for n in names]
+    loss = loss_fn(dict(zip(names, live)), batch)
+    return dict(zip(names, torch.autograd.grad(loss, live)))
+
+
+def fleet_dgc(device, state, halves, rank, mesh):
+    """(iv) DGC: FLEET_DGC_STEPS steps of ``build_spmd_step`` on this
+    rank's half; each leaf's compression recorded (its inputs and outputs)
+    to check the selection rule here; rank 0 also computes the dense first
+    step of one process over both halves. Returns the readings."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fleet import meta_optimizers as MO
+    model = resnet_model(state, device)
+    loss_fn = resnet_loss_fn(model)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    p0 = {n: t.clone() for n, t in params.items()}
+    dgc = MO.DGCMomentumOptimizer(pt.optimizer.Momentum(FLEET_LR, FLEET_MU),
+                                  rampup_begin_step=1,
+                                  sparsity=FLEET_DGC_SPARSITY)
+    step, init = dgc.build_spmd_step(loss_fn, mesh, lr=FLEET_LR,
+                                     momentum=FLEET_MU)
+    rec = []
+    compress = MO.dgc_compress
+
+    def recorded(g, u, v, momentum, sparsity):
+        out = compress(g, u, v, momentum, sparsity)
+        rec.append((g, u, v) + tuple(out))
+        return out
+    MO.dgc_compress = recorded
+    st = init(params)
+    digests, losses, checks = [], [], []
+    try:
+        for i in range(FLEET_DGC_STEPS):
+            rec.clear()
+            params, st, loss = step(params, st, halves[rank])
+            losses.append(float(loss))
+            digests.append(digest(params[n] for n in sorted(params)))
+            if i == 0:
+                dense = {n: t.clone() for n, t in params.items()}
+                continue
+            checks.append(dgc_rule_check(rec))
+    finally:
+        MO.dgc_compress = compress
+    out = dict(losses=losses, digests=digests, checks=checks,
+               leaves=len(params))
+    if rank == 0:
+        # the dense step of one process: both halves' gradients averaged,
+        # momentum from 0, one SGD step
+        gs = [_local_grads(loss_fn, p0, h) for h in halves]
+        want = {n: p0[n] - FLEET_LR * (FLEET_MU * torch.zeros_like(p0[n])
+                                       + (gs[0][n] + gs[1][n]) / 2)
+                for n in p0}
+        out["dense_rel"] = _norm_gap(dense, want, list(p0), p0)
+        out["dense_bitwise"] = all(torch.equal(dense[n], want[n])
+                                   for n in p0)
+    del model
+    return out
+
+
+def dgc_rule_check(rec):
+    """Each recorded leaf of a sparse step: v' = v + (m u + g); the sent
+    entries are those with |v'| at or above the k-th largest of |v'| (k =
+    max(1, round(n (1 - sparsity))), found by sorting), ties included;
+    sparse + v_out == v' and u_out zero where sent, u' elsewhere, bitwise.
+    Returns (leaves, leaves failing, entries sent, k summed)."""
+    bad, sent, ks = 0, 0, 0
+    for g, u, v, sparse, u_out, v_out in rec:
+        u2 = FLEET_MU * u + g
+        v2 = v + u2
+        k = max(1, int(round(v2.numel() * (1.0 - FLEET_DGC_SPARSITY))))
+        kth = torch.sort(v2.abs().reshape(-1), descending=True).values[k - 1]
+        mask = v2.abs() >= kth
+        zero = torch.zeros_like(v2)
+        ok = (torch.equal(sparse, torch.where(mask, v2, zero)) and
+              torch.equal(v_out, torch.where(mask, zero, v2)) and
+              torch.equal(u_out, torch.where(mask, zero, u2)) and
+              torch.equal(sparse + v_out, v2) and int(mask.sum()) >= k)
+        bad += not ok
+        sent += int(mask.sum())
+        ks += k
+    return len(rec), bad, sent, ks
+
+
+def fleet_localsgd(device, state, local, rank, mesh):
+    """(iv) LocalSGD: one round of ``build_spmd_round`` on this rank's
+    [k, 16, ...] microbatches; rank 0 also runs both ranks' local steps in
+    one process and averages them."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fleet import LocalSGDOptimizer
+    model = resnet_model(state, device)
+    loss_fn = resnet_loss_fn(model)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    lsgd = LocalSGDOptimizer(pt.optimizer.SGD(FLEET_LR),
+                             k_steps=FLEET_LOCAL_K)
+    round_fn = lsgd.build_spmd_round(loss_fn, mesh, lr=FLEET_LR)
+    got, loss = round_fn(params, local[rank])
+    out = dict(loss=float(loss),
+               digest=digest(got[n] for n in sorted(got)))
+    if rank == 0:
+        ends = []
+        for r in range(2):
+            p = dict(params)
+            for j in range(FLEET_LOCAL_K):
+                g = _local_grads(loss_fn, p, tuple(t[j] for t in local[r]))
+                p = {n: p[n] - FLEET_LR * g[n] for n in p}
+            ends.append(p)
+        want = {n: (ends[0][n] + ends[1][n]) / 2 for n in params}
+        out["mean_rel"] = _norm_gap(got, want, list(params), params)
+        out["mean_bitwise"] = all(torch.equal(got[n], want[n])
+                                  for n in params)
+    del model
+    return out
+
+
+def fleet_gloo_rank(out_dir, device_name="cuda:0"):
+    """One of phase 16's two ranks over gloo on the card, spawned under the
+    env contract: (i), (ii) and (iv); rank 0 also the one-rank runs and
+    every comparison. Its readings as JSON in out_dir."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import parallel as P
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the same convolution algorithms in every process: two ranks' halves
+    # and one process's computations of them agree bit for bit
+    torch.backends.cudnn.deterministic = True
+    device = torch.device(device_name)
+    env = P.init_parallel_env(device=device_name, backend="gloo")
+    rank = P.get_rank()
+    from paddle_tpu_torch.models.resnet import resnet50
+    state = resnet_state(resnet50(num_classes=RESNET_CLASSES, device="cpu"),
+                         FLEET_SEED)
+    (x,), (y,) = resnet_batch(FLEET_B, device, FLEET_SEED + 1)
+    half = FLEET_B // 2
+    rows = slice(rank * half, (rank + 1) * half)
+    report = dict(rank=rank, backend=env.backend, world=env.world_size)
+    times = {}
+
+    # (i) TrainStep over the mesh in fp32 and in float64, the control with
+    # the group hidden
+    t0 = time.perf_counter()
+    for label, dtype in (("fp32", torch.float32), ("fp64", torch.float64)):
+        local = ((x[rows],), (y[rows],))
+        sound = fleet_train(device, state, local, env.mesh, dtype=dtype)
+        with HiddenGroup():
+            control = fleet_train(device, state, local, env.mesh,
+                                  dtype=dtype)
+        rec = report[label] = dict(
+            losses=sound["losses"], digests=sound["digests"],
+            syncs=sound["syncs"], control_syncs=control["syncs"],
+            counts=sound["counts"])
+        if rank == 0:
+            one = fleet_train(device, state, ((x,), (y,)), None,
+                              dtype=dtype)
+            rec.update(one_losses=one["losses"], gaps=fleet_gaps(sound, one),
+                       control=fleet_gaps(control, one))
+            del one
+        del sound, control
+        torch.cuda.empty_cache()
+    times["i"] = time.perf_counter() - t0
+    P.barrier()
+
+    # (ii) the static ResNet-50 through fleet with lars
+    t0 = time.perf_counter()
+    feed = {"img": x[rows], "label": y[rows]}
+    sound = fleet_static_run(device, feed, True)
+    with HiddenGroup():
+        control = fleet_static_run(device, feed, True)
+    report["static"] = dict(losses=sound["losses"], digests=sound["digests"],
+                        syncs=sound["syncs"], control_syncs=control["syncs"],
+                        counts=sound["counts"], ops=sound["ops"])
+    if rank == 0:
+        one = fleet_static_run(device, {"img": x, "label": y}, False)
+        report["static"].update(one_losses=one["losses"],
+                            gaps=fleet_gaps(sound, one),
+                            control=fleet_gaps(control, one))
+        del one
+    del sound, control
+    torch.cuda.empty_cache()
+    times["ii"] = time.perf_counter() - t0
+    P.barrier()
+
+    # (iv) DGC and LocalSGD
+    t0 = time.perf_counter()
+    halves = [(x[r * half:(r + 1) * half], y[r * half:(r + 1) * half])
+              for r in range(2)]
+    reset_counts()
+    report["dgc"] = fleet_dgc(device, state, halves, rank, env.mesh)
+    torch.cuda.empty_cache()
+    (x2,), (y2,) = resnet_batch(FLEET_LOCAL_K * FLEET_B, device,
+                                FLEET_SEED + 2)
+    micro = [(x2[j * FLEET_B:(j + 1) * FLEET_B],
+              y2[j * FLEET_B:(j + 1) * FLEET_B])
+             for j in range(FLEET_LOCAL_K)]
+    local = [(torch.stack([m[0][r * half:(r + 1) * half] for m in micro]),
+              torch.stack([m[1][r * half:(r + 1) * half] for m in micro]))
+             for r in range(2)]
+    report["localsgd"] = fleet_localsgd(device, state, local, rank, env.mesh)
+    report["iv_counts"] = read_counts()
+    times["iv"] = time.perf_counter() - t0
+    report["times"] = times
+    report["host_staged"] = paddle_tpu_torch.monitor.stat_get(
+        "STAT_collective_host_staged")
+    P.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    P.destroy_parallel_env()
+
+
+def check_fleet_gloo(reports, card):
+    """(i), (ii) and (iv): the ranks' readings held."""
+    r0, r1 = reports
+    zero = {k: 0 for k, _, _ in KERNEL_COUNTS}
+    for r in reports:
+        if r["backend"] != "gloo" or r["world"] != 2:
+            fail(f"fleet rank {r['rank']}: backend {r['backend']} world "
+                 f"{r['world']}; want gloo, 2")
+        for what in FLEET_TOL:
+            if r[what]["counts"] != zero:
+                fail(f"fleet {what}: the ResNet path launched "
+                     f"{r[what]['counts']}; no kernel of the seven lies "
+                     "on it")
+        if r["iv_counts"] != zero:
+            fail(f"fleet (iv): launches {r['iv_counts']}")
+    for what, label in (("fp32", "(i) TrainStep(mesh=dp) fp32"),
+                        ("fp64", "(i) TrainStep(mesh=dp) float64"),
+                        ("static", "(ii) static, fleet lars + "
+                         "sync_batch_norm, fp32")):
+        a, b = r0[what], r1[what]
+        tol = FLEET_TOL[what]
+        if a["digests"] != b["digests"]:
+            fail(f"fleet {label}: the replicas differ after a step")
+        per = a["syncs"] / FLEET_STEPS
+        say("fleet", f"{label} ResNet-50, 2 gloo ranks x "
+            f"{FLEET_B // 2} images, {FLEET_STEPS} steps: losses "
+            + ", ".join(f"{v:.6f}" for v in a["losses"]) + "; one rank of "
+            f"{FLEET_B}: " + ", ".join(f"{v:.6f}" for v in a["one_losses"])
+            + f"; batch-norm all-reduces a step {per:g} (control "
+            f"{a['control_syncs']:g} in all); replicas bitwise equal "
+            f"(parameters and running statistics)  [{card}]")
+        gaps, ctrl = a["gaps"], a["control"]
+        say("fleet", f"{label} against one rank, a step: " + "; ".join(
+            f"{k} " + ", ".join(f"{x:.3e}" for x in gaps[k]) + " (control "
+            + ", ".join(f"{x:.3e}" for x in ctrl[k]) + f"; bound "
+            + ", ".join("-" if x is None else f"{x:g}" for x in v) + ")"
+            for k, v in tol.items()))
+        if per != 2 * FLEET_BN or a["control_syncs"] != 0 or \
+                b["syncs"] != a["syncs"]:
+            fail(f"fleet {label}: {per} batch-norm all-reduces a step, "
+                 f"want {2 * FLEET_BN}; the control's {a['control_syncs']}")
+        over = [k for k, v in tol.items() if any(
+            bound is not None and x > bound for x, bound in zip(gaps[k], v))]
+        if over:
+            fail(f"fleet {label}: two ranks disagree with one rank in "
+                 f"{over}: {gaps}")
+        missed = [k for k, v in tol.items() if not any(
+            bound is not None and x > bound for x, bound in zip(ctrl[k], v))]
+        if missed:
+            fail(f"fleet {label}: the control (batch norm on each rank's "
+                 f"rows) passes the bounds {missed}: {ctrl}")
+    ops = r0["static"]["ops"]
+    if ops.get("batch_norm") != FLEET_BN or "lars_momentum" not in ops or \
+            "momentum" in ops:
+        fail(f"fleet (ii): the program's ops {ops}")
+    d0, d1 = r0["dgc"], r1["dgc"]
+    if d0["digests"] != d1["digests"]:
+        fail("fleet (iv) DGC: the replicas differ after a step")
+    for i, ((n0, bad0, sent0, k0), (n1, bad1, sent1, k1)) in enumerate(
+            zip(d0["checks"], d1["checks"])):
+        say("fleet", f"(iv) DGC sparse step {i + 2}: {n0} leaves a rank, "
+            f"sent {sent0} and {sent1} entries (k summed {k0}), leaves "
+            f"off the rule {bad0} and {bad1}")
+        if bad0 or bad1 or n0 != d0["leaves"]:
+            fail(f"fleet (iv) DGC step {i + 2}: {bad0 + bad1} leaves break "
+                 "the selection rule")
+    say("fleet", f"(iv) DGC {FLEET_DGC_STEPS} steps, ramp-up to step 1, "
+        f"sparsity {FLEET_DGC_SPARSITY}: losses "
+        + ", ".join(f"{v:.6f}" for v in d0["losses"]) + f"; the dense "
+        f"first step against one process {d0['dense_rel']:.3e} "
+        f"(bitwise {d0['dense_bitwise']}); replicas bitwise equal")
+    if d0["dense_rel"] > 1e-6:
+        fail(f"fleet (iv) DGC: the dense step is {d0['dense_rel']} off")
+    l0, l1 = r0["localsgd"], r1["localsgd"]
+    say("fleet", f"(iv) LocalSGD one round of {FLEET_LOCAL_K} local steps: "
+        f"loss {l0['loss']:.6f}; against the mean of both ranks' local "
+        f"runs in one process {l0['mean_rel']:.3e} (bitwise "
+        f"{l0['mean_bitwise']}); replicas equal "
+        f"{l0['digest'] == l1['digest']}")
+    if l0["digest"] != l1["digest"] or l0["mean_rel"] > 1e-6:
+        fail("fleet (iv) LocalSGD: the round is not the mean of the local "
+             "runs")
+    say("fleet", f"host-staged collectives: rank 0 {r0['host_staged']:g}; "
+        "ranks' seconds " + ", ".join(f"({k}) {v:.1f}" for k, v in
+                                      r0["times"].items()) + f"  [{card}]")
+
+
+def run_fleet_gloo(card):
+    """(i), (ii) and (iv): two ranks on the card over gloo, each a process
+    under the env contract, joined within FLEET_CHILD_TIMEOUT_S."""
+    from paddle_tpu_torch import parallel as P
+    out = tempfile.TemporaryDirectory()
+    try:
+        P.spawn(fleet_gloo_rank, args=(out.name,), nprocs=2,
+                timeout=FLEET_CHILD_TIMEOUT_S)
+    except RuntimeError as e:
+        fail(f"fleet: a rank failed: {e}")
+    reports = []
+    for r in range(2):
+        with open(os.path.join(out.name, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    out.cleanup()
+    check_fleet_gloo(reports, card)
+
+
+def fleet_meta_form(pt, flags):
+    """(iii)'s program: form (d)'s forward (build_bert_forward at
+    STATIC_CFG, begin_norm_axis 2, multihead_matmul_fuse, the bf16 rewrite
+    with the fused attention white-listed), minimized through fleet in
+    collective mode with ``strategy.lamb`` over Adam(STATIC_LR) and
+    ``flags``: "recompute" (checkpoints at each layer's output),
+    "gradient_merge" (k_steps 2, avg). strategy.amp would own the backward
+    and drop recompute and the merge, as in the JAX package, so the
+    rewrite is applied to the forward first. Returns (main, startup,
+    loss name)."""
+    import importlib
+    passes = importlib.import_module(pt.__name__ + ".core.passes")
+    mp = pt.contrib.mixed_precision
+    main, startup, loss, outs = build_bert_forward(pt, **STATIC_CFG,
+                                                   norm_axis=2)
+    startup.random_seed = STATIC_SEED
+    main = passes.apply_pass(main, "multihead_matmul_fuse")
+    mp.rewrite_program(main, mp.AutoMixedPrecisionLists(
+        custom_white_list=list(AMP_WHITE)), "bfloat16")
+    fleet = pt.fleet
+    fleet.init(is_collective=True)
+    st = fleet.DistributedStrategy()
+    st.lamb = True
+    if "recompute" in flags:
+        st.recompute = True
+        st.recompute_configs = {"checkpoints": outs}
+    if "gradient_merge" in flags:
+        st.gradient_merge = True
+        st.gradient_merge_configs = {"k_steps": 2, "avg": True}
+    opt = fleet.distributed_optimizer(pt.optimizer.Adam(STATIC_LR), st)
+    with pt.program_guard(main, startup):
+        opt.minimize(loss, startup_program=startup, program=main)
+    return main, startup, loss.name
+
+
+def fleet_meta_run(form, state, device, compiled):
+    """FLEET_META_STEPS steps of a (iii) program at B=STATIC_CPU_B, counts
+    set to 0 just before and read just after: losses, the first step's
+    gradients, the parameters after each step, host reads a step and the
+    ops re-run in the backward."""
+    import paddle_tpu_torch as pt
+    run = StaticRun(form, state, device, STATIC_CPU_B)
+    prog = pt.CompiledProgram(run.main).with_data_parallel(
+        loss_name=run.loss) if compiled else run.main
+    names = [v.name for v in run.main.all_parameters()]
+    losses, params, syncs = [], [], []
+    grads = None
+    reset_counts()
+    reset_static_logs()
+    for i in range(FLEET_META_STEPS):
+        vals = run.exe.run(prog, feed=run.feed,
+                           fetch_list=[run.loss] + (run.grads if i == 0
+                                                    else []),
+                           scope=run.scope, return_numpy=False)
+        losses.append(float(vals[0]))
+        if i == 0:
+            grads = {n: v.float().cpu() for n, v in zip(run.grads, vals[1:])}
+        params.append({n: run.scope.find_var(n).float().cpu().clone()
+                       for n in names})
+        syncs.append(run.exe.host_syncs)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(losses=losses, loss=losses[0], grads=grads, params=params,
+                syncs=syncs, counts=read_counts(), paths=static_paths(),
+                recomputed=sum(run.exe.recomputed.values()),
+                init={n: torch.from_numpy(state[n]) for n in names})
+
+
+def run_fleet_meta(device, card):
+    """(iii) form (d) through fleet with lamb on one NCCL rank: "recompute"
+    and "gradient_merge", FLEET_META_STEPS steps each on the card and on
+    the CPU port. Returns the launches of the card's runs."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel as P
+    env = P.init_parallel_env()
+    if env.backend != "nccl" or env.world_size != 1:
+        fail(f"fleet (iii): backend {env.backend}, world {env.world_size}; "
+             "want nccl, 1")
+    cpu = torch.device("cpu")
+    n_layers = STATIC_CFG["layers_n"]
+    total = {k: 0 for k, _, _ in KERNEL_COUNTS}
+    for flag in ("recompute", "gradient_merge"):
+        t0 = time.perf_counter()
+        form = fleet_meta_form(pt, (flag,))
+        ops = collections_count(op.type for blk in form[0].blocks
+                                for op in blk.ops)
+        if "lamb" not in ops or "adam" in ops or \
+                ("cond_block_pair" in ops) != (flag == "gradient_merge"):
+            fail(f"fleet (iii) {flag}: the program's ops {ops}")
+        state = static_state(form[1], device)
+        card_run = fleet_meta_run(form, state, device, True)
+        cpu_run = fleet_meta_run(form, state, cpu, False)
+        for k in total:
+            total[k] += card_run["counts"][k]
+        g, _ = grad_gap(card_run, cpu_run)
+        loss_gap = _loss_rel(card_run["losses"], cpu_run["losses"])
+        moves = [any(not torch.equal(a[n], b[n]) for n in a) for a, b in
+                 zip([card_run["init"]] + card_run["params"][:-1],
+                     card_run["params"])]
+        upd = _norm_gap(card_run["params"][-1], cpu_run["params"][-1],
+                        list(card_run["init"]), cpu_run["init"])
+        per = amp_expect(n_layers, recompute=flag == "recompute")
+        want = {k: v * FLEET_META_STEPS for k, v in per.items()}
+        say("fleet", f"(iii) form (d) bf16 {n_layers} layers, fleet lamb + "
+            f"{flag}, one NCCL rank, B={STATIC_CPU_B}, {FLEET_META_STEPS} "
+            f"steps: losses " + ", ".join(f"{v:.5f}" for v in
+                                         card_run["losses"]) +
+            f"; CPU port worst relative {loss_gap:.2e} (bound "
+            f"{AMP_LOSS_RTOL:g}); first step's gradients {g:.5f} of their "
+            f"norm (bound {AMP_GRAD_REL['bfloat16']:g}); parameters moved "
+            f"{moves}; the update after {FLEET_META_STEPS} steps "
+            f"{upd:.3e} apart in norm; host reads a step "
+            f"{card_run['syncs']}; ops re-run in the backward "
+            f"{card_run['recomputed']}; launches {card_run['counts']} in "
+            f"{time.perf_counter() - t0:.1f} s  [{card}]")
+        if loss_gap > AMP_LOSS_RTOL or g > AMP_GRAD_REL["bfloat16"]:
+            fail(f"fleet (iii) {flag}: the card disagrees with the CPU port "
+                 f"({loss_gap}, {g})")
+        if card_run["counts"] != want:
+            fail(f"fleet (iii) {flag}: launches {card_run['counts']}, want "
+                 f"{want}")
+        attn, ln = card_run["paths"]
+        if set(attn) != {"flash"} or set(ln) != {"kernel"}:
+            fail(f"fleet (iii) {flag}: path logs {sorted(set(attn))}, "
+                 f"{sorted(set(ln))}")
+        if flag == "gradient_merge":
+            if moves != [False, True] * (FLEET_META_STEPS // 2) or \
+                    card_run["syncs"] != [1] * FLEET_META_STEPS:
+                fail(f"fleet (iii) gradient_merge: moved {moves}, host "
+                     f"reads {card_run['syncs']}")
+        elif not all(moves) or card_run["recomputed"] == 0:
+            fail(f"fleet (iii) recompute: moved {moves}, re-run "
+                 f"{card_run['recomputed']}")
+        del card_run, cpu_run
+        torch.cuda.empty_cache()
+    P.destroy_parallel_env()
+    return total
+
+
+def run_fleet(device, card):
+    """Phase 16. Returns the launch totals of (iii) (the ResNet runs launch
+    none of the seven)."""
+    t0 = time.perf_counter()
+    run_fleet_gloo(card)
+    say("fleet", f"(i), (ii) and (iv) in {time.perf_counter() - t0:.1f} s  "
+        f"[{card}]")
+    t0 = time.perf_counter()
+    counts = run_fleet_meta(device, card)
+    say("fleet", f"(iii) in {time.perf_counter() - t0:.1f} s  [{card}]")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -9457,14 +10215,23 @@ def main() -> int:
     t0 = time.perf_counter()
     ps_counts = run_ps(device, card)
     say("ps", f"phase 15 in {time.perf_counter() - t0:.1f} s  [{card}]")
-    late_counts = {k: sparse_counts[k] + front_counts[k] + dp_counts[k] +
-                   ps_counts[k] for k in sparse_counts}
 
-    # -- 16. records: launches are the serving, training, recipe, static,
+    # -- 16. fleet collective on ResNet-50: the gloo ranks' runs (no kernel
+    # of the seven lies on the ResNet path; their counts must stay 0), then
+    # form (d) through fleet on one NCCL rank, its counts set to 0 just
+    # before each run and read just after
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fleet_counts = run_fleet(device, card)
+    say("fleet", f"phase 16 in {time.perf_counter() - t0:.1f} s  [{card}]")
+    late_counts = {k: sparse_counts[k] + front_counts[k] + dp_counts[k] +
+                   ps_counts[k] + fleet_counts[k] for k in sparse_counts}
+
+    # -- 17. records: launches are the serving, training, recipe, static,
     # generation (chunked fp32 and int8 KV, two-phase, the two drafters'
     # runs, int8 and fp8 weights),
     # inference, artifact, static-training, sparse/control-flow,
-    # CompiledProgram and data-parallel runs
+    # CompiledProgram, data-parallel and fleet runs
     ln_rec = ln_times[(4096, 768, torch.float32)]
     fa_key = (8, 12, 512, 512, 64, True, False, torch.bfloat16)
     fa_rec = fa_times[fa_key]

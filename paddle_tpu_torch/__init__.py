@@ -42,7 +42,7 @@ import torch as _torch
 
 from .device import (CPUPlace, CUDAPlace, TPUPlace,  # noqa: F401
                      get_device, set_device)
-from .layers.helper import ParamAttr, seed  # noqa: F401
+from .layers.helper import ParamAttr  # noqa: F401
 from .core.backward import append_backward, gradients  # noqa: F401
 from .core.executor import Executor  # noqa: F401
 from .core.program import (Program, default_main_program,  # noqa: F401
@@ -99,8 +99,33 @@ from .layers import (elementwise_add, elementwise_div,  # noqa: F401
                      reduce_max, reduce_mean, reduce_min, reduce_prod,
                      reduce_sum, scale, sums, tanh, unique_with_counts, data)
 
+from . import jit, models  # noqa: F401
+from .core.dtypes import get_default_dtype, set_default_dtype  # noqa: F401
+from .core.fetch import FetchHandle  # noqa: F401
+from .optimizer.lr_scheduler import (CosineDecay,  # noqa: F401
+                                     ExponentialDecay, InverseTimeDecay,
+                                     NaturalExpDecay, NoamDecay,
+                                     PiecewiseDecay, PolynomialDecay)
+
 Tensor = VarBase = _torch.Tensor
 no_grad_ = no_grad
+
+
+def set_global_seed(seed: int) -> None:
+    """Seed the static executor's random stream and the eager generators,
+    as the JAX package's ``set_global_seed`` does: the default main
+    program's ``random_seed``, a generator seeded from it in the global
+    scope's RNG var (the executor draws from the scope's), and every
+    generator of the port (``layers.helper.seed``)."""
+    from .core.executor import RNG_VAR
+    from .layers.helper import seed as _seed_generators
+    s = int(seed)
+    default_main_program().random_seed = s
+    global_scope().set(RNG_VAR, _torch.Generator().manual_seed(s))
+    _seed_generators(s)
+
+
+seed = manual_seed = set_global_seed
 
 # the top-level names of the JAX package the port lacks, by ROADMAP.md
 # queue: its builders and modules that later queues bring

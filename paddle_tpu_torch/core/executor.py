@@ -60,7 +60,9 @@ gives every rank rank 0's persistables and folds the rank into the
 scope's generator, the gradients of the ``backward`` op are averaged over
 the group in the buckets of ``mesh/collectives.py``
 (``FLAGS_collective_quant`` picks the wire) before the update ops run,
-and the fetched loss (``loss_name``) is the mean over the ranks.
+a training-mode ``batch_norm`` or ``sync_batch_norm`` reduces its
+statistics over the group (``parallel.env.sharded_batch``), and the
+fetched loss (``loss_name``) is the mean over the ranks.
 
 The checks of the JAX package read the flags (``flags.py``):
 ``FLAGS_check_nan_inf`` checks each
@@ -193,8 +195,10 @@ class Executor:
         if dp_axis is not None:
             compiled._sync_replicas(scope, env, state, ctx, persistable)
         self._dp_axis = dp_axis
+        from ..parallel.env import sharded_batch
         try:
-            self._run_block(program, env, ctx, keep=set(fetch_names))
+            with sharded_batch(dp_axis):
+                self._run_block(program, env, ctx, keep=set(fetch_names))
         finally:
             self._dp_axis = None
         for n, v in env.items():

@@ -22,20 +22,12 @@ import torch
 Arrays = Dict[str, List[Any]]  # slot -> list of tensors
 LowerFn = Callable[["LowerCtx", Arrays, Dict[str, Any]], Arrays]
 
-# the queues of ROADMAP.md that hold the ops not lowered yet: the rest of
-# the distributed family (DGC; the collectives are lowered in
-# parallel/collective.py, the parameter server's ops in
-# ops/distributed_ps.py) goes with the distributed runtime (A6), every
-# other op with the long tail (A8); the static path's queue (A2b) is closed
-_A6_PREFIXES = ("c_", "dgc")
-_A6_OPS = frozenset(("allreduce", "barrier", "broadcast", "gen_nccl_id",
-                     "sync_batch_norm"))
-
-
 def queue_of(op_type: str) -> str:
-    """The ``ROADMAP.md`` queue that ports ``op_type``."""
-    if op_type in _A6_OPS or op_type.startswith(_A6_PREFIXES):
-        return "A6"
+    """The ``ROADMAP.md`` queue that ports ``op_type``: every op not
+    lowered yet goes with the long tail (A8). The distributed family is
+    lowered: the collectives in ``parallel/collective.py``, the parameter
+    server's ops in ``ops/distributed_ps.py``, DGC's in ``ops/dgc.py``
+    and ``sync_batch_norm`` in ``ops/nn.py``."""
     return "A8"
 
 

@@ -15,12 +15,14 @@ package's per-instance lists and Python collate took ~55 ms a batch of
 ``random.Random(seed)``, as the JAX package does, so one seed gives one
 batch order in both. ``set_trainer_num(n, rank)`` keeps file i where
 i % n == rank; ``global_shuffle`` on one rank is ``local_shuffle``.
-Remote files (``set_hdfs_config``) wait for the distributed runtime
-(``ROADMAP.md`` A6).
+A file on "hdfs:" or "afs:" (``set_hdfs_config``) is read through
+``fleet.fs``'s ``HDFSClient``: spooled into a local directory, then read
+as a local one, as in the JAX package.
 """
 from __future__ import annotations
 
 import glob as _glob
+import os
 import random
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -94,7 +96,8 @@ class _DatasetBase:
                                         shape=shape))
 
     def set_hdfs_config(self, fs_name, fs_ugi):
-        """Recorded; reading a remote path raises (ROADMAP.md A6)."""
+        """The configuration of the "hdfs:"/"afs:" files' ``HDFSClient``
+        (``fleet.fs``)."""
         self._hdfs_configs = {"fs.default.name": fs_name,
                               "hadoop.job.ugi": fs_ugi}
 
@@ -116,17 +119,25 @@ class _DatasetBase:
                 self._rank]
 
     def _read_file(self, path: str) -> bytes:
-        if "://" in path:
-            raise NotImplementedError(
-                f"dataset file {path!r}: remote file systems (set_hdfs_config) "
-                "are not ported yet (ROADMAP.md A6)")
-        if self._pipe_command and self._pipe_command != "cat":
+        import contextlib
+        import tempfile
+        from ..fleet.fs import fs_for_path
+        fs = fs_for_path(path, getattr(self, "_hdfs_configs", None))
+        with contextlib.ExitStack() as stack:
+            if fs.need_upload_download():
+                # a remote file: spooled into a local directory first, then
+                # read (or piped) as a local one
+                td = stack.enter_context(tempfile.TemporaryDirectory())
+                local = os.path.join(td, os.path.basename(path))
+                fs.download(path, local)
+                path = local
+            if self._pipe_command and self._pipe_command != "cat":
+                with open(path, "rb") as f:
+                    return subprocess.run(self._pipe_command, shell=True,
+                                          check=True, stdin=f,
+                                          capture_output=True).stdout
             with open(path, "rb") as f:
-                return subprocess.run(self._pipe_command, shell=True,
-                                      check=True, stdin=f,
-                                      capture_output=True).stdout
-        with open(path, "rb") as f:
-            return f.read()
+                return f.read()
 
     def _parse_file(self, path: str) -> "_Instances":
         types = [s.type for s in self._slots]

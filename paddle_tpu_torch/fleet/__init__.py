@@ -4,10 +4,12 @@ Counterpart of ``paddle_tpu/fleet/__init__.py``: ``init`` (the role maker
 and strategy; in collective mode under the env contract of more than one
 rank, ``parallel.init_parallel_env`` forms the group), the role queries,
 ``distributed_optimizer``, ``minimize`` through the strategy's chain and
-the save passthroughs. In the chain, ``strategy.amp`` wraps the optimizer
-with ``contrib.mixed_precision.decorate`` as in the JAX package; lamb,
-lars, dgc, gradient_merge, recompute, localsgd and pipeline raise, as do
-the meta-optimizer classes, ``fs`` and ``metrics``: ``ROADMAP.md`` A6.
+the save passthroughs. The chain wraps the optimizer by the strategy's
+flags in the JAX package's order (``meta_optimizers.py``): lamb, lars,
+dgc, gradient_merge, recompute, localsgd, then amp
+(``contrib.mixed_precision.decorate``); pipeline raises naming
+``ROADMAP.md`` A6. ``fs`` (the file systems) and ``metrics`` (statistics
+reduced over the data axis) are the JAX package's.
 
 The parameter-server runtime, under the role maker's env
 (``fleet.launch --server_num``): on a PSERVER, ``init_server`` makes the
@@ -26,8 +28,15 @@ import os
 from typing import Optional
 
 from .distributed_strategy import DistributedStrategy
+from .fs import FS, HDFSClient, LocalFS, fs_for_path  # noqa: F401
+from . import fs, metrics  # noqa: F401
 from .role_maker import (PaddleCloudRoleMaker, Role, RoleMakerBase,
                          UserDefinedRoleMaker)
+from . import meta_optimizers
+from .meta_optimizers import (DGCMomentumOptimizer,  # noqa: F401
+                              GradientMergeOptimizer, LambMetaOptimizer,
+                              LarsMetaOptimizer, LocalSGDOptimizer,
+                              RecomputeOptimizer)
 
 __all__ = ["init", "is_worker", "is_server", "is_first_worker",
            "worker_index", "worker_num", "server_num", "init_worker",
@@ -36,8 +45,7 @@ __all__ = ["init", "is_worker", "is_server", "is_first_worker",
            "UserDefinedRoleMaker", "Fleet", "fleet", "Role"]
 
 # strategy flags whose meta-optimizers are not ported yet
-_A6_FLAGS = ("lamb", "lars", "dgc", "gradient_merge", "recompute",
-             "localsgd", "pipeline")
+_A6_FLAGS = ("pipeline",)
 
 
 def _a6(what: str) -> NotImplementedError:
@@ -184,13 +192,29 @@ class Fleet:
         return self
 
     def _compile_chain(self):
-        """Wrap the user's optimizer by the strategy's flags
-        (``paddle_tpu/fleet/__init__.py:127``)."""
+        """Wrap the user's optimizer by the strategy's flags, innermost
+        first (``paddle_tpu/fleet/__init__.py:127``)."""
         st = self._strategy or DistributedStrategy()
         on = [f for f in _A6_FLAGS if getattr(st, f)]
         if on:
             raise _a6("strategy %s (its meta-optimizers)" % on)
         opt = self._inner_opt
+        if st.lamb:
+            opt = LambMetaOptimizer(opt, **st.lamb_configs)
+        if st.lars:
+            opt = LarsMetaOptimizer(opt, **st.lars_configs)
+        if st.dgc:
+            cfg = st.dgc_configs
+            opt = DGCMomentumOptimizer(
+                opt, rampup_begin_step=cfg.get("rampup_begin_step", 0),
+                sparsity=(cfg.get("sparsity") or [0.999])[-1])
+        if st.gradient_merge:
+            opt = GradientMergeOptimizer(opt, **st.gradient_merge_configs)
+        if st.recompute:
+            opt = RecomputeOptimizer(
+                opt, st.recompute_configs.get("checkpoints", []))
+        if st.localsgd:
+            opt = LocalSGDOptimizer(opt, **st.localsgd_configs)
         if st.amp:
             from ..contrib import mixed_precision as mp
             cfg = dict(st.amp_configs)
@@ -243,15 +267,3 @@ stop_worker = fleet.stop_worker
 barrier_worker = fleet.barrier_worker
 distributed_optimizer = fleet.distributed_optimizer
 minimize = fleet.minimize
-
-_A6_NAMES = ("FS", "HDFSClient", "LocalFS", "fs_for_path", "fs", "metrics",
-             "meta_optimizers", "DGCMomentumOptimizer",
-             "GradientMergeOptimizer", "LambMetaOptimizer",
-             "LarsMetaOptimizer", "LocalSGDOptimizer", "RecomputeOptimizer")
-
-
-def __getattr__(name):
-    if name in _A6_NAMES:
-        from ..fluid._not_ported import not_ported
-        raise not_ported(__name__, name, "A6")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

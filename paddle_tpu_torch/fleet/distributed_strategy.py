@@ -4,8 +4,8 @@ Counterpart of ``paddle_tpu/fleet/distributed_strategy.py``: the same
 fields and defaults (amp, recompute, gradient_merge, localsgd, dgc, lamb,
 lars, pipeline, a_sync/geo, the all-reduce fusion knobs) as plain
 attributes, serialized by ``to_dict``/``from_dict``. In the port's
-collective mode ``fleet`` applies ``amp``, and the other meta-optimizers
-raise when ``minimize`` meets them (``ROADMAP.md`` A6); ``a_sync`` and
+collective mode ``fleet`` applies every meta-optimizer but ``pipeline``,
+which raises when ``minimize`` meets it (``ROADMAP.md`` A6); ``a_sync`` and
 ``a_sync_configs`` choose the parameter server's communicator
 (``fleet.init_worker``).
 """

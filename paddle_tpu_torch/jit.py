@@ -21,6 +21,7 @@ in ``ROADMAP.md`` A8.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -378,8 +379,10 @@ class TrainStep:
     returned loss is the mean over the ranks (one more 4-byte
     all-reduce), every rank's view of the JAX step's global loss; float
     buffers are averaged too, and the replicas start from rank 0's state
-    and stay equal. Each rank folds its rank and the step into its own
-    dropout generators. Under a plan, a local batch whose leading dim the
+    and stay equal. A training-mode batch norm reduces its statistics over
+    the data axis (one all-reduce a layer each way), as the JAX step's
+    sharded batch does; a replicated batch keeps each rank's own. Each
+    rank folds its rank and the step into its own dropout generators. Under a plan, a local batch whose leading dim the
     data axis does not divide is replicated with a warning (the JAX
     plan's rule) and every rank computes the whole of it; under a bare
     ``mesh=`` the ranks' local batches must be equal in length, as the
@@ -452,13 +455,14 @@ class TrainStep:
         inputs = _as_tensors(inputs, self._device)
         labels = _as_tensors(labels, self._device)
         dp = self._dp
+        scope = contextlib.ExitStack()
         if dp is not None:
-            dp.check_batch(inputs, labels)
             from .layers.helper import generator_scope
-            scope = generator_scope(dp.seed_for(self._lr_step))
-        else:
-            import contextlib
-            scope = contextlib.nullcontext()
+            from .parallel.env import DP_AXIS, sharded_batch
+            sharded = dp.check_batch(inputs, labels)
+            scope.enter_context(generator_scope(dp.seed_for(self._lr_step)))
+            scope.enter_context(sharded_batch(DP_AXIS if sharded else None,
+                                              self.mesh))
         self.model.train()
         k = self.grad_accum_steps
         self.optimizer.clear_grad()
@@ -593,22 +597,24 @@ class _DataParallelStep:
             return None
         return _DataParallelStep(step, dp, plan, bare=plan is None)
 
-    def check_batch(self, inputs, labels) -> None:
+    def check_batch(self, inputs, labels) -> bool:
         """Under a plan, the input rule (an uneven local batch warns and
         is replicated); under a bare mesh, the ranks' local batches must
-        be equal in length (checked when this rank's length changes)."""
+        be equal in length (checked when this rank's length changes).
+        True when the batch is sharded over the data axis (a replicated
+        one is the whole batch on every rank)."""
         vals = [x for x in tuple(inputs) + tuple(labels)
                 if x is not None and x.dim() > 0]
         if not vals:
-            return
+            return False
         if not self.bare:
-            for i, x in enumerate(inputs):
-                if x is not None:
-                    self.plan.input_sharding("input%d" % i, tuple(x.shape))
-            return
+            from .parallel.env import DP_AXIS
+            specs = [self.plan.input_sharding("input%d" % i, tuple(x.shape))
+                     for i, x in enumerate(inputs) if x is not None]
+            return any(sp[:1] == (DP_AXIS,) for sp in specs)
         n = int(vals[0].shape[0])
         if n == self._last_len:
-            return
+            return True
         from .parallel import collective as C
         lens = C.all_gather(torch.tensor([n], dtype=torch.int64,
                                          device=vals[0].device)).tolist()
@@ -618,6 +624,7 @@ class _DataParallelStep:
                 "under a mesh each rank feeds an equal shard (the global "
                 "batch must divide over the data axis)")
         self._last_len = n
+        return True
 
     def seed_for(self, step: int) -> int:
         """This rank's dropout seed for ``step``: its rank folded in, so

@@ -6,3 +6,5 @@ from .layers_lib import (AdaptiveAvgPool2D, AvgPool2D, BatchNorm,  # noqa: F401
                          MaxPool2D, ReLU, ReLU6, Softmax)
 from .transformer import (MultiHeadAttention,  # noqa: F401
                           TransformerEncoder, TransformerEncoderLayer)
+from . import compat  # noqa: F401
+from .compat import SyncBatchNorm  # noqa: F401

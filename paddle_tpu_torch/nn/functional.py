@@ -452,21 +452,40 @@ class _BatchNormTrain(torch.autograd.Function):
     dx = (a / n)(n dy - dbias - xhat dscale); a cotangent of the mean or
     the variance adds its term, and an absent one (the running-statistics
     update's case) costs nothing (``set_materialize_grads(False)``, JAX's
-    SymbolicZero). x is saved in its own dtype, mean and rsqrt in fp32."""
+    SymbolicZero). x is saved in its own dtype, mean and rsqrt in fp32.
+
+    With ``sync`` = (axis, group), x is this rank's shard of a batch
+    sharded over the group (``parallel.env.batch_reduction``): the
+    forward all-reduces [sum x, sum x^2, n] in fp32, one call, so the
+    statistics are the whole batch's, n its row count; the backward
+    all-reduces [sum dy, sum dy xhat] (and a mean's or variance's
+    cotangent) for dx over the whole batch, by hand (an autograd
+    all-reduce would sum the cotangent once more). dscale and dbias stay
+    this rank's sums: the gradient exchange averages them as it does
+    every parameter's gradient of this rank's loss."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, c_axis: int, eps: float):
+    def forward(ctx, x, scale, bias, c_axis: int, eps: float, sync=None):
         red = tuple(i for i in range(x.dim()) if i != c_axis)
         n = x.numel() // x.shape[c_axis]
         acc = torch.promote_types(x.dtype, torch.float32)
-        mean = torch.mean(x, red, dtype=acc)
-        sq = torch.linalg.vector_norm(x, 2, red, dtype=acc)
-        var = sq * sq / n - mean * mean
+        if sync is None:
+            mean = torch.mean(x, red, dtype=acc)
+            sq = torch.linalg.vector_norm(x, 2, red, dtype=acc)
+            var = sq * sq / n - mean * mean
+        else:
+            sq = torch.linalg.vector_norm(x, 2, red, dtype=acc)
+            tot = _sync_sums(sync, torch.sum(x, red, dtype=acc), sq * sq,
+                             sq.new_full((1,), float(n)))
+            c = x.shape[c_axis]
+            n = tot[2 * c]
+            mean = tot[:c] / n
+            var = tot[c:2 * c] / n - mean * mean
         inv = torch.rsqrt(var + eps)
         a = scale.to(acc) * inv
         y = _bn_affine(x, a, bias.to(acc) - mean * a, c_axis)
         ctx.save_for_backward(x, scale, mean, inv)
-        ctx.c_axis, ctx.n = c_axis, n
+        ctx.c_axis, ctx.n, ctx.sync = c_axis, n, sync
         ctx.set_materialize_grads(False)
         return y, mean, var
 
@@ -478,25 +497,53 @@ class _BatchNormTrain(torch.autograd.Function):
         xhat = torch.sub(x, _channel_view(mean, x, c_axis))
         xhat.mul_(_channel_view(inv, x, c_axis))
         if dy is None:
-            dx = torch.zeros_like(xhat)
             dscale = torch.zeros_like(mean)
             dbias = torch.zeros_like(mean)
         else:
             dbias = torch.sum(dy, red, dtype=mean.dtype)
             dscale = torch.sum(dy * xhat, red)
+        gbias, gscale, gmean, gvar = dbias, dscale, dmean, dvar
+        if ctx.sync is not None:
+            gbias, gscale, gmean, gvar = _sync_cotangents(
+                ctx.sync, dbias, dscale, dmean, dvar)
+        if dy is None and ctx.sync is None:
+            dx = torch.zeros_like(xhat)
+        else:
             a = scale.to(mean.dtype) * inv
             # (a / n)(n dy - dbias - xhat dscale) as a dy + c1 xhat + c0
-            dx = torch.addcmul(_channel_view(-dbias * a / n, x, c_axis),
-                               xhat, _channel_view(-dscale * a / n, x,
+            dx = torch.addcmul(_channel_view(-gbias * a / n, x, c_axis),
+                               xhat, _channel_view(-gscale * a / n, x,
                                                    c_axis))
-            dx.addcmul_(dy, _channel_view(a, x, c_axis))
-        if dmean is not None:
-            dx.add_(_channel_view(dmean / n, x, c_axis))
-        if dvar is not None:
-            dx.add_(xhat.mul_(_channel_view(dvar * (2.0 / n) / inv, x,
+            if dy is not None:
+                dx.addcmul_(dy, _channel_view(a, x, c_axis))
+        if gmean is not None:
+            dx.add_(_channel_view(gmean / n, x, c_axis))
+        if gvar is not None:
+            dx.add_(xhat.mul_(_channel_view(gvar * (2.0 / n) / inv, x,
                                             c_axis)))
         return (dx.to(x.dtype), dscale.to(scale.dtype),
-                dbias.to(scale.dtype), None, None)
+                dbias.to(scale.dtype), None, None, None)
+
+
+def _sync_sums(sync, *parts: torch.Tensor) -> torch.Tensor:
+    """The sum over the batch's group of the concatenated ``parts``: one
+    all-reduce, counted in ``STAT_batch_norm_allreduce``."""
+    from .. import monitor
+    from ..parallel import collective
+    axis, group = sync
+    monitor.stat_add("STAT_batch_norm_allreduce")
+    return collective.all_reduce(torch.cat(parts), "sum", axis=axis,
+                                 group=group)
+
+
+def _sync_cotangents(sync, *parts):
+    """``parts`` (dbias, dscale and the mean's and variance's cotangents,
+    those of this rank's loss; None where absent) summed over the
+    batch's group in one all-reduce, None kept."""
+    given = [t for t in parts if t is not None]
+    tot = _sync_sums(sync, *given).split([t.numel() for t in given])
+    it = iter(tot)
+    return [None if t is None else next(it) for t in parts]
 
 
 def batch_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -510,14 +557,19 @@ def batch_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     them and they pass through. In training Y normalizes by the batch's
     statistics (``_BatchNormTrain``) and MeanOut = momentum Mean +
     (1 - momentum) batch mean, VarianceOut the same over the biased batch
-    variance: Paddle's momentum weighs the old statistic."""
+    variance: Paddle's momentum weighs the old statistic. Inside
+    ``parallel.env.sharded_batch`` over a group of more than one rank the
+    batch's statistics are the whole sharded batch's, as the JAX
+    package's are under GSPMD; eval and ``use_global_stats`` call no
+    collective."""
     c_axis = 1 if data_layout == "NCHW" else x.dim() - 1
     if use_global_stats:
         a = scale.float() * torch.rsqrt(variance + epsilon)
         y = _bn_affine(x, a, bias.float() - mean * a, c_axis)
         return y, mean, variance, mean, variance
+    from ..parallel.env import batch_reduction
     y, bmean, bvar = _BatchNormTrain.apply(x, scale, bias, c_axis,
-                                           float(epsilon))
+                                           float(epsilon), batch_reduction())
     return (y, momentum * mean + (1 - momentum) * bmean,
             momentum * variance + (1 - momentum) * bvar, bmean, bvar)
 

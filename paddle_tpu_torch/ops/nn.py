@@ -214,15 +214,10 @@ def _batch_norm(ctx, ins, attrs):
              inputs=("X", "Scale", "Bias", "Mean", "Variance"),
              outputs=_BN_OUTS)
 def _sync_batch_norm(ctx, ins, attrs):
-    # on one device the cross-rank batch norm is batch_norm, as in the JAX
-    # package; its reduction across the ranks of a data-parallel group is
-    # not ported yet (ROADMAP.md A6) and raises rather than normalize each
-    # rank by its own rows
-    from ..parallel.env import group_of
-    if group_of("dp") is not None:
-        raise NotImplementedError(
-            "sync_batch_norm across the ranks of a data-parallel group is "
-            "not ported yet (ROADMAP.md A6)")
+    # the batch_norm lowering, as in the JAX package: where the batch is
+    # sharded over the data axis (the executor under with_data_parallel)
+    # batch_norm's statistics are already the whole batch's, which is
+    # what sync_batch_norm_op.cu's all-reduce gives the reference
     return _batch_norm(ctx, ins, attrs)
 
 

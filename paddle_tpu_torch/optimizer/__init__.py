@@ -6,8 +6,10 @@ and aliases: the learning-rate schedulers (``lr_scheduler.py``), the
 gradient clips, the regularizers, every optimizer (``DpSGD`` static only,
 as in the JAX package), the parameter averages (eager, or static on a
 Program's scope) and ``LookaheadOptimizer`` (static only).
-``DGCMomentumOptimizer``, ``PipelineOptimizer`` and ``RecomputeOptimizer``
-belong to the distributed runtime and raise (A6).
+``DGCMomentumOptimizer`` resolves to fleet's meta-optimizer and
+``RecomputeOptimizer`` to the JAX file's wrapper (:36-73), which keeps
+the reference's call shape and delegates ``minimize`` to the inner
+optimizer; ``PipelineOptimizer`` raises (``ROADMAP.md`` A6 item 5).
 """
 from .lr_scheduler import (CosineDecay, ExponentialDecay,  # noqa: F401
                            InverseTimeDecay, LRScheduler, NaturalExpDecay,
@@ -33,13 +35,35 @@ from .static_opt import (Adadelta, AdadeltaOptimizer, Adagrad,  # noqa: F401
 Dpsgd = DpSGD  # reference spelling (fluid/optimizer.py Dpsgd)
 DpsgdOptimizer = DpSGDOptimizer
 
-_DISTRIBUTED = ("DGCMomentumOptimizer", "PipelineOptimizer",
-                "RecomputeOptimizer")
+class RecomputeOptimizer:
+    """Wraps an inner optimizer with the reference's call shape
+    (``_set_checkpoints``); ``minimize`` is the inner optimizer's, as in
+    the JAX package, whose recompute is applied by the model's code.
+    Fleet's ``RecomputeOptimizer`` (``fleet.meta_optimizers``) recomputes
+    the segments between the checkpoints."""
+
+    def __init__(self, optimizer):
+        self._inner = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = checkpoints
+
+    def minimize(self, loss, startup_program=None, program=None,
+                 parameter_list=None, no_grad_set=None):
+        return self._inner.minimize(
+            loss, startup_program=startup_program, program=program)
+
+    def __getattr__(self, item):
+        return getattr(self._inner, item)
 
 
 def __getattr__(name):
-    if name in _DISTRIBUTED:
+    if name == "DGCMomentumOptimizer":
+        from ..fleet.meta_optimizers import DGCMomentumOptimizer
+        return DGCMomentumOptimizer
+    if name == "PipelineOptimizer":
         raise NotImplementedError(
-            f"{name} belongs to the distributed runtime, which is not "
-            "ported yet (ROADMAP.md A6)")
+            "PipelineOptimizer belongs to pipeline parallelism, which is "
+            "not ported yet (ROADMAP.md A6 item 5)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

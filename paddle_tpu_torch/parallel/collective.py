@@ -99,11 +99,13 @@ def _group(axis: Optional[str], ring_id: int):
 
 
 def all_reduce(x: torch.Tensor, op: str = "sum", axis: Optional[str] = None,
-               ring_id: int = 0, dtype_name: Optional[str] = None
-               ) -> torch.Tensor:
-    """c_allreduce_{sum,max,min,prod}: every rank gets the reduction."""
+               ring_id: int = 0, dtype_name: Optional[str] = None,
+               group=None) -> torch.Tensor:
+    """c_allreduce_{sum,max,min,prod}: every rank gets the reduction
+    (over ``group`` when given, the axis's group else)."""
     import torch.distributed as dist
-    axis, group = _group(axis, ring_id)
+    if group is None:
+        axis, group = _group(axis, ring_id)
     if group is None:
         return x
     red = getattr(dist.ReduceOp, _RED[op])

@@ -9,7 +9,9 @@ ones in fp32 buckets of ``comm_buffer_size_MB`` (``mesh/collectives.py``),
 a sparse embedding's (a ``SelectedRows`` row set, a sparse COO tensor in
 autograd) by gathering every rank's rows and values, whose concatenation
 is their sum. ``scale_loss`` divides by the rank count first, so the sum
-is the mean (``dygraph/parallel.py:337``). At construction the replicas
+is the mean (``dygraph/parallel.py:337``). A training-mode batch norm in
+the forward reduces its statistics over the group, as the JAX
+``DataParallel``'s sharded batch does. At construction the replicas
 take rank 0's parameters and buffers, as the reference's
 ``sync_params_buffers`` does, so they start equal and stay so.
 
@@ -29,7 +31,7 @@ from typing import List, Optional
 import torch
 
 from . import collective
-from .env import DP_AXIS, get_env, group_of
+from .env import DP_AXIS, get_env, group_of, sharded_batch
 
 
 class DataParallel:
@@ -54,7 +56,10 @@ class DataParallel:
         return self.forward(*args, **kw)
 
     def forward(self, *args, **kw):
-        return self._layers(*args, **kw)
+        """The layers on this rank's rows, a shard of the batch over the
+        data axis: batch norm's statistics are the whole batch's."""
+        with sharded_batch(DP_AXIS):
+            return self._layers(*args, **kw)
 
     def scale_loss(self, loss):
         """Divide by the rank count, so that the summed gradients are the

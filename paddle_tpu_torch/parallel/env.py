@@ -24,6 +24,8 @@ identity, as on the JAX package's one-device mesh.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import datetime
 import os
 import time
@@ -284,6 +286,36 @@ def group_of(axis: str = DP_AXIS, mesh=None):
     if int(mesh.size(mesh.mesh_dim_names.index(axis))) <= 1:
         return None
     return mesh.get_group(axis)
+
+
+# the axis over which the batch in flight is sharded (``sharded_batch``)
+_batch_axis: contextvars.ContextVar = contextvars.ContextVar(
+    "batch_axis", default=None)
+
+
+@contextlib.contextmanager
+def sharded_batch(axis: Optional[str] = DP_AXIS, mesh=None):
+    """Within it, the batch a forward sees is this rank's shard of one
+    batch sharded over ``axis`` (None: not sharded), as the JAX package's
+    batch is under GSPMD: a training-mode batch norm then reduces its
+    statistics over the axis's group (``batch_reduction``). ``TrainStep``,
+    ``DataParallel.forward`` and the executor under ``with_data_parallel``
+    enter it."""
+    token = _batch_axis.set(None if axis is None else (axis, mesh))
+    try:
+        yield
+    finally:
+        _batch_axis.reset(token)
+
+
+def batch_reduction():
+    """(axis, process group) over which the batch in flight is sharded, or
+    None: no ``sharded_batch``, or an axis of one rank."""
+    got = _batch_axis.get()
+    if got is None:
+        return None
+    group = group_of(*got)
+    return None if group is None else (got[0], group)
 
 
 def shard_batch(batch, axis: str = DP_AXIS, mesh=None):

@@ -546,13 +546,23 @@ def test_fleet_collective_surface_and_what_raises():
     from paddle_tpu_torch.distributed import ParamServer
     assert isinstance(f.init_server(), ParamServer)
     assert f.run_server() is f.init_server()
-    for flag in ("lamb", "lars", "dgc", "gradient_merge", "recompute",
-                 "localsgd", "pipeline"):
+    # the meta-optimizers are ported (tests/test_torch_fleet_meta.py);
+    # pipeline still raises
+    for flag, kind in (("lamb", "LambMetaOptimizer"),
+                       ("lars", "LarsMetaOptimizer"),
+                       ("dgc", "DGCMomentumOptimizer"),
+                       ("gradient_merge", "GradientMergeOptimizer"),
+                       ("recompute", "RecomputeOptimizer"),
+                       ("localsgd", "LocalSGDOptimizer")):
         st = tfleet.DistributedStrategy()
         setattr(st, flag, True)
         f.distributed_optimizer(tpt.optimizer.SGD(0.1), st)
-        with pytest.raises(NotImplementedError, match="A6"):
-            f._compile_chain()
+        assert type(f._compile_chain()).__name__ == kind
+    st = tfleet.DistributedStrategy()
+    st.pipeline = True
+    f.distributed_optimizer(tpt.optimizer.SGD(0.1), st)
+    with pytest.raises(NotImplementedError, match="A6"):
+        f._compile_chain()
     st = tfleet.DistributedStrategy()
     st.amp = True
     chain = f.distributed_optimizer(tpt.optimizer.SGD(0.1),
@@ -560,9 +570,10 @@ def test_fleet_collective_surface_and_what_raises():
     from paddle_tpu_torch.contrib.mixed_precision import \
         OptimizerWithMixedPrecision
     assert isinstance(chain, OptimizerWithMixedPrecision)
-    for name in ("fs", "metrics", "DGCMomentumOptimizer", "LocalFS"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            getattr(tfleet, name)
+    from paddle_tpu_torch.fleet import fs as tfs, meta_optimizers, metrics
+    assert (tfleet.fs, tfleet.metrics, tfleet.LocalFS,
+            tfleet.DGCMomentumOptimizer) == (
+        tfs, metrics, tfs.LocalFS, meta_optimizers.DGCMomentumOptimizer)
     # the namespaces
     assert tpt.DataParallel is tparallel.DataParallel
     assert tpt.fluid.fleet is tfleet and tpt.fleet is tfleet

@@ -585,8 +585,7 @@ def test_unported_op_raises_naming_its_queue():
     blk = prog.global_block
     blk.create_var("x", shape=[2, 3])
     blk.create_var("y", shape=[2, 3])
-    for op, queue in (("dgc", "A6"), ("dgc_momentum", "A6"),
-                      ("conv2d_transpose", "A8"), ("sequence_pool", "A8")):
+    for op, queue in (("conv2d_transpose", "A8"), ("sequence_pool", "A8")):
         blk.ops = []
         blk.append_op(op, {"X": ["x"]}, {"Out": ["y"]})
         with pytest.raises(NotImplementedError, match=queue):

@@ -551,19 +551,15 @@ def _not_ported():
 
     from paddle_tpu_torch.compiler import CompiledProgram
 
-    def remote_files():
-        ds = tpt.dataset.DatasetFactory().create_dataset("QueueDataset")
-        ds.set_filelist(["hdfs://cluster/part-00000"])
-        Executor("cpu").train_from_dataset(tpt.Program(), ds)
     return {
-        "train_from_dataset": ("A6", remote_files),
+        "parallel_executor": ("A6", lambda: tpt.fluid.ParallelExecutor),
         "compiled_program": ("A6", lambda: Executor("cpu").run(
             CompiledProgram(tpt.Program()).with_data_parallel(
                 places=[tpt.CPUPlace(), tpt.CPUPlace()]))),
         "pipeline_train": ("A6", lambda: Executor("cpu").run(
             _one_op_program(tpt, "pipeline_train"))),
         "to_static": ("A8", lambda: tjit.to_static(torch.nn.Linear(2, 2))),
-        "dgc_momentum": ("A6", lambda: T.DGCMomentumOptimizer),
+        "pipeline_optimizer": ("A6", lambda: T.PipelineOptimizer),
     }
 
 
