@@ -9287,8 +9287,8 @@ FLEET_BN = 53                       # resnet50's batch norms
 # running statistics' move, the same way. Each bound lies between the
 # sound run and a control run whose batch norms normalize each rank by its
 # own 16 images (the group hidden from them), which must fail it at some
-# step. Readings (my chip run, PR 21 call 2, NVIDIA H100 80GB HBM3, 700.00
-# W), sound / control: (i) fp32 step 1 loss 1.4e-07 / 1.8e-03, gradients
+# step. Readings (measured on one NVIDIA H100 80GB HBM3, 700.00 W), sound
+# / control: (i) fp32 step 1 loss 1.4e-07 / 1.8e-03, gradients
 # 2.1e-02 / 1.23, statistics 2.2e-06 / 1.4e-02. At this init the
 # gradients' norm is ~100 (conv1's 122-140), so the first step at lr 0.1
 # moves the early convolutions by more than their size and step 2 is
@@ -9296,14 +9296,14 @@ FLEET_BN = 53                       # resnet50's batch norms
 # step 2, the control 140% (on the CPU the same at lr 0.001, and the gap
 # stays at step 1's at lr 1e-9). So fp32 (i) is held at step 1 (None: a
 # reading printed, not held), and the two steps are held in float64
-# (call 3), where the gradient wire's fp32 buckets leave 4.0e-08 at step
+# (a second run), where the gradient wire's fp32 buckets leave 4.0e-08 at step
 # 1, amplified to 5.1e-03 at step 2 (update 2.2e-03; statistics 1.5e-07
 # and 1.1e-07 from the buffers' fp32 mean; the loss 0 and 0), the
 # control 1.23 and 1.41 (1.4e-02 and 2.7e-02, 1.8e-03 and 5.5e-03).
 # (ii) lars takes small steps: step 1 loss 3.2e-07 / 3.7e-05, gradients
 # 2.3e-02 / 1.29, update 1.9e-02 / 1.13, statistics 2.5e-06 / 3.5e-02;
 # step 2 1.0e-05 / 8.4e-04, 0.103 / 1.29, 3.1e-02 / 1.11, 2.3e-05 /
-# 3.5e-02 (calls 2 and 3 read the same).
+# 3.5e-02 (both runs read the same).
 FLEET_TOL = {
     "fp32": dict(loss_rtol=(1e-5, None), grad_rel=(0.1, None),
                  update_rel=(0.1, None), stat_rel=(1e-4, None)),
